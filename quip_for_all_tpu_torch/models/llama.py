@@ -1,0 +1,285 @@
+"""Llama-family decoder in PyTorch — counterpart of the llama parts of
+``quip_for_all_tpu/models/llama.py``.
+
+The model is an ``nn.Module`` whose tree mirrors the JAX param dict:
+``embed_tokens``, ``layers[i]`` (an ``nn.ModuleDict`` with
+``input_layernorm``, ``self_attn``, ``post_attention_layernorm``, ``mlp``),
+``norm`` and ``lm_head``. Linear leaves are ``QuantLinear``,
+``FusedQuantLinear`` (after ``fuse_for_inference``) or ``DenseLinear``.
+Forward functions keep the JAX names and argument order so a reader can
+follow both side by side. Mixtral (MoE) waits for slice 4.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.qlinear import QuantLinear, fuse_qlinears
+from .common import sdpa_cache_layout, write_kv
+from .config import ModelConfig
+
+
+# --------------------------------------------------------------- modules
+
+class Weight(nn.Module):
+    """A lone weight (norm scale or embedding table)."""
+
+    def __init__(self, weight: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight", weight)
+
+
+class DenseLinear(nn.Module):
+    """Unquantized linear, HF (out, in) weight convention."""
+
+    def __init__(self, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        self.register_buffer("bias", bias)
+
+
+class LlamaModel(nn.Module):
+    """The model's weights; ``model_apply(cfg, model, ids, ...)`` runs it."""
+
+    def __init__(self, embed_tokens: torch.Tensor, layers: List[nn.Module],
+                 norm: torch.Tensor, lm_head: Optional[nn.Module] = None):
+        super().__init__()
+        self.embed_tokens = Weight(embed_tokens)
+        self.layers = nn.ModuleList(layers)
+        self.norm = Weight(norm)
+        self.lm_head = lm_head
+
+    @classmethod
+    def from_tree(cls, tree: Dict[str, Any]) -> "LlamaModel":
+        """Build from a JAX-shaped dict tree whose leaves are tensors or
+        already-built linear modules."""
+        def lin(node):
+            if isinstance(node, nn.Module):
+                return node
+            return DenseLinear(node["weight"], node.get("bias"))
+
+        def block(b):
+            return nn.ModuleDict({
+                "input_layernorm": Weight(b["input_layernorm"]["weight"]),
+                "post_attention_layernorm":
+                    Weight(b["post_attention_layernorm"]["weight"]),
+                "self_attn": nn.ModuleDict(
+                    {k: lin(v) for k, v in b["self_attn"].items()}),
+                "mlp": nn.ModuleDict(
+                    {k: lin(v) for k, v in b["mlp"].items()}),
+            })
+        head = tree.get("lm_head")
+        return cls(tree["embed_tokens"]["weight"],
+                   [block(b) for b in tree["layers"]],
+                   tree["norm"]["weight"],
+                   None if head is None else lin(head))
+
+
+# --------------------------------------------------------------- primitives
+
+def linear_apply(lin: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    if isinstance(lin, QuantLinear):
+        return lin(x, **kw)
+    # products of x-dtype values, summed in f32, rounded back to x's dtype
+    w = lin.weight.to(x.dtype).to(torch.float32)
+    y = torch.matmul(x.to(torch.float32), w.T).to(x.dtype)
+    if lin.bias is not None:
+        y = y + lin.bias.to(y.dtype)
+    return y
+
+
+def rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return xf.to(dt) * weight.to(dt)
+
+
+@lru_cache(maxsize=16)
+def _inv_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """Cached per device, so a decode step makes no host-to-device copy
+    (and can be captured in a CUDA graph)."""
+    inv = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
+    return torch.as_tensor(inv.astype(np.float32), device=device)
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF llama rotary tables: (…, head_dim) cos/sin, half-split layout."""
+    inv = _inv_freq(cfg.head_dim, cfg.rope_theta, positions.device)
+    ang = positions[..., None].to(torch.float32) * inv
+    emb = torch.cat([ang, ang], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x):
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(q, k, cos, sin):
+    # q,k: (B, S, H, D); cos/sin: (B, S, D)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    q = q * cos.to(q.dtype) + _rotate_half(q) * sin.to(q.dtype)
+    k = k * cos.to(k.dtype) + _rotate_half(k) * sin.to(k.dtype)
+    return q, k
+
+
+# --------------------------------------------------------------- blocks
+
+def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
+              cos, sin, kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]],
+              cache_position: Optional[int], attn_mask: torch.Tensor,
+              linear_kw: dict, attn_window: Optional[int] = None):
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if "qkv_proj" in attn_p:   # fused single-launch qkv (inference)
+        q, k, v = attn_p["qkv_proj"](x, **linear_kw)
+    else:
+        q = linear_apply(attn_p["q_proj"], x, **linear_kw)
+        k = linear_apply(attn_p["k_proj"], x, **linear_kw)
+        v = linear_apply(attn_p["v_proj"], x, **linear_kw)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    q, k = apply_rope(q, k, cos, sin)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        k = write_kv(ck, k, cache_position)
+        v = write_kv(cv, v, cache_position)
+        new_cache = (k, v)
+    else:
+        new_cache, attn_window = None, None
+    ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype, attn_window)
+    return linear_apply(attn_p["o_proj"], ctx, **linear_kw), new_cache
+
+
+def mlp_apply(mlp_p: nn.ModuleDict, x: torch.Tensor, linear_kw: dict
+              ) -> torch.Tensor:
+    if "gateup_proj" in mlp_p:   # fused single-launch gate/up (inference)
+        g, u = mlp_p["gateup_proj"](x, **linear_kw)
+    else:
+        g = linear_apply(mlp_p["gate_proj"], x, **linear_kw)
+        u = linear_apply(mlp_p["up_proj"], x, **linear_kw)
+    return linear_apply(mlp_p["down_proj"], F.silu(g) * u, **linear_kw)
+
+
+def block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
+                cos, sin, kv_cache=None, cache_position=None, attn_mask=None,
+                linear_kw: Optional[dict] = None,
+                attn_window: Optional[int] = None):
+    linear_kw = linear_kw or {}
+    h = rms_norm(blk["input_layernorm"].weight, x, cfg.rms_norm_eps)
+    attn_out, new_cache = attention(cfg, blk["self_attn"], h, cos, sin,
+                                    kv_cache, cache_position, attn_mask,
+                                    linear_kw, attn_window)
+    x = x + attn_out
+    h = rms_norm(blk["post_attention_layernorm"].weight, x, cfg.rms_norm_eps)
+    x = x + mlp_apply(blk["mlp"], h, linear_kw)
+    return x, new_cache
+
+
+def model_apply(cfg: ModelConfig, model: LlamaModel,
+                input_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                kv_caches: Optional[list] = None,
+                cache_position: Optional[int] = None,
+                attn_mask: Optional[torch.Tensor] = None,
+                linear_kw: Optional[dict] = None,
+                dtype=torch.float32,
+                attn_window: Optional[int] = None):
+    """Full forward. input_ids (B, S) -> (logits (B, S, V), caches).
+
+    With kv_caches (per layer (k, v) of shape (B, S_max, KV, hd)) runs
+    incremental decoding, writing at cache_position; attn_window (static)
+    promises every query position is < attn_window."""
+    if cfg.arch != "llama":
+        raise NotImplementedError(
+            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md slices 4-5)")
+    B, S = input_ids.shape
+    dev = input_ids.device
+    x = F.embedding(input_ids, model.embed_tokens.weight).to(dtype)
+    if positions is None:
+        positions = torch.arange(S, device=dev)[None, :].repeat(B, 1)
+    cos, sin = rope_tables(cfg, positions)
+    if attn_mask is None:
+        attn_mask = (causal_mask(S, S, dev) if kv_caches is None
+                     else cache_mask(positions, kv_caches[0][0].shape[1]))
+    new_caches = [] if kv_caches is not None else None
+    for i, blk in enumerate(model.layers):
+        cache_i = kv_caches[i] if kv_caches is not None else None
+        x, nc = block_apply(cfg, blk, x, cos, sin, cache_i, cache_position,
+                            attn_mask, linear_kw, attn_window=attn_window)
+        if new_caches is not None:
+            new_caches.append(nc)
+    x = rms_norm(model.norm.weight, x, cfg.rms_norm_eps)
+    if model.lm_head is None:   # tied embeddings
+        logits = x @ model.embed_tokens.weight.to(x.dtype).T
+    else:
+        logits = linear_apply(model.lm_head, x, **(linear_kw or {}))
+    return logits, new_caches
+
+
+def causal_mask(S: int, T: int, device, dtype=torch.float32) -> torch.Tensor:
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    m = torch.where(j <= i + (T - S), 0.0, -1e9).to(dtype)
+    return m[None, None, :, :]
+
+
+def cache_mask(positions: torch.Tensor, T: int, dtype=torch.float32
+               ) -> torch.Tensor:
+    """Cached decode: the token at position p attends to slots j <= p.
+    positions: (B, S) -> (B, 1, S, T)."""
+    j = torch.arange(T, device=positions.device)[None, None, :]
+    m = torch.where(j <= positions[:, :, None], 0.0, -1e9).to(dtype)
+    return m[:, None, :, :]
+
+
+# --------------------------------------------------------------- fusion
+
+def _same(a, b) -> bool:
+    if (a is None) != (b is None):
+        return False
+    return a is b or a is None or (a.shape == b.shape and torch.equal(a, b))
+
+
+def _sharable(ps) -> bool:
+    if not all(isinstance(p, QuantLinear) for p in ps):
+        return False
+    p0 = ps[0]
+    return all(p.q_in == p0.q_in and p.K_left == p0.K_left
+               and _same(p.SU, p0.SU) and _same(p.had_left, p0.had_left)
+               for p in ps[1:])
+
+
+def fuse_for_inference(cfg: ModelConfig, model: LlamaModel) -> LlamaModel:
+    """Fuse qkv and gate/up QuantLinears that share left transforms into
+    single-launch FusedQuantLinears. Returns a new model sharing every
+    other submodule with ``model``."""
+    if cfg.arch != "llama":
+        raise NotImplementedError(f"fusion for arch {cfg.arch!r}")
+    layers = []
+    for src in model.layers:
+        attn = dict(src["self_attn"].items())
+        trio = [attn.get(k) for k in ("q_proj", "k_proj", "v_proj")]
+        if _sharable(trio):
+            attn = {"qkv_proj": fuse_qlinears(trio), "o_proj": attn["o_proj"]}
+        mlp = dict(src["mlp"].items())
+        duo = [mlp.get("gate_proj"), mlp.get("up_proj")]
+        if _sharable(duo):
+            mlp = {"gateup_proj": fuse_qlinears(duo),
+                   "down_proj": mlp["down_proj"]}
+        layers.append(nn.ModuleDict({
+            "input_layernorm": src["input_layernorm"],
+            "post_attention_layernorm": src["post_attention_layernorm"],
+            "self_attn": nn.ModuleDict(attn), "mlp": nn.ModuleDict(mlp)}))
+    return LlamaModel(model.embed_tokens.weight, layers, model.norm.weight,
+                      model.lm_head)

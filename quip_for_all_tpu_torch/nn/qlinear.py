@@ -1,0 +1,281 @@
+"""QuantLinear / FusedQuantLinear: linear layers over lattice-coded weights —
+the eval path of ``quip_for_all_tpu/nn/qlinear.py`` as ``nn.Module``s.
+
+    x·SU → U_l^T x (wscale fused) → codebook matmul → per-channel scale
+        → U_r out → slice pad → ·SV → +bias
+
+Below the crossover the left transform is emitted straight into the fused
+kernel's grouped layout (``matmul_hadUt_grouped``) and the per-channel scale
+rides the kernel epilogue. There is no fallback around the kernel: only the
+shape rules (q_out % 128, m < crossover, power-of-2 part >= 8) choose the
+dense route, as in the JAX package, and a failed build or launch raises.
+Training (``calc_weight``, gradients) waits for the LoRA slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.fused_matmul import fused_quant_matmul_pre, supports
+from ..ops.qtensor import QuantizedTensor
+from ..ops.quant_matmul import FUSED_MAX_M, quant_matmul
+from ..transforms.incoherence import (HadSpec, hadamard_transform,
+                                      matmul_hadU, matmul_hadUt,
+                                      matmul_hadUt_grouped)
+
+
+def _grouped_prologue_matmul(x, spec, qt, scale, compute_dtype,
+                             scale_vec=None, impl="auto",
+                             max_m=FUSED_MAX_M):
+    """The fused grouped-layout route, or None when a shape rule sends the
+    call to the plain transform + quant_matmul route."""
+    if x.shape[0] >= max_m or not supports(qt):
+        return None
+    xg = matmul_hadUt_grouped(x, spec, qt.group_cols, scale=scale)
+    if xg is None:
+        return None
+    return fused_quant_matmul_pre(xg.to(compute_dtype), qt,
+                                  scale_vec=scale_vec,
+                                  plain=impl == "plain")
+
+
+class _PlaneHolder(nn.Module):
+    """Registers a QuantizedTensor's planes as buffers (so ``.to()`` moves
+    them) and rebuilds the container on access."""
+
+    def _set_qweight(self, qt: Optional[QuantizedTensor]):
+        self.plane_keys = sorted(qt.planes) if qt is not None else []
+        for k in self.plane_keys:
+            self.register_buffer(f"planes_{k}", qt.planes[k])
+        if qt is not None:
+            self.codebook_id = qt.codebook_id
+            self.opt_resid_scale = qt.opt_resid_scale
+
+    @property
+    def qweight(self) -> QuantizedTensor:
+        if not self.plane_keys:
+            raise RuntimeError("this layer holds no planes (fused segment)")
+        return QuantizedTensor(
+            {k: getattr(self, f"planes_{k}") for k in self.plane_keys},
+            self.codebook_id, self.q_out, self.q_in, self.opt_resid_scale)
+
+
+class QuantLinear(_PlaneHolder):
+    """One quantized linear layer (``QuantLinearParams`` + ``apply``).
+
+    ``wscale_float`` is mean(Wscale), fused into the left transform's
+    scale; ``Wscale`` (per-channel only) is already normalized by it."""
+
+    def __init__(self, qweight: Optional[QuantizedTensor], *,
+                 in_features: int, out_features: int, q_in: int,
+                 q_out: int, K_left: int = 1, K_right: int = 1,
+                 SU=None, SV=None, bias=None, had_left=None, had_right=None,
+                 Wscale=None, per_channel: bool = False,
+                 wscale_float: float = 1.0):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.q_in, self.q_out = q_in, q_out
+        self.K_left, self.K_right = K_left, K_right
+        self.per_channel = per_channel
+        self.wscale_float = float(wscale_float)
+        self._set_qweight(qweight)
+        for name, t in (("SU", SU), ("SV", SV), ("bias", bias),
+                        ("had_left", had_left), ("had_right", had_right),
+                        ("Wscale", Wscale)):
+            self.register_buffer(name, t)
+
+    @property
+    def left_spec(self) -> HadSpec:
+        return HadSpec(self.had_left, self.K_left, self.q_in)
+
+    @property
+    def right_spec(self) -> HadSpec:
+        return HadSpec(self.had_right, self.K_right, self.q_out)
+
+    def forward(self, x, *, compute_dtype=torch.bfloat16,
+                matmul_impl: str = "auto", max_m: int = FUSED_MAX_M):
+        return apply(self, x, compute_dtype=compute_dtype,
+                     matmul_impl=matmul_impl, max_m=max_m)
+
+
+def apply(p: QuantLinear, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
+          matmul_impl: str = "auto", max_m: int = FUSED_MAX_M
+          ) -> torch.Tensor:
+    """Eval forward. x: (..., in_features) -> (..., out_features)."""
+    batch_shape = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
+    x_dtype = x.dtype
+    if p.SU is not None:
+        x = x * p.SU.to(x_dtype)
+    sv = p.Wscale if p.per_channel else None
+    out = None
+    if matmul_impl != "dequant":
+        out = _grouped_prologue_matmul(x, p.left_spec, p.qweight,
+                                       p.wscale_float, compute_dtype,
+                                       scale_vec=sv, impl=matmul_impl,
+                                       max_m=max_m)
+    pc_fused = out is not None and sv is not None
+    if out is None:
+        x = matmul_hadUt(x, p.left_spec, scale=p.wscale_float)
+        out = quant_matmul(x.to(compute_dtype), p.qweight, impl=matmul_impl,
+                           max_m=max_m)
+    out = out.to(x_dtype)
+    if p.per_channel and not pc_fused:
+        out = out * p.Wscale.to(x_dtype)
+    out = matmul_hadU(out, p.right_spec)[:, : p.out_features]
+    if p.SV is not None:
+        out = out * p.SV.to(out.dtype)
+    out = out.reshape(*batch_shape, p.out_features)
+    if p.bias is not None:
+        out = out + p.bias.to(out.dtype)
+    return out
+
+
+class FusedQuantLinear(_PlaneHolder):
+    """Several QuantLinears sharing one input and one LEFT transform, fused
+    into a single decode+matmul launch (q+k+v, gate+up). Code planes are
+    concatenated along q_out; the per-segment right transforms, scales, SV
+    and bias apply to the split output. With uniform segments the right
+    side runs as one batched evaluation (``right_uniform``)."""
+
+    def __init__(self, qweight: QuantizedTensor, segments: Sequence,
+                 *, SU, had_left, K_left: int, q_in: int, in_features: int,
+                 right_uniform: bool, right_hadK_stack=None, pre_vec=None,
+                 SV_all=None, bias_all=None):
+        super().__init__()
+        self.q_in, self.q_out = q_in, qweight.q_out
+        self.K_left, self.in_features = K_left, in_features
+        self.right_uniform = right_uniform
+        self._set_qweight(qweight)
+        self.segments = nn.ModuleList(segments)
+        for name, t in (("SU", SU), ("had_left", had_left),
+                        ("right_hadK_stack", right_hadK_stack),
+                        ("pre_vec", pre_vec), ("SV_all", SV_all),
+                        ("bias_all", bias_all)):
+            self.register_buffer(name, t)
+
+    @property
+    def left_spec(self) -> HadSpec:
+        return HadSpec(self.had_left, self.K_left, self.q_in)
+
+    def forward(self, x, *, compute_dtype=torch.bfloat16,
+                matmul_impl: str = "auto", max_m: int = FUSED_MAX_M):
+        return fused_apply(self, x, compute_dtype=compute_dtype,
+                           matmul_impl=matmul_impl, max_m=max_m)
+
+
+def _slim(p: QuantLinear) -> QuantLinear:
+    """A segment keeps only its per-output metadata and arrays."""
+    return QuantLinear(
+        None, in_features=p.in_features, out_features=p.out_features,
+        q_in=p.q_in, q_out=p.q_out, K_left=p.K_left, K_right=p.K_right,
+        SV=p.SV, bias=p.bias, had_right=p.had_right, Wscale=p.Wscale,
+        per_channel=p.per_channel, wscale_float=p.wscale_float)
+
+
+def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
+    """Fuse QuantLinears sharing identical left transforms."""
+    p0 = ps[0]
+    for p in ps[1:]:
+        if (p.q_in != p0.q_in or p.K_left != p0.K_left
+                or p.codebook_id != p0.codebook_id):
+            raise ValueError("fuse_qlinears: left sides differ")
+    q0 = p0.qweight
+    planes = {k: torch.cat([p.qweight.planes[k] for p in ps], dim=0)
+              for k in q0.planes}
+    q_out = sum(p.q_out for p in ps)
+    qt = QuantizedTensor(planes, q0.codebook_id, q_out, p0.q_in,
+                         q0.opt_resid_scale)
+    uniform = all(
+        p.q_out == p0.q_out and p.out_features == p.q_out
+        and p.K_right == p0.K_right
+        and ((p.had_right is None) == (p0.had_right is None))
+        for p in ps)
+    hadK_stack = pre_vec = SV_all = bias_all = None
+    dev = planes["w0"].device
+    if uniform:
+        if p0.had_right is not None:
+            hadK_stack = torch.stack([p.had_right for p in ps])
+        pre = []
+        for p in ps:
+            v = torch.full((p.q_out,), p.wscale_float, dtype=torch.float32,
+                           device=dev)
+            if p.per_channel:
+                v = v * p.Wscale.to(torch.float32)
+            pre.append(v)
+        pre_vec = torch.cat(pre)
+        if any(p.SV is not None for p in ps):
+            SV_all = torch.cat(
+                [p.SV.to(torch.float32) if p.SV is not None
+                 else torch.ones(p.q_out, device=dev) for p in ps])
+        if any(p.bias is not None for p in ps):
+            bias_all = torch.cat(
+                [p.bias.to(torch.float32) if p.bias is not None
+                 else torch.zeros(p.out_features, device=dev) for p in ps])
+    return FusedQuantLinear(
+        qt, [_slim(p) for p in ps], SU=p0.SU, had_left=p0.had_left,
+        K_left=p0.K_left, q_in=p0.q_in, in_features=p0.in_features,
+        right_uniform=uniform, right_hadK_stack=hadK_stack, pre_vec=pre_vec,
+        SV_all=SV_all, bias_all=bias_all)
+
+
+def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
+                compute_dtype=torch.bfloat16, matmul_impl: str = "auto",
+                max_m: int = FUSED_MAX_M) -> List[torch.Tensor]:
+    """Forward through a fused group; per-segment outputs
+    (..., out_features_i)."""
+    batch_shape = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
+    x_dtype = x.dtype
+    if f.SU is not None:
+        x = x * f.SU.to(x_dtype)
+    big = None
+    sv = f.pre_vec if f.right_uniform else None
+    if matmul_impl != "dequant":
+        big = _grouped_prologue_matmul(x, f.left_spec, f.qweight, None,
+                                       compute_dtype, scale_vec=sv,
+                                       impl=matmul_impl, max_m=max_m)
+    pre_fused = big is not None and sv is not None
+    if big is None:
+        x = matmul_hadUt(x, f.left_spec)     # unscaled; wscale per segment
+        big = quant_matmul(x.to(compute_dtype), f.qweight, impl=matmul_impl,
+                           max_m=max_m)
+    big = big.to(x_dtype)
+    if f.right_uniform:
+        # batched epilogue: one scale, one batched kron transform and one
+        # (optional) stacked-hadK product for all segments together
+        seg0 = f.segments[0]
+        q_out, nseg = seg0.q_out, len(f.segments)
+        spec = seg0.right_spec
+        had_scale = 1.0 / math.sqrt(spec.padN // spec.K)
+        Y = big if pre_fused else big * f.pre_vec.to(x_dtype)
+        Y = Y.reshape(-1, nseg, spec.K, spec.padN // spec.K)
+        Y = hadamard_transform(Y, had_scale)
+        if f.right_hadK_stack is not None:
+            Y = torch.einsum("mskp,sjk->msjp", Y,
+                             f.right_hadK_stack.to(Y.dtype))
+        Y = Y.reshape(-1, nseg * q_out)
+        if f.SV_all is not None:
+            Y = Y * f.SV_all.to(Y.dtype)
+        if f.bias_all is not None:
+            Y = Y + f.bias_all.to(Y.dtype)
+        return [Y[:, i * q_out:(i + 1) * q_out].reshape(*batch_shape, q_out)
+                for i in range(nseg)]
+    outs = []
+    off = 0
+    for p in f.segments:
+        seg = big[:, off:off + p.q_out] * p.wscale_float
+        off += p.q_out
+        if p.per_channel:
+            seg = seg * p.Wscale.to(x_dtype)
+        seg = matmul_hadU(seg, p.right_spec)[:, : p.out_features]
+        if p.SV is not None:
+            seg = seg * p.SV.to(seg.dtype)
+        seg = seg.reshape(*batch_shape, p.out_features)
+        if p.bias is not None:
+            seg = seg + p.bias.to(seg.dtype)
+        outs.append(seg)
+    return outs

@@ -1,0 +1,112 @@
+"""Rules of the port that no parity test sees: it imports neither JAX nor
+the JAX package, its entry points refuse to run without a card unless
+asked for the CPU, and its random model holds valid E8P12 words."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import quip_for_all_tpu_torch as qt
+from quip_for_all_tpu_torch.ops.dequant import nibble_planes
+from quip_for_all_tpu_torch.utils.random_quantized import random_e8p_planes
+
+pytestmark = pytest.mark.fast
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "quip_for_all_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+    # runs on the card's machine, which has no JAX
+    yield os.path.join(REPO, "tests", "test_torch_kernel_cuda.py")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    bad = []
+    for path in _port_sources():
+        for name in _imports(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "quip_for_all_tpu", "flax"):
+                bad.append((os.path.relpath(path, REPO), name))
+    assert not bad, bad
+
+
+def test_port_keeps_its_own_assets():
+    pkg = os.path.join(REPO, "quip_for_all_tpu_torch")
+    assert os.path.isfile(os.path.join(pkg, "transforms",
+                                       "_hadamard_asset.npz"))
+    assert os.path.isfile(os.path.join(pkg, "csrc",
+                                       "fused_decode_matmul.cu"))
+
+
+@pytest.mark.parametrize("entry", ["random", "generate", "load", "convert",
+                                   "caches"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Called without device=, every entry point raises on a machine with
+    no CUDA — never a silent fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = qt.tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "random":
+            qt.random_quantized_model(cfg)
+        elif entry == "generate":
+            model = qt.random_quantized_model(cfg, device="cpu")
+            qt.generate(cfg, model, torch.zeros((1, 3), dtype=torch.long), 2)
+        elif entry == "load":
+            qt.load_quantized(os.path.join(REPO, "tests", "golden", "e8p12"))
+        elif entry == "convert":
+            qt.from_jax_params({"embed_tokens": {"weight": np.zeros((2, 2))}})
+        else:
+            from quip_for_all_tpu_torch.runtime.generate import \
+                init_kv_caches
+            init_kv_caches(cfg, 1, 8)
+
+
+def test_random_model_emits_valid_e8p_words():
+    gen = torch.Generator().manual_seed(0)
+    w = random_e8p_planes(256, 1024, gen, "cpu")
+    assert w.dtype == torch.int32 and w.shape == (256, 128)
+    nibs = torch.stack(nibble_planes(w), dim=-1).to(torch.int64)
+    assert int(nibs.max()) <= 11
+    # nib = 2u + 1 - parity: the low bit (1 - parity) is shared by all 8
+    low = nibs & 1
+    assert torch.all(low == low[..., :1])
+    # and every word decodes back to an E8P12 code
+    from quip_for_all_tpu_torch.ops.qtensor import QuantizedTensor, \
+        to_raw_idxs
+    to_raw_idxs(QuantizedTensor({"w0": w}, "E8P12", 256, 1024))
+
+
+def test_random_model_is_seeded_and_fusable():
+    cfg = qt.ModelConfig(vocab_size=256, hidden_size=128,
+                         intermediate_size=384, num_hidden_layers=1,
+                         num_attention_heads=4, num_key_value_heads=4)
+    a = qt.random_quantized_model(cfg, seed=3, device="cpu",
+                                  quantize_head=True)
+    b = qt.random_quantized_model(cfg, seed=3, device="cpu",
+                                  quantize_head=True)
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb), ka
+    f = qt.fuse_for_inference(cfg, a)
+    assert sorted(f.layers[0]["self_attn"].keys()) == ["o_proj", "qkv_proj"]
+    assert sorted(f.layers[0]["mlp"].keys()) == ["down_proj", "gateup_proj"]
+    assert f.layers[0]["mlp"]["gateup_proj"].right_uniform
