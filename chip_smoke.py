@@ -8,19 +8,30 @@ Phases (each prints its lines; any failure exits non-zero with no result
 line):
   1. the card (nvidia-smi name and power limit) and the kernels' build from
      the repo's sources (one nvcc per source, all started together);
-  2. every ported kernel against its plain torch twin at the Llama-2-7B
-     shapes of the main path, m = 1, 8 and 64, with times on the card
-     (CUDA-graph replays, L2-cold), the plain twin's time, the bound from
-     device-memory bytes at 3.35 TB/s, and a library yardstick;
-  3. the golden reference-schema checkpoint through the kernel (f32);
-  4. the main path: Llama-2-7B E8P12 (random codes, seed 0), fused qkv and
+  2. fused_decode_matmul against its plain torch twin at the Llama-2-7B
+     shapes of the main path, m = 1, 8 and 64 (and Mixtral's GQA qkv at
+     m = 1), with times on the card (CUDA-graph replays, L2-cold), the
+     plain twin's time, the bound from device-memory bytes at 3.35 TB/s,
+     and a library yardstick;
+  3. moe_decode_matmul against its plain twin at Mixtral-8x7B's w13 and w2
+     shapes with 8 experts, R = 2 (bs=1 decode), 16 and 62 rows (top-2
+     over 8 and 31 tokens), timed the same way;
+  4. the golden reference-schema checkpoint through the kernel (f32);
+  5. the main path: Llama-2-7B E8P12 (random codes, seed 0), fused qkv and
      gate/up, quantized head, cache_len 2048, bs=1: a 32-token prompt and
      128 greedy tokens through ``generate``, twice, with kernel launch
      counts, and the first 16 tokens held against the same path with every
-     linear on the plain twin.
+     linear on the plain twin;
+  6. the Mixtral path: Mixtral-8x7B E8P12 at all 32 layers (random codes,
+     seed 0, experts stacked, fused qkv, quantized head), the same
+     prompt/greedy runs with 64 new tokens, exact launch counts of both
+     kernels, a 16-token prompt through the sparse prefill, and the
+     kernel-vs-plain check with the kernel run on the plain run's top-2
+     routing (a fork accepted only at a near-tie of the tokens).
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists the kernels with their numbers.
 """
+import contextlib
 import json
 import math
 import os
@@ -38,13 +49,31 @@ KERNELS = [{
     "name": "fused_decode_matmul", "route": "cuda",
     "source": "quip_for_all_tpu_torch/csrc/fused_decode_matmul.cu",
     "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:135",
+}, {
+    "name": "moe_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/moe_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/moe_pallas.py:56 (K4) and "
+                "quip_for_all_tpu/ops/moe_pallas.py:91 (K5)",
 }]
-# Llama-2-7B linears per decode token: (name, q_out, q_in, per layer,
-# scale vector in the epilogue on the main path)
-SHAPES = [("qkv", 12288, 4096, True), ("o", 4096, 4096, False),
-          ("gateup", 22016, 4096, True), ("down", 4096, 11008, False),
-          ("head", 32000, 4096, False)]
+# fused_decode_matmul linears: (name, q_out, q_in, scale vector in the
+# epilogue on the main path, rows m timed). The first five are Llama-2-7B's
+# per decode token; Mixtral-8x7B shares o and head and has its own GQA qkv.
+SHAPES = [("qkv", 12288, 4096, True, (1, 8, 64)),
+          ("o", 4096, 4096, False, (1, 8, 64)),
+          ("gateup", 22016, 4096, True, (1, 8, 64)),
+          ("down", 4096, 11008, False, (1, 8, 64)),
+          ("head", 32000, 4096, False, (1, 8, 64)),
+          ("qkv_gqa", 6144, 4096, True, (1,))]
 LAYERS = 32
+# per token: each linear's calls (the head once, the rest once per layer)
+LLAMA_CALLS = {"qkv": LAYERS, "o": LAYERS, "gateup": LAYERS,
+               "down": LAYERS, "head": 1}
+MIXTRAL_FUSED_CALLS = {"qkv_gqa": LAYERS, "o": LAYERS, "head": 1}
+# Mixtral-8x7B stacked experts: (name, q_out, q_in); R = top-2 rows of
+# 1 (bs=1 decode), 8 and 31 tokens (sparse prefill below 32 tokens)
+MOE_SHAPES = [("w13", 28672, 4096), ("w2", 4096, 14336)]
+MOE_E, MOE_K = 8, 2
+MOE_R = (2, 16, 62)
 
 
 def log(*a):
@@ -121,7 +150,7 @@ def phase_build():
 
 
 def phase_kernels():
-    """fused_decode_matmul vs its plain twin at the main path's shapes."""
+    """fused_decode_matmul vs its plain twin at the main paths' shapes."""
     import torch
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
     from quip_for_all_tpu_torch.ops.dequant import decode_weights
@@ -131,7 +160,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1)
     affine = ((0.5, -2.75),)
     rows, max_err = [], 0.0
-    for name, q_out, q_in, with_scale in SHAPES:
+    for name, q_out, q_in, with_scale, ms in SHAPES:
         G = q_in // 8
         w = random_e8p_planes(q_out, q_in, gen, "cuda")
         Gp = w.shape[1]
@@ -144,7 +173,7 @@ def phase_kernels():
                            dtype=torch.bfloat16)
         w_copies = max(2, math.ceil(2 * L2_BYTES / (W.numel() * 2)))
         Ws = [W] + [W.clone() for _ in range(w_copies - 1)]
-        for m in (1, 8, 64):
+        for m in ms:
             # as the main path gives it: x padded to a multiple of 8 rows,
             # the kernel computing the m real ones
             mp = max(8, -(-m // 8) * 8)
@@ -197,6 +226,114 @@ def phase_kernels():
     return rows, max_err
 
 
+def top2_ids(tokens: int, gen):
+    """Expert ids as top-2 routing gives them: 2 distinct experts per
+    token, token-major."""
+    import torch
+    return torch.stack([torch.randperm(MOE_E, generator=gen, device="cuda")
+                        [:MOE_K] for _ in range(tokens)]).reshape(-1).to(
+        torch.int32)
+
+
+def phase_moe_kernels():
+    """moe_decode_matmul vs its plain twin at Mixtral-8x7B's expert shapes,
+    with the rows the main path gives it: R = 2 at bs=1 decode, 16 and 62
+    in the sparse prefill of 8 and 31 tokens (experts repeat across
+    tokens). The bound counts the planes of the distinct experts once."""
+    import torch
+    from quip_for_all_tpu_torch.ops import moe_matmul as mm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    from quip_for_all_tpu_torch.ops.qtensor import QuantizedTensor
+    from quip_for_all_tpu_torch.utils.random_quantized import \
+        random_e8p_planes
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    affine = ((0.5, -2.75),)
+    rows, max_err = [], 0.0
+    for name, q_out, q_in in MOE_SHAPES:
+        G = q_in // 8
+        planes = torch.stack([random_e8p_planes(q_out, q_in, gen, "cuda")
+                              for _ in range(MOE_E)])
+        Gp = planes.shape[2]
+        expert_bytes = q_out * Gp * 4
+        # every call reads at least 2 experts' planes; alternate copies so
+        # each call finds its planes evicted from the 50 MB L2
+        copies = max(2, math.ceil(2 * L2_BYTES / (MOE_K * expert_bytes)))
+        ps = [planes] + [planes.clone() for _ in range(copies - 1)]
+        for R in MOE_R:
+            m = R // MOE_K                            # tokens
+            eids = top2_ids(m, gen)
+            distinct = sorted(set(eids.tolist()))     # host read, untimed
+            x = torch.zeros((R, 8, Gp), device="cuda")
+            x[:, :, :G] = torch.randn((R, 8, G), generator=gen,
+                                      device="cuda")
+            x = x.reshape(R, 8 * Gp).to(torch.bfloat16)
+            # the main path's bound: an expert has at most m rows
+            got = mm.moe_fused_matmul(x, eids, [planes], affine, m)
+            want = mm.moe_fused_matmul_ref(x, eids, [planes], affine)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            ok = bool(torch.all(diff <= bf16_ulp(torch.maximum(
+                got.float().abs(), want.float().abs()))
+                + 1e-5 * want.float().abs().max()))
+            err = float(diff.max())
+            max_err = max(max_err, err)
+            if not (ok and torch.isfinite(got.float()).all()):
+                raise AssertionError(
+                    f"moe {name} R={R}: kernel vs plain twin beyond "
+                    f"tolerance (max |diff| {err})")
+
+            def kernel(bound):
+                return lambda i: mm.moe_fused_matmul(
+                    x, eids, [ps[i % copies]], affine, bound)
+            k_ms = graph_ms(kernel(m), 4 * copies)
+            acc_r = ""
+            if m < R <= 4:
+                # the accumulator sized from R (the bound of any routing)
+                # against the main path's bound, in turns: A B B A
+                b1 = graph_ms(kernel(R), 4 * copies)
+                b2 = graph_ms(kernel(R), 4 * copies)
+                k_ms = (k_ms + graph_ms(kernel(m), 4 * copies)) / 2
+                acc_r = (f" | bound R ({R}-row accumulator) "
+                         f"{(b1 + b2) / 2 * 1e3:.1f} us")
+            p_ms = event_ms(lambda i: mm.moe_fused_matmul_ref(
+                x, eids, [ps[i % copies]], affine), 3)
+            # yardstick: one dense bf16 product per distinct expert on its
+            # weights decoded beforehand (4x the bytes; not the same
+            # function, never called by the port)
+            x_nat = x.reshape(R, 8, Gp)[:, :, :G].transpose(1, 2).reshape(
+                R, q_in)
+            sel = {e: (eids == e).nonzero(as_tuple=True)[0] for e in distinct}
+            xs = {e: x_nat[sel[e]].contiguous() for e in distinct}
+            Ws = {e: decode_weights(QuantizedTensor(
+                {"w0": planes[e]}, "E8P12", q_out, q_in),
+                dtype=torch.bfloat16) for e in distinct}
+            lib_ms = graph_ms(lambda i: [torch.matmul(xs[e], Ws[e].T)
+                                         for e in distinct], 4)
+            del Ws
+            nbytes = (len(distinct) * expert_bytes + R * 8 * Gp * 2
+                      + R * q_out * 2 + R * 4)
+            ops = 2 * R * q_out * q_in
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ops = ops / BF16_OPS_PER_S * 1e3
+            row = {"layer": name, "q_out": q_out, "Gp": Gp, "R": R,
+                   "experts": len(distinct), "max_abs_err": err,
+                   "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                   "bound_ms": max(b_bytes, b_ops),
+                   "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                   "bytes": nbytes}
+            rows.append(row)
+            log(f"kernel moe {name:3s} {q_out}x{Gp} E={MOE_E} R={R:2d} "
+                f"({len(distinct)} experts): max|k-plain| {err:.3g} (tol 1 "
+                f"bf16 ulp + 1e-5 max) | kernel {k_ms * 1e3:.1f} us | plain "
+                f"{p_ms * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.1f} us "
+                f"({row['bound_by']}) | {row['bound_ms'] / k_ms:.0%} of "
+                f"bound | library {lib_ms * 1e3:.1f} us (dense bf16 matmul "
+                f"per expert, 4x the bytes, not the same function){acc_r}")
+        del ps, planes
+        torch.cuda.empty_cache()
+    return rows, max_err
+
+
 def phase_golden():
     """The golden reference-schema fixture, loaded by the port and run on
     the card through the kernel in f32: rel < 2e-4 as the JAX test holds."""
@@ -219,10 +356,58 @@ def phase_golden():
             raise AssertionError(f"golden {role} rel {rel}")
 
 
-def phase_main():
+def timed_generate(cfg, model, prompt, cache_len):
+    """generate(prompt, n) timed on the host clock, synchronised."""
     import torch
     import quip_for_all_tpu_torch as qt
+
+    def run(n, p=prompt, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = qt.generate(cfg, model, p, n, cache_len=cache_len,
+                          dtype=torch.bfloat16, return_logits=True, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    return run
+
+
+def reset_launches():
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops import moe_matmul as mm
+    fm.fused_decode_matmul.launches = 0
+    mm.moe_fused_matmul.launches = 0
+
+
+def read_launches():
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops import moe_matmul as mm
+    return {"fused_decode_matmul": fm.fused_decode_matmul.launches,
+            "moe_decode_matmul": mm.moe_fused_matmul.launches}
+
+
+def check_launches(tag, got, expect):
+    log(f"{tag}: launches " + ", ".join(
+        f"{k} {got[k]} (expected {expect[k]})" for k in expect))
+    if any(got[k] != expect[k] for k in expect):
+        raise AssertionError(f"{tag}: launch counts {got} != {expect}")
+
+
+def check_runs(tag, cfg, ids1, ids2, logits1, new):
+    import torch
+    if not torch.equal(ids1, ids2):
+        raise AssertionError(f"{tag}: two greedy runs gave different ids")
+    lg = torch.stack(logits1)
+    if lg.shape != (new, 1, cfg.vocab_size) or not torch.isfinite(lg).all():
+        raise AssertionError(f"{tag}: logits {tuple(lg.shape)} not "
+                             "finite/shaped")
+    log(f"{tag}: two runs identical ids; logits finite, shape "
+        f"{tuple(lg.shape)}")
+
+
+def phase_main():
+    """The Llama-2-7B path; returns its kernel launches."""
+    import torch
+    import quip_for_all_tpu_torch as qt
     cfg = qt.llama2_7b_config()
     t = time.time()
     model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
@@ -236,39 +421,24 @@ def phase_main():
     S, NEW, CACHE = 32, 128, 2048
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device="cuda")
-
-    def run(n, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = qt.generate(cfg, model, prompt, n, cache_len=CACHE,
-                          dtype=torch.bfloat16, return_logits=True, **kw)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
+    run = timed_generate(cfg, model, prompt, CACHE)
     run(4)                                           # warm-up
     (_, _), t_pre = run(1)                           # prefill only
-    fm.fused_decode_matmul.launches = 0
+    reset_launches()
     (ids1, logits1), t1 = run(NEW)
-    launches = fm.fused_decode_matmul.launches
+    launches = read_launches()
     (ids2, _), t2 = run(NEW)
     per_step = 4 * LAYERS + 1
-    expect = per_step * NEW           # prefill + (NEW - 1) decode steps
     ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
     ms_tok2 = (t2 - t_pre) / (NEW - 1) * 1e3
     log(f"main: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
         f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
         f"({1e3 / ms_tok:.1f} tok/s); second run {ms_tok2:.2f} ms/token")
-    log(f"main: fused_decode_matmul launches {launches} (expected "
-        f"{per_step} per step x {NEW} steps = {expect})")
-    if launches != expect:
-        raise AssertionError(f"launch count {launches} != {expect}")
-    if not torch.equal(ids1, ids2):
-        raise AssertionError("two greedy runs gave different ids")
-    lg = torch.stack(logits1)
-    if lg.shape != (NEW, 1, cfg.vocab_size) or not torch.isfinite(lg).all():
-        raise AssertionError(f"logits {tuple(lg.shape)} not finite/shaped")
-    log(f"main: two runs identical ids; logits finite, shape "
-        f"{tuple(lg.shape)}")
+    # prefill + (NEW - 1) decode steps, per_step launches each
+    check_launches("main", launches, {"fused_decode_matmul":
+                                      per_step * NEW,
+                                      "moe_decode_matmul": 0})
+    check_runs("main", cfg, ids1, ids2, logits1, NEW)
 
     # every linear on the plain twin, same path otherwise: in bf16 (the
     # main path; bf16 rounding of every linear output amplifies through 32
@@ -279,7 +449,72 @@ def phase_main():
     log(f"main: one decode step (position {S}): device time {dev_ms:.2f} ms "
         f"(CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
         f"{1 - dev_ms / eager_ms:.0%} of the eager step")
-    return launches
+    return launches["fused_decode_matmul"]
+
+
+def phase_mixtral():
+    """The Mixtral-8x7B path at all 32 layers and full width. Returns its
+    launch counts and its step times."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.models.config import mixtral_8x7b_config
+    cfg = mixtral_8x7b_config()
+    L, E = cfg.num_hidden_layers, cfg.num_local_experts
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
+                                      quantize_head=True, device="cuda")
+    model = qt.fuse_for_inference(cfg, model)
+    torch.cuda.synchronize()
+    log(f"mixtral: built Mixtral-8x7B E8P12 ({L} layers, {E} experts top-"
+        f"{cfg.num_experts_per_tok}; random codes, seed 0, experts stacked, "
+        f"fused qkv, quantized head) in {time.time() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
+        f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    S, NEW, CACHE = 32, 64, 2048
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device="cuda")
+    run = timed_generate(cfg, model, prompt, CACHE)
+    run(4)                                           # warm-up
+    (_, _), t_pre = run(1)                           # prefill only
+    reset_launches()
+    (ids1, logits1), t1 = run(NEW)
+    launches = read_launches()
+    (ids2, _), t2 = run(NEW)
+    ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
+    ms_tok2 = (t2 - t_pre) / (NEW - 1) * 1e3
+    log(f"mixtral: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
+        f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
+        f"({1e3 / ms_tok:.1f} tok/s); second run {ms_tok2:.2f} ms/token")
+    # the 32-token prefill runs the dense masked expert loop (qkv, o and
+    # 3 linears of each expert per layer, and the head through the fused
+    # kernel); each decode step the sparse route (qkv, o, head fused; w13
+    # and w2 per layer through the MoE kernel)
+    check_launches("mixtral", launches, {
+        "fused_decode_matmul": L * (2 + 3 * E) + 1 + (NEW - 1) * (2 * L + 1),
+        "moe_decode_matmul": (NEW - 1) * 2 * L})
+    check_runs("mixtral", cfg, ids1, ids2, logits1, NEW)
+
+    # a prompt under 32 tokens prefills through the sparse route (R = 32)
+    short = prompt[:, :16].contiguous()
+    reset_launches()
+    (ids_s, logits_s), _ = run(4, p=short)
+    check_launches("mixtral (16-token prompt, sparse prefill)",
+                   read_launches(),
+                   {"fused_decode_matmul": 4 * (2 * L + 1),
+                    "moe_decode_matmul": 4 * 2 * L})
+    if not torch.isfinite(torch.stack(logits_s)).all():
+        raise AssertionError("mixtral: 16-token prompt logits not finite")
+
+    for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+        check_plain(cfg, model, prompt, dt, tol, CACHE, tag="mixtral")
+    dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
+    log(f"mixtral: one decode step (position {S}): device time {dev_ms:.2f}"
+        f" ms (CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
+        f"{1 - dev_ms / eager_ms:.0%} of the eager step")
+    return {"launches": launches, "ms_tok": ms_tok, "dev_ms": dev_ms,
+            "eager_ms": eager_ms}
 
 
 def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
@@ -306,19 +541,65 @@ def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
     return graph_ms(step, 1, reps=n), eager
 
 
-def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16):
+@contextlib.contextmanager
+def shared_routing(model, k, logits, replay):
+    """While active, every MoE block's router logits (its dense gate's
+    output) are appended to ``logits`` call by call, or, with ``replay``,
+    replaced by those recorded, so that a second generate run takes the
+    first run's top-k experts and weights. Yields a one-element list that
+    counts, on replay, the token-layer choices whose top-k set the run's
+    own logits would have changed."""
+    import torch
+    from quip_for_all_tpu_torch.models import llama as M
+    gates = {id(b["block_sparse_moe"]["gate"]) for b in model.layers}
+    orig, recorded, flips = M.linear_apply, iter(list(logits)), [0]
+
+    def linear_apply(lin, x, **kw):
+        y = orig(lin, x, **kw)
+        if id(lin) not in gates:
+            return y
+        if not replay:
+            logits.append(y)
+            return y
+        r = next(recorded)
+        own, rec = (torch.topk(t.float(), k, dim=-1).indices.sort(
+            dim=-1).values for t in (y, r))
+        flips[0] = flips[0] + (own != rec).any(dim=-1).sum()
+        return r
+    M.linear_apply = linear_apply
+    try:
+        yield flips
+    finally:
+        M.linear_apply = orig
+        flips[0] = int(flips[0])
+
+
+def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
+                tag="main"):
     """The first decode step's logits and n greedy tokens with every linear
     on the kernel vs on the plain twin. A greedy fork is accepted only at a
-    near-tie: the kernel's token within tol*max|logit| of the plain max."""
+    near-tie: the kernel's token within tol*max|logit| of the plain max.
+    On an MoE model the kernel run takes the plain run's routing
+    (``shared_routing``): the runs then differ by the linears' rounding and
+    not by a top-k choice that a near-tie of router logits flips, and the
+    MoE kernel runs on every decode step of the kernel run."""
     import torch
     import quip_for_all_tpu_torch as qt
     S = prompt.shape[1]
-    lkw = {"compute_dtype": dtype}
-    outs = {}
-    for impl in ("auto", "plain"):
-        outs[impl] = qt.generate(cfg, model, prompt, n, cache_len=cache_len,
-                                 dtype=dtype, return_logits=True,
-                                 linear_kw=dict(lkw, matmul_impl=impl))
+    moe = cfg.arch == "mixtral"
+    outs, router = {}, []
+    for impl in ("plain", "auto"):
+        ctx = (shared_routing(model, cfg.num_experts_per_tok, router,
+                              replay=impl == "auto")
+               if moe else contextlib.nullcontext([0]))
+        reset_launches()
+        with ctx as flips:
+            outs[impl] = qt.generate(cfg, model, prompt, n,
+                                     cache_len=cache_len, dtype=dtype,
+                                     return_logits=True,
+                                     linear_kw={"compute_dtype": dtype,
+                                                "matmul_impl": impl})
+    launches = read_launches()
     (ids_k, lk), (ids_p, lp) = outs["auto"], outs["plain"]
     d1 = float((lk[1] - lp[1]).abs().max() / lp[1].abs().max())
     k_toks, p_toks = ids_k[0, S:], ids_p[0, S:]
@@ -328,15 +609,77 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16):
         row = lp[same][0]
         gap = float((row.max() - row[k_toks[same]]) / row.abs().max())
     label = str(dtype).replace("torch.", "")
-    log(f"main [{label}]: first decode step logits, kernel vs plain twin: "
+    log(f"{tag} [{label}]: first decode step logits, kernel vs plain twin: "
         f"max|diff|/max|logit| {d1:.3g} (tol {tol}); greedy tokens equal "
         f"for {same}/{n} steps" + (
             f"; at step {same} the kernel's token is {gap:.3g} of "
             f"max|logit| below the plain argmax (tol {tol})"
             if same < n else ""))
+    if moe:
+        L = len(model.layers)
+        log(f"{tag} [{label}]: the kernel run took the plain run's top-"
+            f"{cfg.num_experts_per_tok} routing ({flips[0]} of "
+            f"{(S + n - 1) * L} token-layer choices would have differed); "
+            f"{launches['moe_decode_matmul']} moe_decode_matmul launches "
+            f"(expected {(n - 1) * 2 * L})")
+        if launches["moe_decode_matmul"] != (n - 1) * 2 * L:
+            raise AssertionError(f"{tag} {label}: launches {launches}")
     if not (d1 <= tol and gap <= tol):
-        raise AssertionError(f"{label}: kernel path differs from the plain "
-                             "twin beyond tolerance")
+        raise AssertionError(f"{tag} {label}: kernel path differs from the "
+                             "plain twin beyond tolerance")
+
+
+def call_sum(rows, calls, key, **match):
+    """Sum of key over the rows of the named layers, each times its calls
+    (e.g. per decode token)."""
+    return sum(calls[r["layer"]] * r[key] for r in rows
+               if r["layer"] in calls
+               and all(r.get(f) == v for f, v in match.items()))
+
+
+def log_k2(rows):
+    """K2 (the same kernel over the 2-D m-tiled grid of prefill): one
+    prefill launch set of Llama-2-7B at m = 64, the 129 calls summed."""
+    parts = {key: call_sum(rows, LLAMA_CALLS, key, m=64)
+             for key in ("bound_ms", "ms", "plain_ms", "library_ms")}
+    log("kernel fused_decode_matmul K2 (Llama-2-7B prefill launch set, "
+        "m=64, 129 calls): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix):
+    """The kernels line: per decode token of each kernel's own path (the
+    fused kernel's at Llama-2-7B's shapes, the MoE kernel's at Mixtral's
+    w13 and w2 with R = 2); launches from the main paths' counted runs."""
+    moe_calls = {"w13": LAYERS, "w2": LAYERS}
+
+    def entry(kernel, rows_, calls, match, launches, err):
+        sel = [r for r in rows_ if r["layer"] in calls
+               and all(r[f] == v for f, v in match.items())]
+        return dict(kernel, launches=launches, max_abs_err=err,
+                    ms=call_sum(sel, calls, "ms"),
+                    plain_ms=call_sum(sel, calls, "plain_ms"),
+                    bound_ms=call_sum(sel, calls, "bound_ms"),
+                    bound_by=("bytes" if all(r["bound_by"] == "bytes"
+                                             for r in sel) else "operations"),
+                    library_ms=call_sum(sel, calls, "library_ms"))
+    fused = entry(KERNELS[0], rows, LLAMA_CALLS, {"m": 1}, llama_launches,
+                  max_err)
+    fused["launches_by_path"] = {
+        "llama2_7b": llama_launches,
+        "mixtral_8x7b": mix["launches"]["fused_decode_matmul"]}
+    moe = entry(KERNELS[1], moe_rows, moe_calls, {"R": 2},
+                mix["launches"]["moe_decode_matmul"], moe_err)
+    # Mixtral's decode step: its fused calls (GQA qkv, o, head) and its
+    # MoE calls, against the graphed step's device time
+    mix_fused = call_sum(rows, MIXTRAL_FUSED_CALLS, "ms", m=1)
+    log(f"mixtral: per decode token the kernels take {mix_fused:.3f} ms "
+        f"(fused_decode_matmul) + {moe['ms']:.3f} ms (moe_decode_matmul) of"
+        f" {mix['dev_ms']:.3f} ms graphed device time "
+        f"({(mix_fused + moe['ms']) / mix['dev_ms']:.0%}); bound "
+        f"{call_sum(rows, MIXTRAL_FUSED_CALLS, 'bound_ms', m=1):.3f} + "
+        f"{moe['bound_ms']:.3f} ms")
+    return [fused, moe]
 
 
 def main() -> int:
@@ -364,27 +707,19 @@ def main() -> int:
             f"{k['name']} ({k['route']}, {k['source']}, replaces "
             f"{k['replaces']})" for k in KERNELS))
         rows, max_err = phase_kernels()
+        moe_rows, moe_err = phase_moe_kernels()
+        log_k2(rows)
         phase_golden()
         launches = phase_main()
+        mix = phase_mixtral()
+        entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
+                                 mix)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    # one decode token's worth of kernel work: one real row per call
-    per_tok = [r for r in rows if r["m"] == 1]
-    mult = {name: (LAYERS if name != "head" else 1)
-            for name, *_ in SHAPES}
-
-    def tok_sum(key):
-        return sum(mult[r["layer"]] * r[key] for r in per_tok)
-    k = dict(KERNELS[0], launches=launches, max_abs_err=max_err,
-             ms=tok_sum("ms"), plain_ms=tok_sum("plain_ms"),
-             bound_ms=tok_sum("bound_ms"),
-             bound_by=("bytes" if all(r["bound_by"] == "bytes"
-                                      for r in per_tok) else "operations"),
-             library_ms=tok_sum("library_ms"))
     log(f"card: {smi_line()}")
-    log(json.dumps({"kernels": [k]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

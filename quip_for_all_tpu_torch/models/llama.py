@@ -3,11 +3,13 @@
 
 The model is an ``nn.Module`` whose tree mirrors the JAX param dict:
 ``embed_tokens``, ``layers[i]`` (an ``nn.ModuleDict`` with
-``input_layernorm``, ``self_attn``, ``post_attention_layernorm``, ``mlp``),
-``norm`` and ``lm_head``. Linear leaves are ``QuantLinear``,
-``FusedQuantLinear`` (after ``fuse_for_inference``) or ``DenseLinear``.
+``input_layernorm``, ``self_attn``, ``post_attention_layernorm`` and
+``mlp``, or for Mixtral ``block_sparse_moe``: a dense ``gate`` plus
+``experts`` or, once stacked, ``experts_stacked``), ``norm`` and
+``lm_head``. Linear leaves are ``QuantLinear``, ``FusedQuantLinear`` (after
+``fuse_for_inference``), ``StackedQuantLinear`` or ``DenseLinear``.
 Forward functions keep the JAX names and argument order so a reader can
-follow both side by side. Mixtral (MoE) waits for slice 4.
+follow both side by side.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.qlinear import QuantLinear, fuse_qlinears
+from ..nn.qlinear import QuantLinear, fuse_qlinears, same_tensor
+from ..nn.qmoe import (moe_sparse_apply, stack_experts,
+                       unstack_qlinear)
 from .common import sdpa_cache_layout, write_kv
 from .config import ModelConfig
 
@@ -64,16 +68,30 @@ class LlamaModel(nn.Module):
                 return node
             return DenseLinear(node["weight"], node.get("bias"))
 
+        def moe(m):
+            out = {"gate": lin(m["gate"])}
+            if "experts_stacked" in m:
+                out["experts_stacked"] = nn.ModuleDict(m["experts_stacked"])
+            else:
+                out["experts"] = nn.ModuleList([
+                    nn.ModuleDict({k: lin(v) for k, v in e.items()})
+                    for e in m["experts"]])
+            return nn.ModuleDict(out)
+
         def block(b):
-            return nn.ModuleDict({
+            mods = {
                 "input_layernorm": Weight(b["input_layernorm"]["weight"]),
                 "post_attention_layernorm":
                     Weight(b["post_attention_layernorm"]["weight"]),
                 "self_attn": nn.ModuleDict(
                     {k: lin(v) for k, v in b["self_attn"].items()}),
-                "mlp": nn.ModuleDict(
-                    {k: lin(v) for k, v in b["mlp"].items()}),
-            })
+            }
+            if "block_sparse_moe" in b:
+                mods["block_sparse_moe"] = moe(b["block_sparse_moe"])
+            else:
+                mods["mlp"] = nn.ModuleDict(
+                    {k: lin(v) for k, v in b["mlp"].items()})
+            return nn.ModuleDict(mods)
         head = tree.get("lm_head")
         return cls(tree["embed_tokens"]["weight"],
                    [block(b) for b in tree["layers"]],
@@ -171,6 +189,45 @@ def mlp_apply(mlp_p: nn.ModuleDict, x: torch.Tensor, linear_kw: dict
     return linear_apply(mlp_p["down_proj"], F.silu(g) * u, **linear_kw)
 
 
+def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
+              linear_kw: dict) -> torch.Tensor:
+    """Mixtral top-k MoE. Two formulations (``nn/qmoe.py``):
+      - stacked sparse (decode, B*S < 32 tokens): the expert-indexed
+        kernel reads only the selected experts' planes;
+      - per-expert dense masked loop (prefill, or experts not stacked):
+        every expert on every token, each through the fused kernel.
+    """
+    B, S, D = x.shape
+    router_logits = linear_apply(moe_p["gate"], x, **linear_kw)  # (B,S,E)
+    if "experts_stacked" in moe_p:
+        st = moe_p["experts_stacked"]
+        if B * S < 32:
+            return moe_sparse_apply(
+                cfg, moe_p, x, router_logits,
+                compute_dtype=linear_kw.get("compute_dtype", torch.bfloat16),
+                matmul_impl=linear_kw.get("matmul_impl", "auto"))
+        experts = []
+        for e in range(cfg.num_local_experts):
+            w1, w3 = unstack_qlinear(st["w13"], e)
+            w2, = unstack_qlinear(st["w2"], e)
+            experts.append({"w1": w1, "w3": w3, "w2": w2})
+    else:
+        experts = moe_p["experts"]
+    E, K = cfg.num_local_experts, cfg.num_experts_per_tok
+    topv, topi = torch.topk(router_logits.to(torch.float32), K, dim=-1)
+    topw = torch.softmax(topv, dim=-1)                          # (B,S,K)
+    routing = torch.sum(F.one_hot(topi, E).to(torch.float32)
+                        * topw[..., None], dim=2)              # (B,S,E)
+    out = torch.zeros_like(x)
+    for e in range(E):
+        ep = experts[e]
+        w = routing[..., e][..., None].to(x.dtype)
+        h = (F.silu(linear_apply(ep["w1"], x, **linear_kw))
+             * linear_apply(ep["w3"], x, **linear_kw))
+        out = out + w * linear_apply(ep["w2"], h, **linear_kw)
+    return out
+
+
 def block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
                 cos, sin, kv_cache=None, cache_position=None, attn_mask=None,
                 linear_kw: Optional[dict] = None,
@@ -182,8 +239,11 @@ def block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
                                     linear_kw, attn_window)
     x = x + attn_out
     h = rms_norm(blk["post_attention_layernorm"].weight, x, cfg.rms_norm_eps)
-    x = x + mlp_apply(blk["mlp"], h, linear_kw)
-    return x, new_cache
+    if cfg.arch == "mixtral":
+        y = moe_apply(cfg, blk["block_sparse_moe"], h, linear_kw)
+    else:
+        y = mlp_apply(blk["mlp"], h, linear_kw)
+    return x + y, new_cache
 
 
 def model_apply(cfg: ModelConfig, model: LlamaModel,
@@ -200,9 +260,9 @@ def model_apply(cfg: ModelConfig, model: LlamaModel,
     With kv_caches (per layer (k, v) of shape (B, S_max, KV, hd)) runs
     incremental decoding, writing at cache_position; attn_window (static)
     promises every query position is < attn_window."""
-    if cfg.arch != "llama":
+    if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md slices 4-5)")
+            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md slice 5)")
     B, S = input_ids.shape
     dev = input_ids.device
     x = F.embedding(input_ids, model.embed_tokens.weight).to(dtype)
@@ -245,26 +305,22 @@ def cache_mask(positions: torch.Tensor, T: int, dtype=torch.float32
 
 # --------------------------------------------------------------- fusion
 
-def _same(a, b) -> bool:
-    if (a is None) != (b is None):
-        return False
-    return a is b or a is None or (a.shape == b.shape and torch.equal(a, b))
-
-
 def _sharable(ps) -> bool:
     if not all(isinstance(p, QuantLinear) for p in ps):
         return False
     p0 = ps[0]
     return all(p.q_in == p0.q_in and p.K_left == p0.K_left
-               and _same(p.SU, p0.SU) and _same(p.had_left, p0.had_left)
+               and same_tensor(p.SU, p0.SU)
+               and same_tensor(p.had_left, p0.had_left)
                for p in ps[1:])
 
 
 def fuse_for_inference(cfg: ModelConfig, model: LlamaModel) -> LlamaModel:
     """Fuse qkv and gate/up QuantLinears that share left transforms into
-    single-launch FusedQuantLinears. Returns a new model sharing every
-    other submodule with ``model``."""
-    if cfg.arch != "llama":
+    single-launch FusedQuantLinears, and stack Mixtral's experts (the
+    stacked copy replaces the per-expert list in the new model). Returns a
+    new model sharing every other submodule with ``model``."""
+    if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(f"fusion for arch {cfg.arch!r}")
     layers = []
     for src in model.layers:
@@ -272,14 +328,24 @@ def fuse_for_inference(cfg: ModelConfig, model: LlamaModel) -> LlamaModel:
         trio = [attn.get(k) for k in ("q_proj", "k_proj", "v_proj")]
         if _sharable(trio):
             attn = {"qkv_proj": fuse_qlinears(trio), "o_proj": attn["o_proj"]}
-        mlp = dict(src["mlp"].items())
-        duo = [mlp.get("gate_proj"), mlp.get("up_proj")]
-        if _sharable(duo):
-            mlp = {"gateup_proj": fuse_qlinears(duo),
-                   "down_proj": mlp["down_proj"]}
-        layers.append(nn.ModuleDict({
-            "input_layernorm": src["input_layernorm"],
-            "post_attention_layernorm": src["post_attention_layernorm"],
-            "self_attn": nn.ModuleDict(attn), "mlp": nn.ModuleDict(mlp)}))
+        mods = {"input_layernorm": src["input_layernorm"],
+                "post_attention_layernorm": src["post_attention_layernorm"],
+                "self_attn": nn.ModuleDict(attn)}
+        if cfg.arch == "mixtral":
+            moe = src["block_sparse_moe"]
+            stacked = stack_experts(moe)
+            if stacked is not None:
+                moe = nn.ModuleDict({"gate": moe["gate"],
+                                     "experts_stacked":
+                                         nn.ModuleDict(stacked)})
+            mods["block_sparse_moe"] = moe
+        else:
+            mlp = dict(src["mlp"].items())
+            duo = [mlp.get("gate_proj"), mlp.get("up_proj")]
+            if _sharable(duo):
+                mlp = {"gateup_proj": fuse_qlinears(duo),
+                       "down_proj": mlp["down_proj"]}
+            mods["mlp"] = nn.ModuleDict(mlp)
+        layers.append(nn.ModuleDict(mods))
     return LlamaModel(model.embed_tokens.weight, layers, model.norm.weight,
                       model.lm_head)

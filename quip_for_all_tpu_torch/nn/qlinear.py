@@ -42,6 +42,15 @@ def _grouped_prologue_matmul(x, spec, qt, scale, compute_dtype,
                                   plain=impl == "plain")
 
 
+def same_tensor(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
+                ) -> bool:
+    """Both None, or equal in shape and value (the same object skips the
+    comparison)."""
+    if (a is None) != (b is None):
+        return False
+    return a is b or a is None or (a.shape == b.shape and torch.equal(a, b))
+
+
 class _PlaneHolder(nn.Module):
     """Registers a QuantizedTensor's planes as buffers (so ``.to()`` moves
     them) and rebuilds the container on access."""

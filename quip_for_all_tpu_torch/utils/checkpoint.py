@@ -1,6 +1,8 @@
-"""Load reference-schema quantized checkpoints (llama family, E8P12) —
-counterpart of ``load_quantized`` / ``_build_qlinear`` in
-``quip_for_all_tpu/utils/checkpoint.py``.
+"""Load reference-schema quantized checkpoints (llama family and Mixtral,
+E8P12) — counterpart of ``load_quantized`` / ``_build_qlinear`` in
+``quip_for_all_tpu/utils/checkpoint.py``. Mixtral's router gate loads
+dense (or quantized, when the checkpoint quantized it) and its experts as
+per-expert quantized linears; ``fuse_for_inference`` stacks them.
 
 The schema: safetensors with HF state-dict names; each quantized linear
 stores Qidxs (packed codes), SU, SV, Wscale (unnormalized), optional bias,
@@ -117,10 +119,10 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda"
         raise FileNotFoundError(f"{save_dir!r} is not a local directory")
     cfg = ModelConfig.from_pretrained_dir(save_dir)
     qcfg = load_quant_config(save_dir)
-    if cfg.arch != "llama":
+    if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
-            f"{'slice 4' if cfg.arch == 'mixtral' else 'slice 5'})")
+            "slice 5)")
     if int(qcfg.get("tp_shards", 1)) > 1:
         raise NotImplementedError("tensor-parallel checkpoints (ROADMAP.md "
                                   "queue 1, slice 8)")
@@ -151,13 +153,23 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda"
         tree["lm_head"] = dense("lm_head")
     for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}"
-        tree["layers"].append({
+        blk = {
             "input_layernorm": w(f"{p}.input_layernorm.weight"),
             "post_attention_layernorm":
                 w(f"{p}.post_attention_layernorm.weight"),
             "self_attn": {x: dense(f"{p}.self_attn.{x}")
                           for x in ("q_proj", "k_proj", "v_proj", "o_proj")},
-            "mlp": {x: dense(f"{p}.mlp.{x}")
-                    for x in ("gate_proj", "up_proj", "down_proj")},
-        })
+        }
+        if cfg.arch == "mixtral":
+            moe = f"{p}.block_sparse_moe"
+            blk["block_sparse_moe"] = {
+                "gate": dense(f"{moe}.gate"),
+                "experts": [{x: dense(f"{moe}.experts.{e}.{x}")
+                             for x in ("w1", "w2", "w3")}
+                            for e in range(cfg.num_local_experts)],
+            }
+        else:
+            blk["mlp"] = {x: dense(f"{p}.mlp.{x}")
+                          for x in ("gate_proj", "up_proj", "down_proj")}
+        tree["layers"].append(blk)
     return cfg, LlamaModel.from_tree(tree), qcfg

@@ -1,9 +1,11 @@
 """Carry a JAX param tree across into the port's modules, without importing
 JAX: attributes are read by name and arrays through ``np.asarray``.
 
-The tree is the JAX package's unfused llama param dict (nested dicts and
-lists; ``QuantLinearParams`` / ``QuantizedTensor`` leaves recognised by
-their fields). Fuse afterwards with the port's own ``fuse_for_inference``.
+The tree is the JAX package's unfused llama or Mixtral param dict (nested
+dicts and lists — Mixtral's ``block_sparse_moe`` holds a dense ``gate``
+dict and an ``experts`` list of {w1, w2, w3}; ``QuantLinearParams`` /
+``QuantizedTensor`` leaves recognised by their fields). Fuse afterwards
+with the port's own ``fuse_for_inference``, which stacks the experts.
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy, which
 ``torch.from_numpy`` refuses: they go through float32 (exact) and back to
 bfloat16.
@@ -72,6 +74,7 @@ def _walk(node, device, memo):
 
 
 def from_jax_params(tree: Any, device="cuda") -> LlamaModel:
-    """JAX llama param tree -> the port's ``LlamaModel`` on ``device``."""
+    """JAX llama/Mixtral param tree -> the port's ``LlamaModel`` on
+    ``device``."""
     dev = resolve_device(device)
     return LlamaModel.from_tree(_walk(tree, dev, {}))

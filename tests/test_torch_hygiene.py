@@ -24,8 +24,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    # runs on the card's machine, which has no JAX
+    # run on the card's machine, which has no JAX
     yield os.path.join(REPO, "tests", "test_torch_kernel_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_moe_cuda.py")
 
 
 def _imports(path):
@@ -53,12 +54,12 @@ def test_port_keeps_its_own_assets():
     pkg = os.path.join(REPO, "quip_for_all_tpu_torch")
     assert os.path.isfile(os.path.join(pkg, "transforms",
                                        "_hadamard_asset.npz"))
-    assert os.path.isfile(os.path.join(pkg, "csrc",
-                                       "fused_decode_matmul.cu"))
+    for src in ("fused_decode_matmul.cu", "moe_decode_matmul.cu"):
+        assert os.path.isfile(os.path.join(pkg, "csrc", src))
 
 
-@pytest.mark.parametrize("entry", ["random", "generate", "load", "convert",
-                                   "caches"])
+@pytest.mark.parametrize("entry", ["random", "random_mixtral", "generate",
+                                   "load", "convert", "caches"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -67,6 +68,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "random":
             qt.random_quantized_model(cfg)
+        elif entry == "random_mixtral":
+            qt.random_quantized_model(qt.tiny_config(
+                arch="mixtral", num_local_experts=4))
         elif entry == "generate":
             model = qt.random_quantized_model(cfg, device="cpu")
             qt.generate(cfg, model, torch.zeros((1, 3), dtype=torch.long), 2)
