@@ -27,7 +27,20 @@ line):
      prompt/greedy runs with 64 new tokens, exact launch counts of both
      kernels, a 16-token prompt through the sparse prefill, and the
      kernel-vs-plain check with the kernel run on the plain run's top-2
-     routing (a fork accepted only at a near-tie of the tokens).
+     routing (a fork accepted only at a near-tie of the tokens);
+  7. the row-pair kernels (u3 and pb) against their plain twins at the
+     Llama-2-7B shapes, m = 1, 8, 32 and 64 in bf16 and m = 1 in f32,
+     timed as in phase 2, each beside fused_decode_matmul on the nibble
+     planes of the same codes (E8P12 1 plane for u3, E8P12RVQ4B 2 planes
+     for pb);
+  8. the golden fixtures in the byte-cut layouts: e8p12 as u3, e8p12rvq4b
+     as nibble and as pb;
+  9. the byte-cut paths at full width, all 32 layers, random codes from
+     seed 0: (a) Llama-2-7B E8P12 in u3 and (b) E8P12RVQ4B in pb through
+     the row-pair kernels, (c) E8P12RVQ4B in nibble through
+     fused_decode_matmul with 2 plane sets; each a 32-token prompt and 32
+     greedy tokens twice, exact launch counts, one graphed step, and the
+     kernel-vs-plain check over 16 tokens.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists the kernels with their numbers.
 """
@@ -42,6 +55,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak, data sheet
+F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, data sheet
 REPO = os.path.dirname(os.path.abspath(__file__))
 L2_BYTES = 50 * 2 ** 20
 
@@ -54,7 +68,21 @@ KERNELS = [{
     "source": "quip_for_all_tpu_torch/csrc/moe_decode_matmul.cu",
     "replaces": "quip_for_all_tpu/ops/moe_pallas.py:56 (K4) and "
                 "quip_for_all_tpu/ops/moe_pallas.py:91 (K5)",
+}, {
+    "name": "rowpair_u3_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/rowpair_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:486 (K9)",
+}, {
+    "name": "rowpair_pb_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/rowpair_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:566 (K8)",
 }]
+# the byte-cut layouts: (layout, codebook, kernel); the nibble planes of
+# the same codes run fused_decode_matmul with 1 (E8P12) or 2 plane sets
+ROWPAIR = [("u3", "E8P12", "rowpair_u3_decode_matmul"),
+           ("pb", "E8P12RVQ4B", "rowpair_pb_decode_matmul")]
+RP_CASES = [(1, "bfloat16"), (8, "bfloat16"), (32, "bfloat16"),
+            (64, "bfloat16"), (1, "float32")]
 # fused_decode_matmul linears: (name, q_out, q_in, scale vector in the
 # epilogue on the main path, rows m timed). The first five are Llama-2-7B's
 # per decode token; Mixtral-8x7B shares o and head and has its own GQA qkv.
@@ -93,6 +121,18 @@ def bf16_ulp(v):
     import torch
     a = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def close_enough(got, want):
+    """(ok, max |diff|), kernel against plain twin: f32 sum order (1e-5 of
+    the max, as in the f32 tests) plus one bf16 rounding step of the
+    element; the kernel's output must be finite."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    ok = bool(torch.all(diff <= bf16_ulp(torch.maximum(
+        got.float().abs(), want.float().abs()))
+        + 1e-5 * want.float().abs().max()))
+    return ok and bool(torch.isfinite(got.float()).all()), float(diff.max())
 
 
 def graph_ms(fn, n: int, reps: int = 1) -> float:
@@ -136,15 +176,17 @@ def event_ms(fn, n: int) -> float:
 def phase_build():
     from quip_for_all_tpu_torch.ops import _build
     t = time.time()
-    reports = _build.build_all([k["name"] for k in KERNELS])
+    sources = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS})
+    reports = _build.build_all(sources)
     dt = time.time() - t
-    for name in [k["name"] for k in KERNELS]:
+    for name in sources:
         _build.load(name)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    log(f"build: {len(KERNELS)} kernel source(s) in {dt:.1f} s "
+    log(f"build: {len(KERNELS)} kernels from {len(sources)} source(s) in "
+        f"{dt:.1f} s "
         f"({'built' if reports else 'already built'})")
     return dt
 
@@ -184,15 +226,9 @@ def phase_kernels():
             got = fm.fused_decode_matmul(x, [w], affine, scale, rows=m)
             want = fm.fused_decode_matmul_ref(x[:m], [w], affine, scale)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            # f32 sum order (1e-5 of the max, as in the f32 tests) plus one
-            # bf16 rounding step of the element
-            ok = bool(torch.all(diff <= bf16_ulp(torch.maximum(
-                got.float().abs(), want.float().abs()))
-                + 1e-5 * want.float().abs().max()))
-            err = float(diff.max())
+            ok, err = close_enough(got, want)
             max_err = max(max_err, err)
-            if not (ok and torch.isfinite(got.float()).all()):
+            if not ok:
                 raise AssertionError(
                     f"{name} m={m}: kernel vs plain twin beyond tolerance "
                     f"(max |diff| {err})")
@@ -271,13 +307,9 @@ def phase_moe_kernels():
             got = mm.moe_fused_matmul(x, eids, [planes], affine, m)
             want = mm.moe_fused_matmul_ref(x, eids, [planes], affine)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            ok = bool(torch.all(diff <= bf16_ulp(torch.maximum(
-                got.float().abs(), want.float().abs()))
-                + 1e-5 * want.float().abs().max()))
-            err = float(diff.max())
+            ok, err = close_enough(got, want)
             max_err = max(max_err, err)
-            if not (ok and torch.isfinite(got.float()).all()):
+            if not ok:
                 raise AssertionError(
                     f"moe {name} R={R}: kernel vs plain twin beyond "
                     f"tolerance (max |diff| {err})")
@@ -334,26 +366,35 @@ def phase_moe_kernels():
     return rows, max_err
 
 
-def phase_golden():
-    """The golden reference-schema fixture, loaded by the port and run on
-    the card through the kernel in f32: rel < 2e-4 as the JAX test holds."""
+def phase_golden(cases=(("e8p12", None),)):
+    """Golden reference-schema fixtures, loaded by the port in a runtime
+    layout and run on the card through the layout's kernel in f32: rel <
+    2e-4 as the JAX test holds, and a launch of the expected kernel."""
     import numpy as np
     import torch
     from quip_for_all_tpu_torch.utils.checkpoint import load_quantized
-    path = os.path.join(REPO, "tests", "golden", "e8p12")
-    cfg, model, _ = load_quantized(path, device="cuda")
-    exp = np.load(os.path.join(path, "expected.npz"))
-    blk = model.layers[0]
-    for role, lin in (("q_proj", blk["self_attn"]["q_proj"]),
-                      ("down_proj", blk["mlp"]["down_proj"])):
-        n = lin.in_features
-        got = lin(torch.eye(n, device="cuda"),
-                  compute_dtype=torch.float32).cpu().numpy()
-        rel = float(np.abs(got - exp[role]).max()
-                    / (np.abs(exp[role]).max() + 1e-9))
-        log(f"golden e8p12 {role}: rel err {rel:.3g} (tol 2e-4)")
-        if not rel < 2e-4:
-            raise AssertionError(f"golden {role} rel {rel}")
+    for fixture, layout in cases:
+        path = os.path.join(REPO, "tests", "golden", fixture)
+        cfg, model, _ = load_quantized(path, device="cuda", layout=layout)
+        exp = np.load(os.path.join(path, "expected.npz"))
+        blk = model.layers[0]
+        kernel = {"u3": "rowpair_u3_decode_matmul",
+                  "pb": "rowpair_pb_decode_matmul"}.get(
+                      layout, "fused_decode_matmul")
+        for role, lin in (("q_proj", blk["self_attn"]["q_proj"]),
+                          ("down_proj", blk["mlp"]["down_proj"])):
+            n = lin.in_features
+            reset_launches()
+            got = lin(torch.eye(n, device="cuda"),
+                      compute_dtype=torch.float32).cpu().numpy()
+            launched = read_launches()[kernel]
+            rel = float(np.abs(got - exp[role]).max()
+                        / (np.abs(exp[role]).max() + 1e-9))
+            log(f"golden {fixture} [{layout or 'nibble'}] {role}: rel err "
+                f"{rel:.3g} (tol 2e-4), {launched} {kernel} launch(es)")
+            if not (rel < 2e-4 and launched == 1):
+                raise AssertionError(f"golden {fixture} {layout} {role}: "
+                                     f"rel {rel}, {launched} launches")
 
 
 def timed_generate(cfg, model, prompt, cache_len):
@@ -371,24 +412,32 @@ def timed_generate(cfg, model, prompt, cache_len):
     return run
 
 
-def reset_launches():
+def _counters():
+    """Each kernel's wrapper, which counts its launches."""
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
     from quip_for_all_tpu_torch.ops import moe_matmul as mm
-    fm.fused_decode_matmul.launches = 0
-    mm.moe_fused_matmul.launches = 0
+    from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
+    return {"fused_decode_matmul": fm.fused_decode_matmul,
+            "moe_decode_matmul": mm.moe_fused_matmul,
+            "rowpair_u3_decode_matmul": rm.rowpair_u3_matmul,
+            "rowpair_pb_decode_matmul": rm.rowpair_pb_matmul}
+
+
+def reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from quip_for_all_tpu_torch.ops import fused_matmul as fm
-    from quip_for_all_tpu_torch.ops import moe_matmul as mm
-    return {"fused_decode_matmul": fm.fused_decode_matmul.launches,
-            "moe_decode_matmul": mm.moe_fused_matmul.launches}
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
 def check_launches(tag, got, expect):
+    """Every kernel's count must equal ``expect`` (0 where not named)."""
+    expect = {k: expect.get(k, 0) for k in got}
     log(f"{tag}: launches " + ", ".join(
         f"{k} {got[k]} (expected {expect[k]})" for k in expect))
-    if any(got[k] != expect[k] for k in expect):
+    if got != expect:
         raise AssertionError(f"{tag}: launch counts {got} != {expect}")
 
 
@@ -444,7 +493,8 @@ def phase_main():
     # main path; bf16 rounding of every linear output amplifies through 32
     # random layers, hence 5e-2) and in f32 (sum order only, 1e-3)
     for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
-        check_plain(cfg, model, prompt, dt, tol, CACHE)
+        check_plain(cfg, model, prompt, dt, tol, CACHE,
+                    kernel="fused_decode_matmul")
     dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
     log(f"main: one decode step (position {S}): device time {dev_ms:.2f} ms "
         f"(CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
@@ -517,6 +567,188 @@ def phase_mixtral():
             "eager_ms": eager_ms}
 
 
+def phase_rowpair_kernels():
+    """The row-pair kernels against their plain twins at Llama-2-7B's
+    shapes, timed as phase 2 times fused_decode_matmul, and beside
+    fused_decode_matmul on the nibble planes of the same codes."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops import qtensor as Q
+    from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, max_err = [], {}
+    for layout, codebook, kname in ROWPAIR:
+        max_err[kname] = 0.0
+        for name, q_out, q_in, with_scale, _ in SHAPES[:5]:
+            qrp = random_qtensor(codebook, layout, q_out, q_in, gen, "cuda")
+            qn = (Q.u3_to_nibble if layout == "u3" else Q.pb_to_nibble)(qrp)
+            Gp, Gn = qrp.group_cols, qn.group_cols
+            rs = qrp.opt_resid_scale
+
+            def kernel(x, planes, scale, m):
+                if layout == "u3":
+                    return rm.rowpair_u3_matmul(x, planes, scale, rows=m)
+                return rm.rowpair_pb_matmul(x, planes, rs, scale, rows=m)
+            plane_bytes = sum(v.numel() * 4 for v in qrp.planes.values())
+            nib_bytes = sum(v.numel() * 4 for v in qn.planes.values())
+            copies = max(2, math.ceil(2 * L2_BYTES / plane_bytes))
+            rps = [qrp.planes] + [{k: v.clone() for k, v in qrp.planes.items()}
+                                  for _ in range(copies - 1)]
+            ncopies = max(2, math.ceil(2 * L2_BYTES / nib_bytes))
+            nibs = [qn.plane_list()] + [[v.clone() for v in qn.plane_list()]
+                                        for _ in range(ncopies - 1)]
+            scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
+                     if with_scale else None)
+            W = decode_weights(qrp, dtype=torch.bfloat16)
+            w_copies = max(2, math.ceil(2 * L2_BYTES / (W.numel() * 2)))
+            Ws = [W] + [W.clone() for _ in range(w_copies - 1)]
+            for m, dt in RP_CASES:
+                dtype = getattr(torch, dt)
+                mp = max(8, -(-m // 8) * 8)
+                x_nat = torch.randn((m, q_in), generator=gen, device="cuda")
+                x = torch.zeros((mp, 8 * Gp), device="cuda", dtype=dtype)
+                x[:m] = fm.grouped_permute(x_nat, Gp).to(dtype)
+                xn = torch.zeros((mp, 8 * Gn), device="cuda", dtype=dtype)
+                xn[:m] = fm.grouped_permute(x_nat, Gn).to(dtype)
+                got = kernel(x, qrp.planes, scale, m)
+                want = rm.rowpair_matmul_ref(x, layout, qrp.planes, rs, scale,
+                                             rows=m)
+                nib = fm.fused_decode_matmul(xn, qn.plane_list(),
+                                             qn.decode_affine, scale, rows=m)
+                nib_want = fm.fused_decode_matmul_ref(
+                    xn[:m], qn.plane_list(), qn.decode_affine, scale)
+                torch.cuda.synchronize()
+                ok, err = close_enough(got, want)
+                ok_n, err_n = close_enough(nib, nib_want)
+                max_err[kname] = max(max_err[kname], err)
+                if not (ok and ok_n):
+                    raise AssertionError(
+                        f"{kname} {name} m={m} {dt}: kernel vs plain twin "
+                        f"{err}; on the nibble planes of the same codes, "
+                        f"fused_decode_matmul vs its twin {err_n}")
+                k_ms = graph_ms(lambda i: kernel(x, rps[i % copies], scale, m),
+                                4 * copies)
+                n_ms = graph_ms(lambda i: fm.fused_decode_matmul(
+                    xn, nibs[i % ncopies], qn.decode_affine, scale, rows=m),
+                    4 * ncopies)
+                p_ms = event_ms(lambda i: rm.rowpair_matmul_ref(
+                    x, layout, rps[i % copies], rs, scale, rows=m), 3)
+                xb = x_nat.to(torch.bfloat16)
+                lib_ms = graph_ms(lambda i: torch.matmul(
+                    xb, Ws[i % w_copies].T), 4 * w_copies)
+                esz = 2 if dtype == torch.bfloat16 else 4
+                io = m * 8 * Gp * esz + m * q_out * esz + (
+                    q_out * 4 if with_scale else 0)
+                nbytes = plane_bytes + io
+                n_bytes = nib_bytes + m * 8 * Gn * esz + m * q_out * esz + (
+                    q_out * 4 if with_scale else 0)
+                ops = 2 * m * q_out * 8 * Gp
+                peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                    F32_OPS_PER_S
+                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                b_ops = ops / peak * 1e3
+                row = {"kernel": kname, "layout": layout, "layer": name,
+                       "q_out": q_out, "Gp": Gp, "m": m, "dtype": dt,
+                       "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "nibble_ms": n_ms,
+                       "bound_ms": max(b_bytes, b_ops),
+                       "bound_by": "bytes" if b_bytes >= b_ops
+                       else "operations",
+                       "nibble_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                       "bytes": nbytes, "nibble_bytes": n_bytes}
+                rows.append(row)
+                log(f"kernel {layout} {name:6s} {q_out}x{Gp} m={m:2d} {dt}: "
+                    f"max|k-plain| {err:.3g} (tol 1 bf16 ulp + 1e-5 max) | "
+                    f"kernel {k_ms * 1e3:.1f} us | plain {p_ms * 1e3:.1f} us "
+                    f"| bound {row['bound_ms'] * 1e3:.1f} us "
+                    f"({row['bound_by']}, {nbytes / 1e6:.2f} MB) | "
+                    f"{row['bound_ms'] / k_ms:.0%} of bound | library "
+                    f"{lib_ms * 1e3:.1f} us (dense bf16 product, not the same"
+                    f" function) | nibble fused_decode_matmul on the same "
+                    f"codes {n_ms * 1e3:.1f} us (bound "
+                    f"{row['nibble_bound_ms'] * 1e3:.1f} us, "
+                    f"{n_bytes / 1e6:.2f} MB) -> {layout}/nibble "
+                    f"{k_ms / n_ms:.2f}x")
+            del rps, nibs, Ws, W, qrp, qn
+            torch.cuda.empty_cache()
+    for layout, _, kname in ROWPAIR:
+        per_tok = {key: call_sum([r for r in rows if r["kernel"] == kname],
+                                 LLAMA_CALLS, key, m=1, dtype="bfloat16")
+                   for key in ("ms", "nibble_ms", "bound_ms",
+                               "nibble_bound_ms")}
+        log(f"kernel {kname} per Llama-2-7B decode token (m=1, bf16, 129 "
+            f"calls): {per_tok['ms']:.3f} ms against a "
+            f"{per_tok['bound_ms']:.3f} ms bound; fused_decode_matmul on "
+            f"the nibble planes of the same "
+            f"codes {per_tok['nibble_ms']:.3f} ms against "
+            f"{per_tok['nibble_bound_ms']:.3f} ms")
+    return rows, max_err
+
+
+def phase_rowpair_paths():
+    """Llama-2-7B at full width and all 32 layers in the byte-cut layouts:
+    (a) E8P12 u3 and (b) E8P12RVQ4B pb through the row-pair kernels, (c)
+    E8P12RVQ4B nibble through fused_decode_matmul with 2 plane sets. Each
+    path runs with the launch counts set to 0 just before and read just
+    after. Returns {path: launches, step times}."""
+    import gc
+    import torch
+    import quip_for_all_tpu_torch as qt
+    cfg = qt.llama2_7b_config()
+    S, NEW, CACHE = 32, 32, 2048
+    per_step = 4 * LAYERS + 1
+    out = {}
+    for tag, codebook, layout, kname in (
+            ("a_u3", "E8P12", "u3", "rowpair_u3_decode_matmul"),
+            ("b_pb", "E8P12RVQ4B", "pb", "rowpair_pb_decode_matmul"),
+            ("c_rvq4b_nibble", "E8P12RVQ4B", None, "fused_decode_matmul")):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        model = qt.random_quantized_model(cfg, codebook, seed=0,
+                                          dtype=torch.bfloat16,
+                                          quantize_head=True, device="cuda",
+                                          layout=layout)
+        model = qt.fuse_for_inference(cfg, model)
+        torch.cuda.synchronize()
+        log(f"{tag}: built Llama-2-7B {codebook} [{layout or 'nibble'}] "
+            f"(random codes, seed 0, fused, quantized head) in "
+            f"{time.time() - t:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
+            f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                               device="cuda")
+        run = timed_generate(cfg, model, prompt, CACHE)
+        run(4)                                       # warm-up
+        (_, _), t_pre = run(1)                       # prefill only
+        reset_launches()
+        (ids1, logits1), t1 = run(NEW)
+        launches = read_launches()
+        (ids2, _), t2 = run(NEW)
+        ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
+        log(f"{tag}: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
+            f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
+            f"({1e3 / ms_tok:.1f} tok/s); second run "
+            f"{(t2 - t_pre) / (NEW - 1) * 1e3:.2f} ms/token")
+        check_launches(tag, launches, {kname: per_step * NEW})
+        check_runs(tag, cfg, ids1, ids2, logits1, NEW)
+        for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+            check_plain(cfg, model, prompt, dt, tol, CACHE, tag=tag,
+                        kernel=kname)
+        dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
+        log(f"{tag}: one decode step (position {S}): device time "
+            f"{dev_ms:.2f} ms (CUDA-graph replay), eager {eager_ms:.2f} ms "
+            f"-> device idle {1 - dev_ms / eager_ms:.0%} of the eager step")
+        out[tag] = {"kernel": kname, "launches": launches[kname],
+                    "ms_tok": ms_tok, "dev_ms": dev_ms, "eager_ms": eager_ms}
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
     """Device time of one bf16 decode step: the step captured once in a
     CUDA graph and replayed n times between CUDA events (no host dispatch),
@@ -575,11 +807,15 @@ def shared_routing(model, k, logits, replay):
 
 
 def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
-                tag="main"):
+                tag="main", kernel=None):
     """The first decode step's logits and n greedy tokens with every linear
     on the kernel vs on the plain twin. A greedy fork is accepted only at a
     near-tie: the kernel's token within tol*max|logit| of the plain max.
-    On an MoE model the kernel run takes the plain run's routing
+    When the runs fork at the prompt's own token (a near-tie there), the
+    first decode steps see different tokens, and the prompt's logits (the
+    same inputs in both runs) are held to tol instead. ``kernel`` names the
+    path's kernel, whose launches in the kernel run must be one per linear
+    per step. On an MoE model the kernel run takes the plain run's routing
     (``shared_routing``): the runs then differ by the linears' rounding and
     not by a top-k choice that a near-tie of router logits flips, and the
     MoE kernel runs on every decode step of the kernel run."""
@@ -601,20 +837,32 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
                                                 "matmul_impl": impl})
     launches = read_launches()
     (ids_k, lk), (ids_p, lp) = outs["auto"], outs["plain"]
-    d1 = float((lk[1] - lp[1]).abs().max() / lp[1].abs().max())
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
     k_toks, p_toks = ids_k[0, S:], ids_p[0, S:]
     same = int((k_toks == p_toks).long().cumprod(0).sum())
+    d0 = rel(lk[0], lp[0])
+    d1 = rel(lk[1], lp[1]) if same >= 1 else None
     gap = 0.0
     if same < n:
         row = lp[same][0]
         gap = float((row.max() - row[k_toks[same]]) / row.abs().max())
     label = str(dtype).replace("torch.", "")
-    log(f"{tag} [{label}]: first decode step logits, kernel vs plain twin: "
-        f"max|diff|/max|logit| {d1:.3g} (tol {tol}); greedy tokens equal "
-        f"for {same}/{n} steps" + (
+    log(f"{tag} [{label}]: kernel vs plain twin, max|diff|/max|logit|: "
+        f"prompt logits {d0:.3g}, first decode step logits " + (
+            f"{d1:.3g}" if d1 is not None else
+            "not compared (the runs forked at the prompt's token)")
+        + f" (tol {tol}); greedy tokens equal for {same}/{n} steps" + (
             f"; at step {same} the kernel's token is {gap:.3g} of "
             f"max|logit| below the plain argmax (tol {tol})"
             if same < n else ""))
+    if kernel is not None:
+        per_step = 4 * len(model.layers) + 1
+        log(f"{tag} [{label}]: {launches[kernel]} {kernel} launches in the "
+            f"kernel run (expected {per_step * n})")
+        if launches[kernel] != per_step * n:
+            raise AssertionError(f"{tag} {label}: launches {launches}")
     if moe:
         L = len(model.layers)
         log(f"{tag} [{label}]: the kernel run took the plain run's top-"
@@ -624,7 +872,7 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
             f"(expected {(n - 1) * 2 * L})")
         if launches["moe_decode_matmul"] != (n - 1) * 2 * L:
             raise AssertionError(f"{tag} {label}: launches {launches}")
-    if not (d1 <= tol and gap <= tol):
+    if not ((d1 if d1 is not None else d0) <= tol and gap <= tol):
         raise AssertionError(f"{tag} {label}: kernel path differs from the "
                              "plain twin beyond tolerance")
 
@@ -647,10 +895,12 @@ def log_k2(rows):
             f"{k} {v:.3f}" for k, v in parts.items()))
 
 
-def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix):
+def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
+                   rp_rows, rp_err, paths):
     """The kernels line: per decode token of each kernel's own path (the
     fused kernel's at Llama-2-7B's shapes, the MoE kernel's at Mixtral's
-    w13 and w2 with R = 2); launches from the main paths' counted runs."""
+    w13 and w2 with R = 2, the row-pair kernels' at Llama-2-7B's shapes in
+    bf16); launches from the paths' counted runs."""
     moe_calls = {"w13": LAYERS, "w2": LAYERS}
 
     def entry(kernel, rows_, calls, match, launches, err):
@@ -667,7 +917,8 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix):
                   max_err)
     fused["launches_by_path"] = {
         "llama2_7b": llama_launches,
-        "mixtral_8x7b": mix["launches"]["fused_decode_matmul"]}
+        "mixtral_8x7b": mix["launches"]["fused_decode_matmul"],
+        "llama2_7b_rvq4b_nibble": paths["c_rvq4b_nibble"]["launches"]}
     moe = entry(KERNELS[1], moe_rows, moe_calls, {"R": 2},
                 mix["launches"]["moe_decode_matmul"], moe_err)
     # Mixtral's decode step: its fused calls (GQA qkv, o, head) and its
@@ -679,7 +930,17 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix):
         f"({(mix_fused + moe['ms']) / mix['dev_ms']:.0%}); bound "
         f"{call_sum(rows, MIXTRAL_FUSED_CALLS, 'bound_ms', m=1):.3f} + "
         f"{moe['bound_ms']:.3f} ms")
-    return [fused, moe]
+    entries = [fused, moe]
+    for (layout, _, kname), path in zip(ROWPAIR, ("a_u3", "b_pb")):
+        e = entry(next(k for k in KERNELS if k["name"] == kname), rp_rows,
+                  LLAMA_CALLS, {"kernel": kname, "m": 1, "dtype": "bfloat16"},
+                  paths[path]["launches"], rp_err[kname])
+        log(f"{path}: per decode token the {layout} kernel takes "
+            f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
+            f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
+            f"{e['bound_ms']:.3f} ms")
+        entries.append(e)
+    return entries
 
 
 def main() -> int:
@@ -709,11 +970,14 @@ def main() -> int:
         rows, max_err = phase_kernels()
         moe_rows, moe_err = phase_moe_kernels()
         log_k2(rows)
-        phase_golden()
+        rp_rows, rp_err = phase_rowpair_kernels()
+        phase_golden((("e8p12", None), ("e8p12", "u3"),
+                      ("e8p12rvq4b", None), ("e8p12rvq4b", "pb")))
         launches = phase_main()
         mix = phase_mixtral()
+        paths = phase_rowpair_paths()
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
-                                 mix)
+                                 mix, rp_rows, rp_err, paths)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

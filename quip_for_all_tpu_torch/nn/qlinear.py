@@ -56,12 +56,14 @@ class _PlaneHolder(nn.Module):
     them) and rebuilds the container on access."""
 
     def _set_qweight(self, qt: Optional[QuantizedTensor]):
+        # planes of any layout; pb's w0 is a 3-D buffer
         self.plane_keys = sorted(qt.planes) if qt is not None else []
         for k in self.plane_keys:
             self.register_buffer(f"planes_{k}", qt.planes[k])
         if qt is not None:
             self.codebook_id = qt.codebook_id
             self.opt_resid_scale = qt.opt_resid_scale
+            self.layout = qt.layout
 
     @property
     def qweight(self) -> QuantizedTensor:
@@ -69,7 +71,8 @@ class _PlaneHolder(nn.Module):
             raise RuntimeError("this layer holds no planes (fused segment)")
         return QuantizedTensor(
             {k: getattr(self, f"planes_{k}") for k in self.plane_keys},
-            self.codebook_id, self.q_out, self.q_in, self.opt_resid_scale)
+            self.codebook_id, self.q_out, self.q_in, self.opt_resid_scale,
+            self.layout)
 
 
 class QuantLinear(_PlaneHolder):
@@ -190,14 +193,19 @@ def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
     p0 = ps[0]
     for p in ps[1:]:
         if (p.q_in != p0.q_in or p.K_left != p0.K_left
-                or p.codebook_id != p0.codebook_id):
+                or p.codebook_id != p0.codebook_id
+                or p.layout != p0.layout):
             raise ValueError("fuse_qlinears: left sides differ")
     q0 = p0.qweight
-    planes = {k: torch.cat([p.qweight.planes[k] for p in ps], dim=0)
-              for k in q0.planes}
+    # segments concatenate along q_out: plane axis 0 for the 2-D planes
+    # (the row-pair u3/pb planes too: each segment paired its own rows, so
+    # no pair straddles a segment), axis 1 for pb's 3-D w0
+    planes = {k: torch.cat([p.qweight.planes[k] for p in ps],
+                           dim=1 if v.dim() == 3 else 0)
+              for k, v in q0.planes.items()}
     q_out = sum(p.q_out for p in ps)
     qt = QuantizedTensor(planes, q0.codebook_id, q_out, p0.q_in,
-                         q0.opt_resid_scale)
+                         q0.opt_resid_scale, q0.layout)
     uniform = all(
         p.q_out == p0.q_out and p.out_features == p.q_out
         and p.K_right == p0.K_right

@@ -13,8 +13,8 @@ Every expert weight array is stacked along a leading E axis, which gives:
 
 The dense all-experts formulation for expert-parallel meshes
 (``moe_dense_stacked_apply``) waits for the parallelism slice. Stacking
-takes the nibble layout only: the port's ``QuantizedTensor`` holds no
-other (the layout conversions wait for slice 9).
+takes the nibble layout only and refuses u3/pb experts (the other layout
+conversions wait for slice 9).
 """
 from __future__ import annotations
 
@@ -90,6 +90,7 @@ def _stackable(groups: List[List[QuantLinear]]) -> bool:
                     or p.in_features != p00.in_features
                     or p.K_left != p00.K_left or p.K_right != p00.K_right
                     or p.codebook_id != p00.codebook_id
+                    or p.layout != p00.layout
                     or (p.SU is None) != (p00.SU is None)
                     or (p.SV is None) != (p00.SV is None)
                     or (p.bias is None) != (p00.bias is None)
@@ -111,6 +112,13 @@ def stack_qlinears(groups: List[List[QuantLinear]]
     if not _stackable(groups):
         return None
     p0 = groups[0][0]
+    if p0.layout != "nibble":
+        # the MoE kernel decodes nibble planes only. (The JAX package's
+        # stack_qlinears re-encodes paired/bfp/sw experts to nibble, but
+        # lets u3/pb through unchanged: ROADMAP.md queue 3.)
+        raise NotImplementedError(
+            f"stacking {p0.layout} experts: the MoE kernel takes the nibble "
+            "layout only (load Mixtral with layout=None)")
     planes = {k: torch.stack([torch.cat([p.qweight.planes[k] for p in g])
                               for g in groups])
               for k in p0.plane_keys}

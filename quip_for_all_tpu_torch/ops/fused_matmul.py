@@ -13,7 +13,8 @@ nibble is decoded in registers.
 
 with x in the grouped layout x_perm[:, i*Gp + g] = x[:, 8g + i] (pad lanes
 zero). A CPU tensor takes the plain twin ``fused_decode_matmul_ref``; a CUDA
-tensor launches the kernel or the call raises.
+tensor launches the kernel or the call raises. ``fused_quant_matmul_pre``
+sends the row-pair layouts (u3, pb) to ``ops/rowpair_matmul.py`` instead.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from .qtensor import QuantizedTensor
+from .qtensor import ROWPAIR_LAYOUTS, QuantizedTensor
+from .rowpair_matmul import (rowpair_matmul_ref, rowpair_pb_matmul,
+                             rowpair_u3_matmul)
 
 KERNEL = "fused_decode_matmul"
 
@@ -136,9 +139,12 @@ def fused_quant_matmul_pre(x_perm: torch.Tensor, qt: QuantizedTensor,
     """x already in the grouped-permuted layout (m, 8*Gp). m pads to a
     multiple of 8 (at least 8) and the result comes back with m rows, as
     in ``dequant_pallas.py:941-951``; the kernel computes only the m real
-    rows (the pad is the TPU's 8-sublane tile, which the CUDA kernel does
-    not need). ``plain`` runs the plain twin on any device (used to hold
-    the kernel against it)."""
+    rows (the pad is the TPU's 8-sublane tile, which the CUDA kernels do
+    not need; the row-pair kernels read the padded count only for their
+    group-sum rounding). The nibble layout goes to this module's kernel,
+    u3 and pb to theirs in ``ops/rowpair_matmul.py`` (``:810-822``).
+    ``plain`` runs the plain twin on any device (used to hold the kernel
+    against it)."""
     m = x_perm.shape[0]
     if x_perm.shape[1] != 8 * qt.group_cols:
         raise ValueError(f"x_perm {tuple(x_perm.shape)} vs Gp "
@@ -149,6 +155,14 @@ def fused_quant_matmul_pre(x_perm: torch.Tensor, qt: QuantizedTensor,
     x_perm = x_perm.contiguous()
     if scale_vec is not None:
         scale_vec = scale_vec.to(torch.float32).contiguous()
+    if qt.layout in ROWPAIR_LAYOUTS:
+        if plain:
+            return rowpair_matmul_ref(x_perm, qt.layout, qt.planes,
+                                      qt.opt_resid_scale, scale_vec, rows=m)
+        if qt.layout == "u3":
+            return rowpair_u3_matmul(x_perm, qt.planes, scale_vec, rows=m)
+        return rowpair_pb_matmul(x_perm, qt.planes, qt.opt_resid_scale,
+                                 scale_vec, rows=m)
     if plain:
         return fused_decode_matmul_ref(x_perm, qt.plane_list(),
                                        qt.decode_affine, scale_vec)[:m]

@@ -1,8 +1,9 @@
-"""QuantizedTensor: runtime container for lattice-coded weights (nibble
-layout), the PyTorch counterpart of ``quip_for_all_tpu/ops/qtensor.py``.
+"""QuantizedTensor: runtime container for lattice-coded weights, the
+PyTorch counterpart of ``quip_for_all_tpu/ops/qtensor.py``. Three runtime
+layouts, bit-identical to the JAX package's.
 
-The runtime planes are bit-identical to the JAX package's: one int32 word
-per 8-weight group holding 8 UNSIGNED nibbles, with a static affine decode
+**nibble** (the default): one int32 word per 8-weight group holding 8
+UNSIGNED nibbles, with a static affine decode
 
     weight_i = alpha * nib_i + beta,   nib_i = (word >> 4*i) & 0xF
 
@@ -13,30 +14,54 @@ per 8-weight group holding 8 UNSIGNED nibbles, with a static affine decode
   HI: nib = code, (alpha, beta) = (1, -7.5)
 
 Plane columns are padded to multiples of 128 groups with zero words; every
-consumer slices the pad off or zeroes the matching x lanes. Only E8P12 codes
-convert to and from planes in this slice; the other codebooks' affine rows
-are here because the fused kernel already takes their 1 or 2 plane sets.
+consumer slices the pad off or zeroes the matching x lanes. E8P12 uses one
+plane ("w0"), E8P12RVQ4B two (main "w0", residual "w1").
+
+The two **row-pair** layouts store fewer bits. Every E8P12 codeword entry is
+u - 2.25 - 0.5*p with u in {0..5} and the parity p shared by the 8-weight
+group. Each plane word holds 16-bit payloads of an output-row PAIR: row 2r
+in the low half, row 2r+1 in the high half (h = 0 / 1 below).
+
+**u3** (E8P12 only, ``qtensor.py:198-293`` there), Gp padded to 256:
+  w0 (q_out/2, Gp)   bits 16h + 2i:        u & 3 at position i
+  w1 (q_out/2, Gp/2) bit 16h + 8d + i:     u >> 2 of group d*Gp/2 + lane
+  w2 (q_out/2, PL)   bit 16h + j:          parity of group j*PL + lane
+(PL = ``u3_parity_lanes``). At q_in 4096 that is ~3.5 bits/weight: the
+parity plane fills only 4 of the 16 bits of each half.
+
+**pb** (E8P12RVQ4B only, ``qtensor.py:296-386`` there), Gp padded to 128:
+  w0 (2, q_out/2, Gp) nibble lo4 = u0 | (u1 & 1) << 3 of position i at bits
+                      16h + 4*(i mod 4) of w0[i div 4]
+  w1 (q_out/2, Gp)    bits 16h + 2i:       u1 >> 1
+  w2 (q_out/2, PL)    bits 16h + 2j (+1):  p0 (p1) of group j*PL + lane
+(PL = ``pb_parity_lanes``, which need not divide Gp); ~6.5 bits/weight
+against the nibble layout's 8.
+
+Only E8P12 and E8P12RVQ4B codes convert to and from planes in this port;
+the other codebooks' affine rows are here because the fused kernel already
+takes their 1 or 2 plane sets.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..codebooks import Codebook
 from ..codebooks import e8p12
+
+LAYOUTS = ("nibble", "u3", "pb")
+ROWPAIR_LAYOUTS = ("u3", "pb")
 
 
 @dataclasses.dataclass
 class QuantizedTensor:
     """Lattice-coded weight matrix of logical shape (q_out, q_in).
 
-    planes: int32 tensors of shape (q_out, ceil(q_in/8/128)*128), keyed
-      "w0" (main) and, for the two-stage codebooks, "w1" (residual).
-    """
+    planes: int32 tensors keyed "w0", "w1", ... in the shapes of the
+    layout (module docstring)."""
     planes: Dict[str, torch.Tensor]
     codebook_id: str
     q_out: int
@@ -45,19 +70,23 @@ class QuantizedTensor:
     layout: str = "nibble"
 
     def __post_init__(self):
-        if self.layout != "nibble":
+        if self.layout not in LAYOUTS:
             raise NotImplementedError(
                 f"runtime layout {self.layout!r} is not ported yet "
                 "(ROADMAP.md queue 1, slice 9)")
 
     @property
     def group_cols(self) -> int:
-        """Padded group count Gp (plane columns)."""
+        """Padded group count Gp (columns of x_perm per position)."""
         return self.planes["w0"].shape[-1]
 
     @property
     def decode_affine(self):
-        """Per-plane-set (alpha, beta), in sorted plane-key order."""
+        """Per-plane-set (alpha, beta), in sorted plane-key order. Only the
+        nibble layout decodes affinely; u3/pb planes decode by the u-code
+        math (module docstring)."""
+        if self.layout != "nibble":
+            raise ValueError(f"decode_affine on the {self.layout} layout")
         return decode_affine(self.codebook_id, self.opt_resid_scale)
 
     def plane_list(self):
@@ -82,9 +111,52 @@ def decode_affine(codebook_id: str, opt_resid_scale: float = -1.0):
     raise ValueError(codebook_id)
 
 
+def resolve_layout(codebook_id: str, layout: Optional[str], q_out: int
+                   ) -> str:
+    """The runtime layout a caller asked for: None means nibble (the JAX
+    package's default with QFA_E8P_U3 / QFA_RVQ_PB unset); "u3" takes
+    E8P12 only and "pb" E8P12RVQ4B only, both with an even q_out."""
+    if layout is None or layout == "nibble":
+        return "nibble"
+    need = {"u3": "E8P12", "pb": "E8P12RVQ4B"}.get(layout)
+    if need is None:
+        raise ValueError(f"layout {layout!r} not in (None, 'nibble', 'u3', "
+                         "'pb')")
+    if codebook_id != need:
+        raise ValueError(f"layout {layout!r} takes {need}, not "
+                         f"{codebook_id}")
+    if q_out % 2:
+        raise ValueError(f"layout {layout!r} pairs output rows: q_out "
+                         f"{q_out} is odd")
+    return layout
+
+
+def u3_parity_lanes(Gp: int) -> int:
+    """u3 parity-plane lane width: smallest 128-multiple PL dividing Gp
+    with Gp/PL <= 16 one-bit fields per 16-bit row payload."""
+    pl = 128
+    while Gp // pl > 16 or Gp % pl != 0:
+        pl += 128
+    return pl
+
+
+def pb_parity_lanes(Gp: int) -> int:
+    """pb parity-plane lane width: smallest 128-multiple with 8*PL >= Gp
+    (eight 2-bit (p0, p1) fields per 16-bit row payload)."""
+    pl = 128
+    while 8 * pl < Gp:
+        pl += 128
+    return pl
+
+
 def _pad_cols(a: np.ndarray, mult: int = 128) -> np.ndarray:
     pad = (-a.shape[1]) % mult
     return a if pad == 0 else np.pad(a, ((0, 0), (0, pad)))
+
+
+def _as_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 with the same 32 bits."""
+    return ((v ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
 # ------------------------------------------------- encode helpers (numpy)
@@ -105,6 +177,24 @@ def _e8p_words_from_idx(idx16: np.ndarray) -> np.ndarray:
 def e8p_word_table() -> np.ndarray:
     """(65536,) int32: the runtime word of every E8P12 code."""
     return _e8p_words_from_idx(np.arange(1 << 16, dtype=np.uint16))
+
+
+def _e8p_uv_from_idx(idx16: np.ndarray):
+    """(...) uint16 E8P codes -> (u (..., 8) in {0..5}, parity (...)) with
+    weight = u - 2.25 - 0.5*parity (the parity is uniform per codeword)."""
+    vals = e8p12.full_grid()[idx16.astype(np.int64)]      # (..., 8)
+    nib = np.rint(vals * 2 + 5.5).astype(np.int64)
+    p = 1 - (nib[..., 0] & 1)
+    u = (nib - 1 + p[..., None]) >> 1
+    assert u.min() >= 0 and u.max() <= 5
+    return u, p
+
+
+@lru_cache(maxsize=None)
+def e8p_uv_table():
+    """((65536, 8) uint8 u, (65536,) uint8 parity) of every E8P12 code."""
+    u, p = _e8p_uv_from_idx(np.arange(1 << 16, dtype=np.uint16))
+    return u.astype(np.uint8), p.astype(np.uint8)
 
 
 def _vals_key(vals: np.ndarray) -> np.ndarray:
@@ -137,42 +227,221 @@ def _e8p_idx_from_words(words: np.ndarray) -> np.ndarray:
     return order[pos].astype(np.uint16)
 
 
+# ------------------------------------------------- row-pair packers (torch)
+# u and parity arrive as integer tensors on any device; the planes come
+# back on the same device, so the random builder packs on the card.
+
+def _rowpair16(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Two (q_out/2, C) tensors of 16-bit payloads -> (q_out/2, C) int32
+    words, even row in the low half."""
+    return _as_i32((even.to(torch.int64) & 0xFFFF)
+                   | (odd.to(torch.int64) << 16))
+
+
+def _unpair16(w: torch.Tensor) -> torch.Tensor:
+    """(q_out/2, C) row-pair words -> (q_out, C) int64 16-bit payloads."""
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(-1, w.shape[-1])
+
+
+def u3_planes_from_up(u: torch.Tensor, p: torch.Tensor, q_out: int, G: int
+                      ) -> Dict[str, torch.Tensor]:
+    """(u (q_out, G, 8) in {0..7}, parity (q_out, G)) -> u3 planes
+    (``_u3_planes_from_up`` in the JAX package)."""
+    assert q_out % 2 == 0
+    dev = u.device
+    Gp = -(-G // 256) * 256
+    Gh = Gp // 2
+    PL = u3_parity_lanes(Gp)
+    L16 = torch.zeros((q_out, Gp), dtype=torch.int32, device=dev)
+    for i in range(8):
+        L16[:, :G] |= (u[..., i].to(torch.int32) & 3) << (2 * i)
+    H16 = torch.zeros((q_out, Gh), dtype=torch.int32, device=dev)
+    for d in (0, 1):
+        lo_g, hi_g = d * Gh, min((d + 1) * Gh, G)
+        if lo_g >= G:
+            break
+        for i in range(8):
+            H16[:, :hi_g - lo_g] |= ((u[:, lo_g:hi_g, i].to(torch.int32) >> 2)
+                                     << (8 * d + i))
+    P16 = torch.zeros((q_out, PL), dtype=torch.int32, device=dev)
+    for j in range(Gp // PL):
+        lo_g, hi_g = j * PL, min((j + 1) * PL, G)
+        if lo_g >= G:
+            break
+        P16[:, :hi_g - lo_g] |= p[:, lo_g:hi_g].to(torch.int32) << j
+    return {"w0": _rowpair16(L16[0::2], L16[1::2]),
+            "w1": _rowpair16(H16[0::2], H16[1::2]),
+            "w2": _rowpair16(P16[0::2], P16[1::2])}
+
+
+def pb_planes_from_uv(u0: torch.Tensor, p0: torch.Tensor, u1: torch.Tensor,
+                      p1: torch.Tensor, q_out: int, G: int
+                      ) -> Dict[str, torch.Tensor]:
+    """(u0, p0, u1, p1) of the main and residual codes -> pb planes
+    (``_pb_planes_from_uv`` in the JAX package). u0 (q_out, G, 8) in
+    {0..7}, u1 in {0..7}; parities (q_out, G) in {0, 1}."""
+    assert q_out % 2 == 0
+    dev = u0.device
+    Gp = -(-G // 128) * 128
+    PL = pb_parity_lanes(Gp)
+    L = torch.zeros((q_out, Gp), dtype=torch.int64, device=dev)
+    H16 = torch.zeros((q_out, Gp), dtype=torch.int32, device=dev)
+    for i in range(8):
+        a, b = u0[..., i].to(torch.int64), u1[..., i].to(torch.int64)
+        L[:, :G] |= (a | ((b & 1) << 3)) << (4 * i)
+        H16[:, :G] |= (b.to(torch.int32) >> 1) << (2 * i)
+    we, wo = L[0::2], L[1::2]
+    lo = _rowpair16(we & 0xFFFF, wo & 0xFFFF)             # positions 0..3
+    hi = _rowpair16(we >> 16, wo >> 16)                   # positions 4..7
+    pp = (p0.to(torch.int32) | (p1.to(torch.int32) << 1))
+    P16 = torch.zeros((q_out, PL), dtype=torch.int32, device=dev)
+    for j in range(-(-Gp // PL)):
+        lo_g, hi_g = j * PL, min((j + 1) * PL, G)
+        if lo_g >= G:
+            break
+        P16[:, :hi_g - lo_g] |= pp[:, lo_g:hi_g] << (2 * j)
+    return {"w0": torch.stack([lo, hi]),
+            "w1": _rowpair16(H16[0::2], H16[1::2]),
+            "w2": _rowpair16(P16[0::2], P16[1::2])}
+
+
+def u3_up_from_planes(planes: Dict[str, torch.Tensor]):
+    """u3 planes -> (u (q_out, Gp, 8), parity (q_out, Gp)) int64, exact."""
+    L16 = _unpair16(planes["w0"])
+    H16 = _unpair16(planes["w1"])
+    P16 = _unpair16(planes["w2"])
+    Gp, PL = L16.shape[-1], P16.shape[-1]
+    lo = torch.stack([(L16 >> (2 * i)) & 3 for i in range(8)], dim=-1)
+    hi = torch.cat([torch.stack([(H16 >> (8 * d + i)) & 1 for i in range(8)],
+                                dim=-1) for d in (0, 1)], dim=1)
+    p = torch.cat([(P16 >> j) & 1 for j in range(Gp // PL)], dim=1)[:, :Gp]
+    return lo + 4 * hi, p
+
+
+def pb_uv_from_planes(planes: Dict[str, torch.Tensor]):
+    """pb planes -> (u0, p0, u1, p1) int64 over Gp groups, exact. u0/u1
+    (q_out, Gp, 8), parities (q_out, Gp)."""
+    A16 = [_unpair16(planes["w0"][h]) for h in (0, 1)]
+    H16 = _unpair16(planes["w1"])
+    P16 = _unpair16(planes["w2"])
+    Gp, PL = H16.shape[-1], P16.shape[-1]
+    pp = torch.cat([(P16 >> (2 * j)) & 3 for j in range(-(-Gp // PL))],
+                   dim=1)[:, :Gp]
+    lo4 = torch.stack([(A16[i // 4] >> (4 * (i % 4))) & 0xF
+                       for i in range(8)], dim=-1)
+    hi = torch.stack([(H16 >> (2 * i)) & 3 for i in range(8)], dim=-1)
+    return lo4 & 7, pp & 1, 2 * hi + (lo4 >> 3), pp >> 1
+
+
+def _nibble_plane(u: torch.Tensor, p: torch.Tensor, G: int) -> torch.Tensor:
+    """(u (q_out, Gp, 8), p (q_out, Gp)) -> nibble word plane
+    nib = 2u + 1 - p, padded to 128 groups; exact for any u in {0..7}."""
+    Gn = -(-G // 128) * 128
+    W = torch.zeros((u.shape[0], Gn), dtype=torch.int64, device=u.device)
+    for i in range(8):
+        W[:, :G] |= ((2 * u[:, :G, i] + 1 - p[:, :G]) << (4 * i))
+    return _as_i32(W)
+
+
+def u3_to_nibble(qt: QuantizedTensor) -> QuantizedTensor:
+    """u3 -> nibble re-layout at the (u, parity) level: exact for any u in
+    {0..7}, so random-bit planes convert too."""
+    assert qt.layout == "u3" and qt.codebook_id == "E8P12"
+    u, p = u3_up_from_planes(qt.planes)
+    return QuantizedTensor({"w0": _nibble_plane(u, p, qt.q_in // 8)},
+                           qt.codebook_id, qt.q_out, qt.q_in,
+                           qt.opt_resid_scale)
+
+
+def pb_to_nibble(qt: QuantizedTensor) -> QuantizedTensor:
+    """pb -> RVQ4B nibble re-layout at the (u, parity) level (exact; grid
+    membership not required)."""
+    assert qt.layout == "pb" and qt.codebook_id == "E8P12RVQ4B"
+    u0, p0, u1, p1 = pb_uv_from_planes(qt.planes)
+    G = qt.q_in // 8
+    return QuantizedTensor({"w0": _nibble_plane(u0, p0, G),
+                            "w1": _nibble_plane(u1, p1, G)},
+                           qt.codebook_id, qt.q_out, qt.q_in,
+                           qt.opt_resid_scale)
+
+
 # ------------------------------------------------- raw idx <-> runtime
 
-def from_raw_idxs(cb: Codebook, idxs: np.ndarray, q_out: int, q_in: int,
-                  device="cpu") -> QuantizedTensor:
-    """Raw int32 code indices (q_out, q_in/codesz) -> runtime planes."""
-    if cb.id != "E8P12":
+def from_raw_idxs(cb, idxs: np.ndarray, q_out: int, q_in: int,
+                  device="cpu", layout: Optional[str] = None
+                  ) -> QuantizedTensor:
+    """Raw int32 code indices (q_out, q_in/codesz) -> runtime planes in
+    ``layout`` (``resolve_layout``)."""
+    if cb.id not in ("E8P12", "E8P12RVQ4B"):
         raise NotImplementedError(
             f"{cb.id} planes are not ported yet (ROADMAP.md slice 2)")
-    w0 = _e8p_words_from_idx(idxs.astype(np.int64).astype(np.uint16))
-    planes = {"w0": torch.from_numpy(np.ascontiguousarray(_pad_cols(w0)))
-              .to(device)}
-    return QuantizedTensor(planes, cb.id, q_out, q_in)
+    layout = resolve_layout(cb.id, layout, q_out)
+    G = q_in // 8
+    ors = float(cb.opt_resid_scale)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if cb.id == "E8P12":
+        idx16 = idxs.astype(np.int64).astype(np.uint16)
+        if layout == "u3":
+            u, p = _e8p_uv_from_idx(idx16)
+            planes = u3_planes_from_up(dev(u), dev(p), q_out, G)
+        else:
+            planes = {"w0": dev(_pad_cols(_e8p_words_from_idx(idx16)))}
+        return QuantizedTensor(planes, cb.id, q_out, q_in, ors, layout)
+    u32 = np.ascontiguousarray(idxs).view(np.uint32).astype(np.int64)
+    main = (u32 >> 16).astype(np.uint16)
+    resid = (u32 & 0xFFFF).astype(np.uint16)
+    if layout == "pb":
+        u0, p0 = _e8p_uv_from_idx(main)
+        u1, p1 = _e8p_uv_from_idx(resid)
+        planes = pb_planes_from_uv(dev(u0), dev(p0), dev(u1), dev(p1),
+                                   q_out, G)
+    else:
+        planes = {"w0": dev(_pad_cols(_e8p_words_from_idx(main))),
+                  "w1": dev(_pad_cols(_e8p_words_from_idx(resid)))}
+    return QuantizedTensor(planes, cb.id, q_out, q_in, ors, layout)
 
 
 def to_raw_idxs(qt: QuantizedTensor) -> np.ndarray:
     """Runtime planes -> raw int32 code indices (exact inverse)."""
-    if qt.codebook_id != "E8P12":
-        raise NotImplementedError(qt.codebook_id)
-    w0 = qt.planes["w0"].cpu().numpy()[:, : qt.q_in // 8]
-    return _e8p_idx_from_words(w0).astype(np.int64).astype(
-        np.uint32).view(np.int32)
+    if qt.layout == "u3":
+        qt = u3_to_nibble(qt)
+    elif qt.layout == "pb":
+        qt = pb_to_nibble(qt)
+    ncols = qt.q_in // 8
+
+    def codes(key):
+        w = qt.planes[key].cpu().numpy()[:, :ncols]
+        return _e8p_idx_from_words(w).astype(np.int64)
+    if qt.codebook_id == "E8P12":
+        return codes("w0").astype(np.uint32).view(np.int32)
+    if qt.codebook_id == "E8P12RVQ4B":
+        return ((codes("w0") << 16) | codes("w1")).astype(
+            np.uint32).view(np.int32)
+    raise NotImplementedError(qt.codebook_id)
 
 
 def to_checkpoint_idxs(qt: QuantizedTensor) -> np.ndarray:
     """Runtime planes -> reference checkpoint Qidxs array (numpy)."""
     raw = to_raw_idxs(qt)
-    return raw.astype(np.int64).astype(np.uint16).view(np.int16)
+    if qt.codebook_id == "E8P12":
+        return raw.astype(np.int64).astype(np.uint16).view(np.int16)
+    return raw
 
 
-def from_checkpoint_idxs(cb: Codebook, packed: np.ndarray, q_out: int,
-                         q_in: int, device="cpu") -> QuantizedTensor:
+def from_checkpoint_idxs(cb, packed: np.ndarray, q_out: int, q_in: int,
+                         device="cpu", layout: Optional[str] = None
+                         ) -> QuantizedTensor:
     """Reference checkpoint Qidxs array -> runtime planes."""
     return from_raw_idxs(cb, cb.unpack_idxs(packed), q_out, q_in,
-                         device=device)
+                         device=device, layout=layout)
 
 
-__all__ = ["QuantizedTensor", "decode_affine", "from_raw_idxs",
-           "to_raw_idxs", "from_checkpoint_idxs", "to_checkpoint_idxs",
-           "e8p_word_table"]
+__all__ = ["QuantizedTensor", "LAYOUTS", "ROWPAIR_LAYOUTS", "decode_affine",
+           "resolve_layout", "from_raw_idxs", "to_raw_idxs",
+           "from_checkpoint_idxs", "to_checkpoint_idxs", "e8p_word_table",
+           "e8p_uv_table", "u3_parity_lanes", "pb_parity_lanes",
+           "u3_planes_from_up", "pb_planes_from_uv", "u3_up_from_planes",
+           "pb_uv_from_planes", "u3_to_nibble", "pb_to_nibble"]

@@ -1,8 +1,11 @@
 """Load reference-schema quantized checkpoints (llama family and Mixtral,
-E8P12) — counterpart of ``load_quantized`` / ``_build_qlinear`` in
-``quip_for_all_tpu/utils/checkpoint.py``. Mixtral's router gate loads
-dense (or quantized, when the checkpoint quantized it) and its experts as
-per-expert quantized linears; ``fuse_for_inference`` stacks them.
+E8P12 and E8P12RVQ4B) — counterpart of ``load_quantized`` /
+``_build_qlinear`` in ``quip_for_all_tpu/utils/checkpoint.py``. Mixtral's
+router gate loads dense (or quantized, when the checkpoint quantized it)
+and its experts as per-expert quantized linears; ``fuse_for_inference``
+stacks them. ``layout`` picks the runtime layout of every quantized linear
+(``ops/qtensor.py`` ``resolve_layout``: "u3" for E8P12, "pb" for
+E8P12RVQ4B), where the JAX package reads QFA_E8P_U3 / QFA_RVQ_PB.
 
 The schema: safetensors with HF state-dict names; each quantized linear
 stores Qidxs (packed codes), SU, SV, Wscale (unnormalized), optional bias,
@@ -63,9 +66,14 @@ def _t(a, device, dtype=torch.float32):
         device=device, dtype=dtype)
 
 
+def _codebook(qcfg: dict):
+    ors = qcfg.get("opt_resid_scale", -1)
+    return get_codebook(qcfg["codebook"], ors if ors > 0 else None)
+
+
 def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
-                   device) -> QuantLinear:
-    cb = get_codebook(qcfg["codebook"])
+                   device, layout=None) -> QuantLinear:
+    cb = _codebook(qcfg)
     packed = tensors[name + ".Qidxs"]
     SU = tensors.get(name + ".SU")
     SV = tensors.get(name + ".SV")
@@ -78,7 +86,8 @@ def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
     q_in = int(packed.shape[1] * cb.codesz * cb.packsz)
     in_f = SU.shape[0] if SU is not None else q_in
     out_f = SV.shape[0] if SV is not None else q_out
-    qt = from_checkpoint_idxs(cb, packed, q_out, q_in, device=device)
+    qt = from_checkpoint_idxs(cb, packed, q_out, q_in, device=device,
+                              layout=layout)
 
     use_rand = qcfg.get("use_rand", True)
 
@@ -111,9 +120,10 @@ def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
         Wscale=Wn, per_channel=per_channel, wscale_float=wscale_float)
 
 
-def load_quantized(save_dir: str, dtype=torch.float32, device="cuda"
-                   ) -> Tuple[ModelConfig, LlamaModel, dict]:
-    """Local checkpoint directory -> (model config, model, quant config)."""
+def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
+                   layout=None) -> Tuple[ModelConfig, LlamaModel, dict]:
+    """Local checkpoint directory -> (model config, model, quant config),
+    every quantized linear in the runtime ``layout``."""
     dev = resolve_device(device)
     if not os.path.isdir(save_dir):
         raise FileNotFoundError(f"{save_dir!r} is not a local directory")
@@ -126,7 +136,7 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda"
     if int(qcfg.get("tp_shards", 1)) > 1:
         raise NotImplementedError("tensor-parallel checkpoints (ROADMAP.md "
                                   "queue 1, slice 8)")
-    get_codebook(qcfg["codebook"])          # refuses unported codebooks
+    _codebook(qcfg)                         # refuses unported codebooks
     tensors = open_all_tensors(save_dir)
     if any(".ln1.weight" in k for k in tensors):
         tensors = {k.replace(".ln1.", ".input_layernorm.").replace(
@@ -136,7 +146,7 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda"
 
     def dense(name):
         if name in qnames:
-            return _build_qlinear(tensors, name, qcfg, dev)
+            return _build_qlinear(tensors, name, qcfg, dev, layout)
         return {"weight": _t(tensors[name + ".weight"], dev, dtype),
                 "bias": (_t(tensors[name + ".bias"], dev, dtype)
                          if name + ".bias" in tensors else None)}

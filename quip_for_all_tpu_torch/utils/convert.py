@@ -4,8 +4,10 @@ JAX: attributes are read by name and arrays through ``np.asarray``.
 The tree is the JAX package's unfused llama or Mixtral param dict (nested
 dicts and lists — Mixtral's ``block_sparse_moe`` holds a dense ``gate``
 dict and an ``experts`` list of {w1, w2, w3}; ``QuantLinearParams`` /
-``QuantizedTensor`` leaves recognised by their fields). Fuse afterwards
-with the port's own ``fuse_for_inference``, which stacks the experts.
+``QuantizedTensor`` leaves recognised by their fields). Planes cross in
+their runtime layout as they are (nibble, u3 or pb, pb's 3-D ``w0``
+included), with the tensor's ``opt_resid_scale``. Fuse afterwards with the
+port's own ``fuse_for_inference``, which stacks the experts.
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy, which
 ``torch.from_numpy`` refuses: they go through float32 (exact) and back to
 bfloat16.

@@ -1,9 +1,13 @@
-"""A llama-family or Mixtral E8P12 model with random codes, built on the
+"""A llama-family or Mixtral model with random codes, built on the
 device from a seeded ``torch.Generator`` — the port's counterpart of
 ``random_quantized_model`` / ``_fast_random_llama`` in
 ``quip_for_all_tpu/utils/random_quantized.py``, for benchmarks and chip
 checks without downloadable checkpoints. Shapes and compute paths equal a
 really-quantized model's; only the code values are random.
+
+Codebooks E8P12 and E8P12RVQ4B, in the runtime layout ``layout`` (None or
+"nibble"; "u3" for E8P12, "pb" for E8P12RVQ4B: ``ops/qtensor.py``). The
+row-pair layouts take llama only: the MoE kernel decodes nibble experts.
 
 A Mixtral model comes back with each layer's experts already stacked
 (``experts_stacked``): a layer's per-expert planes are stacked and dropped
@@ -12,10 +16,13 @@ the experts (about 22.5 GB each at 8x7B).
 
 It does not reproduce the JAX package's bits (the generators differ); tests
 carry JAX weights across with ``utils/convert.py`` instead. One deliberate
-difference: every word is a real E8P12 codeword (a uniform random 16-bit
-code looked up in the code -> word table), so every nibble is <= 11 and the
-parity is shared per word. The JAX version masks random bits with 0x6DB6DB
-| 0x1000000, which yields nibbles up to 13 and no shared parity.
+difference: every code is a real E8P12 codeword (uniform random 16-bit
+codes looked up in the code -> word or code -> (u, parity) table), so every
+nibble is <= 11, every u <= 5 and the parity is shared per group, and the
+row-pair planes are packed from those codes on the device. The JAX version
+masks random bits with 0x6DB6DB | 0x1000000 in the nibble layout (nibbles
+up to 13, no shared parity) and fills u3/pb planes with random bits (u up
+to 7).
 """
 from __future__ import annotations
 
@@ -24,13 +31,21 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
+from ..codebooks import get_codebook
 from ..models.config import ModelConfig
 from ..models.llama import DenseLinear, LlamaModel
 from ..nn.qlinear import QuantLinear
 from ..nn.qmoe import stack_experts
-from ..ops.qtensor import QuantizedTensor, e8p_word_table
+from ..ops.qtensor import (QuantizedTensor, e8p_uv_table, e8p_word_table,
+                           pb_planes_from_uv, resolve_layout,
+                           u3_planes_from_up)
 from ..transforms.incoherence import HadSpec, get_hadK
 from .device import resolve_device
+
+
+def _random_codes(q_out: int, G: int, generator: torch.Generator, device):
+    return torch.randint(0, 1 << 16, (q_out, G), generator=generator,
+                         device=device)
 
 
 def random_e8p_planes(q_out: int, q_in: int, generator: torch.Generator,
@@ -40,25 +55,58 @@ def random_e8p_planes(q_out: int, q_in: int, generator: torch.Generator,
     G = q_in // 8
     Gp = -(-G // 128) * 128
     table = torch.as_tensor(e8p_word_table(), device=device)
-    codes = torch.randint(0, 1 << 16, (q_out, G), generator=generator,
-                          device=device)
+    codes = _random_codes(q_out, G, generator, device)
     return F.pad(table[codes], (0, Gp - G))
+
+
+def _random_uv(q_out: int, G: int, generator: torch.Generator, device):
+    """(u (q_out, G, 8) uint8, parity (q_out, G) uint8) of uniform random
+    E8P12 codewords."""
+    tu, tp = (torch.as_tensor(t, device=device) for t in e8p_uv_table())
+    codes = _random_codes(q_out, G, generator, device)
+    return tu[codes], tp[codes]
+
+
+def random_qtensor(codebook: str, layout: str, q_out: int, q_in: int,
+                   generator: torch.Generator, device) -> QuantizedTensor:
+    """Planes of uniform random codewords of ``codebook`` in ``layout``
+    (``resolve_layout``), packed on ``device``."""
+    cb = get_codebook(codebook)
+    layout = resolve_layout(cb.id, layout, q_out)
+    G = q_in // 8
+    if layout == "u3":
+        planes = u3_planes_from_up(*_random_uv(q_out, G, generator, device),
+                                   q_out, G)
+    elif layout == "pb":
+        u0, p0 = _random_uv(q_out, G, generator, device)
+        u1, p1 = _random_uv(q_out, G, generator, device)
+        planes = pb_planes_from_uv(u0, p0, u1, p1, q_out, G)
+    else:
+        planes = {f"w{s}": random_e8p_planes(q_out, q_in, generator, device)
+                  for s in range(1 if cb.id == "E8P12" else 2)}
+    return QuantizedTensor(planes, cb.id, q_out, q_in,
+                           float(cb.opt_resid_scale), layout)
 
 
 def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
                            seed: int = 0, dtype=torch.bfloat16,
-                           quantize_head: bool = False, device="cuda"
-                           ) -> LlamaModel:
+                           quantize_head: bool = False, device="cuda",
+                           layout=None) -> LlamaModel:
     """Every block linear quantized (embeddings and the MoE router gate
     stay dense); q/k/v, gate/up and each expert's w1/w3 share their left
     transform and SU, as the quantizer's shared group transforms
     guarantee, so ``fuse_for_inference`` fuses them and the experts
     stack."""
-    if codebook != "E8P12":
+    if codebook not in ("E8P12", "E8P12RVQ4B"):
         raise NotImplementedError(
             f"random {codebook} models wait for ROADMAP.md slice 2")
     if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(f"arch {cfg.arch!r}")
+    if cfg.arch == "mixtral" and resolve_layout(codebook, layout, 2) != \
+            "nibble":
+        raise NotImplementedError(
+            f"Mixtral in the {layout} layout: the MoE kernel takes nibble "
+            "experts only")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -77,8 +125,8 @@ def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
 
     def qlin(in_f, out_f, lspec: HadSpec, SU) -> QuantLinear:
         rspec = spec(out_f)
-        w0 = random_e8p_planes(rspec.padN, lspec.padN, gen, dev)
-        qt = QuantizedTensor({"w0": w0}, "E8P12", rspec.padN, lspec.padN)
+        qt = random_qtensor(codebook, layout, rspec.padN, lspec.padN, gen,
+                            dev)
         return QuantLinear(
             qt, in_features=in_f, out_features=out_f, q_in=lspec.padN,
             q_out=rspec.padN, K_left=lspec.K, K_right=rspec.K, SU=SU,

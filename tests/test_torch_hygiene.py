@@ -27,6 +27,7 @@ def _port_sources():
     # run on the card's machine, which has no JAX
     yield os.path.join(REPO, "tests", "test_torch_kernel_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_moe_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_rowpair_cuda.py")
 
 
 def _imports(path):
@@ -54,12 +55,14 @@ def test_port_keeps_its_own_assets():
     pkg = os.path.join(REPO, "quip_for_all_tpu_torch")
     assert os.path.isfile(os.path.join(pkg, "transforms",
                                        "_hadamard_asset.npz"))
-    for src in ("fused_decode_matmul.cu", "moe_decode_matmul.cu"):
+    for src in ("fused_decode_matmul.cu", "moe_decode_matmul.cu",
+                "rowpair_decode_matmul.cu"):
         assert os.path.isfile(os.path.join(pkg, "csrc", src))
 
 
-@pytest.mark.parametrize("entry", ["random", "random_mixtral", "generate",
-                                   "load", "convert", "caches"])
+@pytest.mark.parametrize("entry", ["random", "random_u3", "random_mixtral",
+                                   "generate", "load", "load_pb", "convert",
+                                   "caches"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -68,6 +71,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "random":
             qt.random_quantized_model(cfg)
+        elif entry == "random_u3":
+            qt.random_quantized_model(cfg, layout="u3")
         elif entry == "random_mixtral":
             qt.random_quantized_model(qt.tiny_config(
                 arch="mixtral", num_local_experts=4))
@@ -76,6 +81,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
             qt.generate(cfg, model, torch.zeros((1, 3), dtype=torch.long), 2)
         elif entry == "load":
             qt.load_quantized(os.path.join(REPO, "tests", "golden", "e8p12"))
+        elif entry == "load_pb":
+            qt.load_quantized(os.path.join(REPO, "tests", "golden",
+                                           "e8p12rvq4b"), layout="pb")
         elif entry == "convert":
             qt.from_jax_params({"embed_tokens": {"weight": np.zeros((2, 2))}})
         else:

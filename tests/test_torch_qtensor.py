@@ -102,6 +102,6 @@ def test_bit31_word_decodes_nibble7_unsigned():
 
 def test_unported_layouts_and_codebooks_raise():
     with pytest.raises(NotImplementedError, match="slice 9"):
-        tqt.QuantizedTensor({}, "E8P12", 128, 128, layout="u3")
+        tqt.QuantizedTensor({}, "E8P12", 128, 128, layout="bfp")
     with pytest.raises(NotImplementedError, match="slice 2"):
         get_codebook("D4")
