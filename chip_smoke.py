@@ -40,9 +40,23 @@ line):
      the row-pair kernels, (c) E8P12RVQ4B in nibble through
      fused_decode_matmul with 2 plane sets; each a 32-token prompt and 32
      greedy tokens twice, exact launch counts, one graphed step, and the
-     kernel-vs-plain check over 16 tokens.
-The last stdout line is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their numbers.
+     kernel-vs-plain check over 16 tokens;
+ 10. bfp_decode_matmul (K10, 1 and 2 plane sets), sw_decode_matmul (K11,
+     sw2 and sw4), ksplit_decode_matmul (K6, 2 and 4 chunks; down 11) and
+     paired_decode_matmul (K7) against their plain twins at the Llama-2-7B
+     shapes, m = 1, 8, 32, 64 in bf16 and 1 in f32, timed as in phase 2,
+     beside fused_decode_matmul on the same codes (and K7 beside pb), and
+     the I2F count of every built library's SASS (phase 1);
+ 11. the golden fixtures in the new layouts: e8p12 as bfp, sw2 and sw4,
+     e8p12rvq4b as paired and bfp;
+ 12. the new paths at full width, all 32 layers, right after phase 5 on
+     its model: (f) split-K = 4 on the main path's planes, (e) those
+     planes re-laid as sw4 and (d) as bfp, each first held to phase 5's
+     f32 logits, then (g) E8P12RVQ4B paired from seed 0; each as in phase
+     9, with the exact launch counts of its kernels.
+Phases run in the order 1-4, 7, 10, 11, 5, 12, 6, 9. The last stdout line
+is {"ok": true, "device": {...}}; the line before it lists the kernels
+with their numbers; the line before that the card's name and power limit.
 """
 import contextlib
 import json
@@ -57,6 +71,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak, data sheet
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, data sheet
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.time()
 L2_BYTES = 50 * 2 ** 20
 
 KERNELS = [{
@@ -76,6 +91,22 @@ KERNELS = [{
     "name": "rowpair_pb_decode_matmul", "route": "cuda",
     "source": "quip_for_all_tpu_torch/csrc/rowpair_decode_matmul.cu",
     "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:566 (K8)",
+}, {
+    "name": "bfp_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/bfp_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:281 (K10)",
+}, {
+    "name": "sw_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/sw_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:135 (K11, split=2/4)",
+}, {
+    "name": "ksplit_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/ksplit_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:633 (K6)",
+}, {
+    "name": "paired_decode_matmul", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/paired_decode_matmul.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:356 (K7)",
 }]
 # the byte-cut layouts: (layout, codebook, kernel); the nibble planes of
 # the same codes run fused_decode_matmul with 1 (E8P12) or 2 plane sets
@@ -93,9 +124,16 @@ SHAPES = [("qkv", 12288, 4096, True, (1, 8, 64)),
           ("head", 32000, 4096, False, (1, 8, 64)),
           ("qkv_gqa", 6144, 4096, True, (1,))]
 LAYERS = 32
+# the kernel each runtime layout's linears launch
+LAYOUT_KERNEL = {"u3": "rowpair_u3_decode_matmul",
+                 "pb": "rowpair_pb_decode_matmul",
+                 "bfp": "bfp_decode_matmul", "sw2": "sw_decode_matmul",
+                 "sw4": "sw_decode_matmul", "paired": "paired_decode_matmul"}
 # per token: each linear's calls (the head once, the rest once per layer)
 LLAMA_CALLS = {"qkv": LAYERS, "o": LAYERS, "gateup": LAYERS,
                "down": LAYERS, "head": 1}
+# split-K's calls per token on path (f): down stays on fused_decode_matmul
+KSPLIT_CALLS = {"qkv": LAYERS, "o": LAYERS, "gateup": LAYERS, "head": 1}
 MIXTRAL_FUSED_CALLS = {"qkv_gqa": LAYERS, "o": LAYERS, "head": 1}
 # Mixtral-8x7B stacked experts: (name, q_out, q_in); R = top-2 rows of
 # 1 (bs=1 decode), 8 and 31 tokens (sparse prefill below 32 tokens)
@@ -188,7 +226,29 @@ def phase_build():
     log(f"build: {len(KERNELS)} kernels from {len(sources)} source(s) in "
         f"{dt:.1f} s "
         f"({'built' if reports else 'already built'})")
+    log_int_to_float(sources)
     return dt
+
+
+def log_int_to_float(sources):
+    """Count the int->float convert instructions in each built library's
+    SASS (I2F, and Hopper's I2FP), where the toolkit has cuobjdump:
+    bfp_decode_matmul (K10) exists to decode without them."""
+    import re
+    from quip_for_all_tpu_torch.ops import _build
+    cu = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                      "cuobjdump")
+    if not os.path.isfile(cu):
+        log("sass: cuobjdump not found; converts not counted")
+        return
+    for name in sources:
+        r = subprocess.run([cu, "-sass", _build._target(name)],
+                           capture_output=True, text=True, timeout=120)
+        ops = [m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+            r.stdout)]
+        log(f"sass {name}: {ops.count('I2F')} I2F and {ops.count('I2FP')} "
+            f"I2FP of {len(ops)} instructions (all kernel instantiations)")
 
 
 def phase_kernels():
@@ -378,9 +438,7 @@ def phase_golden(cases=(("e8p12", None),)):
         cfg, model, _ = load_quantized(path, device="cuda", layout=layout)
         exp = np.load(os.path.join(path, "expected.npz"))
         blk = model.layers[0]
-        kernel = {"u3": "rowpair_u3_decode_matmul",
-                  "pb": "rowpair_pb_decode_matmul"}.get(
-                      layout, "fused_decode_matmul")
+        kernel = LAYOUT_KERNEL.get(layout, "fused_decode_matmul")
         for role, lin in (("q_proj", blk["self_attn"]["q_proj"]),
                           ("down_proj", blk["mlp"]["down_proj"])):
             n = lin.in_features
@@ -415,12 +473,17 @@ def timed_generate(cfg, model, prompt, cache_len):
 def _counters():
     """Each kernel's wrapper, which counts its launches."""
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops import layout_matmul as lm
     from quip_for_all_tpu_torch.ops import moe_matmul as mm
     from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
     return {"fused_decode_matmul": fm.fused_decode_matmul,
             "moe_decode_matmul": mm.moe_fused_matmul,
             "rowpair_u3_decode_matmul": rm.rowpair_u3_matmul,
-            "rowpair_pb_decode_matmul": rm.rowpair_pb_matmul}
+            "rowpair_pb_decode_matmul": rm.rowpair_pb_matmul,
+            "bfp_decode_matmul": lm.bfp_decode_matmul,
+            "sw_decode_matmul": lm.sw_decode_matmul,
+            "ksplit_decode_matmul": lm.ksplit_decode_matmul,
+            "paired_decode_matmul": rm.paired_decode_matmul}
 
 
 def reset_launches():
@@ -494,12 +557,15 @@ def phase_main():
     # random layers, hence 5e-2) and in f32 (sum order only, 1e-3)
     for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
         check_plain(cfg, model, prompt, dt, tol, CACHE,
-                    kernel="fused_decode_matmul")
+                    per_step={"fused_decode_matmul": 4 * LAYERS + 1})
     dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
     log(f"main: one decode step (position {S}): device time {dev_ms:.2f} ms "
         f"(CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
         f"{1 - dev_ms / eager_ms:.0%} of the eager step")
-    return launches["fused_decode_matmul"]
+    # the f32 logits that the re-laid paths (d)-(f) are held to
+    _, ref = f32_logits(cfg, model, prompt)
+    return launches["fused_decode_matmul"], {
+        "cfg": cfg, "model": model, "prompt": prompt, "ref": ref}
 
 
 def phase_mixtral():
@@ -736,7 +802,7 @@ def phase_rowpair_paths():
         check_runs(tag, cfg, ids1, ids2, logits1, NEW)
         for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
             check_plain(cfg, model, prompt, dt, tol, CACHE, tag=tag,
-                        kernel=kname)
+                        per_step={kname: per_step})
         dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
         log(f"{tag}: one decode step (position {S}): device time "
             f"{dev_ms:.2f} ms (CUDA-graph replay), eager {eager_ms:.2f} ms "
@@ -746,6 +812,309 @@ def phase_rowpair_paths():
         del model, run
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def cold(planes, nbytes):
+    """planes (a list or dict of tensors) plus clones, enough that cycling
+    through them finds each set evicted from the 50 MB L2."""
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+    if isinstance(planes, dict):
+        return [planes] + [{k: v.clone() for k, v in planes.items()}
+                           for _ in range(n - 1)]
+    return [planes] + [[v.clone() for v in planes] for _ in range(n - 1)]
+
+
+def phase_layout_kernels():
+    """K10 (bfp, 1 and 2 plane sets), K11 (sw2, sw4), K6 (split-K at 2 and
+    4 chunks; down at 11, the only split its 11 lane blocks allow) and K7
+    (paired) against their plain twins at Llama-2-7B's shapes, m = 1, 8,
+    32 and 64 in bf16 and m = 1 in f32, timed as phase 2 times
+    fused_decode_matmul. All run on one set of random RVQ4B codes per
+    shape: its main stage is the E8P12 code of K10/K11/K6 (1 set) and K1
+    beside them; both stages are K10's 2 sets, K7's paired planes, and K1
+    (2 sets) and K8 (pb) beside K7."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops import layout_matmul as lm
+    from quip_for_all_tpu_torch.ops import qtensor as Q
+    from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, max_err = [], {}
+    for name, q_out, q_in, with_scale, _ in SHAPES[:5]:
+        G = q_in // 8
+        qp = random_qtensor("E8P12RVQ4B", "paired", q_out, q_in, gen, "cuda")
+        qn2 = Q.paired_to_nibble(qp)
+        u0, p0, u1, p1 = (t[:, :G] for t in Q.paired_uv_from_planes(
+            qp.planes))
+        qpb = Q.QuantizedTensor(Q.pb_planes_from_uv(u0, p0, u1, p1, q_out, G),
+                                "E8P12RVQ4B", q_out, q_in,
+                                qp.opt_resid_scale, "pb")
+        del u0, p0, u1, p1
+        qn1 = Q.QuantizedTensor({"w0": qn2.planes["w0"]}, "E8P12", q_out,
+                                q_in)
+        a1, a2, rs = qn1.decode_affine, qn2.decode_affine, qp.opt_resid_scale
+        chunks = (2, 4) if name != "down" else (11,)
+        # (label, kernel, codes, tensor, call(x, planes, scale, m),
+        #  twin(x, planes, scale, m), split of x's lane order)
+        variants = [
+            ("bfp", "bfp_decode_matmul", 1, Q.to_bfp(qn1),
+             lambda x, p, s, m: lm.bfp_decode_matmul(x, p, a1, s, rows=m),
+             lambda x, p, s, m: lm.bfp_decode_matmul_ref(x[:m], p, a1, s)),
+            ("bfp2", "bfp_decode_matmul", 2, Q.to_bfp(qn2),
+             lambda x, p, s, m: lm.bfp_decode_matmul(x, p, a2, s, rows=m),
+             lambda x, p, s, m: lm.bfp_decode_matmul_ref(x[:m], p, a2, s)),
+            ("sw2", "sw_decode_matmul", 1, Q.to_subword(qn1, 2),
+             lambda x, p, s, m: lm.sw_decode_matmul(x, p, a1, s, rows=m),
+             lambda x, p, s, m: lm.sw_decode_matmul_ref(x[:m], p, a1, s)),
+            ("sw4", "sw_decode_matmul", 1, Q.to_subword(qn1, 4),
+             lambda x, p, s, m: lm.sw_decode_matmul(x, p, a1, s, rows=m),
+             lambda x, p, s, m: lm.sw_decode_matmul_ref(x[:m], p, a1, s)),
+        ] + [
+            (f"ksplit{c}", "ksplit_decode_matmul", 1, qn1,
+             (lambda c: lambda x, p, s, m: lm.ksplit_decode_matmul(
+                 x, p, a1, c, s, rows=m))(c),
+             (lambda c: lambda x, p, s, m: lm.ksplit_decode_matmul_ref(
+                 x[:m], p, a1, c, s))(c)) for c in chunks
+        ] + [
+            ("paired", "paired_decode_matmul", 2, qp,
+             lambda x, p, s, m: rm.paired_decode_matmul(x, p, rs, s, rows=m),
+             lambda x, p, s, m: rm.rowpair_matmul_ref(x, "paired", p, rs, s,
+                                                      rows=m))]
+        # beside them on the same codes, timed only (checked in phases 2, 7)
+        beside = [
+            ("nibble", qn1, lambda x, p, s, m: fm.fused_decode_matmul(
+                x, p, a1, s, rows=m)),
+            ("nibble2", qn2, lambda x, p, s, m: fm.fused_decode_matmul(
+                x, p, a2, s, rows=m)),
+            ("pb", qpb, lambda x, p, s, m: rm.rowpair_pb_matmul(
+                x, p, rs, s, rows=m))]
+
+        def planes_of(qt):
+            return qt.planes if qt.layout in Q.UCODE_LAYOUTS else \
+                qt.plane_list()
+
+        def nbytes_of(qt):
+            return sum(v.numel() * v.element_size()
+                       for v in qt.planes.values())
+        tensors = {id(v[3]): v[3] for v in variants}
+        tensors.update({id(qt): qt for _, qt, _ in beside})
+        copies = {i: cold(planes_of(qt), nbytes_of(qt))
+                  for i, qt in tensors.items()}
+        scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
+                 if with_scale else None)
+        Ws = {codes: decode_weights(qt, dtype=torch.bfloat16)
+              for codes, qt in ((1, qn1), (2, qn2))}
+        Wc = {c: cold([W], W.numel() * 2) for c, W in Ws.items()}
+        for m, dt in RP_CASES:
+            dtype = getattr(torch, dt)
+            esz = 2 if dtype == torch.bfloat16 else 4
+            mp = max(8, -(-m // 8) * 8)
+            x_nat = torch.randn((m, q_in), generator=gen, device="cuda")
+            xb = x_nat.to(torch.bfloat16)
+
+            def xperm(qt):
+                x = torch.zeros((mp, 8 * qt.group_cols), device="cuda",
+                                dtype=dtype)
+                x[:m] = fm.grouped_permute(x_nat, qt.group_cols,
+                                           qt.split).to(dtype)
+                return x
+            lib_ms = {c: graph_ms(lambda i, c=c: torch.matmul(
+                xb, Wc[c][i % len(Wc[c])][0].T), 4 * len(Wc[c]))
+                for c in Wc}
+            side = {}
+            for label, qt, call in beside:
+                x, cp = xperm(qt), copies[id(qt)]
+                side[label] = graph_ms(
+                    lambda i: call(x, cp[i % len(cp)], scale, m),
+                    4 * len(cp))
+            for label, kname, codes, qt, call, twin in variants:
+                x, cp = xperm(qt), copies[id(qt)]
+                got = call(x, cp[0], scale, m)
+                want = twin(x, cp[0], scale, m)
+                torch.cuda.synchronize()
+                ok, err = close_enough(got, want)
+                max_err[kname] = max(max_err.get(kname, 0.0), err)
+                if not ok:
+                    raise AssertionError(
+                        f"{kname} ({label}) {name} m={m} {dt}: kernel vs "
+                        f"plain twin beyond tolerance (max |diff| {err})")
+                k_ms = graph_ms(lambda i: call(x, cp[i % len(cp)], scale, m),
+                                4 * len(cp))
+                p_ms = event_ms(lambda i: twin(x, cp[i % len(cp)], scale, m),
+                                2)
+                nb = nbytes_of(qt)
+                io = m * 8 * qt.group_cols * esz + m * q_out * esz + (
+                    q_out * 4 if with_scale else 0)
+                ops = 2 * m * q_out * 8 * qt.group_cols
+                peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                    F32_OPS_PER_S
+                b_bytes = (nb + io) / HBM_BYTES_PER_S * 1e3
+                b_ops = ops / peak * 1e3
+                ref = {1: "nibble", 2: "nibble2"}[codes]
+                row = {"kernel": kname, "variant": label, "layer": name,
+                       "q_out": q_out, "Gp": qt.group_cols, "m": m,
+                       "dtype": dt, "max_abs_err": err, "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": lib_ms[codes],
+                       "bound_ms": max(b_bytes, b_ops),
+                       "bound_by": "bytes" if b_bytes >= b_ops
+                       else "operations", "bytes": nb + io,
+                       "nibble_ms": side[ref], "pb_ms": side["pb"]}
+                rows.append(row)
+                extra = (f" | pb (K8) on the same codes {side['pb'] * 1e3:.1f}"
+                         f" us" if label == "paired" else "")
+                log(f"kernel {label} {name:6s} {q_out}x{qt.group_cols} "
+                    f"m={m:2d} {dt}: max|k-plain| {err:.3g} (tol 1 bf16 ulp "
+                    f"+ 1e-5 max) | kernel {k_ms * 1e3:.1f} us | plain "
+                    f"{p_ms * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.1f}"
+                    f" us ({row['bound_by']}, {(nb + io) / 1e6:.2f} MB) | "
+                    f"{row['bound_ms'] / k_ms:.0%} of bound | library "
+                    f"{lib_ms[codes] * 1e3:.1f} us (dense bf16 product) | "
+                    f"fused_decode_matmul ({codes} set{'s' * (codes > 1)}) "
+                    f"on the same codes {side[ref] * 1e3:.1f} us -> "
+                    f"{label}/nibble {k_ms / side[ref]:.2f}x{extra}")
+        del copies, tensors, Ws, Wc, variants, beside, qp, qn1, qn2, qpb
+        torch.cuda.empty_cache()
+    for label, calls in (("bfp", LLAMA_CALLS), ("bfp2", LLAMA_CALLS),
+                         ("sw2", LLAMA_CALLS), ("sw4", LLAMA_CALLS),
+                         ("ksplit4", KSPLIT_CALLS),
+                         ("paired", LLAMA_CALLS)):
+        per_tok = {key: call_sum([r for r in rows if r["variant"] == label],
+                                 calls, key, m=1, dtype="bfloat16")
+                   for key in ("ms", "nibble_ms", "bound_ms", "pb_ms")}
+        log(f"kernel {label} per Llama-2-7B decode token (m=1, bf16, "
+            f"{sum(calls.values())} calls): {per_tok['ms']:.3f} ms against a "
+            f"{per_tok['bound_ms']:.3f} ms bound; fused_decode_matmul on the "
+            f"same codes {per_tok['nibble_ms']:.3f} ms" + (
+                f"; pb (K8) {per_tok['pb_ms']:.3f} ms"
+                if label == "paired" else ""))
+    return rows, max_err
+
+
+def relayout_model(model, fn):
+    """Every quantized linear's planes through ``fn`` (QuantizedTensor ->
+    QuantizedTensor of the same plane keys), in place: the buffers are
+    replaced one linear at a time, so a copying re-layout holds one extra
+    linear's planes at most."""
+    from quip_for_all_tpu_torch.nn.qlinear import (FusedQuantLinear,
+                                                   QuantLinear)
+    for mod in model.modules():
+        if isinstance(mod, (QuantLinear, FusedQuantLinear)) and \
+                mod.plane_keys:
+            qt = fn(mod.qweight)
+            for k in mod.plane_keys:
+                setattr(mod, f"planes_{k}", qt.planes[k])
+            mod.layout = qt.layout
+
+
+def f32_logits(cfg, model, prompt, n=4):
+    import torch
+    import quip_for_all_tpu_torch as qt
+    ids, logits = qt.generate(cfg, model, prompt, n, cache_len=2048,
+                              dtype=torch.float32, return_logits=True,
+                              linear_kw={"compute_dtype": torch.float32})
+    return ids, torch.stack(logits)
+
+
+def run_path(tag, cfg, model, prompt, expect, NEW=32, CACHE=2048):
+    """One full-width path: a 32-token prompt and NEW greedy tokens twice,
+    exact launch counts (``expect``: launches per forward pass), the
+    kernel-vs-plain check in bf16 and f32, and one graphed decode step."""
+    import torch
+    S = prompt.shape[1]
+    run = timed_generate(cfg, model, prompt, CACHE)
+    run(4)                                           # warm-up
+    (_, _), t_pre = run(1)                           # prefill only
+    reset_launches()
+    (ids1, logits1), t1 = run(NEW)
+    launches = read_launches()
+    (ids2, _), t2 = run(NEW)
+    ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
+    log(f"{tag}: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
+        f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
+        f"({1e3 / ms_tok:.1f} tok/s); second run "
+        f"{(t2 - t_pre) / (NEW - 1) * 1e3:.2f} ms/token")
+    check_launches(tag, launches, {k: v * NEW for k, v in expect.items()})
+    check_runs(tag, cfg, ids1, ids2, logits1, NEW)
+    for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+        check_plain(cfg, model, prompt, dt, tol, CACHE, tag=tag,
+                    per_step=expect)
+    dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
+    log(f"{tag}: one decode step (position {S}): device time "
+        f"{dev_ms:.2f} ms (CUDA-graph replay), eager {eager_ms:.2f} ms "
+        f"-> device idle {1 - dev_ms / eager_ms:.0%} of the eager step; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    return {"launches": launches, "ms_tok": ms_tok, "dev_ms": dev_ms,
+            "eager_ms": eager_ms}
+
+
+def phase_layout_paths(main):
+    """Llama-2-7B at full width and all 32 layers through the new kernels:
+    (f) the main path's E8P12 nibble planes (``main``, whose model this
+    phase takes and frees) with split-K = 4, (e) the same planes re-laid as
+    sw4 (a view) and (d) as bfp (copied one linear at a time), each held to
+    the main path's f32 logits (K1), then (g) E8P12RVQ4B in the paired
+    layout built from seed 0. Per forward pass:
+    (d) 129 K10, (e) 129 K11, (f) 97 K6 (qkv, o, gate/up, head) and 32 K1
+    (down's 11 lane blocks do not split 4 ways), (g) 129 K7; the 32-token
+    prefill has padded m 32, so split-K runs there too."""
+    import gc
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.ops import qtensor as Q
+    cfg, prompt, ref = main["cfg"], main["prompt"], main["ref"]
+    model = main.pop("model")
+    per_step = 4 * LAYERS + 1
+    out = {}
+    for tag, expect, to, back in (
+            ("f_ksplit4", {"ksplit_decode_matmul": 3 * LAYERS + 1,
+                           "fused_decode_matmul": LAYERS},
+             lambda: qt.set_ksplit(model, 4), lambda: qt.set_ksplit(model, 0)),
+            ("e_sw4", {"sw_decode_matmul": per_step},
+             lambda: relayout_model(model, lambda q: Q.to_subword(q, 4)),
+             lambda: relayout_model(model, Q.from_subword)),
+            ("d_bfp", {"bfp_decode_matmul": per_step},
+             lambda: relayout_model(model, Q.to_bfp),
+             lambda: relayout_model(model, Q.from_bfp))):
+        t = time.time()
+        to()
+        torch.cuda.synchronize()
+        log(f"{tag}: re-laid the main path's Llama-2-7B planes in "
+            f"{time.time() - t:.1f} s")
+        _, lg = f32_logits(cfg, model, prompt)
+        rel = float((lg - ref).abs().max() / ref.abs().max())
+        log(f"{tag}: f32 logits of the prompt and 3 greedy steps against the "
+            f"main path's fused_decode_matmul run: max|diff|/max|logit| "
+            f"{rel:.3g} (tol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{tag}: f32 logits differ from K1's by "
+                                 f"{rel}")
+        out[tag] = run_path(tag, cfg, model, prompt, expect)
+        back()
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = qt.random_quantized_model(cfg, "E8P12RVQ4B", seed=0,
+                                      dtype=torch.bfloat16,
+                                      quantize_head=True, device="cuda",
+                                      layout="paired")
+    model = qt.fuse_for_inference(cfg, model)
+    torch.cuda.synchronize()
+    log(f"g_paired: built Llama-2-7B E8P12RVQ4B [paired] (random codes, seed"
+        f" 0, fused, quantized head) in {time.time() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
+        f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+    out["g_paired"] = run_path("g_paired", cfg, model, prompt,
+                               {"paired_decode_matmul": per_step})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -807,15 +1176,15 @@ def shared_routing(model, k, logits, replay):
 
 
 def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
-                tag="main", kernel=None):
+                tag="main", per_step=None):
     """The first decode step's logits and n greedy tokens with every linear
     on the kernel vs on the plain twin. A greedy fork is accepted only at a
     near-tie: the kernel's token within tol*max|logit| of the plain max.
     When the runs fork at the prompt's own token (a near-tie there), the
     first decode steps see different tokens, and the prompt's logits (the
-    same inputs in both runs) are held to tol instead. ``kernel`` names the
-    path's kernel, whose launches in the kernel run must be one per linear
-    per step. On an MoE model the kernel run takes the plain run's routing
+    same inputs in both runs) are held to tol instead. ``per_step`` names
+    the path's kernels with their launches per step, which the kernel run
+    must show n times over. On an MoE model the kernel run takes the plain run's routing
     (``shared_routing``): the runs then differ by the linears' rounding and
     not by a top-k choice that a near-tie of router logits flips, and the
     MoE kernel runs on every decode step of the kernel run."""
@@ -857,11 +1226,10 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
             f"; at step {same} the kernel's token is {gap:.3g} of "
             f"max|logit| below the plain argmax (tol {tol})"
             if same < n else ""))
-    if kernel is not None:
-        per_step = 4 * len(model.layers) + 1
+    for kernel, k in (per_step or {}).items():
         log(f"{tag} [{label}]: {launches[kernel]} {kernel} launches in the "
-            f"kernel run (expected {per_step * n})")
-        if launches[kernel] != per_step * n:
+            f"kernel run (expected {k * n})")
+        if launches[kernel] != k * n:
             raise AssertionError(f"{tag} {label}: launches {launches}")
     if moe:
         L = len(model.layers)
@@ -943,6 +1311,33 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
     return entries
 
 
+def layout_entries(rows, max_err, paths):
+    """The kernels line's K10, K11, K6 and K7 entries: per decode token of
+    each kernel's own full-width path (m=1, bf16), launches from its
+    counted run."""
+    out = []
+    for kname, label, calls, path in (
+            ("bfp_decode_matmul", "bfp", LLAMA_CALLS, "d_bfp"),
+            ("sw_decode_matmul", "sw4", LLAMA_CALLS, "e_sw4"),
+            ("ksplit_decode_matmul", "ksplit4", KSPLIT_CALLS, "f_ksplit4"),
+            ("paired_decode_matmul", "paired", LLAMA_CALLS, "g_paired")):
+        sel = [r for r in rows if r["variant"] == label and r["m"] == 1
+               and r["dtype"] == "bfloat16"]
+        e = dict(next(k for k in KERNELS if k["name"] == kname),
+                 launches=paths[path]["launches"][kname],
+                 max_abs_err=max_err[kname],
+                 **{key: call_sum(sel, calls, key)
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                 bound_by=("bytes" if all(r["bound_by"] == "bytes"
+                                          for r in sel) else "operations"))
+        log(f"{path}: per decode token the {label} kernel takes "
+            f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
+            f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
+            f"{e['bound_ms']:.3f} ms")
+        out.append(e)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -971,13 +1366,19 @@ def main() -> int:
         moe_rows, moe_err = phase_moe_kernels()
         log_k2(rows)
         rp_rows, rp_err = phase_rowpair_kernels()
+        lay_rows, lay_err = phase_layout_kernels()
         phase_golden((("e8p12", None), ("e8p12", "u3"),
-                      ("e8p12rvq4b", None), ("e8p12rvq4b", "pb")))
-        launches = phase_main()
+                      ("e8p12rvq4b", None), ("e8p12rvq4b", "pb"),
+                      ("e8p12", "bfp"), ("e8p12", "sw2"), ("e8p12", "sw4"),
+                      ("e8p12rvq4b", "paired"), ("e8p12rvq4b", "bfp")))
+        launches, main = phase_main()
+        new_paths = phase_layout_paths(main)
         mix = phase_mixtral()
         paths = phase_rowpair_paths()
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
+        entries += layout_entries(lay_rows, lay_err, new_paths)
+        log(f"chip_smoke: wall time {time.time() - T0:.1f} s (limit 1200 s)")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -4,12 +4,12 @@ never JAX or the JAX package. Entry points run on the card unless the
 caller passes device="cpu".
 """
 from .models.config import ModelConfig, llama2_7b_config, tiny_config
-from .models.llama import fuse_for_inference
+from .models.llama import fuse_for_inference, set_ksplit
 from .runtime.generate import generate
 from .utils.checkpoint import load_quantized
 from .utils.convert import from_jax_params
 from .utils.random_quantized import random_quantized_model
 
 __all__ = ["ModelConfig", "llama2_7b_config", "tiny_config",
-           "fuse_for_inference", "generate", "load_quantized",
-           "from_jax_params", "random_quantized_model"]
+           "fuse_for_inference", "set_ksplit", "generate",
+           "load_quantized", "from_jax_params", "random_quantized_model"]

@@ -21,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.qlinear import QuantLinear, fuse_qlinears, same_tensor
-from ..nn.qmoe import (moe_sparse_apply, stack_experts,
+from ..nn.qlinear import (FusedQuantLinear, QuantLinear, fuse_qlinears,
+                         same_tensor)
+from ..nn.qmoe import (StackedQuantLinear, moe_sparse_apply, stack_experts,
                        unstack_qlinear)
 from .common import sdpa_cache_layout, write_kv
 from .config import ModelConfig
@@ -349,3 +350,17 @@ def fuse_for_inference(cfg: ModelConfig, model: LlamaModel) -> LlamaModel:
         layers.append(nn.ModuleDict(mods))
     return LlamaModel(model.embed_tokens.weight, layers, model.norm.weight,
                       model.lm_head)
+
+
+def set_ksplit(model: LlamaModel, ksplit: int) -> LlamaModel:
+    """Ask every quantized linear of ``model`` (fused, stacked or not) for
+    split-K with ``ksplit`` chunks, 0 to turn it off: the port's switch
+    for the JAX package's QFA_KSPLIT. It takes effect where the JAX
+    package's does (``ops/fused_matmul.py`` ``fused_quant_matmul_pre``):
+    nibble planes, padded m <= 32 and more than one chunk by
+    ``pick_ksplit``. Returns ``model``, changed in place."""
+    for mod in model.modules():
+        if isinstance(mod, (QuantLinear, FusedQuantLinear,
+                            StackedQuantLinear)):
+            mod.ksplit = int(ksplit)
+    return model

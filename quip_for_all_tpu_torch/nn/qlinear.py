@@ -29,17 +29,19 @@ from ..transforms.incoherence import (HadSpec, hadamard_transform,
 
 def _grouped_prologue_matmul(x, spec, qt, scale, compute_dtype,
                              scale_vec=None, impl="auto",
-                             max_m=FUSED_MAX_M):
-    """The fused grouped-layout route, or None when a shape rule sends the
-    call to the plain transform + quant_matmul route."""
+                             max_m=FUSED_MAX_M, ksplit=0):
+    """The fused grouped-layout route (x in the lane order of the planes'
+    subword split), or None when a shape rule sends the call to the plain
+    transform + quant_matmul route."""
     if x.shape[0] >= max_m or not supports(qt):
         return None
-    xg = matmul_hadUt_grouped(x, spec, qt.group_cols, scale=scale)
+    xg = matmul_hadUt_grouped(x, spec, qt.group_cols, scale=scale,
+                              split=qt.split)
     if xg is None:
         return None
     return fused_quant_matmul_pre(xg.to(compute_dtype), qt,
                                   scale_vec=scale_vec,
-                                  plain=impl == "plain")
+                                  plain=impl == "plain", ksplit=ksplit)
 
 
 def same_tensor(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
@@ -56,7 +58,10 @@ class _PlaneHolder(nn.Module):
     them) and rebuilds the container on access."""
 
     def _set_qweight(self, qt: Optional[QuantizedTensor]):
-        # planes of any layout; pb's w0 is a 3-D buffer
+        # split-K chunks asked of the fused route (0 = off; the model-wide
+        # switch is models/llama.py set_ksplit)
+        self.ksplit = 0
+        # planes of any layout; pb's w0 and bfp's planes are 3-D buffers
         self.plane_keys = sorted(qt.planes) if qt is not None else []
         for k in self.plane_keys:
             self.register_buffer(f"planes_{k}", qt.planes[k])
@@ -128,12 +133,12 @@ def apply(p: QuantLinear, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
         out = _grouped_prologue_matmul(x, p.left_spec, p.qweight,
                                        p.wscale_float, compute_dtype,
                                        scale_vec=sv, impl=matmul_impl,
-                                       max_m=max_m)
+                                       max_m=max_m, ksplit=p.ksplit)
     pc_fused = out is not None and sv is not None
     if out is None:
         x = matmul_hadUt(x, p.left_spec, scale=p.wscale_float)
         out = quant_matmul(x.to(compute_dtype), p.qweight, impl=matmul_impl,
-                           max_m=max_m)
+                           max_m=max_m, ksplit=p.ksplit)
     out = out.to(x_dtype)
     if p.per_channel and not pc_fused:
         out = out * p.Wscale.to(x_dtype)
@@ -199,7 +204,8 @@ def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
     q0 = p0.qweight
     # segments concatenate along q_out: plane axis 0 for the 2-D planes
     # (the row-pair u3/pb planes too: each segment paired its own rows, so
-    # no pair straddles a segment), axis 1 for pb's 3-D w0
+    # no pair straddles a segment), axis 1 for pb's 3-D w0 and bfp's 3-D
+    # planes
     planes = {k: torch.cat([p.qweight.planes[k] for p in ps],
                            dim=1 if v.dim() == 3 else 0)
               for k, v in q0.planes.items()}
@@ -254,12 +260,13 @@ def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
     if matmul_impl != "dequant":
         big = _grouped_prologue_matmul(x, f.left_spec, f.qweight, None,
                                        compute_dtype, scale_vec=sv,
-                                       impl=matmul_impl, max_m=max_m)
+                                       impl=matmul_impl, max_m=max_m,
+                                       ksplit=f.ksplit)
     pre_fused = big is not None and sv is not None
     if big is None:
         x = matmul_hadUt(x, f.left_spec)     # unscaled; wscale per segment
         big = quant_matmul(x.to(compute_dtype), f.qweight, impl=matmul_impl,
-                           max_m=max_m)
+                           max_m=max_m, ksplit=f.ksplit)
     big = big.to(x_dtype)
     if f.right_uniform:
         # batched epilogue: one scale, one batched kron transform and one

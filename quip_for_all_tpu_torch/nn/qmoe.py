@@ -12,9 +12,10 @@ Every expert weight array is stacked along a leading E axis, which gives:
      prefill loop in ``models/llama.py``.
 
 The dense all-experts formulation for expert-parallel meshes
-(``moe_dense_stacked_apply``) waits for the parallelism slice. Stacking
-takes the nibble layout only and refuses u3/pb experts (the other layout
-conversions wait for slice 9).
+(``moe_dense_stacked_apply``) waits for the parallelism slice. The MoE
+kernel decodes nibble planes: stacking re-lays paired, bfp and sw experts
+to nibble as the JAX package does, and refuses u3/pb experts, which the
+JAX package stacks unconverted (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from torch import nn
 
 from ..ops.fused_matmul import grouped_permute
 from ..ops.moe_matmul import moe_fused_matmul, moe_fused_matmul_ref
-from ..ops.qtensor import QuantizedTensor, decode_affine
+from ..ops.qtensor import (ROWPAIR_LAYOUTS, QuantizedTensor,
+                           decode_affine, to_nibble)
 from ..transforms.incoherence import hadamard_transform
 from .qlinear import QuantLinear, same_tensor
 
@@ -60,6 +62,8 @@ class StackedQuantLinear(nn.Module):
         self.K_left, self.K_right = K_left, K_right
         self.codebook_id = codebook_id
         self.opt_resid_scale = opt_resid_scale
+        # split-K chunks for the per-expert views of the dense prefill loop
+        self.ksplit = 0
 
     @property
     def q_out_total(self) -> int:
@@ -112,21 +116,24 @@ def stack_qlinears(groups: List[List[QuantLinear]]
     if not _stackable(groups):
         return None
     p0 = groups[0][0]
-    if p0.layout != "nibble":
+    if p0.layout in ROWPAIR_LAYOUTS:
         # the MoE kernel decodes nibble planes only. (The JAX package's
-        # stack_qlinears re-encodes paired/bfp/sw experts to nibble, but
-        # lets u3/pb through unchanged: ROADMAP.md queue 3.)
+        # stack_qlinears lets u3/pb through unchanged: ROADMAP.md queue 3.)
         raise NotImplementedError(
             f"stacking {p0.layout} experts: the MoE kernel takes the nibble "
-            "layout only (load Mixtral with layout=None)")
-    planes = {k: torch.stack([torch.cat([p.qweight.planes[k] for p in g])
-                              for g in groups])
-              for k in p0.plane_keys}
+            "layout, and u3/pb experts do not convert (load Mixtral with "
+            "layout None, 'paired', 'bfp', 'sw2' or 'sw4')")
+    # paired / bfp / sw experts re-lay to nibble planes (exact), as the JAX
+    # package's stack_qlinears does (nn/qmoe.py:119-133 there)
+    qws = [[to_nibble(p.qweight) for p in g] for g in groups]
+    planes = {k: torch.stack([torch.cat([q.planes[k] for q in g])
+                              for g in qws])
+              for k in sorted(qws[0][0].planes)}
     SU = (torch.stack([g[0].SU for g in groups])
           if p0.SU is not None else None)
     had_left = (torch.stack([g[0].had_left for g in groups])
                 if p0.had_left is not None else None)
-    dev = planes[p0.plane_keys[0]].device
+    dev = planes["w0"].device
 
     def expert_pre(g):
         parts = []
@@ -177,6 +184,7 @@ def unstack_qlinear(sq: StackedQuantLinear, e: int) -> List[QuantLinear]:
             had_right=None if sq.had_right is None else sq.had_right[e, s],
             Wscale=sq.pre_vec[e, lo:hi], per_channel=True,
             wscale_float=1.0))
+        outs[-1].ksplit = sq.ksplit
     return outs
 
 

@@ -1,3 +1,4 @@
-"""Fused decode+matmul (CUDA kernels and plain twins: nibble layout in
-``fused_matmul``, row-pair u3/pb layouts in ``rowpair_matmul``, MoE in
-``moe_matmul``), dense decode, dispatch and the QuantizedTensor."""
+"""Fused decode+matmul (CUDA kernels and plain twins: nibble layout and the
+dispatch by layout in ``fused_matmul``, bfp / sw / split-K in
+``layout_matmul``, u3 / pb / paired in ``rowpair_matmul``, MoE in
+``moe_matmul``), dense decode and the QuantizedTensor."""

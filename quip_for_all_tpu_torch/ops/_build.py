@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/lib<name>-<hash>.so`` at the root of the checkout (the hash is
-of the source and the flags, so an edited source rebuilds). Nothing is
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds). Nothing is
 built when a module is imported: the first call that needs a kernel
 builds it. ``build_all`` starts one nvcc per source at once, so several
 kernels build in the time of the slowest.
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header, so an edited header rebuilds too
+    for fn in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

@@ -1,11 +1,12 @@
 """Dense codebook decode from runtime word planes, in plain torch ops — the
-counterpart of ``quip_for_all_tpu/ops/dequant_xla.py`` (nibble, u3 and pb
-layouts).
+counterpart of ``quip_for_all_tpu/ops/dequant_xla.py`` (every runtime
+layout).
 
 Used above the fused kernel's crossover (decode once, then one large
-matmul) and as a reference in tests. The row-pair layouts decode by the
-u-code math of ``ops/qtensor.py``, in the JAX package's order of f32
-operations, so the dense weights are bit-equal to its ``decode_weights``.
+matmul) and as a reference in tests. The u3, pb and paired layouts decode
+by the u-code math of ``ops/qtensor.py``, in the JAX package's order of f32
+operations, so the dense weights are bit-equal to its ``decode_weights``;
+bfp and sw planes decode as the nibble words they re-lay.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import List
 
 import torch
 
-from .qtensor import QuantizedTensor, _unpair16
+from .qtensor import QuantizedTensor, _unpair16, to_nibble
 
 
 def nibble_planes(w: torch.Tensor) -> List[torch.Tensor]:
@@ -68,13 +69,39 @@ def _pb_positions(qt: QuantizedTensor, dtype) -> List[torch.Tensor]:
     return out
 
 
+def _paired_positions(qt: QuantizedTensor, dtype) -> List[torch.Tensor]:
+    """value = u0 + rs*u1 - 2.25*(1+rs) - 0.5*(p0 + rs*p1)[group], one row
+    per word (``_paired_positions`` in the JAX package)."""
+    rs = qt.opt_resid_scale
+    L, Hw, Pw = (qt.planes[k].to(torch.int64) & 0xFFFFFFFF
+                 for k in ("w0", "w1", "w2"))
+    Gp, Wp = L.shape[-1], Pw.shape[-1]
+    delta = torch.cat([((Pw >> (2 * j)) & 1).to(torch.float32)
+                       + rs * ((Pw >> (2 * j + 1)) & 1).to(torch.float32)
+                       for j in range(Gp // Wp)], dim=-1)     # (q_out, Gp)
+    const = -2.25 * (1.0 + rs) - 0.5 * delta
+    out = []
+    for i in range(8):
+        lo4 = (L >> (4 * i)) & 0xF
+        b = (lo4 >> 3).to(torch.float32)
+        u0 = (lo4 & 7).to(torch.float32)
+        hi = torch.cat([((Hw >> (16 * h + 2 * i)) & 3).to(torch.float32)
+                        for h in (0, 1)], dim=-1)            # (q_out, Gp)
+        out.append((u0 + rs * (2.0 * hi + b) + const).to(dtype))
+    return out
+
+
 def decode_positions(qt: QuantizedTensor, dtype=torch.float32
                      ) -> List[torch.Tensor]:
-    """-> list of 8 (q_out, Gp) planes; plane i holds weight 8g+i."""
+    """-> list of 8 (q_out, Gp) planes; plane i holds weight 8g+i. bfp and
+    sw planes go back to their nibble words first (same values)."""
     if qt.layout == "u3":
         return _u3_positions(qt, dtype)
     if qt.layout == "pb":
         return _pb_positions(qt, dtype)
+    if qt.layout == "paired":
+        return _paired_positions(qt, dtype)
+    qt = to_nibble(qt)
     affine = qt.decode_affine
     keys = sorted(qt.planes)
     assert len(keys) == len(affine), (keys, affine)

@@ -1,6 +1,6 @@
 """QuantizedTensor: runtime container for lattice-coded weights, the
-PyTorch counterpart of ``quip_for_all_tpu/ops/qtensor.py``. Three runtime
-layouts, bit-identical to the JAX package's.
+PyTorch counterpart of ``quip_for_all_tpu/ops/qtensor.py``. Seven runtime
+layouts, bit-identical to the JAX package's (``LAYOUTS``).
 
 **nibble** (the default): one int32 word per 8-weight group holding 8
 UNSIGNED nibbles, with a static affine decode
@@ -37,6 +37,28 @@ parity plane fills only 4 of the 16 bits of each half.
 (PL = ``pb_parity_lanes``, which need not divide Gp); ~6.5 bits/weight
 against the nibble layout's 8.
 
+**paired** (E8P12RVQ4B only, ``qtensor.py:35-56``, ``:574-606`` there), Gp
+padded to 256, one output row per word:
+  w0 (q_out, Gp)      bits 4i:             lo4 = u0 | (u1 & 1) << 3
+  w1 (q_out, Gp/2)    bits 16h + 2i:       u1 >> 1 of group h*Gp/2 + lane
+  w2 (q_out, Wp)      bits 2j (+1):        p0 (p1) of group j*Wp + lane
+(Wp = ``paired_wp``, which divides Gp); ~7 bits/weight at q_in 4096.
+
+Two layouts store the nibble words' own bytes in another order, so they
+decode by the nibble layout's affine rows:
+
+**bfp** (``qtensor.py:138-173`` there), even q_out: each nibble plane
+becomes (2, q_out/2, Gp) int32; with we, wo the words of rows 2t and 2t+1,
+  [0][t, g] = (we & 0xFFFF) | (wo << 16)             positions 0..3
+  [1][t, g] = (we >> 16) | (wo & 0xFFFF0000)          positions 4..7
+so ((w >> 4k) & 0x000F000F) | 0x43004300 holds, as two bf16 halves, 128
+plus nibble 4*half + k of rows 2t and 2t+1.
+
+**sw2 / sw4** (``qtensor.py:74-108`` there): the nibble planes viewed as
+int16 / int8 subwords, (q_out, P*Gp) with P = 2 / 4, low subword first
+(``split``). Subword j of group g sits at column P*g + j and holds nibbles
+i = (8/P)*j + q at bits 4q.
+
 Only E8P12 and E8P12RVQ4B codes convert to and from planes in this port;
 the other codebooks' affine rows are here because the fused kernel already
 takes their 1 or 2 plane sets.
@@ -51,17 +73,21 @@ import numpy as np
 import torch
 
 from ..codebooks import e8p12
+from ..utils.device import resolve_device
 
-LAYOUTS = ("nibble", "u3", "pb")
+LAYOUTS = ("nibble", "u3", "pb", "paired", "bfp", "sw2", "sw4")
 ROWPAIR_LAYOUTS = ("u3", "pb")
+# the layouts whose planes decode by the u-code math, not the affine rows
+UCODE_LAYOUTS = ("u3", "pb", "paired")
+SPLIT = {"sw2": 2, "sw4": 4}
 
 
 @dataclasses.dataclass
 class QuantizedTensor:
     """Lattice-coded weight matrix of logical shape (q_out, q_in).
 
-    planes: int32 tensors keyed "w0", "w1", ... in the shapes of the
-    layout (module docstring)."""
+    planes: tensors keyed "w0", "w1", ... in the shapes and dtypes of the
+    layout (module docstring): int32, or int16 / int8 in sw2 / sw4."""
     planes: Dict[str, torch.Tensor]
     codebook_id: str
     q_out: int
@@ -71,21 +97,26 @@ class QuantizedTensor:
 
     def __post_init__(self):
         if self.layout not in LAYOUTS:
-            raise NotImplementedError(
-                f"runtime layout {self.layout!r} is not ported yet "
-                "(ROADMAP.md queue 1, slice 9)")
+            raise ValueError(f"runtime layout {self.layout!r} not in "
+                             f"{LAYOUTS}")
+
+    @property
+    def split(self) -> int:
+        """Subwords per int32 word of the plane storage (2 / 4 in sw2 /
+        sw4, else 1)."""
+        return SPLIT.get(self.layout, 1)
 
     @property
     def group_cols(self) -> int:
         """Padded group count Gp (columns of x_perm per position)."""
-        return self.planes["w0"].shape[-1]
+        return self.planes["w0"].shape[-1] // self.split
 
     @property
     def decode_affine(self):
-        """Per-plane-set (alpha, beta), in sorted plane-key order. Only the
-        nibble layout decodes affinely; u3/pb planes decode by the u-code
-        math (module docstring)."""
-        if self.layout != "nibble":
+        """Per-plane-set (alpha, beta), in sorted plane-key order. The
+        nibble, bfp and sw layouts decode affinely; u3/pb/paired planes
+        decode by the u-code math (module docstring)."""
+        if self.layout in UCODE_LAYOUTS:
             raise ValueError(f"decode_affine on the {self.layout} layout")
         return decode_affine(self.codebook_id, self.opt_resid_scale)
 
@@ -113,19 +144,22 @@ def decode_affine(codebook_id: str, opt_resid_scale: float = -1.0):
 
 def resolve_layout(codebook_id: str, layout: Optional[str], q_out: int
                    ) -> str:
-    """The runtime layout a caller asked for: None means nibble (the JAX
-    package's default with QFA_E8P_U3 / QFA_RVQ_PB unset); "u3" takes
-    E8P12 only and "pb" E8P12RVQ4B only, both with an even q_out."""
+    """The runtime layout a caller asked for, where the JAX package reads
+    QFA_E8P_U3 / QFA_RVQ_PB / QFA_RVQ_PAIRED / QFA_BFP / QFA_SPLIT_DECODE:
+    None means nibble; "u3" takes E8P12 only, "pb" and "paired"
+    E8P12RVQ4B only; "bfp", "sw2" and "sw4" take every ported codebook;
+    u3, pb and bfp pair output rows and need an even q_out."""
     if layout is None or layout == "nibble":
         return "nibble"
-    need = {"u3": "E8P12", "pb": "E8P12RVQ4B"}.get(layout)
-    if need is None:
-        raise ValueError(f"layout {layout!r} not in (None, 'nibble', 'u3', "
-                         "'pb')")
-    if codebook_id != need:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in (None, "
+                         + ", ".join(repr(v) for v in LAYOUTS) + ")")
+    need = {"u3": "E8P12", "pb": "E8P12RVQ4B",
+            "paired": "E8P12RVQ4B"}.get(layout)
+    if need is not None and codebook_id != need:
         raise ValueError(f"layout {layout!r} takes {need}, not "
                          f"{codebook_id}")
-    if q_out % 2:
+    if layout in ("u3", "pb", "bfp") and q_out % 2:
         raise ValueError(f"layout {layout!r} pairs output rows: q_out "
                          f"{q_out} is odd")
     return layout
@@ -147,6 +181,17 @@ def pb_parity_lanes(Gp: int) -> int:
     while 8 * pl < Gp:
         pl += 128
     return pl
+
+
+def paired_wp(Gp: int) -> int:
+    """paired parity-plane lane width: smallest 128-multiple dividing Gp
+    that covers Gp groups in <= 16 two-bit fields (Gp itself when none
+    smaller does)."""
+    for k in range(1, Gp // 128 + 1):
+        w = 128 * k
+        if Gp % w == 0 and 16 * w >= Gp:
+            return w
+    return Gp
 
 
 def _pad_cols(a: np.ndarray, mult: int = 128) -> np.ndarray:
@@ -366,16 +411,146 @@ def pb_to_nibble(qt: QuantizedTensor) -> QuantizedTensor:
                            qt.opt_resid_scale)
 
 
+# ------------------------------------------------- paired packer (torch)
+
+def paired_planes_from_uv(u0: torch.Tensor, p0: torch.Tensor,
+                          u1: torch.Tensor, p1: torch.Tensor, q_out: int,
+                          G: int) -> Dict[str, torch.Tensor]:
+    """(u0, p0, u1, p1) of the main and residual codes -> paired planes
+    (``_paired_planes_from_idx`` in the JAX package), on u0's device.
+    u0 (q_out, G, 8) in {0..7}, u1 in {0..5}; parities (q_out, G)."""
+    dev = u0.device
+    Gp = -(-G // 256) * 256
+    Gh, Wp = Gp // 2, paired_wp(Gp)
+    L = torch.zeros((q_out, Gp), dtype=torch.int64, device=dev)
+    for i in range(8):
+        a, b = u0[..., i].to(torch.int64), u1[..., i].to(torch.int64)
+        L[:, :G] |= (a | ((b & 1) << 3)) << (4 * i)
+    H = torch.zeros((q_out, Gh), dtype=torch.int64, device=dev)
+    for h in (0, 1):
+        lo_g, hi_g = h * Gh, min((h + 1) * Gh, G)
+        if lo_g >= G:
+            break
+        for i in range(8):
+            H[:, :hi_g - lo_g] |= ((u1[:, lo_g:hi_g, i].to(torch.int64) >> 1)
+                                   << (16 * h + 2 * i))
+    pp = p0.to(torch.int64) | (p1.to(torch.int64) << 1)
+    P = torch.zeros((q_out, Wp), dtype=torch.int64, device=dev)
+    for j in range(Gp // Wp):
+        lo_g, hi_g = j * Wp, min((j + 1) * Wp, G)
+        if lo_g >= G:
+            break
+        P[:, :hi_g - lo_g] |= pp[:, lo_g:hi_g] << (2 * j)
+    return {"w0": _as_i32(L), "w1": _as_i32(H), "w2": _as_i32(P)}
+
+
+def paired_uv_from_planes(planes: Dict[str, torch.Tensor]):
+    """paired planes -> (u0, p0, u1, p1) int64 over Gp groups, exact.
+    u0/u1 (q_out, Gp, 8), parities (q_out, Gp)."""
+    L, Hw, Pw = (planes[k].to(torch.int64) & 0xFFFFFFFF
+                 for k in ("w0", "w1", "w2"))
+    Gp, Wp = L.shape[-1], Pw.shape[-1]
+    lo4 = torch.stack([(L >> (4 * i)) & 0xF for i in range(8)], dim=-1)
+    hi = torch.cat([torch.stack([(Hw >> (16 * h + 2 * i)) & 3
+                                 for i in range(8)], dim=-1)
+                    for h in (0, 1)], dim=1)
+    pp = torch.cat([(Pw >> (2 * j)) & 3 for j in range(Gp // Wp)], dim=1)
+    return lo4 & 7, pp & 1, 2 * hi + (lo4 >> 3), pp >> 1
+
+
+def paired_to_nibble(qt: QuantizedTensor) -> QuantizedTensor:
+    """paired -> RVQ4B nibble re-layout at the (u, parity) level (exact;
+    grid membership not required)."""
+    assert qt.layout == "paired" and qt.codebook_id == "E8P12RVQ4B"
+    u0, p0, u1, p1 = paired_uv_from_planes(qt.planes)
+    G = qt.q_in // 8
+    return QuantizedTensor({"w0": _nibble_plane(u0, p0, G),
+                            "w1": _nibble_plane(u1, p1, G)},
+                           qt.codebook_id, qt.q_out, qt.q_in,
+                           qt.opt_resid_scale)
+
+
+# ------------------------------------------------- same-bytes re-layouts
+
+def to_subword(qt: QuantizedTensor, P: int) -> QuantizedTensor:
+    """nibble -> sw{P}: a view of the same bytes as int16 (P = 2) or int8
+    (P = 4), (q_out, P*Gp), low subword first."""
+    assert qt.layout == "nibble" and P in (2, 4)
+    dt = torch.int16 if P == 2 else torch.int8
+    return dataclasses.replace(
+        qt, planes={k: v.contiguous().view(dt) for k, v in qt.planes.items()},
+        layout=f"sw{P}")
+
+
+def from_subword(qt: QuantizedTensor) -> QuantizedTensor:
+    """sw{P} -> nibble (exact inverse of ``to_subword``, a view)."""
+    if qt.split == 1:
+        return qt
+    return dataclasses.replace(
+        qt, planes={k: v.contiguous().view(torch.int32)
+                    for k, v in qt.planes.items()}, layout="nibble")
+
+
+def to_bfp(qt: QuantizedTensor) -> QuantizedTensor:
+    """nibble -> bfp: each (q_out, Gp) plane -> (2, q_out/2, Gp), on its
+    device, in unsigned 32-bit arithmetic (module docstring)."""
+    assert qt.layout == "nibble" and qt.q_out % 2 == 0
+    planes = {}
+    for k, v in qt.planes.items():
+        w = v.to(torch.int64) & 0xFFFFFFFF
+        we, wo = w[0::2], w[1::2]
+        planes[k] = _as_i32(torch.stack(
+            [(we & 0xFFFF) | ((wo & 0xFFFF) << 16),
+             (we >> 16) | (wo & 0xFFFF0000)]))
+    return dataclasses.replace(qt, planes=planes, layout="bfp")
+
+
+def from_bfp(qt: QuantizedTensor) -> QuantizedTensor:
+    """bfp -> nibble (exact inverse of ``to_bfp``)."""
+    if qt.layout != "bfp":
+        return qt
+    planes = {}
+    for k, v in qt.planes.items():
+        w = v.to(torch.int64) & 0xFFFFFFFF
+        a, b = w[0], w[1]
+        we = (a & 0xFFFF) | ((b & 0xFFFF) << 16)
+        wo = (a >> 16) | (b & 0xFFFF0000)
+        planes[k] = _as_i32(torch.stack([we, wo], dim=1).reshape(
+            -1, v.shape[-1]))
+    return dataclasses.replace(qt, planes=planes, layout="nibble")
+
+
+def to_nibble(qt: QuantizedTensor) -> QuantizedTensor:
+    """Any layout -> nibble planes of the same codes (exact)."""
+    return {"u3": u3_to_nibble, "pb": pb_to_nibble,
+            "paired": paired_to_nibble, "bfp": from_bfp,
+            "sw2": from_subword, "sw4": from_subword}.get(
+                qt.layout, lambda q: q)(qt)
+
+
+def relayout(qt: QuantizedTensor, layout: str) -> QuantizedTensor:
+    """nibble -> the same codes in bfp or sw2/sw4 (the layouts that keep
+    the nibble words' bytes)."""
+    if layout == "bfp":
+        return to_bfp(qt)
+    if layout in SPLIT:
+        return to_subword(qt, SPLIT[layout])
+    assert layout == "nibble", layout
+    return qt
+
+
 # ------------------------------------------------- raw idx <-> runtime
 
 def from_raw_idxs(cb, idxs: np.ndarray, q_out: int, q_in: int,
-                  device="cpu", layout: Optional[str] = None
+                  device="cuda", layout: Optional[str] = None
                   ) -> QuantizedTensor:
     """Raw int32 code indices (q_out, q_in/codesz) -> runtime planes in
-    ``layout`` (``resolve_layout``)."""
+    ``layout`` (``resolve_layout``) on ``device`` (the card unless the
+    caller asks for the CPU)."""
     if cb.id not in ("E8P12", "E8P12RVQ4B"):
         raise NotImplementedError(
             f"{cb.id} planes are not ported yet (ROADMAP.md slice 2)")
+    device = resolve_device(device)
     layout = resolve_layout(cb.id, layout, q_out)
     G = q_in // 8
     ors = float(cb.opt_resid_scale)
@@ -386,30 +561,30 @@ def from_raw_idxs(cb, idxs: np.ndarray, q_out: int, q_in: int,
         idx16 = idxs.astype(np.int64).astype(np.uint16)
         if layout == "u3":
             u, p = _e8p_uv_from_idx(idx16)
-            planes = u3_planes_from_up(dev(u), dev(p), q_out, G)
-        else:
-            planes = {"w0": dev(_pad_cols(_e8p_words_from_idx(idx16)))}
-        return QuantizedTensor(planes, cb.id, q_out, q_in, ors, layout)
+            return QuantizedTensor(
+                u3_planes_from_up(dev(u), dev(p), q_out, G), cb.id, q_out,
+                q_in, ors, layout)
+        planes = {"w0": dev(_pad_cols(_e8p_words_from_idx(idx16)))}
+        return relayout(QuantizedTensor(planes, cb.id, q_out, q_in, ors),
+                        layout)
     u32 = np.ascontiguousarray(idxs).view(np.uint32).astype(np.int64)
     main = (u32 >> 16).astype(np.uint16)
     resid = (u32 & 0xFFFF).astype(np.uint16)
-    if layout == "pb":
+    if layout in ("pb", "paired"):
         u0, p0 = _e8p_uv_from_idx(main)
         u1, p1 = _e8p_uv_from_idx(resid)
-        planes = pb_planes_from_uv(dev(u0), dev(p0), dev(u1), dev(p1),
-                                   q_out, G)
-    else:
-        planes = {"w0": dev(_pad_cols(_e8p_words_from_idx(main))),
-                  "w1": dev(_pad_cols(_e8p_words_from_idx(resid)))}
-    return QuantizedTensor(planes, cb.id, q_out, q_in, ors, layout)
+        pack = pb_planes_from_uv if layout == "pb" else paired_planes_from_uv
+        return QuantizedTensor(pack(dev(u0), dev(p0), dev(u1), dev(p1),
+                                    q_out, G),
+                               cb.id, q_out, q_in, ors, layout)
+    planes = {"w0": dev(_pad_cols(_e8p_words_from_idx(main))),
+              "w1": dev(_pad_cols(_e8p_words_from_idx(resid)))}
+    return relayout(QuantizedTensor(planes, cb.id, q_out, q_in, ors), layout)
 
 
 def to_raw_idxs(qt: QuantizedTensor) -> np.ndarray:
     """Runtime planes -> raw int32 code indices (exact inverse)."""
-    if qt.layout == "u3":
-        qt = u3_to_nibble(qt)
-    elif qt.layout == "pb":
-        qt = pb_to_nibble(qt)
+    qt = to_nibble(qt)
     ncols = qt.q_in // 8
 
     def codes(key):
@@ -432,16 +607,19 @@ def to_checkpoint_idxs(qt: QuantizedTensor) -> np.ndarray:
 
 
 def from_checkpoint_idxs(cb, packed: np.ndarray, q_out: int, q_in: int,
-                         device="cpu", layout: Optional[str] = None
+                         device="cuda", layout: Optional[str] = None
                          ) -> QuantizedTensor:
-    """Reference checkpoint Qidxs array -> runtime planes."""
+    """Reference checkpoint Qidxs array -> runtime planes on ``device``."""
     return from_raw_idxs(cb, cb.unpack_idxs(packed), q_out, q_in,
                          device=device, layout=layout)
 
 
-__all__ = ["QuantizedTensor", "LAYOUTS", "ROWPAIR_LAYOUTS", "decode_affine",
-           "resolve_layout", "from_raw_idxs", "to_raw_idxs",
-           "from_checkpoint_idxs", "to_checkpoint_idxs", "e8p_word_table",
-           "e8p_uv_table", "u3_parity_lanes", "pb_parity_lanes",
-           "u3_planes_from_up", "pb_planes_from_uv", "u3_up_from_planes",
-           "pb_uv_from_planes", "u3_to_nibble", "pb_to_nibble"]
+__all__ = ["QuantizedTensor", "LAYOUTS", "ROWPAIR_LAYOUTS", "UCODE_LAYOUTS",
+           "SPLIT", "decode_affine", "resolve_layout", "from_raw_idxs",
+           "to_raw_idxs", "from_checkpoint_idxs", "to_checkpoint_idxs",
+           "e8p_word_table", "e8p_uv_table", "u3_parity_lanes",
+           "pb_parity_lanes", "paired_wp", "u3_planes_from_up",
+           "pb_planes_from_uv", "paired_planes_from_uv", "u3_up_from_planes",
+           "pb_uv_from_planes", "paired_uv_from_planes", "u3_to_nibble",
+           "pb_to_nibble", "paired_to_nibble", "to_subword", "from_subword",
+           "to_bfp", "from_bfp", "to_nibble", "relayout"]

@@ -1,14 +1,14 @@
 """quant_matmul: x @ W^T with W decoded on the fly from lattice codes —
 counterpart of ``quip_for_all_tpu/ops/quant_matmul.py``.
 
-  - "fused":   the hand-written decode+matmul kernel (ops/fused_matmul.py),
-               for m below the crossover.
+  - "fused":   the layout's hand-written decode+matmul kernel
+               (ops/fused_matmul.py dispatches), for m below the crossover.
   - "dequant": dense decode (ops/dequant.py), then one torch.matmul — the
                product the JAX package leaves to XLA outside any kernel.
   - "auto":    "fused" when m < max_m and the shape rule allows, else
                "dequant".
-  - "plain":   the fused kernel's plain twin on any device; used only to
-               hold the kernel against it.
+  - "plain":   the kernel's plain twin on any device; used only to hold
+               the kernel against it.
 """
 from __future__ import annotations
 
@@ -27,8 +27,9 @@ IMPLS = ("auto", "fused", "dequant", "plain")
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
-                 max_m: int = FUSED_MAX_M) -> torch.Tensor:
-    """x: (m, q_in) -> (m, q_out)."""
+                 max_m: int = FUSED_MAX_M, ksplit: int = 0) -> torch.Tensor:
+    """x: (m, q_in) -> (m, q_out); ``ksplit`` asks the fused route for
+    split-K (``fused_quant_matmul_pre``)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if x.shape[-1] != qt.q_in:
@@ -40,6 +41,7 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
         if not supports(qt):
             raise ValueError(f"fused route needs q_out % 128 == 0, got "
                              f"q_out={qt.q_out}")
-        return fused_quant_matmul(x, qt, plain=impl == "plain")
+        return fused_quant_matmul(x, qt, plain=impl == "plain",
+                                  ksplit=ksplit)
     W = decode_weights(qt, dtype=x.dtype)
     return torch.matmul(x, W.T)

@@ -1,13 +1,16 @@
-"""Fused row-pair decode + matmul: the wrappers of the two hand-written CUDA
-kernels of ``csrc/rowpair_decode_matmul.cu`` and their plain torch twins.
+"""Fused u-code decode + matmul: the wrappers of the hand-written CUDA
+kernels of ``csrc/rowpair_decode_matmul.cu`` (row-pair u3 and pb) and
+``csrc/paired_decode_matmul.cu`` (paired), and their plain torch twin.
 
 Counterpart of ``quip_for_all_tpu/ops/dequant_pallas.py``
-``_make_kernel_u3`` (u3 layout, E8P12) and ``_make_kernel_pb`` (pb layout,
-E8P12RVQ4B) through both ``_fused_call`` grids. For x in the grouped layout
+``_make_kernel_u3`` (u3 layout, E8P12), ``_make_kernel_pb`` (pb layout,
+E8P12RVQ4B) and ``_make_kernel_paired`` (paired layout, E8P12RVQ4B)
+through both ``_fused_call`` grids. For x in the grouped layout
 x_perm[:, i*Gp + g] = x[:, 8g + i] (pad lanes zero):
 
   u3:  out = sum_i x_i . u_i - 0.5 * (gx . par) - 2.25 * rowsum(x)
-  pb:  out = (d0 + rs*d1) - 0.5 * (gx . p0 + rs * (gx . p1))
+  pb, paired (the same function on two packings):
+       out = (d0 + rs*d1) - 0.5 * (gx . p0 + rs * (gx . p1))
              - 2.25 * (1 + rs) * rowsum(x)
        d0 = sum_i x_i . u0_i,  d1 = sum_i x_i . u1_i
 
@@ -22,8 +25,8 @@ Every product is exact in f32 at bf16 x (u <= 7, parities 0/1); the
 kernel and its twin differ only by f32 summation order.
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or the
-call raises. ``rowpair_u3_matmul.launches`` and
-``rowpair_pb_matmul.launches`` count kernel launches.
+call raises. ``rowpair_u3_matmul.launches``, ``rowpair_pb_matmul.launches``
+and ``paired_decode_matmul.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -32,9 +35,11 @@ from typing import Dict, Optional
 
 import torch
 
-from .qtensor import pb_uv_from_planes, u3_up_from_planes
+from .qtensor import (paired_uv_from_planes, pb_uv_from_planes,
+                      u3_up_from_planes)
 
 KERNEL = "rowpair_decode_matmul"
+PAIRED_KERNEL = "paired_decode_matmul"
 
 
 def pallas_block_rows(mp: int) -> int:
@@ -74,8 +79,8 @@ def rowpair_matmul_ref(x_perm: torch.Tensor, layout: str,
                        planes: Dict[str, torch.Tensor], rs: float = -1.0,
                        scale_vec: Optional[torch.Tensor] = None,
                        rows: Optional[int] = None) -> torch.Tensor:
-    """Plain twin of both kernels: (rows, q_out) in x_perm's dtype, in the
-    Pallas bodies' order of f32 operations. x_perm may carry pad rows
+    """Plain twin of the three kernels: (rows, q_out) in x_perm's dtype, in
+    the Pallas bodies' order of f32 operations. x_perm may carry pad rows
     past ``rows`` (they set the group sum's rounding, never the result)."""
     rows = x_perm.shape[0] if rows is None else rows
     Gp = planes["w0"].shape[-1]
@@ -87,14 +92,15 @@ def rowpair_matmul_ref(x_perm: torch.Tensor, layout: str,
         u, par = u3_up_from_planes(planes)
         out = xf @ _lanes(u).T
         out = out - 0.5 * (gx @ par.to(torch.float32).T) - 2.25 * xs
-    elif layout == "pb":
-        u0, p0, u1, p1 = pb_uv_from_planes(planes)
+    elif layout in ("pb", "paired"):
+        u0, p0, u1, p1 = (pb_uv_from_planes if layout == "pb"
+                          else paired_uv_from_planes)(planes)
         out = xf @ _lanes(u0).T + rs * (xf @ _lanes(u1).T)
         out = (out - 0.5 * (gx @ p0.to(torch.float32).T
                             + rs * (gx @ p1.to(torch.float32).T))
                - 2.25 * (1.0 + rs) * xs)
     else:
-        raise ValueError(f"no row-pair kernel for layout {layout!r}")
+        raise ValueError(f"no u-code kernel for layout {layout!r}")
     if scale_vec is not None:
         out = out * scale_vec.to(torch.float32)
     return out.to(x_perm.dtype)
@@ -113,7 +119,8 @@ def _check(x_perm, layout, planes, scale_vec, rows):
     w0, w1, w2 = planes["w0"], planes["w1"], planes["w2"]
     Gp, PL = w0.shape[-1], w2.shape[-1]
     half = w2.shape[0]
-    if layout == "u3":
+    q_out = half if layout == "paired" else 2 * half
+    if layout in ("u3", "paired"):     # paired: one row per word, PL = Wp
         want = {"w0": (half, Gp), "w1": (half, Gp // 2), "w2": (half, PL)}
         # 4 groups of a lane share one half of w1 and one parity field
         ok = Gp % 8 == 0 and PL % 4 == 0 and Gp % PL == 0 and Gp // PL <= 16
@@ -133,7 +140,7 @@ def _check(x_perm, layout, planes, scale_vec, rows):
                              "x_perm's device")
     if scale_vec is not None and (
             scale_vec.dtype != torch.float32
-            or scale_vec.shape != (2 * half,)
+            or scale_vec.shape != (q_out,)
             or not scale_vec.is_contiguous()
             or scale_vec.device != x_perm.device):
         raise ValueError("scale_vec must be a contiguous f32 (q_out,) "
@@ -145,14 +152,16 @@ def _launch(fn_name, x_perm, layout, planes, rs, scale_vec, rows):
     for t in (x_perm, *planes.values()):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x and planes")
-    fn = getattr(load(KERNEL), fn_name)
+    kernel = PAIRED_KERNEL if layout == "paired" else KERNEL
+    fn = getattr(load(kernel), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
     w0, w1, w2 = planes["w0"], planes["w1"], planes["w2"]
-    q_out, Gp, PL = 2 * w2.shape[0], w0.shape[-1], w2.shape[-1]
+    q_out = w2.shape[0] * (1 if layout == "paired" else 2)
+    Gp, PL = w0.shape[-1], w2.shape[-1]
     out = torch.empty((rows, q_out), dtype=x_perm.dtype, device=x_perm.device)
     beta = 2.25 if layout == "u3" else 2.25 * (1.0 + rs)
     stream = torch.cuda.current_stream(x_perm.device).cuda_stream
@@ -162,7 +171,7 @@ def _launch(fn_name, x_perm, layout, planes, rs, scale_vec, rows):
              int(group_sum_in_bf16(x_perm)),
              int(x_perm.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL} ({layout}) launch failed: cudaError "
+        raise RuntimeError(f"{kernel} ({layout}) launch failed: cudaError "
                            f"{err}")
     return out
 
@@ -175,8 +184,9 @@ def _rowpair(layout, x_perm, planes, rs, scale_vec, rows):
                                   rows)
     if x_perm.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x_perm.device}")
-    return _launch(f"qfa_rowpair_{layout}_matmul", x_perm, layout, planes,
-                   rs, scale_vec, rows)
+    entry = ("qfa_paired_decode_matmul" if layout == "paired"
+             else f"qfa_rowpair_{layout}_matmul")
+    return _launch(entry, x_perm, layout, planes, rs, scale_vec, rows)
 
 
 def rowpair_u3_matmul(x_perm: torch.Tensor, planes: Dict[str, torch.Tensor],
@@ -201,5 +211,18 @@ def rowpair_pb_matmul(x_perm: torch.Tensor, planes: Dict[str, torch.Tensor],
     return out
 
 
+def paired_decode_matmul(x_perm: torch.Tensor,
+                         planes: Dict[str, torch.Tensor], rs: float,
+                         scale_vec: Optional[torch.Tensor] = None,
+                         rows: Optional[int] = None) -> torch.Tensor:
+    """The paired kernel (K7), as ``rowpair_pb_matmul`` on the paired
+    planes w0 (q_out, Gp), w1 (q_out, Gp/2), w2 (q_out, Wp)."""
+    out = _rowpair("paired", x_perm, planes, rs, scale_vec, rows)
+    if x_perm.device.type == "cuda":
+        paired_decode_matmul.launches += 1
+    return out
+
+
 rowpair_u3_matmul.launches = 0
 rowpair_pb_matmul.launches = 0
+paired_decode_matmul.launches = 0

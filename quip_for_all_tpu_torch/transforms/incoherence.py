@@ -167,26 +167,31 @@ def full_U(spec: HadSpec) -> np.ndarray:
 
 
 @lru_cache(maxsize=256)
-def _grouped_hb(eb: int, had_scale: float, device: torch.device,
+def _grouped_hb(eb: int, had_scale: float, split: int, device: torch.device,
                 dtype: torch.dtype) -> torch.Tensor:
-    """H_B with its rows permuted into the grouped lane order (output lane
-    l = i*C + c holds coefficient b' = 8c + i), pre-scaled."""
-    B = 1 << eb
+    """H_B with its rows permuted into the grouped lane order, pre-scaled:
+    output lane l = q*(B*P/8) + c*P + j holds coefficient
+    b' = 8c + (8/P)*j + q (P = split; P = 1 gives l = i*C + c, b' = 8c + i)."""
+    B, P = 1 << eb, split
     ll = np.arange(B)
-    qq, cc = np.divmod(ll, B // 8)
-    sigma = cc * 8 + qq
+    qq, r = np.divmod(ll, B * P // 8)
+    cc, jj = np.divmod(r, P)
+    sigma = cc * 8 + (8 // P) * jj + qq
     return torch.as_tensor(sylvester(eb)[sigma] * had_scale, dtype=dtype,
                            device=device)
 
 
 def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
-                         scale=None) -> Optional[torch.Tensor]:
+                         scale=None, split: int = 1
+                         ) -> Optional[torch.Tensor]:
     """``matmul_hadUt`` emitted directly in the fused kernel's grouped
-    layout (split=1): returns (m, 8*Gp) with
+    layout: with P = ``split`` (1, or 2 / 4 for the sw2 / sw4 subword
+    layouts) and nq = 8 / P, returns (m, 8*Gp) with
 
-        out[:, i*Gp + g] = (X @ U)[:, 8*g + i]   for g < G = padN // 8
-        out[:, i*Gp + g] = 0                     for g >= G
+        out[:, q*(P*Gp) + P*g + j] = (X @ U)[:, 8*g + nq*j + q]  for g < G
+        out[:, q*(P*Gp) + P*g + j] = 0                           for g >= G
 
+    (G = padN // 8; at P = 1 that is out[:, i*Gp + g] = (X @ U)[:, 8g + i]).
     The permutation is free: it is a row permutation of the constant H_B
     (popcount(x & y) is invariant under a permutation of bit positions).
     Returns None when the power-of-2 part is < 8 (caller uses the plain
@@ -200,6 +205,8 @@ def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
         X = F.pad(X, (0, spec.padN - n))
     if X.dim() != 2:
         raise ValueError("grouped prologue expects (m, n) input")
+    if split not in (1, 2, 4):
+        raise ValueError(f"split {split} not in (1, 2, 4)")
     m = X.shape[0]
     G = spec.padN // 8
     e = M.bit_length() - 1
@@ -209,7 +216,7 @@ def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
     had_scale = 1.0 / math.sqrt(M)
     if scale is not None:
         had_scale = had_scale * float(scale)
-    HBp = _grouped_hb(eb, had_scale, X.device, X.dtype)
+    HBp = _grouped_hb(eb, had_scale, split, X.device, X.dtype)
     Y = X.reshape(m, K, A, B)
     if ea > 0:
         Ha = _sylvester_t(ea, X.device, X.dtype)
@@ -218,9 +225,10 @@ def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
     if K > 1:
         # hadUt: contract with hadK (not transposed): out_j = sum_k Y_k H_kj
         Y = torch.einsum("mkxl,kj->mjxl", Y, _as(spec.hadK, X))
-    C = B // 8
-    Y = Y.reshape(m, K, A, 8, C)
-    Y = Y.permute(0, 3, 1, 2, 4).reshape(m, 8, G)
+    # lane l = (q, c, j): q out front, (K, A, c) group-major with j minor
+    P, nq = split, 8 // split
+    Y = Y.reshape(m, K, A, nq, (B // 8) * P)
+    Y = Y.permute(0, 3, 1, 2, 4).reshape(m, nq, G, P)
     if Gp != G:
-        Y = F.pad(Y, (0, Gp - G))
+        Y = F.pad(Y, (0, 0, 0, Gp - G))
     return Y.reshape(m, 8 * Gp)

@@ -4,8 +4,10 @@ E8P12 and E8P12RVQ4B) — counterpart of ``load_quantized`` /
 router gate loads dense (or quantized, when the checkpoint quantized it)
 and its experts as per-expert quantized linears; ``fuse_for_inference``
 stacks them. ``layout`` picks the runtime layout of every quantized linear
-(``ops/qtensor.py`` ``resolve_layout``: "u3" for E8P12, "pb" for
-E8P12RVQ4B), where the JAX package reads QFA_E8P_U3 / QFA_RVQ_PB.
+(``ops/qtensor.py`` ``resolve_layout``: "u3" for E8P12, "pb" and "paired"
+for E8P12RVQ4B, "bfp", "sw2" and "sw4" for both), where the JAX package
+reads QFA_E8P_U3 / QFA_RVQ_PB / QFA_RVQ_PAIRED / QFA_BFP /
+QFA_SPLIT_DECODE.
 
 The schema: safetensors with HF state-dict names; each quantized linear
 stores Qidxs (packed codes), SU, SV, Wscale (unnormalized), optional bias,

@@ -5,8 +5,9 @@ The tree is the JAX package's unfused llama or Mixtral param dict (nested
 dicts and lists — Mixtral's ``block_sparse_moe`` holds a dense ``gate``
 dict and an ``experts`` list of {w1, w2, w3}; ``QuantLinearParams`` /
 ``QuantizedTensor`` leaves recognised by their fields). Planes cross in
-their runtime layout as they are (nibble, u3 or pb, pb's 3-D ``w0``
-included), with the tensor's ``opt_resid_scale``. Fuse afterwards with the
+their runtime layout as they are (any of ``ops/qtensor.py``'s layouts:
+pb's and bfp's 3-D planes and sw's int16/int8 subwords included), with the
+tensor's ``opt_resid_scale``. Fuse afterwards with the
 port's own ``fuse_for_inference``, which stacks the experts.
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy, which
 ``torch.from_numpy`` refuses: they go through float32 (exact) and back to

@@ -6,8 +6,10 @@ checks without downloadable checkpoints. Shapes and compute paths equal a
 really-quantized model's; only the code values are random.
 
 Codebooks E8P12 and E8P12RVQ4B, in the runtime layout ``layout`` (None or
-"nibble"; "u3" for E8P12, "pb" for E8P12RVQ4B: ``ops/qtensor.py``). The
-row-pair layouts take llama only: the MoE kernel decodes nibble experts.
+"nibble"; "u3" for E8P12; "pb" and "paired" for E8P12RVQ4B; "bfp", "sw2"
+and "sw4" for both: ``ops/qtensor.py``). The row-pair u3/pb layouts take
+llama only: the MoE kernel decodes nibble experts, and Mixtral's paired,
+bfp and sw experts re-lay to nibble when they stack.
 
 A Mixtral model comes back with each layer's experts already stacked
 (``experts_stacked``): a layer's per-expert planes are stacked and dropped
@@ -19,10 +21,10 @@ carry JAX weights across with ``utils/convert.py`` instead. One deliberate
 difference: every code is a real E8P12 codeword (uniform random 16-bit
 codes looked up in the code -> word or code -> (u, parity) table), so every
 nibble is <= 11, every u <= 5 and the parity is shared per group, and the
-row-pair planes are packed from those codes on the device. The JAX version
+u3/pb/paired planes are packed from those codes on the device. The JAX version
 masks random bits with 0x6DB6DB | 0x1000000 in the nibble layout (nibbles
 up to 13, no shared parity) and fills u3/pb planes with random bits (u up
-to 7).
+to 7) and paired planes with random bits under masks (u0 up to 3).
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ from ..models.config import ModelConfig
 from ..models.llama import DenseLinear, LlamaModel
 from ..nn.qlinear import QuantLinear
 from ..nn.qmoe import stack_experts
-from ..ops.qtensor import (QuantizedTensor, e8p_uv_table, e8p_word_table,
-                           pb_planes_from_uv, resolve_layout,
+from ..ops.qtensor import (ROWPAIR_LAYOUTS, QuantizedTensor, e8p_uv_table,
+                           e8p_word_table, paired_planes_from_uv,
+                           pb_planes_from_uv, relayout, resolve_layout,
                            u3_planes_from_up)
 from ..transforms.incoherence import HadSpec, get_hadK
 from .device import resolve_device
@@ -74,18 +77,22 @@ def random_qtensor(codebook: str, layout: str, q_out: int, q_in: int,
     cb = get_codebook(codebook)
     layout = resolve_layout(cb.id, layout, q_out)
     G = q_in // 8
+    ors = float(cb.opt_resid_scale)
     if layout == "u3":
         planes = u3_planes_from_up(*_random_uv(q_out, G, generator, device),
                                    q_out, G)
-    elif layout == "pb":
+    elif layout in ("pb", "paired"):
         u0, p0 = _random_uv(q_out, G, generator, device)
         u1, p1 = _random_uv(q_out, G, generator, device)
-        planes = pb_planes_from_uv(u0, p0, u1, p1, q_out, G)
+        pack = pb_planes_from_uv if layout == "pb" else paired_planes_from_uv
+        planes = pack(u0, p0, u1, p1, q_out, G)
     else:
+        # nibble words, re-laid as bfp / sw on the device
         planes = {f"w{s}": random_e8p_planes(q_out, q_in, generator, device)
                   for s in range(1 if cb.id == "E8P12" else 2)}
-    return QuantizedTensor(planes, cb.id, q_out, q_in,
-                           float(cb.opt_resid_scale), layout)
+        return relayout(QuantizedTensor(planes, cb.id, q_out, q_in, ors),
+                        layout)
+    return QuantizedTensor(planes, cb.id, q_out, q_in, ors, layout)
 
 
 def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
@@ -102,11 +109,11 @@ def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
             f"random {codebook} models wait for ROADMAP.md slice 2")
     if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(f"arch {cfg.arch!r}")
-    if cfg.arch == "mixtral" and resolve_layout(codebook, layout, 2) != \
-            "nibble":
+    if cfg.arch == "mixtral" and resolve_layout(codebook, layout, 2) in \
+            ROWPAIR_LAYOUTS:
         raise NotImplementedError(
             f"Mixtral in the {layout} layout: the MoE kernel takes nibble "
-            "experts only")
+            "experts, and u3/pb experts do not convert when they stack")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

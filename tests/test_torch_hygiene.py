@@ -28,6 +28,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "test_torch_kernel_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_moe_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_rowpair_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_layout_cuda.py")
 
 
 def _imports(path):
@@ -55,14 +56,17 @@ def test_port_keeps_its_own_assets():
     pkg = os.path.join(REPO, "quip_for_all_tpu_torch")
     assert os.path.isfile(os.path.join(pkg, "transforms",
                                        "_hadamard_asset.npz"))
-    for src in ("fused_decode_matmul.cu", "moe_decode_matmul.cu",
-                "rowpair_decode_matmul.cu"):
+    for src in ("nibble_decode.cuh", "fused_decode_matmul.cu",
+                "moe_decode_matmul.cu", "rowpair_decode_matmul.cu",
+                "bfp_decode_matmul.cu", "sw_decode_matmul.cu",
+                "ksplit_decode_matmul.cu", "paired_decode_matmul.cu"):
         assert os.path.isfile(os.path.join(pkg, "csrc", src))
 
 
 @pytest.mark.parametrize("entry", ["random", "random_u3", "random_mixtral",
                                    "generate", "load", "load_pb", "convert",
-                                   "caches"])
+                                   "caches", "from_raw_idxs",
+                                   "from_checkpoint_idxs", "random_paired"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -86,6 +90,15 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
                                            "e8p12rvq4b"), layout="pb")
         elif entry == "convert":
             qt.from_jax_params({"embed_tokens": {"weight": np.zeros((2, 2))}})
+        elif entry in ("from_raw_idxs", "from_checkpoint_idxs"):
+            from quip_for_all_tpu_torch.codebooks import get_codebook
+            from quip_for_all_tpu_torch.ops import qtensor as Q
+            codes = np.zeros((128, 16), dtype=np.int32)
+            if entry == "from_checkpoint_idxs":
+                codes = codes.astype(np.int16)
+            getattr(Q, entry)(get_codebook("E8P12"), codes, 128, 128)
+        elif entry == "random_paired":
+            qt.random_quantized_model(cfg, "E8P12RVQ4B", layout="paired")
         else:
             from quip_for_all_tpu_torch.runtime.generate import \
                 init_kv_caches

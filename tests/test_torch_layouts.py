@@ -40,7 +40,8 @@ def _raw(cb, q_out, q_in, seed):
 def _both(cb, layout, q_out, q_in, seed=0):
     raw = _raw(cb, q_out, q_in, seed)
     j = jqt.from_raw_idxs(jget_codebook(cb), raw, q_out, q_in, layout=layout)
-    t = tqt.from_raw_idxs(get_codebook(cb), raw, q_out, q_in, layout=layout)
+    t = tqt.from_raw_idxs(get_codebook(cb), raw, q_out, q_in, device="cpu",
+                          layout=layout)
     return raw, j, t
 
 
@@ -79,7 +80,7 @@ def test_raw_and_checkpoint_round_trip(cb, layout, shape):
     ck = tqt.to_checkpoint_idxs(t)
     assert np.array_equal(ck, jqt.to_checkpoint_idxs(j))
     back = tqt.from_checkpoint_idxs(get_codebook(cb), ck, *shape,
-                                    layout=layout)
+                                    device="cpu", layout=layout)
     for k in t.planes:
         assert torch.equal(back.planes[k], t.planes[k]), k
 
@@ -139,15 +140,16 @@ def test_rvq4b_codebook_record_matches_jax():
 def test_layout_choice_is_checked():
     E8P, RVQ = get_codebook("E8P12"), get_codebook("E8P12RVQ4B")
     raw = _raw("E8P12", 4, 64, seed=6)
-    assert tqt.from_raw_idxs(E8P, raw, 4, 64).layout == "nibble"
+    cpu = dict(device="cpu")
+    assert tqt.from_raw_idxs(E8P, raw, 4, 64, **cpu).layout == "nibble"
     with pytest.raises(ValueError, match="takes E8P12RVQ4B"):
-        tqt.from_raw_idxs(E8P, raw, 4, 64, layout="pb")
+        tqt.from_raw_idxs(E8P, raw, 4, 64, layout="pb", **cpu)
     with pytest.raises(ValueError, match="takes E8P12,"):
-        tqt.from_raw_idxs(RVQ, raw, 4, 64, layout="u3")
+        tqt.from_raw_idxs(RVQ, raw, 4, 64, layout="u3", **cpu)
     with pytest.raises(ValueError, match="odd"):
-        tqt.from_raw_idxs(E8P, raw[:3], 3, 64, layout="u3")
+        tqt.from_raw_idxs(E8P, raw[:3], 3, 64, layout="u3", **cpu)
     with pytest.raises(ValueError, match="not in"):
-        tqt.from_raw_idxs(E8P, raw, 4, 64, layout="bfp")
-    qt = tqt.from_raw_idxs(E8P, raw, 4, 64, layout="u3")
+        tqt.from_raw_idxs(E8P, raw, 4, 64, layout="u4", **cpu)
+    qt = tqt.from_raw_idxs(E8P, raw, 4, 64, layout="u3", **cpu)
     with pytest.raises(ValueError, match="decode_affine"):
         qt.decode_affine
