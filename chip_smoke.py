@@ -53,8 +53,24 @@ line):
      its model: (f) split-K = 4 on the main path's planes, (e) those
      planes re-laid as sw4 and (d) as bfp, each first held to phase 5's
      f32 logits, then (g) E8P12RVQ4B paired from seed 0; each as in phase
-     9, with the exact launch counts of its kernels.
-Phases run in the order 1-4, 7, 10, 11, 5, 12, 6, 9. The last stdout line
+     9, with the exact launch counts of its kernels;
+ 13. fused_decode_matmul_bwd (K3, the backward of K1/K2) against its plain
+     twin at Llama-2-7B's unfused shapes (q/k/v/o, gate/up, down, head),
+     m = 1, 64 and 1022, bf16 and f32, 1 and 2 plane sets, timed as in
+     phase 2 beside the library product gs @ W; then the backward of the
+     copy layouts (u3, bfp, pb, paired: their planes re-laid to nibble
+     words on every call) beside the nibble layout's at m = 1022;
+ 14. LoRA training at full width: Llama-2-7B E8P12 (random codes, seed 0,
+     unfused, quantized head, all 32 layers) with rank-8 adapters on the
+     7 default targets, batches of 2 x 512 tokens (1022 rows: K2 forward,
+     K3 backward) with exact launch counts per step, every adapter
+     gradient against the plain route in f32 and bf16, the step split
+     into forward and backward with K2/K3 event times, 8 AdamW steps of
+     ``train_lora`` (lr 1e-4) on one batch whose loss falls at every
+     step, one step at the CLI default 4 x 512 (2044 rows, the dense
+     route: no K2, no K3), and ``generate`` with the trained adapters
+     through K1.
+Phases run in the order 1-4, 7, 10, 13, 11, 5, 12, 6, 9, 14. The last stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
 """
@@ -107,6 +123,10 @@ KERNELS = [{
     "name": "paired_decode_matmul", "route": "cuda",
     "source": "quip_for_all_tpu_torch/csrc/paired_decode_matmul.cu",
     "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:356 (K7)",
+}, {
+    "name": "fused_decode_matmul_bwd", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/fused_decode_matmul_bwd.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:970 (K3)",
 }]
 # the byte-cut layouts: (layout, codebook, kernel); the nibble planes of
 # the same codes run fused_decode_matmul with 1 (E8P12) or 2 plane sets
@@ -140,6 +160,15 @@ MIXTRAL_FUSED_CALLS = {"qkv_gqa": LAYERS, "o": LAYERS, "head": 1}
 MOE_SHAPES = [("w13", 28672, 4096), ("w2", 4096, 14336)]
 MOE_E, MOE_K = 8, 2
 MOE_R = (2, 16, 62)
+# K3 at Llama-2-7B's unfused linears: (name, q_out, q_in); its calls per
+# LoRA training step (layer 0's q/k/v inputs need no gradient: 3*31 + 32
+# of the 4096x4096 shape) and the rows of that step (batch 2 x 511)
+K3_SHAPES = [("qkvo", 4096, 4096), ("gateup", 11008, 4096),
+             ("down", 4096, 11008), ("head", 32000, 4096)]
+K3_CALLS = {"qkvo": 3 * (LAYERS - 1) + LAYERS, "gateup": 2 * LAYERS,
+            "down": LAYERS, "head": 1}
+K3_M = (1, 64, 1022)
+TRAIN_B, TRAIN_S = 2, 512
 
 
 def log(*a):
@@ -483,7 +512,8 @@ def _counters():
             "bfp_decode_matmul": lm.bfp_decode_matmul,
             "sw_decode_matmul": lm.sw_decode_matmul,
             "ksplit_decode_matmul": lm.ksplit_decode_matmul,
-            "paired_decode_matmul": rm.paired_decode_matmul}
+            "paired_decode_matmul": rm.paired_decode_matmul,
+            "fused_decode_matmul_bwd": fm.fused_decode_matmul_bwd}
 
 
 def reset_launches():
@@ -1245,6 +1275,397 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
                              "plain twin beyond tolerance")
 
 
+def phase_k3_kernels():
+    """fused_decode_matmul_bwd (K3) against its plain twin at Llama-2-7B's
+    unfused shapes, with the rows a LoRA step gives it (m = 1022 at batch
+    2 x 512; 1 and 64 beside), in bf16 and f32, with 1 and 2 plane sets,
+    no scale vector (the path's linears have none). Timed as phase 2
+    times K1, beside the library product gs @ W with W decoded beforehand
+    in g's dtype (natural order, not the same function). The bound counts
+    the planes, g and dx once each, and 2*m*q_out*q_in operations at the
+    peak rate of g's dtype."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    from quip_for_all_tpu_torch.ops.qtensor import QuantizedTensor
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, max_err = [], 0.0
+    for name, q_out, q_in in K3_SHAPES:
+        G = q_in // 8
+        qt2 = random_qtensor("E8P12RVQ4B", None, q_out, q_in, gen, "cuda")
+        for n_sets in (1, 2):
+            qt = qt2 if n_sets == 2 else QuantizedTensor(
+                {"w0": qt2.planes["w0"]}, "E8P12", q_out, q_in)
+            planes, affine, Gp = qt.plane_list(), qt.decode_affine, \
+                qt.group_cols
+            nb = sum(w.numel() * 4 for w in planes)
+            cp = cold(planes, nb)
+            for dt in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt)
+                esz = 2 if dtype == torch.bfloat16 else 4
+                W = decode_weights(qt, dtype=dtype)
+                Wc = cold([W], W.numel() * esz)
+                for m in K3_M:
+                    g = torch.randn((m, q_out), generator=gen,
+                                    device="cuda").to(dtype)
+                    got = fm.fused_decode_matmul_bwd(g, planes, affine,
+                                                     None, G, Gp)
+                    want = fm.fused_decode_matmul_bwd_ref(g, planes, affine,
+                                                          None, G, Gp)
+                    torch.cuda.synchronize()
+                    ok, err = close_enough(got, want)
+                    ok = ok and bool(torch.all(
+                        got.reshape(m, 8, Gp)[:, :, G:] == 0))
+                    max_err = max(max_err, err)
+                    if not ok:
+                        raise AssertionError(
+                            f"K3 {name} m={m} {dt} {n_sets} set(s): kernel "
+                            f"vs plain twin beyond tolerance (max |diff| "
+                            f"{err}) or pad lanes not zero")
+                    k_ms = graph_ms(lambda i: fm.fused_decode_matmul_bwd(
+                        g, cp[i % len(cp)], affine, None, G, Gp),
+                        4 * len(cp))
+                    p_ms = event_ms(lambda i: fm.fused_decode_matmul_bwd_ref(
+                        g, cp[i % len(cp)], affine, None, G, Gp), 2)
+                    lib_ms = graph_ms(lambda i: torch.matmul(
+                        g, Wc[i % len(Wc)][0]), 4 * len(Wc))
+                    nbytes = nb + m * q_out * esz + m * 8 * Gp * esz
+                    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                        F32_OPS_PER_S
+                    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    b_ops = 2 * m * q_out * q_in / peak * 1e3
+                    row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
+                           "dtype": dt, "sets": n_sets, "max_abs_err": err,
+                           "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                           "bound_ms": max(b_bytes, b_ops),
+                           "bound_by": "bytes" if b_bytes >= b_ops
+                           else "operations", "bytes": nbytes}
+                    rows.append(row)
+                    log(f"kernel k3 {name:6s} {q_out}x{Gp} m={m:4d} {dt} "
+                        f"{n_sets} set(s): max|k-plain| {err:.3g} (tol 1 bf16"
+                        f" ulp + 1e-5 max) | kernel {k_ms * 1e3:.1f} us | "
+                        f"plain {p_ms * 1e3:.1f} us | bound "
+                        f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']},"
+                        f" {nbytes / 1e6:.2f} MB) | "
+                        f"{row['bound_ms'] / k_ms:.0%} of bound | library "
+                        f"{lib_ms * 1e3:.1f} us (g @ W, W dense {dt})")
+                del W, Wc
+            del cp
+            torch.cuda.empty_cache()
+    for m in K3_M:
+        per = {key: call_sum(rows, K3_CALLS, key, m=m, dtype="bfloat16",
+                             sets=1)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"kernel k3 per LoRA step's 222 calls at m={m} (bf16, 1 set): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
+    k3_relayout_cost(gen)
+    return rows, max_err
+
+
+def k3_relayout_cost(gen):
+    """The backward of a linear in a copy layout (``quant_matmul_bwd``:
+    the planes re-laid to nibble words, K3, dx in the layout's lane
+    order) against the same codes in the nibble layout (K3 alone), bf16,
+    m = 1022, at each K3 shape; device ms per call by CUDA events (the
+    re-layout allocates, so no graph), the transient bytes it allocates,
+    and the sums over one LoRA step's 222 calls."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops.qtensor import to_nibble
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    m = K3_M[-1]
+    rows = []
+    for layout, cb in (("u3", "E8P12"), ("bfp", "E8P12"),
+                       ("pb", "E8P12RVQ4B"), ("paired", "E8P12RVQ4B")):
+        for name, q_out, q_in in K3_SHAPES:
+            qt = random_qtensor(cb, layout, q_out, q_in, gen, "cuda")
+            qn = to_nibble(qt)
+            g = torch.randn((m, q_out), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            nib_ms = event_ms(lambda i: fm.quant_matmul_bwd(g, qn), 3)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            lay_ms = event_ms(lambda i: fm.quant_matmul_bwd(g, qt), 3)
+            extra = torch.cuda.max_memory_allocated() - base
+            rows.append({"layer": name, "layout": layout, "ms": lay_ms,
+                         "nibble_ms": nib_ms})
+            log(f"kernel k3 {layout:6s} {name:6s} {q_out}x{q_in} m={m} bf16:"
+                f" re-laid + K3 {lay_ms * 1e3:.1f} us | nibble K3 "
+                f"{nib_ms * 1e3:.1f} us | transient {extra / 2 ** 20:.1f} "
+                f"MiB (dx included)")
+            del qt, qn, g
+        torch.cuda.empty_cache()
+        lay = call_sum(rows, K3_CALLS, "ms", layout=layout)
+        nib = call_sum(rows, K3_CALLS, "nibble_ms", layout=layout)
+        log(f"kernel k3 {layout} per LoRA step's 222 calls at m={m} (bf16):"
+            f" re-laid + K3 {lay:.2f} ms, nibble K3 {nib:.2f} ms, re-layout "
+            f"{lay - nib:.2f} ms")
+
+
+@contextlib.contextmanager
+def kernel_events(names):
+    """While active, each named kernel wrapper of ops/fused_matmul.py
+    records a CUDA event pair around every call; yields {name: [pairs]}.
+    A wrapper carries the count of its function while it stands in (the
+    function counts under its module-level name)."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    orig = {n: getattr(fm, n) for n in names}
+    pairs = {n: [] for n in names}
+
+    def timed(n):
+        def call(*a, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = orig[n](*a, **k)
+            e1.record()
+            pairs[n].append((e0, e1))
+            return out
+        call.launches = orig[n].launches
+        return call
+    for n in names:
+        setattr(fm, n, timed(n))
+    try:
+        yield pairs
+    finally:
+        for n in names:
+            orig[n].launches = getattr(fm, n).launches
+            setattr(fm, n, orig[n])
+
+
+def adapter_grads(cfg, model, ids, kw):
+    """One forward + backward of the causal LM loss; returns (loss, {name:
+    grad}) of the adapters, with host-clock forward and backward ms."""
+    import torch
+    from quip_for_all_tpu_torch.nn.lora import collect_lora_trainable
+    from quip_for_all_tpu_torch.quantize.lora_train import causal_lm_loss
+    flat = collect_lora_trainable(model.layers, "layers")
+    for p in flat.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = causal_lm_loss(cfg, model, ids, kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return loss.item(), {k: p.grad.clone() for k, p in flat.items()}, (
+        (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+
+
+def epoch_losses(run) -> list:
+    """Call ``run`` (a ``train_lora`` without validation) and return the
+    loss of each epoch from its "lora epoch N train loss X" log records,
+    with the time it took."""
+    import logging
+    import re
+    import torch
+    logger = logging.getLogger("quip_for_all_tpu_torch.quantize.lora_train")
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    h, level = Keep(), logger.level
+    logger.addHandler(h)
+    logger.setLevel(logging.INFO)
+    t = time.time()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(h)
+        logger.setLevel(level)
+    log(f"train: train_lora ran in {time.time() - t:.1f} s")
+    return [float(m.group(1)) for m in (
+        re.match(r"lora epoch \d+ train loss ([\d.]+)$", r)
+        for r in records) if m]
+
+
+def phase_train():
+    """LoRA fine-tuning of Llama-2-7B E8P12 at full width (phase 14)."""
+    import gc
+    import numpy as np
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.data.calibration import synthetic_tokens
+    from quip_for_all_tpu_torch.nn.lora import (add_lora,
+                                                collect_lora_trainable)
+    from quip_for_all_tpu_torch.quantize.lora_train import train_lora
+    cfg = qt.llama2_7b_config()
+    per_fwd = 7 * LAYERS + 1                    # every quantized linear
+    per_bwd = per_fwd - 3                       # less layer 0's q/k/v
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
+                                      quantize_head=True, device="cuda")
+    add_lora(model, rank=8, alpha=16.0)
+    flat = collect_lora_trainable(model.layers, "layers")
+    # B off zero (seeded), so that A takes gradients in the comparisons
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for k, p in flat.items():
+            if k.endswith("lora_B"):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 1e-3)
+    torch.cuda.synchronize()
+    log(f"train: built Llama-2-7B E8P12 (random codes, seed 0, unfused, "
+        f"quantized head) with rank-8 adapters on {len(flat) // 2} linears "
+        f"in {time.time() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    toks = synthetic_tokens(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0)
+    ids = torch.as_tensor(toks, device="cuda")
+    rows_per_step = TRAIN_B * (TRAIN_S - 1)
+
+    # every adapter gradient, kernels against the plain route, with the
+    # launch counts of the kernel run's forward and backward
+    grads = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for impl in ("plain", "auto"):
+            reset_launches()
+            loss, grads[impl], _ = adapter_grads(
+                cfg, model, ids, {"compute_dtype": dt, "matmul_impl": impl})
+            launches = read_launches()
+            check_launches(f"train [{impl}, {dt}] one step", launches,
+                           {} if impl == "plain" else
+                           {"fused_decode_matmul": per_fwd,
+                            "fused_decode_matmul_bwd": per_bwd})
+            log(f"train [{impl}, {dt}]: loss {loss:.6g}")
+        keys = sorted(grads["auto"])
+        if dt == torch.float32:
+            worst = max((float((grads["auto"][k] - grads["plain"][k]).abs()
+                               .max() / grads["plain"][k].abs().max()), k)
+                        for k in keys)
+            log(f"train [f32]: adapter gradients, kernels vs plain route: "
+                f"worst max|diff|/max|grad| {worst[0]:.3g} ({worst[1]}; tol "
+                f"1e-3) over {len(keys)} tensors")
+            if not worst[0] <= 1e-3:
+                raise AssertionError(f"train f32 gradients differ: {worst}")
+        else:
+            a = torch.cat([grads["auto"][k].flatten().float() for k in keys])
+            b = torch.cat([grads["plain"][k].flatten().float() for k in keys])
+            cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
+            per = min(float(torch.nn.functional.cosine_similarity(
+                grads["auto"][k].flatten().float(),
+                grads["plain"][k].flatten().float(), dim=0)) for k in keys)
+            log(f"train [bf16]: adapter gradients, kernels vs plain route: "
+                f"cosine of the flattened gradients {cos:.6f} (tol >= 0.99);"
+                f" lowest per tensor {per:.4f}")
+            if not cos >= 0.99:
+                raise AssertionError(f"train bf16 gradient cosine {cos}")
+    del grads
+
+    # the step timed (bf16 compute, the default), after one warm-up step;
+    # then one step with a CUDA event pair around every K2 and K3 launch
+    adapter_grads(cfg, model, ids, {})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, _, (fwd_ms, bwd_ms) = adapter_grads(cfg, model, ids, {})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches("train step (bf16)", launches,
+                   {"fused_decode_matmul": per_fwd,
+                    "fused_decode_matmul_bwd": per_bwd})
+    names = ("fused_decode_matmul", "fused_decode_matmul_bwd")
+    with kernel_events(names) as pairs:
+        adapter_grads(cfg, model, ids, {})
+    torch.cuda.synchronize()
+    ev = {n: sum(a.elapsed_time(b) for a, b in pairs[n]) for n in names}
+    step_ms = fwd_ms + bwd_ms
+    log(f"train step (batch {TRAIN_B} x {TRAIN_S}, {rows_per_step} rows, "
+        f"bf16): forward {fwd_ms:.1f} ms + backward {bwd_ms:.1f} ms = "
+        f"{step_ms:.1f} ms ({rows_per_step / step_ms * 1e3:.1f} rows/s); "
+        f"K2 {ev[names[0]]:.1f} ms over {len(pairs[names[0]])} launches, K3 "
+        f"{ev[names[1]]:.1f} ms over {len(pairs[names[1]])} launches (CUDA "
+        f"events); peak {peak:.2f} GiB")
+    train = {"launches": launches["fused_decode_matmul_bwd"],
+             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k2_ms": ev[names[0]],
+             "k3_ms": ev[names[1]], "peak_gib": peak}
+
+    # 8 AdamW steps at the CLI's lr on the one batch (8 epochs of one
+    # step), B back at zero (a fresh start); the losses are read from
+    # train_lora's per-epoch log lines, and no step may rise
+    with torch.no_grad():
+        for k, p in flat.items():
+            if k.endswith("lora_B"):
+                p.zero_()
+    hist = epoch_losses(lambda: train_lora(
+        cfg, model, toks, rank=8, alpha=16.0, lr=1e-4, epochs=8,
+        batch_size=TRAIN_B))
+    rises = sum(b > a for a, b in zip(hist, hist[1:]))
+    log(f"train: train_lora, 8 AdamW steps (lr 1e-4) on one batch: losses "
+        + ", ".join(f"{v:.5f}" for v in hist)
+        + f" ({rises} step-to-step rises)")
+    if not (len(hist) == 8 and np.all(np.isfinite(hist)) and rises == 0
+            and hist[-1] < hist[0]):
+        raise AssertionError(f"train: loss did not fall at every step: "
+                             f"{hist}")
+
+    # the CLI default batch 4 x 512: 2044 rows, the dense route
+    big = torch.as_tensor(synthetic_tokens(4, TRAIN_S, cfg.vocab_size,
+                                           seed=1), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, _, (f2, b2) = adapter_grads(cfg, model, big, {})
+    check_launches("train step at the CLI default (4 x 512, dense route)",
+                   read_launches(), {})
+    log(f"train step at the CLI default (4 x {TRAIN_S}, "
+        f"{4 * (TRAIN_S - 1)} rows, dense route): forward {f2:.1f} ms + "
+        f"backward {b2:.1f} ms; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    train.update(dense_ms=f2 + b2,
+                 dense_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del big
+
+    # serving the trained adapters: 225 K1 launches per token, and the f32
+    # greedy tokens of the kernels equal the plain route's
+    prompt = torch.as_tensor(toks[:1, :32], device="cuda")
+    n = 16
+    reset_launches()
+    ids_b = qt.generate(cfg, model, prompt, n, cache_len=64)
+    check_launches("train: generate with adapters (bf16)", read_launches(),
+                   {"fused_decode_matmul": per_fwd * n})
+    outs = {}
+    for impl in ("auto", "plain"):
+        outs[impl] = qt.generate(cfg, model, prompt, n, cache_len=64,
+                                 dtype=torch.float32, linear_kw={
+                                     "compute_dtype": torch.float32,
+                                     "matmul_impl": impl})
+    same = bool(torch.equal(outs["auto"], outs["plain"]))
+    log(f"train: generate {n} greedy tokens with the trained adapters: "
+        f"f32 kernel tokens equal the plain route's: {same}; bf16 tokens "
+        f"{ids_b[0, 32:].tolist()}")
+    if not same:
+        raise AssertionError("train: adapters served through K1 fork from "
+                             "the plain route in f32")
+    del model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train
+
+
+def k3_entry(rows, err, train):
+    """The kernels line's K3 entry: per LoRA training step (222 calls at
+    m = 1022, bf16, 1 plane set), launches from the counted step."""
+    sel = [r for r in rows if r["m"] == TRAIN_B * (TRAIN_S - 1)
+           and r["dtype"] == "bfloat16" and r["sets"] == 1]
+    e = dict(next(k for k in KERNELS
+                  if k["name"] == "fused_decode_matmul_bwd"),
+             launches=train["launches"], max_abs_err=err,
+             **{key: call_sum(sel, K3_CALLS, key)
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sel)
+                       else "operations"))
+    log(f"train: per step K3 takes {e['ms']:.2f} ms by its per-call graph "
+        f"times ({train['k3_ms']:.2f} ms by the step's events) of the "
+        f"{train['bwd_ms']:.1f} ms backward; bound {e['bound_ms']:.2f} ms "
+        f"({e['bound_by']})")
+    return e
+
+
 def call_sum(rows, calls, key, **match):
     """Sum of key over the rows of the named layers, each times its calls
     (e.g. per decode token)."""
@@ -1338,6 +1759,16 @@ def layout_entries(rows, max_err, paths):
     return out
 
 
+def at(phase, fn, *args):
+    """Run one phase, logging when it starts and how long it took, so the
+    script's time against its limit can be read phase by phase."""
+    t = time.time()
+    log(f"phase {phase}: starts at {t - T0:.1f} s")
+    out = fn(*args)
+    log(f"phase {phase}: took {time.time() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1362,22 +1793,26 @@ def main() -> int:
         log("kernels: " + ", ".join(
             f"{k['name']} ({k['route']}, {k['source']}, replaces "
             f"{k['replaces']})" for k in KERNELS))
-        rows, max_err = phase_kernels()
-        moe_rows, moe_err = phase_moe_kernels()
+        rows, max_err = at("2", phase_kernels)
+        moe_rows, moe_err = at("3", phase_moe_kernels)
         log_k2(rows)
-        rp_rows, rp_err = phase_rowpair_kernels()
-        lay_rows, lay_err = phase_layout_kernels()
-        phase_golden((("e8p12", None), ("e8p12", "u3"),
-                      ("e8p12rvq4b", None), ("e8p12rvq4b", "pb"),
-                      ("e8p12", "bfp"), ("e8p12", "sw2"), ("e8p12", "sw4"),
-                      ("e8p12rvq4b", "paired"), ("e8p12rvq4b", "bfp")))
-        launches, main = phase_main()
-        new_paths = phase_layout_paths(main)
-        mix = phase_mixtral()
-        paths = phase_rowpair_paths()
+        rp_rows, rp_err = at("7", phase_rowpair_kernels)
+        lay_rows, lay_err = at("10", phase_layout_kernels)
+        k3_rows, k3_err = at("13", phase_k3_kernels)
+        at("4, 8, 11", phase_golden, (
+            ("e8p12", None), ("e8p12", "u3"), ("e8p12rvq4b", None),
+            ("e8p12rvq4b", "pb"), ("e8p12", "bfp"), ("e8p12", "sw2"),
+            ("e8p12", "sw4"), ("e8p12rvq4b", "paired"),
+            ("e8p12rvq4b", "bfp")))
+        launches, main = at("5", phase_main)
+        new_paths = at("12", phase_layout_paths, main)
+        mix = at("6", phase_mixtral)
+        paths = at("9", phase_rowpair_paths)
+        train = at("14", phase_train)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
+        entries.append(k3_entry(k3_rows, k3_err, train))
         log(f"chip_smoke: wall time {time.time() - T0:.1f} s (limit 1200 s)")
     except Exception:
         traceback.print_exc()

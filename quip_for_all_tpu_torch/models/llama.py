@@ -7,9 +7,11 @@ The model is an ``nn.Module`` whose tree mirrors the JAX param dict:
 ``mlp``, or for Mixtral ``block_sparse_moe``: a dense ``gate`` plus
 ``experts`` or, once stacked, ``experts_stacked``), ``norm`` and
 ``lm_head``. Linear leaves are ``QuantLinear``, ``FusedQuantLinear`` (after
-``fuse_for_inference``), ``StackedQuantLinear`` or ``DenseLinear``.
-Forward functions keep the JAX names and argument order so a reader can
-follow both side by side.
+``fuse_for_inference``), ``StackedQuantLinear``, ``DenseLinear`` or
+``LoraLinear`` (``nn/lora.py``: one of the others plus its adapters, which
+``fuse_for_inference`` leaves unfused). Forward functions keep the JAX
+names and argument order so a reader can follow both side by side; without
+caches ``model_apply`` is differentiable (a LoRA step).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.lora import LoraLinear, lora_apply
 from ..nn.qlinear import (FusedQuantLinear, QuantLinear, fuse_qlinears,
                          same_tensor)
 from ..nn.qmoe import (StackedQuantLinear, moe_sparse_apply, stack_experts,
@@ -63,10 +66,14 @@ class LlamaModel(nn.Module):
     @classmethod
     def from_tree(cls, tree: Dict[str, Any]) -> "LlamaModel":
         """Build from a JAX-shaped dict tree whose leaves are tensors or
-        already-built linear modules."""
+        already-built linear modules; a {"lora_base", "lora_A", "lora_B",
+        "lora_scale"} node becomes a ``LoraLinear``."""
         def lin(node):
             if isinstance(node, nn.Module):
                 return node
+            if "lora_base" in node:
+                return LoraLinear(lin(node["lora_base"]), node["lora_A"],
+                                  node["lora_B"], node["lora_scale"])
             return DenseLinear(node["weight"], node.get("bias"))
 
         def moe(m):
@@ -105,6 +112,8 @@ class LlamaModel(nn.Module):
 def linear_apply(lin: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
     if isinstance(lin, QuantLinear):
         return lin(x, **kw)
+    if isinstance(lin, LoraLinear):
+        return lora_apply(lin, x, **kw)
     # products of x-dtype values, summed in f32, rounded back to x's dtype
     w = lin.weight.to(x.dtype).to(torch.float32)
     y = torch.matmul(x.to(torch.float32), w.T).to(x.dtype)

@@ -1,5 +1,5 @@
 """QuantLinear / FusedQuantLinear: linear layers over lattice-coded weights —
-the eval path of ``quip_for_all_tpu/nn/qlinear.py`` as ``nn.Module``s.
+``quip_for_all_tpu/nn/qlinear.py`` as ``nn.Module``s. The eval forward:
 
     x·SU → U_l^T x (wscale fused) → codebook matmul → per-channel scale
         → U_r out → slice pad → ·SV → +bias
@@ -9,7 +9,12 @@ kernel's grouped layout (``matmul_hadUt_grouped``) and the per-channel scale
 rides the kernel epilogue. There is no fallback around the kernel: only the
 shape rules (q_out % 128, m < crossover, power-of-2 part >= 8) choose the
 dense route, as in the JAX package, and a failed build or launch raises.
-Training (``calc_weight``, gradients) waits for the LoRA slice.
+The eval forward is differentiable in x (and SU/SV when they require grad):
+a LoRA step takes gradients through the frozen base, through K3 on the
+fused route (``ops/fused_matmul.py`` ``FusedQuantMatmul``) and through the
+decoded W on the dense one. The training forward (``training=True``, a
+``dense_weight`` or a ``W_cache``) multiplies by ``calc_weight``'s dense W,
+with gradients to SU and SV.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.dequant import decode_weights
 from ..ops.fused_matmul import fused_quant_matmul_pre, supports
 from ..ops.qtensor import QuantizedTensor
 from ..ops.quant_matmul import FUSED_MAX_M, quant_matmul
@@ -84,7 +90,9 @@ class QuantLinear(_PlaneHolder):
     """One quantized linear layer (``QuantLinearParams`` + ``apply``).
 
     ``wscale_float`` is mean(Wscale), fused into the left transform's
-    scale; ``Wscale`` (per-channel only) is already normalized by it."""
+    scale; ``Wscale`` (per-channel only) is already normalized by it.
+    ``W_cache`` (None until a caller sets it) holds ``calc_weight``'s dense
+    W for the training forward."""
 
     def __init__(self, qweight: Optional[QuantizedTensor], *,
                  in_features: int, out_features: int, q_in: int,
@@ -101,7 +109,7 @@ class QuantLinear(_PlaneHolder):
         self._set_qweight(qweight)
         for name, t in (("SU", SU), ("SV", SV), ("bias", bias),
                         ("had_left", had_left), ("had_right", had_right),
-                        ("Wscale", Wscale)):
+                        ("Wscale", Wscale), ("W_cache", None)):
             self.register_buffer(name, t)
 
     @property
@@ -112,21 +120,47 @@ class QuantLinear(_PlaneHolder):
     def right_spec(self) -> HadSpec:
         return HadSpec(self.had_right, self.K_right, self.q_out)
 
-    def forward(self, x, *, compute_dtype=torch.bfloat16,
-                matmul_impl: str = "auto", max_m: int = FUSED_MAX_M):
-        return apply(self, x, compute_dtype=compute_dtype,
-                     matmul_impl=matmul_impl, max_m=max_m)
+    def forward(self, x, *, training: bool = False,
+                compute_dtype=torch.bfloat16, matmul_impl: str = "auto",
+                max_m: int = FUSED_MAX_M, dense_weight=None):
+        return apply(self, x, training=training, compute_dtype=compute_dtype,
+                     matmul_impl=matmul_impl, max_m=max_m,
+                     dense_weight=dense_weight)
 
 
-def apply(p: QuantLinear, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
-          matmul_impl: str = "auto", max_m: int = FUSED_MAX_M
-          ) -> torch.Tensor:
-    """Eval forward. x: (..., in_features) -> (..., out_features)."""
+def calc_weight(p: QuantLinear, dtype=torch.float32) -> torch.Tensor:
+    """Dense weight (q_in, q_out) with eval ≡ x @ W before SU/SV/bias
+    (``calc_weight`` in the JAX package). The per-channel scale goes before
+    the right transform, as the JAX package keeps it consistent with its
+    eval forward (its ``qlinear.py:135-140``)."""
+    w = decode_weights(p.qweight, dtype=dtype)                # (q_out, q_in)
+    if p.per_channel:
+        w = w * p.Wscale.to(dtype)[:, None]
+    w = matmul_hadU(w, p.left_spec, scale=p.wscale_float)     # ŵ U_l^T
+    return matmul_hadU(w.T, p.right_spec)                     # U_l ŵ^T U_r^T
+
+
+def apply(p: QuantLinear, x: torch.Tensor, *, training: bool = False,
+          compute_dtype=torch.bfloat16, matmul_impl: str = "auto",
+          max_m: int = FUSED_MAX_M,
+          dense_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward. x: (..., in_features) -> (..., out_features). With
+    ``training`` or a ``dense_weight`` (else ``p.W_cache``, else
+    ``calc_weight``) x multiplies a dense W in x's dtype, as the JAX
+    package's training forward does; otherwise the eval forward."""
     batch_shape = x.shape[:-1]
     x = x.reshape(-1, x.shape[-1])
     x_dtype = x.dtype
     if p.SU is not None:
         x = x * p.SU.to(x_dtype)
+    if training or dense_weight is not None:
+        W = dense_weight if dense_weight is not None else p.W_cache
+        if W is None:
+            W = calc_weight(p, dtype=x_dtype)
+        if x.shape[-1] != p.q_in:
+            x = torch.nn.functional.pad(x, (0, p.q_in - x.shape[-1]))
+        return _epilogue(p, (x @ W.to(x_dtype))[:, : p.out_features],
+                         batch_shape)
     sv = p.Wscale if p.per_channel else None
     out = None
     if matmul_impl != "dequant":
@@ -143,6 +177,12 @@ def apply(p: QuantLinear, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
     if p.per_channel and not pc_fused:
         out = out * p.Wscale.to(x_dtype)
     out = matmul_hadU(out, p.right_spec)[:, : p.out_features]
+    return _epilogue(p, out, batch_shape)
+
+
+def _epilogue(p: QuantLinear, out: torch.Tensor, batch_shape
+              ) -> torch.Tensor:
+    """·SV, the batch shape back, +bias."""
     if p.SV is not None:
         out = out * p.SV.to(out.dtype)
     out = out.reshape(*batch_shape, p.out_features)

@@ -7,8 +7,10 @@ dict and an ``experts`` list of {w1, w2, w3}; ``QuantLinearParams`` /
 ``QuantizedTensor`` leaves recognised by their fields). Planes cross in
 their runtime layout as they are (any of ``ops/qtensor.py``'s layouts:
 pb's and bfp's 3-D planes and sw's int16/int8 subwords included), with the
-tensor's ``opt_resid_scale``. Fuse afterwards with the
-port's own ``fuse_for_inference``, which stacks the experts.
+tensor's ``opt_resid_scale``. LoRA nodes ({"lora_base", "lora_A",
+"lora_B", "lora_scale"}, ``nn/lora.py`` there) cross as ``LoraLinear``s.
+Fuse afterwards with the port's own ``fuse_for_inference``, which stacks
+the experts and leaves LoRA-wrapped linears unfused.
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy, which
 ``torch.from_numpy`` refuses: they go through float32 (exact) and back to
 bfloat16.

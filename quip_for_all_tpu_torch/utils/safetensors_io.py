@@ -1,17 +1,20 @@
-"""A small reader for the safetensors file format, so loading needs no
-``safetensors`` package: an 8-byte little-endian header length N, an N-byte
+"""A small reader and writer for the safetensors file format, so the port
+needs no ``safetensors`` package: an 8-byte little-endian header length N,
+an N-byte
 JSON header {name: {"dtype", "shape", "data_offsets": [begin, end]}, ...,
 "__metadata__"?}, then the raw little-endian tensor bytes (offsets are
 relative to the end of the header).
 
 Tensors come back as numpy arrays; BF16 (which numpy lacks) is widened
-exactly to float32.
+exactly to float32. ``save_file`` writes the layout the ``safetensors``
+package writes (header padded with spaces to 8 bytes, tensors back to back
+in the header's order), so either side reads the other's files.
 """
 from __future__ import annotations
 
 import json
 import struct
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 
@@ -55,3 +58,26 @@ def load_file(path: str, names: Optional[Iterable[str]] = None
                 raise ValueError(f"{name}: unsupported dtype {meta['dtype']}")
             out[name] = arr.reshape(shape)
     return out
+
+
+def save_file(tensors: Mapping[str, np.ndarray], path: str) -> None:
+    """Write {name: array} (numpy dtypes of ``_DTYPES``) as one file."""
+    names = {np.dtype(v): k for k, v in _DTYPES.items()}
+    header: Dict[str, object] = {}
+    blobs, off = [], 0
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        if arr.dtype not in names:
+            raise ValueError(f"{name}: unsupported dtype {arr.dtype}")
+        raw = arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+        header[name] = {"dtype": names[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    h = json.dumps(header, separators=(",", ":")).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)))
+        f.write(h)
+        for raw in blobs:
+            f.write(raw)

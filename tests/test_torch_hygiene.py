@@ -29,6 +29,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "test_torch_moe_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_rowpair_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_layout_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_k3_cuda.py")
 
 
 def _imports(path):
@@ -43,6 +44,12 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    # the LoRA slice's modules are among those scanned
+    for mod in ("nn/lora.py", "quantize/lora_train.py", "cli/finetune_lora.py",
+                "data/calibration.py", "utils/safetensors_io.py",
+                "ops/fused_matmul.py"):
+        assert os.path.join("quip_for_all_tpu_torch", mod) in scanned, mod
     bad = []
     for path in _port_sources():
         for name in _imports(path):
@@ -59,19 +66,23 @@ def test_port_keeps_its_own_assets():
     for src in ("nibble_decode.cuh", "fused_decode_matmul.cu",
                 "moe_decode_matmul.cu", "rowpair_decode_matmul.cu",
                 "bfp_decode_matmul.cu", "sw_decode_matmul.cu",
-                "ksplit_decode_matmul.cu", "paired_decode_matmul.cu"):
+                "ksplit_decode_matmul.cu", "paired_decode_matmul.cu",
+                "fused_decode_matmul_bwd.cu"):
         assert os.path.isfile(os.path.join(pkg, "csrc", src))
 
 
 @pytest.mark.parametrize("entry", ["random", "random_u3", "random_mixtral",
                                    "generate", "load", "load_pb", "convert",
                                    "caches", "from_raw_idxs",
-                                   "from_checkpoint_idxs", "random_paired"])
-def test_entry_points_default_to_the_card(entry, monkeypatch):
+                                   "from_checkpoint_idxs", "random_paired",
+                                   "train_lora", "load_lora", "import_peft",
+                                   "cli_finetune_lora"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = qt.tiny_config()
+    from quip_for_all_tpu_torch.quantize import lora_train
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "random":
             qt.random_quantized_model(cfg)
@@ -99,6 +110,17 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
             getattr(Q, entry)(get_codebook("E8P12"), codes, 128, 128)
         elif entry == "random_paired":
             qt.random_quantized_model(cfg, "E8P12RVQ4B", layout="paired")
+        elif entry == "train_lora":
+            lora_train.train_lora(cfg, qt.random_quantized_model(
+                cfg, device="cpu"), np.zeros((4, 9), dtype=np.int32))
+        elif entry in ("load_lora", "import_peft"):
+            getattr(lora_train, entry)(qt.random_quantized_model(
+                cfg, device="cpu"), str(tmp_path))
+        elif entry == "cli_finetune_lora":
+            from quip_for_all_tpu_torch.cli import finetune_lora
+            finetune_lora.main(["--model-path", os.path.join(
+                REPO, "tests", "golden", "e8p12"), "--save-dir",
+                str(tmp_path)])
         else:
             from quip_for_all_tpu_torch.runtime.generate import \
                 init_kv_caches
