@@ -70,7 +70,17 @@ line):
      step, one step at the CLI default 4 x 512 (2044 rows, the dense
      route: no K2, no K3), and ``generate`` with the trained adapters
      through K1.
-Phases run in the order 1-4, 7, 10, 13, 11, 5, 12, 6, 9, 14. The last stdout line
+ 15. the microbenchmarks T1-T5 (``quip_for_all_tpu_torch/tools``) through
+     their ``run`` entry points at the tools' default shapes, m = 1 and 8,
+     with every launch count reset before and read after: each variant
+     held to its plain twin inside the run, timed (CUDA-graph replays,
+     L2-cold) beside its byte bound, its twin and one library call of its
+     own function (a bf16 product on weights decoded beforehand; for the
+     load floors the row sum or the one-plane product); T4 at every
+     rows-per-block value on its four shapes; T5's probe launched once,
+     held bit for bit and its bitcast order printed.
+Phases run in the order 1-4, 7, 10, 13, 15, 11, 5, 12, 6, 9, 14. The last
+stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
 """
@@ -83,12 +93,12 @@ import sys
 import time
 import traceback
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak, data sheet
-F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, data sheet
 REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.time()
-L2_BYTES = 50 * 2 ** 20
+# quip_for_all_tpu_torch.tools._timing (the card's rates, the L2-cold
+# copies, the graph timing and the kernel-vs-twin tolerance), imported in
+# main once the checkout is on the path
+tm = None
 
 KERNELS = [{
     "name": "fused_decode_matmul", "route": "cuda",
@@ -127,6 +137,22 @@ KERNELS = [{
     "name": "fused_decode_matmul_bwd", "route": "cuda",
     "source": "quip_for_all_tpu_torch/csrc/fused_decode_matmul_bwd.cu",
     "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:970 (K3)",
+}, {
+    "name": "mb_kernel", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/mb_kernel.cu",
+    "replaces": "tools/microbench_kernel.py:80 (T1)",
+}, {
+    "name": "mb_decode", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/mb_decode.cu",
+    "replaces": "tools/microbench_decode.py:168 (T2)",
+}, {
+    "name": "mb_tn", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/mb_tn.cu",
+    "replaces": "tools/microbench_tn.py:73 and :102 (T4)",
+}, {
+    "name": "mb_bfp_probe", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/mb_bfp_probe.cu",
+    "replaces": "tools/microbench_bfp.py:78 (T5)",
 }]
 # the byte-cut layouts: (layout, codebook, kernel); the nibble planes of
 # the same codes run fused_decode_matmul with 1 (E8P12) or 2 plane sets
@@ -184,62 +210,6 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def bf16_ulp(v):
-    import torch
-    a = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.exp2(torch.floor(torch.log2(a)) - 7)
-
-
-def close_enough(got, want):
-    """(ok, max |diff|), kernel against plain twin: f32 sum order (1e-5 of
-    the max, as in the f32 tests) plus one bf16 rounding step of the
-    element; the kernel's output must be finite."""
-    import torch
-    diff = (got.float() - want.float()).abs()
-    ok = bool(torch.all(diff <= bf16_ulp(torch.maximum(
-        got.float().abs(), want.float().abs()))
-        + 1e-5 * want.float().abs().max()))
-    return ok and bool(torch.isfinite(got.float()).all()), float(diff.max())
-
-
-def graph_ms(fn, n: int, reps: int = 1) -> float:
-    """Device ms per call: n calls captured in one CUDA graph, replayed
-    reps times between CUDA events (host launch overhead excluded)."""
-    import torch
-    s = torch.cuda.Stream()
-    s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(s):
-        for i in range(3):
-            fn(i)
-    torch.cuda.current_stream().wait_stream(s)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for i in range(n):
-            fn(i)
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(reps):
-        g.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / (n * reps)
-
-
-def event_ms(fn, n: int) -> float:
-    import torch
-    fn(0)
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for i in range(n):
-        fn(i)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
 def phase_build():
     from quip_for_all_tpu_torch.ops import _build
     t = time.time()
@@ -249,9 +219,12 @@ def phase_build():
     for name in sources:
         _build.load(name)
     for name, rep in reports.items():
+        fn = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {fn}: {line.strip()}")
     log(f"build: {len(KERNELS)} kernels from {len(sources)} source(s) in "
         f"{dt:.1f} s "
         f"({'built' if reports else 'already built'})")
@@ -296,13 +269,13 @@ def phase_kernels():
         w = random_e8p_planes(q_out, q_in, gen, "cuda")
         Gp = w.shape[1]
         plane_bytes = w.numel() * 4
-        copies = max(2, math.ceil(2 * L2_BYTES / plane_bytes))
+        copies = max(2, math.ceil(2 * tm.L2_BYTES / plane_bytes))
         ws = [w] + [w.clone() for _ in range(copies - 1)]
         scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
                  if with_scale else None)
         W = decode_weights(QuantizedTensor({"w0": w}, "E8P12", q_out, q_in),
                            dtype=torch.bfloat16)
-        w_copies = max(2, math.ceil(2 * L2_BYTES / (W.numel() * 2)))
+        w_copies = max(2, math.ceil(2 * tm.L2_BYTES / (W.numel() * 2)))
         Ws = [W] + [W.clone() for _ in range(w_copies - 1)]
         for m in ms:
             # as the main path gives it: x padded to a multiple of 8 rows,
@@ -315,7 +288,7 @@ def phase_kernels():
             got = fm.fused_decode_matmul(x, [w], affine, scale, rows=m)
             want = fm.fused_decode_matmul_ref(x[:m], [w], affine, scale)
             torch.cuda.synchronize()
-            ok, err = close_enough(got, want)
+            ok, err = tm.compare(got, want, bf16_step=True)[:2]
             max_err = max(max_err, err)
             if not ok:
                 raise AssertionError(
@@ -323,17 +296,17 @@ def phase_kernels():
                     f"(max |diff| {err})")
             x_nat = x[:m].reshape(m, 8, Gp)[:, :, :G].transpose(
                 1, 2).reshape(m, q_in).contiguous()
-            k_ms = graph_ms(lambda i: fm.fused_decode_matmul(
+            k_ms = 1e-3 * tm.graph_us(lambda i: fm.fused_decode_matmul(
                 x, [ws[i % copies]], affine, scale, rows=m), 4 * copies)
-            p_ms = event_ms(lambda i: fm.fused_decode_matmul_ref(
+            p_ms = 1e-3 * tm.event_us(lambda i: fm.fused_decode_matmul_ref(
                 x[:m], [ws[i % copies]], affine, scale), 3)
-            lib_ms = graph_ms(lambda i: torch.matmul(
+            lib_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
                 x_nat, Ws[i % w_copies].T), 4 * w_copies)
             nbytes = plane_bytes + m * 8 * Gp * 2 + m * q_out * 2 + (
                 q_out * 4 if with_scale else 0)
             ops = 2 * m * q_out * 8 * Gp
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = ops / BF16_OPS_PER_S * 1e3
+            b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
+            b_ops = ops / tm.BF16_OPS_PER_S * 1e3
             row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": max(b_bytes, b_ops),
@@ -382,7 +355,7 @@ def phase_moe_kernels():
         expert_bytes = q_out * Gp * 4
         # every call reads at least 2 experts' planes; alternate copies so
         # each call finds its planes evicted from the 50 MB L2
-        copies = max(2, math.ceil(2 * L2_BYTES / (MOE_K * expert_bytes)))
+        copies = max(2, math.ceil(2 * tm.L2_BYTES / (MOE_K * expert_bytes)))
         ps = [planes] + [planes.clone() for _ in range(copies - 1)]
         for R in MOE_R:
             m = R // MOE_K                            # tokens
@@ -396,7 +369,7 @@ def phase_moe_kernels():
             got = mm.moe_fused_matmul(x, eids, [planes], affine, m)
             want = mm.moe_fused_matmul_ref(x, eids, [planes], affine)
             torch.cuda.synchronize()
-            ok, err = close_enough(got, want)
+            ok, err = tm.compare(got, want, bf16_step=True)[:2]
             max_err = max(max_err, err)
             if not ok:
                 raise AssertionError(
@@ -406,17 +379,17 @@ def phase_moe_kernels():
             def kernel(bound):
                 return lambda i: mm.moe_fused_matmul(
                     x, eids, [ps[i % copies]], affine, bound)
-            k_ms = graph_ms(kernel(m), 4 * copies)
+            k_ms = 1e-3 * tm.graph_us(kernel(m), 4 * copies)
             acc_r = ""
             if m < R <= 4:
                 # the accumulator sized from R (the bound of any routing)
                 # against the main path's bound, in turns: A B B A
-                b1 = graph_ms(kernel(R), 4 * copies)
-                b2 = graph_ms(kernel(R), 4 * copies)
-                k_ms = (k_ms + graph_ms(kernel(m), 4 * copies)) / 2
+                b1 = 1e-3 * tm.graph_us(kernel(R), 4 * copies)
+                b2 = 1e-3 * tm.graph_us(kernel(R), 4 * copies)
+                k_ms = (k_ms + 1e-3 * tm.graph_us(kernel(m), 4 * copies)) / 2
                 acc_r = (f" | bound R ({R}-row accumulator) "
                          f"{(b1 + b2) / 2 * 1e3:.1f} us")
-            p_ms = event_ms(lambda i: mm.moe_fused_matmul_ref(
+            p_ms = 1e-3 * tm.event_us(lambda i: mm.moe_fused_matmul_ref(
                 x, eids, [ps[i % copies]], affine), 3)
             # yardstick: one dense bf16 product per distinct expert on its
             # weights decoded beforehand (4x the bytes; not the same
@@ -428,14 +401,14 @@ def phase_moe_kernels():
             Ws = {e: decode_weights(QuantizedTensor(
                 {"w0": planes[e]}, "E8P12", q_out, q_in),
                 dtype=torch.bfloat16) for e in distinct}
-            lib_ms = graph_ms(lambda i: [torch.matmul(xs[e], Ws[e].T)
-                                         for e in distinct], 4)
+            lib_ms = 1e-3 * tm.graph_us(
+                lambda i: [torch.matmul(xs[e], Ws[e].T) for e in distinct], 4)
             del Ws
             nbytes = (len(distinct) * expert_bytes + R * 8 * Gp * 2
                       + R * q_out * 2 + R * 4)
             ops = 2 * R * q_out * q_in
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = ops / BF16_OPS_PER_S * 1e3
+            b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
+            b_ops = ops / tm.BF16_OPS_PER_S * 1e3
             row = {"layer": name, "q_out": q_out, "Gp": Gp, "R": R,
                    "experts": len(distinct), "max_abs_err": err,
                    "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
@@ -502,6 +475,10 @@ def timed_generate(cfg, model, prompt, cache_len):
 def _counters():
     """Each kernel's wrapper, which counts its launches."""
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.tools import microbench_bfp as tb
+    from quip_for_all_tpu_torch.tools import microbench_decode as td
+    from quip_for_all_tpu_torch.tools import microbench_kernel as tk
+    from quip_for_all_tpu_torch.tools import microbench_tn as tt
     from quip_for_all_tpu_torch.ops import layout_matmul as lm
     from quip_for_all_tpu_torch.ops import moe_matmul as mm
     from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
@@ -513,7 +490,11 @@ def _counters():
             "sw_decode_matmul": lm.sw_decode_matmul,
             "ksplit_decode_matmul": lm.ksplit_decode_matmul,
             "paired_decode_matmul": rm.paired_decode_matmul,
-            "fused_decode_matmul_bwd": fm.fused_decode_matmul_bwd}
+            "fused_decode_matmul_bwd": fm.fused_decode_matmul_bwd,
+            **{f"mb_kernel:{v}": f for v, f in tk.WRAPPERS.items()},
+            **{f"mb_decode:{v}": f for v, f in td.WRAPPERS.items()},
+            **{f"mb_tn:{v}": f for v, f in tt.WRAPPERS.items()},
+            "mb_bfp_probe": tb.bitcast_probe}
 
 
 def reset_launches():
@@ -689,16 +670,16 @@ def phase_rowpair_kernels():
                 return rm.rowpair_pb_matmul(x, planes, rs, scale, rows=m)
             plane_bytes = sum(v.numel() * 4 for v in qrp.planes.values())
             nib_bytes = sum(v.numel() * 4 for v in qn.planes.values())
-            copies = max(2, math.ceil(2 * L2_BYTES / plane_bytes))
+            copies = max(2, math.ceil(2 * tm.L2_BYTES / plane_bytes))
             rps = [qrp.planes] + [{k: v.clone() for k, v in qrp.planes.items()}
                                   for _ in range(copies - 1)]
-            ncopies = max(2, math.ceil(2 * L2_BYTES / nib_bytes))
+            ncopies = max(2, math.ceil(2 * tm.L2_BYTES / nib_bytes))
             nibs = [qn.plane_list()] + [[v.clone() for v in qn.plane_list()]
                                         for _ in range(ncopies - 1)]
             scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
                      if with_scale else None)
             W = decode_weights(qrp, dtype=torch.bfloat16)
-            w_copies = max(2, math.ceil(2 * L2_BYTES / (W.numel() * 2)))
+            w_copies = max(2, math.ceil(2 * tm.L2_BYTES / (W.numel() * 2)))
             Ws = [W] + [W.clone() for _ in range(w_copies - 1)]
             for m, dt in RP_CASES:
                 dtype = getattr(torch, dt)
@@ -716,23 +697,24 @@ def phase_rowpair_kernels():
                 nib_want = fm.fused_decode_matmul_ref(
                     xn[:m], qn.plane_list(), qn.decode_affine, scale)
                 torch.cuda.synchronize()
-                ok, err = close_enough(got, want)
-                ok_n, err_n = close_enough(nib, nib_want)
+                ok, err = tm.compare(got, want, bf16_step=True)[:2]
+                ok_n, err_n = tm.compare(nib, nib_want, bf16_step=True)[:2]
                 max_err[kname] = max(max_err[kname], err)
                 if not (ok and ok_n):
                     raise AssertionError(
                         f"{kname} {name} m={m} {dt}: kernel vs plain twin "
                         f"{err}; on the nibble planes of the same codes, "
                         f"fused_decode_matmul vs its twin {err_n}")
-                k_ms = graph_ms(lambda i: kernel(x, rps[i % copies], scale, m),
-                                4 * copies)
-                n_ms = graph_ms(lambda i: fm.fused_decode_matmul(
+                k_ms = 1e-3 * tm.graph_us(
+                    lambda i: kernel(x, rps[i % copies], scale, m),
+                    4 * copies)
+                n_ms = 1e-3 * tm.graph_us(lambda i: fm.fused_decode_matmul(
                     xn, nibs[i % ncopies], qn.decode_affine, scale, rows=m),
                     4 * ncopies)
-                p_ms = event_ms(lambda i: rm.rowpair_matmul_ref(
+                p_ms = 1e-3 * tm.event_us(lambda i: rm.rowpair_matmul_ref(
                     x, layout, rps[i % copies], rs, scale, rows=m), 3)
                 xb = x_nat.to(torch.bfloat16)
-                lib_ms = graph_ms(lambda i: torch.matmul(
+                lib_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
                     xb, Ws[i % w_copies].T), 4 * w_copies)
                 esz = 2 if dtype == torch.bfloat16 else 4
                 io = m * 8 * Gp * esz + m * q_out * esz + (
@@ -741,9 +723,9 @@ def phase_rowpair_kernels():
                 n_bytes = nib_bytes + m * 8 * Gn * esz + m * q_out * esz + (
                     q_out * 4 if with_scale else 0)
                 ops = 2 * m * q_out * 8 * Gp
-                peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                    F32_OPS_PER_S
-                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                    tm.F32_OPS_PER_S
+                b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
                 b_ops = ops / peak * 1e3
                 row = {"kernel": kname, "layout": layout, "layer": name,
                        "q_out": q_out, "Gp": Gp, "m": m, "dtype": dt,
@@ -752,7 +734,7 @@ def phase_rowpair_kernels():
                        "bound_ms": max(b_bytes, b_ops),
                        "bound_by": "bytes" if b_bytes >= b_ops
                        else "operations",
-                       "nibble_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                       "nibble_bound_ms": n_bytes / tm.HBM_BYTES_PER_S * 1e3,
                        "bytes": nbytes, "nibble_bytes": n_bytes}
                 rows.append(row)
                 log(f"kernel {layout} {name:6s} {q_out}x{Gp} m={m:2d} {dt}: "
@@ -845,16 +827,6 @@ def phase_rowpair_paths():
     return out
 
 
-def cold(planes, nbytes):
-    """planes (a list or dict of tensors) plus clones, enough that cycling
-    through them finds each set evicted from the 50 MB L2."""
-    n = max(2, math.ceil(2 * L2_BYTES / nbytes))
-    if isinstance(planes, dict):
-        return [planes] + [{k: v.clone() for k, v in planes.items()}
-                           for _ in range(n - 1)]
-    return [planes] + [[v.clone() for v in planes] for _ in range(n - 1)]
-
-
 def phase_layout_kernels():
     """K10 (bfp, 1 and 2 plane sets), K11 (sw2, sw4), K6 (split-K at 2 and
     4 chunks; down at 11, the only split its 11 lane blocks allow) and K7
@@ -931,13 +903,13 @@ def phase_layout_kernels():
                        for v in qt.planes.values())
         tensors = {id(v[3]): v[3] for v in variants}
         tensors.update({id(qt): qt for _, qt, _ in beside})
-        copies = {i: cold(planes_of(qt), nbytes_of(qt))
+        copies = {i: tm.cold_copies(planes_of(qt))
                   for i, qt in tensors.items()}
         scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
                  if with_scale else None)
         Ws = {codes: decode_weights(qt, dtype=torch.bfloat16)
               for codes, qt in ((1, qn1), (2, qn2))}
-        Wc = {c: cold([W], W.numel() * 2) for c, W in Ws.items()}
+        Wc = {c: tm.cold_copies([W]) for c, W in Ws.items()}
         for m, dt in RP_CASES:
             dtype = getattr(torch, dt)
             esz = 2 if dtype == torch.bfloat16 else 4
@@ -951,13 +923,13 @@ def phase_layout_kernels():
                 x[:m] = fm.grouped_permute(x_nat, qt.group_cols,
                                            qt.split).to(dtype)
                 return x
-            lib_ms = {c: graph_ms(lambda i, c=c: torch.matmul(
+            lib_ms = {c: 1e-3 * tm.graph_us(lambda i, c=c: torch.matmul(
                 xb, Wc[c][i % len(Wc[c])][0].T), 4 * len(Wc[c]))
                 for c in Wc}
             side = {}
             for label, qt, call in beside:
                 x, cp = xperm(qt), copies[id(qt)]
-                side[label] = graph_ms(
+                side[label] = 1e-3 * tm.graph_us(
                     lambda i: call(x, cp[i % len(cp)], scale, m),
                     4 * len(cp))
             for label, kname, codes, qt, call, twin in variants:
@@ -965,23 +937,24 @@ def phase_layout_kernels():
                 got = call(x, cp[0], scale, m)
                 want = twin(x, cp[0], scale, m)
                 torch.cuda.synchronize()
-                ok, err = close_enough(got, want)
+                ok, err = tm.compare(got, want, bf16_step=True)[:2]
                 max_err[kname] = max(max_err.get(kname, 0.0), err)
                 if not ok:
                     raise AssertionError(
                         f"{kname} ({label}) {name} m={m} {dt}: kernel vs "
                         f"plain twin beyond tolerance (max |diff| {err})")
-                k_ms = graph_ms(lambda i: call(x, cp[i % len(cp)], scale, m),
-                                4 * len(cp))
-                p_ms = event_ms(lambda i: twin(x, cp[i % len(cp)], scale, m),
-                                2)
+                k_ms = 1e-3 * tm.graph_us(
+                    lambda i: call(x, cp[i % len(cp)], scale, m),
+                    4 * len(cp))
+                p_ms = 1e-3 * tm.event_us(
+                    lambda i: twin(x, cp[i % len(cp)], scale, m), 2)
                 nb = nbytes_of(qt)
                 io = m * 8 * qt.group_cols * esz + m * q_out * esz + (
                     q_out * 4 if with_scale else 0)
                 ops = 2 * m * q_out * 8 * qt.group_cols
-                peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                    F32_OPS_PER_S
-                b_bytes = (nb + io) / HBM_BYTES_PER_S * 1e3
+                peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                    tm.F32_OPS_PER_S
+                b_bytes = (nb + io) / tm.HBM_BYTES_PER_S * 1e3
                 b_ops = ops / peak * 1e3
                 ref = {1: "nibble", 2: "nibble2"}[codes]
                 row = {"kernel": kname, "variant": label, "layer": name,
@@ -1168,8 +1141,8 @@ def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
         return M.model_apply(cfg, model, tok, positions=pos,
                              kv_caches=caches, cache_position=S,
                              dtype=torch.bfloat16, attn_window=w)[0]
-    eager = event_ms(step, n)
-    return graph_ms(step, 1, reps=n), eager
+    eager = 1e-3 * tm.event_us(step, n)
+    return 1e-3 * tm.graph_us(step, 1, reps=n), eager
 
 
 @contextlib.contextmanager
@@ -1300,12 +1273,12 @@ def phase_k3_kernels():
             planes, affine, Gp = qt.plane_list(), qt.decode_affine, \
                 qt.group_cols
             nb = sum(w.numel() * 4 for w in planes)
-            cp = cold(planes, nb)
+            cp = tm.cold_copies(planes)
             for dt in ("bfloat16", "float32"):
                 dtype = getattr(torch, dt)
                 esz = 2 if dtype == torch.bfloat16 else 4
                 W = decode_weights(qt, dtype=dtype)
-                Wc = cold([W], W.numel() * esz)
+                Wc = tm.cold_copies([W])
                 for m in K3_M:
                     g = torch.randn((m, q_out), generator=gen,
                                     device="cuda").to(dtype)
@@ -1314,7 +1287,7 @@ def phase_k3_kernels():
                     want = fm.fused_decode_matmul_bwd_ref(g, planes, affine,
                                                           None, G, Gp)
                     torch.cuda.synchronize()
-                    ok, err = close_enough(got, want)
+                    ok, err = tm.compare(got, want, bf16_step=True)[:2]
                     ok = ok and bool(torch.all(
                         got.reshape(m, 8, Gp)[:, :, G:] == 0))
                     max_err = max(max_err, err)
@@ -1323,17 +1296,19 @@ def phase_k3_kernels():
                             f"K3 {name} m={m} {dt} {n_sets} set(s): kernel "
                             f"vs plain twin beyond tolerance (max |diff| "
                             f"{err}) or pad lanes not zero")
-                    k_ms = graph_ms(lambda i: fm.fused_decode_matmul_bwd(
-                        g, cp[i % len(cp)], affine, None, G, Gp),
+                    k_ms = 1e-3 * tm.graph_us(
+                        lambda i: fm.fused_decode_matmul_bwd(
+                            g, cp[i % len(cp)], affine, None, G, Gp),
                         4 * len(cp))
-                    p_ms = event_ms(lambda i: fm.fused_decode_matmul_bwd_ref(
-                        g, cp[i % len(cp)], affine, None, G, Gp), 2)
-                    lib_ms = graph_ms(lambda i: torch.matmul(
+                    p_ms = 1e-3 * tm.event_us(
+                        lambda i: fm.fused_decode_matmul_bwd_ref(
+                            g, cp[i % len(cp)], affine, None, G, Gp), 2)
+                    lib_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
                         g, Wc[i % len(Wc)][0]), 4 * len(Wc))
                     nbytes = nb + m * q_out * esz + m * 8 * Gp * esz
-                    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                        F32_OPS_PER_S
-                    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                        tm.F32_OPS_PER_S
+                    b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
                     b_ops = 2 * m * q_out * q_in / peak * 1e3
                     row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
                            "dtype": dt, "sets": n_sets, "max_abs_err": err,
@@ -1383,11 +1358,13 @@ def k3_relayout_cost(gen):
             qn = to_nibble(qt)
             g = torch.randn((m, q_out), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            nib_ms = event_ms(lambda i: fm.quant_matmul_bwd(g, qn), 3)
+            nib_ms = 1e-3 * tm.event_us(
+                lambda i: fm.quant_matmul_bwd(g, qn), 3)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            lay_ms = event_ms(lambda i: fm.quant_matmul_bwd(g, qt), 3)
+            lay_ms = 1e-3 * tm.event_us(
+                lambda i: fm.quant_matmul_bwd(g, qt), 3)
             extra = torch.cuda.max_memory_allocated() - base
             rows.append({"layer": name, "layout": layout, "ms": lay_ms,
                          "nibble_ms": nib_ms})
@@ -1759,6 +1736,122 @@ def layout_entries(rows, max_err, paths):
     return out
 
 
+MB_M = (1, 8)
+
+
+def phase_microbench():
+    """T1-T5 through the microbenchmarks' ``run`` entry points, as a user
+    runs them (the tools' default shapes and iterations), at m = 1 and 8;
+    every count reset just before and read just after. Each record holds
+    its variant against its twin (``tools/_timing.compare``: 1 bf16 ulp +
+    1e-5 max for bf16 outputs, 1e-5 max for f32 and the row sums) and its
+    times; any mismatch, any microbenchmark kernel not launched, or a
+    count that the records do not account for fails the phase."""
+    from quip_for_all_tpu_torch.tools import microbench_bfp as tb
+    from quip_for_all_tpu_torch.tools import microbench_decode as td
+    from quip_for_all_tpu_torch.tools import microbench_kernel as tk
+    from quip_for_all_tpu_torch.tools import microbench_split as ts
+    from quip_for_all_tpu_torch.tools import microbench_tn as tt
+    reset_launches()
+    recs = []
+    for m in MB_M:
+        for tool in (tk, td, ts, tt, tb):
+            recs += tool.run(m=m)
+    launches = read_launches()
+    for r in recs:
+        key = r["kernel"]
+        rpb = (f" rows/block {r['rows_per_block']:3d}"
+               if "rows_per_block" in r else "")
+        lib = (f"{r['library_us']:.1f} us" if r["library_us"] is not None
+               else "none")
+        log(f"microbench {r['tool']}:{r['variant']} ({key}) {r['N']}x{r['K']}"
+            f" m={r['m']}{rpb}: max|k-plain| {r['max_abs_err']:.3g} (tol "
+            f"{r['tol']}) | kernel {r['us']:.2f} us | plain "
+            f"{r['plain_us']:.1f} us | bound {r['bound_us']:.2f} us "
+            f"({r['bound_by']}, {r['bytes'] / 1e6:.2f} MB) | "
+            f"{r['pct_of_bound']:.0f}% of bound, {r['gbps']:.0f} GB/s | "
+            f"library {lib} | launches {r['launches']}")
+        if r["variant"] == "probe":
+            log(f"microbench: bitcast order on the card: interleaved="
+                f"{r['interleaved']}, lo_first={r['lo_first']}")
+    bad = [(r["tool"], r["variant"], r["N"], r["m"], r["max_abs_err"],
+            r.get("error")) for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"microbench: kernel vs plain twin beyond "
+                             f"tolerance: {bad}")
+    by_counter = {}
+    for r in recs:
+        by_counter[r["kernel"]] = by_counter.get(r["kernel"], 0) + \
+            r["launches"]
+    for k, n in launches.items():
+        if n != by_counter.get(k, 0):
+            raise AssertionError(f"microbench: {k} launched {n} times, the "
+                                 f"records account for {by_counter.get(k, 0)}")
+    idle = [k for k in launches if k.startswith("mb_") and launches[k] == 0]
+    if idle:
+        raise AssertionError(f"microbench: kernels not launched: {idle}")
+    log("microbench: launches " + ", ".join(
+        f"{k} {n}" for k, n in launches.items() if n))
+    log_microbench_findings(recs)
+    return recs
+
+
+def log_microbench_findings(recs):
+    """The ablations side by side: the load floors against the decode
+    bodies, the rows-per-block curve, bfp against base."""
+    def us(tool, variant, m, **match):
+        return [r["us"] for r in recs if r["tool"] == tool
+                and r["variant"] == variant and r["m"] == m
+                and all(r.get(f) == v for f, v in match.items())]
+    for m in MB_M:
+        t1 = {v: us("microbench_kernel", v, m)[0]
+              for v in ("prod", "nodec", "onedot", "stream")}
+        log(f"microbench T1 m={m}: " + ", ".join(
+            f"{v} {t:.2f} us" for v, t in t1.items())
+            + f" -> prod/stream {t1['prod'] / t1['stream']:.2f}x")
+        for r in [r for r in recs if r["tool"] == "microbench_tn"
+                  and r["m"] == m and r["variant"] == "nib"]:
+            dma = us("microbench_tn", "dma", m, N=r["N"], K=r["K"],
+                     rows_per_block=r["rows_per_block"])[0]
+            log(f"microbench T4 m={m} {r['N']}x{r['K']} rows/block "
+                f"{r['rows_per_block']:3d}: nib {r['us']:.2f} us "
+                f"({r['pct_of_bound']:.0f}% of bound), dma {dma:.2f} us, "
+                f"nib/dma {r['us'] / dma:.2f}x")
+        for r in [r for r in recs if r["tool"] == "microbench_bfp"
+                  and r["m"] == m and r["variant"] == "bfp"]:
+            base = us("microbench_bfp", "base", m, N=r["N"])[0]
+            log(f"microbench T5 m={m} {r['N']}x{r['K']}: bfp {r['us']:.2f} "
+                f"us, base {base:.2f} us, bfp/base {r['us'] / base:.2f}x")
+
+
+def microbench_entries(recs):
+    """The kernels line's T1-T5 entries, one per variant: its numbers at
+    the tool's first default shape and m = 8 (T4: 12288x4096 at 16 rows a
+    block, K1's), its launches from the whole phase 15 run."""
+    out, seen = [], {}
+    for r in recs:
+        key = (r["tool"], r["variant"])
+        seen.setdefault(key, []).append(r)
+    for (tool, variant), rs in seen.items():
+        first = rs[0]
+        sel = next(r for r in rs if r["m"] == 8 and r["N"] == first["N"]
+                   and r["K"] == first["K"]
+                   and r.get("rows_per_block", 16) == 16) \
+            if variant != "probe" else first
+        out.append({"name": f"{tool}:{variant}", "route": "cuda",
+                    "source": sel["source"], "replaces": sel["replaces"],
+                    "launches": sum(r["launches"] for r in rs),
+                    "max_abs_err": max(r["max_abs_err"] for r in rs),
+                    "ms": sel["us"] * 1e-3, "plain_ms": sel["plain_us"] * 1e-3,
+                    "bound_ms": sel["bound_us"] * 1e-3,
+                    "bound_by": sel["bound_by"],
+                    "library_ms": (sel["library_us"] * 1e-3
+                                   if sel["library_us"] is not None
+                                   else None),
+                    "shape": f"{sel['N']}x{sel['K']}", "m": sel["m"]})
+    return out
+
+
 def at(phase, fn, *args):
     """Run one phase, logging when it starts and how long it took, so the
     script's time against its limit can be read phase by phase."""
@@ -1783,6 +1876,8 @@ def main() -> int:
               "quip_for_all_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    global tm
+    from quip_for_all_tpu_torch.tools import _timing as tm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1799,6 +1894,7 @@ def main() -> int:
         rp_rows, rp_err = at("7", phase_rowpair_kernels)
         lay_rows, lay_err = at("10", phase_layout_kernels)
         k3_rows, k3_err = at("13", phase_k3_kernels)
+        mb_recs = at("15", phase_microbench)
         at("4, 8, 11", phase_golden, (
             ("e8p12", None), ("e8p12", "u3"), ("e8p12rvq4b", None),
             ("e8p12rvq4b", "pb"), ("e8p12", "bfp"), ("e8p12", "sw2"),
@@ -1813,6 +1909,7 @@ def main() -> int:
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
         entries.append(k3_entry(k3_rows, k3_err, train))
+        entries += microbench_entries(mb_recs)
         log(f"chip_smoke: wall time {time.time() - T0:.1f} s (limit 1200 s)")
     except Exception:
         traceback.print_exc()

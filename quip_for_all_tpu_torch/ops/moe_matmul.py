@@ -20,6 +20,14 @@ sort in ``stacked_rows_apply`` change no result and have no counterpart.
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 the call raises. The wrapper never reads ``eids`` back to the host, so a
 decode step does not synchronise and can be captured in a CUDA graph.
+
+The kernel has no backward, as the JAX package's Pallas MoE call has no
+VJP (``jax.grad`` through it raises ``NotImplementedError``):
+``moe_fused_matmul`` raises the same error, on every device, when autograd
+would need a gradient of x_perm, rather than return a result cut from the
+graph. The plain twin ``moe_fused_matmul_ref`` (``matmul_impl="plain"``
+in ``nn/qmoe.py``) stays differentiable, as the JAX package's XLA route
+is. Decode runs under ``torch.no_grad()`` and never meets the raise.
 """
 from __future__ import annotations
 
@@ -88,10 +96,17 @@ def moe_fused_matmul(x_perm: torch.Tensor, eids: torch.Tensor,
     x_perm's dtype; q_out takes any value. ``rows_per_expert`` bounds how
     many rows any one expert has (top-K routing of m tokens gives at most
     m; R bounds any routing): it sizes the kernel's accumulator, and a
-    wrong bound costs time, not the result.
+    wrong bound costs time, not the result. Raises
+    ``NotImplementedError`` when gradients are on and x_perm requires grad.
     ``moe_fused_matmul.launches`` counts kernel launches (plain-twin calls
     on CPU tensors are not counted). The ids stay on the device: one
     outside 0..E-1 leaves its row unwritten on a card."""
+    if torch.is_grad_enabled() and x_perm.requires_grad:
+        raise NotImplementedError(
+            "moe_fused_matmul has no backward (neither has the JAX package's "
+            "Pallas MoE call); take the differentiable plain route, "
+            "matmul_impl='plain' (moe_fused_matmul_ref), or run under "
+            "torch.no_grad()")
     _check(x_perm, eids, planes, affine, rows_per_expert)
     if x_perm.device.type == "cpu":
         return moe_fused_matmul_ref(x_perm, eids, planes, affine)

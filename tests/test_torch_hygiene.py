@@ -30,6 +30,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "test_torch_rowpair_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_layout_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_k3_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_microbench_cuda.py")
 
 
 def _imports(path):
@@ -48,7 +49,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     # the LoRA slice's modules are among those scanned
     for mod in ("nn/lora.py", "quantize/lora_train.py", "cli/finetune_lora.py",
                 "data/calibration.py", "utils/safetensors_io.py",
-                "ops/fused_matmul.py"):
+                "ops/fused_matmul.py",
+                # the microbenchmarks
+                "tools/_timing.py", "tools/microbench_kernel.py",
+                "tools/microbench_decode.py", "tools/microbench_split.py",
+                "tools/microbench_tn.py", "tools/microbench_bfp.py"):
         assert os.path.join("quip_for_all_tpu_torch", mod) in scanned, mod
     bad = []
     for path in _port_sources():
@@ -67,7 +72,8 @@ def test_port_keeps_its_own_assets():
                 "moe_decode_matmul.cu", "rowpair_decode_matmul.cu",
                 "bfp_decode_matmul.cu", "sw_decode_matmul.cu",
                 "ksplit_decode_matmul.cu", "paired_decode_matmul.cu",
-                "fused_decode_matmul_bwd.cu"):
+                "fused_decode_matmul_bwd.cu", "mb_kernel.cu", "mb_tn.cu",
+                "mb_decode.cu", "mb_bfp_probe.cu"):
         assert os.path.isfile(os.path.join(pkg, "csrc", src))
 
 
@@ -76,7 +82,9 @@ def test_port_keeps_its_own_assets():
                                    "caches", "from_raw_idxs",
                                    "from_checkpoint_idxs", "random_paired",
                                    "train_lora", "load_lora", "import_peft",
-                                   "cli_finetune_lora"])
+                                   "cli_finetune_lora", "microbench_kernel",
+                                   "microbench_decode", "microbench_split",
+                                   "microbench_tn", "microbench_bfp"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -116,6 +124,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         elif entry in ("load_lora", "import_peft"):
             getattr(lora_train, entry)(qt.random_quantized_model(
                 cfg, device="cpu"), str(tmp_path))
+        elif entry.startswith("microbench_"):
+            import importlib
+            importlib.import_module(
+                f"quip_for_all_tpu_torch.tools.{entry}").main([])
         elif entry == "cli_finetune_lora":
             from quip_for_all_tpu_torch.cli import finetune_lora
             finetune_lora.main(["--model-path", os.path.join(

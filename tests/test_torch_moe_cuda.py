@@ -157,3 +157,20 @@ def test_sparse_route_launches_the_kernel_at_any_q_out(cuda):
     assert mm.moe_fused_matmul.launches == before + 2
     err = (got - want).abs().max()
     assert err <= 1e-4 * want.abs().max(), err
+
+
+def test_gradient_request_raises_on_the_card(cuda):
+    """As on the CPU and as the JAX package's Pallas call: the kernel has
+    no backward, so a call that autograd would need a gradient through
+    raises before any launch."""
+    x, eids, planes = _inputs(8, 128, 128, 2, 1, torch.float32, cuda, seed=0)
+    before = mm.moe_fused_matmul.launches
+    with pytest.raises(NotImplementedError, match="matmul_impl='plain'"):
+        mm.moe_fused_matmul(x.requires_grad_(True), eids, planes,
+                            AFFINE[:1], 1)
+    assert mm.moe_fused_matmul.launches == before
+    with torch.no_grad():
+        got = mm.moe_fused_matmul(x, eids, planes, AFFINE[:1], 1)
+    assert mm.moe_fused_matmul.launches == before + 1
+    _close(got, mm.moe_fused_matmul_ref(x.detach(), eids, planes,
+                                        AFFINE[:1]), torch.float32)

@@ -174,3 +174,96 @@ def test_cpu_tensors_take_the_plain_twin_and_count_no_launch():
     assert torch.equal(out[0], torch.full((128,), (0.5 - 2.75) * 1024))
     assert torch.equal(out[1], torch.full((128,), -2.75 * 1024))
     assert tmm.moe_fused_matmul.launches == before
+
+
+def test_kernel_route_refuses_gradients_as_jax_does():
+    """The JAX package's Pallas MoE call has no VJP: ``jax.grad`` through
+    it raises NotImplementedError. The port's kernel route raises the same
+    error (on the CPU here, before the device branch; on a card in
+    tests/test_torch_moe_cuda.py) rather than drop the MoE branch's
+    gradient."""
+    import jax
+    planes, eids, x, cb, ors = _case(2, False, 1, seed=1)
+    jplanes = {k: jnp.asarray(v) for k, v in planes.items()}
+    with pytest.raises(NotImplementedError):
+        jax.grad(lambda xx: jnp.sum(jmp.moe_fused_matmul(
+            xx, jnp.asarray(eids), jplanes, cb, ors, Q_OUT)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    before = tmm.moe_fused_matmul.launches
+    with pytest.raises(NotImplementedError, match="matmul_impl='plain'"):
+        tmm.moe_fused_matmul(xt, torch.from_numpy(eids),
+                             [torch.from_numpy(planes["w0"])],
+                             decode_affine(cb, ors), 2)
+    assert tmm.moe_fused_matmul.launches == before
+
+
+def test_plain_route_keeps_gradients_as_the_jax_xla_route():
+    """``moe_fused_matmul_ref`` (``matmul_impl="plain"``) stays
+    differentiable: its dx equals ``jax.grad`` of the JAX package's XLA
+    route ``_decode_rows_matmul`` on the same cotangent (f32, 1e-5 of the
+    max: sum order)."""
+    import jax
+    from types import SimpleNamespace
+    from quip_for_all_tpu.nn.qmoe import _decode_rows_matmul
+    planes, eids, x, cb, ors = _case(5, True, 2, seed=4)
+    ct = np.random.default_rng(5).standard_normal((5, Q_OUT)).astype(
+        np.float32)
+    sq = SimpleNamespace(planes={k: jnp.asarray(v) for k, v in planes.items()},
+                         codebook_id=cb, opt_resid_scale=ors)
+    want = np.asarray(jax.grad(lambda xx: jnp.sum(
+        _decode_rows_matmul(sq, xx, jnp.asarray(eids)) * ct))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = tmm.moe_fused_matmul_ref(
+        xt, torch.from_numpy(eids),
+        [torch.from_numpy(planes[k]) for k in sorted(planes)],
+        decode_affine(cb, ors))
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert_close(xt.grad.numpy(), want, "float32")
+
+
+def test_no_grad_and_frozen_inputs_keep_the_kernel_route():
+    """Decode (``torch.no_grad()``, or an x that needs no gradient) takes
+    the kernel route as before: the result is the twin's."""
+    planes, eids, x, cb, ors = _case(5, True, 1, seed=6)
+    args = (torch.from_numpy(eids), [torch.from_numpy(planes["w0"])],
+            decode_affine(cb, ors))
+    want = tmm.moe_fused_matmul_ref(torch.from_numpy(x), *args)
+    with torch.no_grad():
+        got = tmm.moe_fused_matmul(
+            torch.from_numpy(x).requires_grad_(True), *args, 5)
+    assert torch.equal(got, want)
+    assert torch.equal(tmm.moe_fused_matmul(torch.from_numpy(x), *args, 5),
+                       want)
+
+
+def test_tiny_mixtral_lora_loss_raises_below_32_tokens():
+    """A LoRA step on a tiny Mixtral at fewer than 32 tokens (the sparse
+    route) raises instead of returning adapter gradients without the MoE
+    branch; on the plain route the same loss backpropagates and the MoE
+    input's adapters (attention) get gradients."""
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.nn.lora import add_lora, \
+        collect_lora_trainable
+    from quip_for_all_tpu_torch.quantize.lora_train import causal_lm_loss
+    # widths that are multiples of 128: the plain route takes every linear
+    cfg = qt.tiny_config(arch="mixtral", hidden_size=128,
+                         intermediate_size=128, num_key_value_heads=4,
+                         num_local_experts=4, num_experts_per_tok=2)
+    model = qt.random_quantized_model(cfg, seed=0, dtype=torch.float32,
+                                      device="cpu")
+    add_lora(model, rank=2, targets=("q_proj", "k_proj", "v_proj", "o_proj"),
+             seed=0)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 9)))                 # 2 x 8 = 16 tokens
+    kw = {"compute_dtype": torch.float32}
+    with pytest.raises(NotImplementedError):
+        causal_lm_loss(cfg, model, ids, kw)
+    loss = causal_lm_loss(cfg, model, ids, dict(kw, matmul_impl="plain"))
+    loss.backward()
+    flat = collect_lora_trainable(model.layers, "layers")
+    grads = {k: v.grad for k, v in flat.items()}
+    assert grads and all(g is not None and torch.isfinite(g).all()
+                         for g in grads.values())
+    # B starts at 0, so dB carries the loss: nonzero in every adapter
+    assert all(float(g.abs().max()) > 0 for k, g in grads.items()
+               if k.endswith("B"))
