@@ -9,10 +9,10 @@ line):
   1. the card (nvidia-smi name and power limit) and the kernels' build from
      the repo's sources (one nvcc per source, all started together);
   2. fused_decode_matmul against its plain torch twin at the Llama-2-7B
-     shapes of the main path, m = 1, 8 and 64 (and Mixtral's GQA qkv at
-     m = 1), with times on the card (CUDA-graph replays, L2-cold), the
-     plain twin's time, the bound from device-memory bytes at 3.35 TB/s,
-     and a library yardstick;
+     shapes of the main path, m = 1, 8 (K1) and 64 (K2, the tensor-core
+     kernel above 32 rows), and Mixtral's GQA qkv at m = 1, with times on
+     the card (CUDA-graph replays, L2-cold), the plain twin's time, the
+     bound from device-memory bytes at 3.35 TB/s, and a library yardstick;
   3. moe_decode_matmul against its plain twin at Mixtral-8x7B's w13 and w2
      shapes with 8 experts, R = 2 (bs=1 decode), 16 and 62 rows (top-2
      over 8 and 31 tokens), timed the same way;
@@ -54,16 +54,17 @@ line):
      planes re-laid as sw4 and (d) as bfp, each first held to phase 5's
      f32 logits, then (g) E8P12RVQ4B paired from seed 0; each as in phase
      9, with the exact launch counts of its kernels;
- 13. fused_decode_matmul_bwd (K3, the backward of K1/K2) against its plain
-     twin at Llama-2-7B's unfused shapes (q/k/v/o, gate/up, down, head),
-     m = 1, 64 and 1022, bf16 and f32, 1 and 2 plane sets, timed as in
-     phase 2 beside the library product gs @ W; then the backward of the
-     copy layouts (u3, bfp, pb, paired: their planes re-laid to nibble
-     words on every call) beside the nibble layout's at m = 1022;
+ 13. fused_decode_matmul_bwd (K3, the tensor-core backward of K1/K2)
+     against its plain twin at Llama-2-7B's unfused shapes (q/k/v/o,
+     gate/up, down, head), m = 1, 64 and 1022, bf16 and f32, 1 and 2 plane
+     sets, timed as in phase 2 beside the library product gs @ W; then the
+     backward of the copy layouts (u3, bfp, pb, paired: their planes
+     re-laid to nibble words on every call) beside the nibble layout's at
+     m = 1022;
  14. LoRA training at full width: Llama-2-7B E8P12 (random codes, seed 0,
      unfused, quantized head, all 32 layers) with rank-8 adapters on the
      7 default targets, batches of 2 x 512 tokens (1022 rows: K2 forward,
-     K3 backward) with exact launch counts per step, every adapter
+     K3 backward, no K1) with exact launch counts per step, every adapter
      gradient against the plain route in f32 and bf16, the step split
      into forward and backward with K2/K3 event times, 8 AdamW steps of
      ``train_lora`` (lr 1e-4) on one batch whose loss falls at every
@@ -79,7 +80,13 @@ line):
      load floors the row sum or the one-plane product); T4 at every
      rows-per-block value on its four shapes; T5's probe launched once,
      held bit for bit and its bitcast order printed.
-Phases run in the order 1-4, 7, 10, 13, 15, 11, 5, 12, 6, 9, 14. The last
+ 16. fused_decode_matmul_tc (K2) against its plain twin at the training
+     shapes of phase 13, m = 64 and 1022, bf16 and f32, 1 and 2 plane
+     sets, timed as in phase 2 beside the library product x @ W.T (W
+     decoded beforehand in x's dtype); at m = 1022 and 2044 (bf16, 1 set)
+     the dense route (decode_weights + torch.matmul, as quant_matmul runs
+     it above FUSED_MAX_M) timed beside K2: the fused/dense crossover.
+Phases run in the order 1-4, 7, 10, 13, 16, 15, 11, 5, 12, 6, 9, 14. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
@@ -138,6 +145,11 @@ KERNELS = [{
     "source": "quip_for_all_tpu_torch/csrc/fused_decode_matmul_bwd.cu",
     "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:970 (K3)",
 }, {
+    "name": "fused_decode_matmul_tc", "route": "cuda",
+    "source": "quip_for_all_tpu_torch/csrc/fused_decode_matmul_tc.cu",
+    "replaces": "quip_for_all_tpu/ops/dequant_pallas.py:888 (K2, the 2-D "
+                "m-tiled grid of _make_kernel at :135)",
+}, {
     "name": "mb_kernel", "route": "cuda",
     "source": "quip_for_all_tpu_torch/csrc/mb_kernel.cu",
     "replaces": "tools/microbench_kernel.py:80 (T1)",
@@ -195,6 +207,13 @@ K3_CALLS = {"qkvo": 3 * (LAYERS - 1) + LAYERS, "gateup": 2 * LAYERS,
             "down": LAYERS, "head": 1}
 K3_M = (1, 64, 1022)
 TRAIN_B, TRAIN_S = 2, 512
+# K2 at the same shapes: its calls per training forward (every quantized
+# linear), its rows (m = 64 is a prefill's) and the rows at which the dense
+# route is timed beside it (the CLI default batch 4 x 512 is 2044 rows)
+K2_CALLS = {"qkvo": 4 * LAYERS, "gateup": 2 * LAYERS, "down": LAYERS,
+            "head": 1}
+K2_M = (64, 1022)
+DENSE_M = (1022, 2044)
 
 
 def log(*a):
@@ -440,10 +459,12 @@ def phase_golden(cases=(("e8p12", None),)):
         cfg, model, _ = load_quantized(path, device="cuda", layout=layout)
         exp = np.load(os.path.join(path, "expected.npz"))
         blk = model.layers[0]
-        kernel = LAYOUT_KERNEL.get(layout, "fused_decode_matmul")
         for role, lin in (("q_proj", blk["self_attn"]["q_proj"]),
                           ("down_proj", blk["mlp"]["down_proj"])):
             n = lin.in_features
+            # the nibble layout's n rows: K1 up to 32, K2 above
+            kernel = LAYOUT_KERNEL.get(layout, "fused_decode_matmul" if n <= 32
+                                       else "fused_decode_matmul_tc")
             reset_launches()
             got = lin(torch.eye(n, device="cuda"),
                       compute_dtype=torch.float32).cpu().numpy()
@@ -483,6 +504,7 @@ def _counters():
     from quip_for_all_tpu_torch.ops import moe_matmul as mm
     from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
     return {"fused_decode_matmul": fm.fused_decode_matmul,
+            "fused_decode_matmul_tc": fm.fused_decode_matmul_tc,
             "moe_decode_matmul": mm.moe_fused_matmul,
             "rowpair_u3_decode_matmul": rm.rowpair_u3_matmul,
             "rowpair_pb_decode_matmul": rm.rowpair_pb_matmul,
@@ -1338,6 +1360,119 @@ def phase_k3_kernels():
     return rows, max_err
 
 
+def phase_k2_kernels():
+    """fused_decode_matmul_tc (K2) against its plain twin at the training
+    shapes (K3's: q/k/v/o, gate/up, down, head), with the rows a prefill
+    (m = 64) and a LoRA step (m = 1022) give it, in bf16 and f32, with 1
+    and 2 plane sets, no scale vector (the training path's linears have
+    none). Timed as phase 2 times K1, beside the library product x @ W.T
+    with W decoded beforehand in x's dtype (natural order). The bound
+    counts the planes, x and out once each, and 2*m*q_out*q_in operations
+    at the peak rate of x's dtype. Then, at m = 1022 and 2044 (bf16, 1
+    set), the dense route that quant_matmul takes from FUSED_MAX_M rows on
+    (decode_weights + torch.matmul) beside K2 at the same m."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    from quip_for_all_tpu_torch.ops.qtensor import QuantizedTensor
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, dense, max_err = [], [], 0.0
+    for name, q_out, q_in in K3_SHAPES:
+        G = q_in // 8
+        qt2 = random_qtensor("E8P12RVQ4B", None, q_out, q_in, gen, "cuda")
+        for n_sets in (1, 2):
+            qt = qt2 if n_sets == 2 else QuantizedTensor(
+                {"w0": qt2.planes["w0"]}, "E8P12", q_out, q_in)
+            planes, affine, Gp = qt.plane_list(), qt.decode_affine, \
+                qt.group_cols
+            nb = sum(w.numel() * 4 for w in planes)
+            cp = tm.cold_copies(planes)
+            for dt in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt)
+                esz = 2 if dtype == torch.bfloat16 else 4
+                W = decode_weights(qt, dtype=dtype)
+                Wc = tm.cold_copies([W])
+                ms = K2_M + ((DENSE_M[-1],) if n_sets == 1
+                             and dtype == torch.bfloat16 else ())
+                for m in ms:
+                    x = torch.zeros((m, 8, Gp), device="cuda")
+                    x[:, :, :G] = torch.randn((m, 8, G), generator=gen,
+                                              device="cuda")
+                    x = x.reshape(m, 8 * Gp).to(dtype)
+                    x_nat = x.reshape(m, 8, Gp)[:, :, :G].transpose(
+                        1, 2).reshape(m, q_in).contiguous()
+                    got = fm.fused_decode_matmul_tc(x, planes, affine)
+                    want = fm.fused_decode_matmul_ref(x, planes, affine)
+                    torch.cuda.synchronize()
+                    ok, err = tm.compare(got, want, bf16_step=True)[:2]
+                    max_err = max(max_err, err)
+                    if not ok:
+                        raise AssertionError(
+                            f"K2 {name} m={m} {dt} {n_sets} set(s): kernel "
+                            f"vs plain twin beyond tolerance (max |diff| "
+                            f"{err})")
+                    k_ms = 1e-3 * tm.graph_us(
+                        lambda i: fm.fused_decode_matmul_tc(
+                            x, cp[i % len(cp)], affine), 4 * len(cp))
+                    p_ms = 1e-3 * tm.event_us(
+                        lambda i: fm.fused_decode_matmul_ref(
+                            x, cp[i % len(cp)], affine), 2)
+                    lib_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
+                        x_nat, Wc[i % len(Wc)][0].T), 4 * len(Wc))
+                    nbytes = nb + m * 8 * Gp * esz + m * q_out * esz
+                    peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+                        tm.F32_OPS_PER_S
+                    b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
+                    b_ops = 2 * m * q_out * q_in / peak * 1e3
+                    row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
+                           "dtype": dt, "sets": n_sets, "max_abs_err": err,
+                           "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                           "bound_ms": max(b_bytes, b_ops),
+                           "bound_by": "bytes" if b_bytes >= b_ops
+                           else "operations", "bytes": nbytes}
+                    rows.append(row)
+                    log(f"kernel k2 {name:6s} {q_out}x{Gp} m={m:4d} {dt} "
+                        f"{n_sets} set(s): max|k-plain| {err:.3g} (tol 1 bf16"
+                        f" ulp + 1e-5 max) | kernel {k_ms * 1e3:.1f} us | "
+                        f"plain {p_ms * 1e3:.1f} us | bound "
+                        f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']},"
+                        f" {nbytes / 1e6:.2f} MB) | "
+                        f"{row['bound_ms'] / k_ms:.0%} of bound | library "
+                        f"{lib_ms * 1e3:.1f} us (x @ W.T, W dense {dt})")
+                    if m in DENSE_M and n_sets == 1 and \
+                            dtype == torch.bfloat16:
+                        d_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
+                            x_nat, decode_weights(QuantizedTensor(
+                                {"w0": cp[i % len(cp)][0]}, "E8P12", q_out,
+                                q_in), dtype=dtype).T), 2 * len(cp))
+                        dense.append({"layer": name, "m": m, "ms": d_ms,
+                                      "k2_ms": k_ms})
+                        log(f"kernel k2 {name:6s} m={m}: dense route "
+                            f"(decode_weights + torch.matmul) {d_ms * 1e3:.1f}"
+                            f" us | K2 {k_ms * 1e3:.1f} us | dense/K2 "
+                            f"{d_ms / k_ms:.2f}x")
+                    del x, x_nat, got, want
+                del W, Wc
+            del cp
+            torch.cuda.empty_cache()
+    for m in K2_M:
+        for dt in ("bfloat16", "float32"):
+            per = {key: call_sum(rows, K2_CALLS, key, m=m, dtype=dt, sets=1)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"kernel k2 per training forward's 225 calls at m={m} ({dt},"
+                f" 1 set): " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in per.items()))
+    for m in DENSE_M:
+        d = call_sum(dense, K2_CALLS, "ms", m=m)
+        k = call_sum(dense, K2_CALLS, "k2_ms", m=m)
+        log(f"kernel k2 fused/dense crossover at m={m} (bf16, 1 set, 225 "
+            f"calls): dense route {d:.3f} ms, K2 {k:.3f} ms, dense/K2 "
+            f"{d / k:.2f}x (FUSED_MAX_M 1025 sends {m} rows to "
+            f"{'K2' if m < 1025 else 'the dense route'})")
+    return rows, max_err
+
+
 def k3_relayout_cost(gen):
     """The backward of a linear in a copy layout (``quant_matmul_bwd``:
     the planes re-laid to nibble words, K3, dx in the layout's lane
@@ -1508,7 +1643,7 @@ def phase_train():
             launches = read_launches()
             check_launches(f"train [{impl}, {dt}] one step", launches,
                            {} if impl == "plain" else
-                           {"fused_decode_matmul": per_fwd,
+                           {"fused_decode_matmul_tc": per_fwd,
                             "fused_decode_matmul_bwd": per_bwd})
             log(f"train [{impl}, {dt}]: loss {loss:.6g}")
         keys = sorted(grads["auto"])
@@ -1544,9 +1679,9 @@ def phase_train():
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_launches("train step (bf16)", launches,
-                   {"fused_decode_matmul": per_fwd,
+                   {"fused_decode_matmul_tc": per_fwd,
                     "fused_decode_matmul_bwd": per_bwd})
-    names = ("fused_decode_matmul", "fused_decode_matmul_bwd")
+    names = ("fused_decode_matmul_tc", "fused_decode_matmul_bwd")
     with kernel_events(names) as pairs:
         adapter_grads(cfg, model, ids, {})
     torch.cuda.synchronize()
@@ -1559,6 +1694,7 @@ def phase_train():
         f"{ev[names[1]]:.1f} ms over {len(pairs[names[1]])} launches (CUDA "
         f"events); peak {peak:.2f} GiB")
     train = {"launches": launches["fused_decode_matmul_bwd"],
+             "k2_launches": launches["fused_decode_matmul_tc"],
              "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k2_ms": ev[names[0]],
              "k3_ms": ev[names[1]], "peak_gib": peak}
 
@@ -1625,8 +1761,9 @@ def phase_train():
 
 
 def k3_entry(rows, err, train):
-    """The kernels line's K3 entry: per LoRA training step (222 calls at
-    m = 1022, bf16, 1 plane set), launches from the counted step."""
+    """The kernels line's K3 entry (the tensor-core backward): per LoRA
+    training step (222 calls at m = 1022, bf16, 1 plane set, one MMA term),
+    launches from the counted step."""
     sel = [r for r in rows if r["m"] == TRAIN_B * (TRAIN_S - 1)
            and r["dtype"] == "bfloat16" and r["sets"] == 1]
     e = dict(next(k for k in KERNELS
@@ -1643,6 +1780,25 @@ def k3_entry(rows, err, train):
     return e
 
 
+def k2_entry(rows, err, train):
+    """The kernels line's K2 entry: per LoRA training forward (225 calls
+    at m = 1022, bf16, 1 plane set), launches from the counted step."""
+    sel = [r for r in rows if r["m"] == TRAIN_B * (TRAIN_S - 1)
+           and r["dtype"] == "bfloat16" and r["sets"] == 1]
+    e = dict(next(k for k in KERNELS
+                  if k["name"] == "fused_decode_matmul_tc"),
+             launches=train["k2_launches"], max_abs_err=err,
+             **{key: call_sum(sel, K2_CALLS, key)
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sel)
+                       else "operations"))
+    log(f"train: per forward K2 takes {e['ms']:.2f} ms by its per-call graph"
+        f" times ({train['k2_ms']:.2f} ms by the step's events) of the "
+        f"{train['fwd_ms']:.1f} ms forward; bound {e['bound_ms']:.2f} ms "
+        f"({e['bound_by']}); library {e['library_ms']:.2f} ms")
+    return e
+
+
 def call_sum(rows, calls, key, **match):
     """Sum of key over the rows of the named layers, each times its calls
     (e.g. per decode token)."""
@@ -1652,19 +1808,19 @@ def call_sum(rows, calls, key, **match):
 
 
 def log_k2(rows):
-    """K2 (the same kernel over the 2-D m-tiled grid of prefill): one
-    prefill launch set of Llama-2-7B at m = 64, the 129 calls summed."""
+    """K2 (fused_decode_matmul above 32 rows: the tensor-core kernel) over
+    one prefill launch set of Llama-2-7B at m = 64, the 129 calls summed."""
     parts = {key: call_sum(rows, LLAMA_CALLS, key, m=64)
              for key in ("bound_ms", "ms", "plain_ms", "library_ms")}
-    log("kernel fused_decode_matmul K2 (Llama-2-7B prefill launch set, "
+    log("kernel fused_decode_matmul_tc K2 (Llama-2-7B prefill launch set, "
         "m=64, 129 calls): " + ", ".join(
             f"{k} {v:.3f}" for k, v in parts.items()))
 
 
 def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
                    rp_rows, rp_err, paths):
-    """The kernels line: per decode token of each kernel's own path (the
-    fused kernel's at Llama-2-7B's shapes, the MoE kernel's at Mixtral's
+    """The kernels line: per decode token of each kernel's own path (K1's
+    at Llama-2-7B's shapes, m = 1, the MoE kernel's at Mixtral's
     w13 and w2 with R = 2, the row-pair kernels' at Llama-2-7B's shapes in
     bf16); launches from the paths' counted runs."""
     moe_calls = {"w13": LAYERS, "w2": LAYERS}
@@ -1894,6 +2050,7 @@ def main() -> int:
         rp_rows, rp_err = at("7", phase_rowpair_kernels)
         lay_rows, lay_err = at("10", phase_layout_kernels)
         k3_rows, k3_err = at("13", phase_k3_kernels)
+        k2_rows, k2_err = at("16", phase_k2_kernels)
         mb_recs = at("15", phase_microbench)
         at("4, 8, 11", phase_golden, (
             ("e8p12", None), ("e8p12", "u3"), ("e8p12rvq4b", None),
@@ -1909,6 +2066,7 @@ def main() -> int:
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
         entries.append(k3_entry(k3_rows, k3_err, train))
+        entries.append(k2_entry(k2_rows, k2_err, train))
         entries += microbench_entries(mb_recs)
         log(f"chip_smoke: wall time {time.time() - T0:.1f} s (limit 1200 s)")
     except Exception:

@@ -1,9 +1,11 @@
-// Fused affine-nibble decode + matmul for Hopper (sm_90a): K1/K2.
+// Fused affine-nibble decode + matmul for Hopper (sm_90a): K1.
 //
 // Replaces: quip_for_all_tpu/ops/dequant_pallas.py:_make_kernel (split=1,
-// nibble layout) through BOTH of _fused_call's grids — the 1-D grid
-// (pallas_call at :868, decode, TM == m) and the 2-D m-tiled grid (:888,
-// prefill below the crossover). One kernel takes any m.
+// nibble layout) through _fused_call's 1-D grid (pallas_call at :868,
+// decode, TM == m): the calls of at most 32 rows after the pad to 8. The
+// kernel takes any m, but ops/fused_matmul.py sends the larger calls (the
+// 2-D m-tiled grid at :888) to the tensor-core kernel K2,
+// fused_decode_matmul_tc.cu.
 //
 // x_perm (m, 8*Gp) is in the grouped layout x_perm[r, i*Gp + g] =
 // x[r, 8g + i]; the planes are 1 or 2 sets of int32 words (q_out, Gp).

@@ -1,6 +1,6 @@
 // Affine-nibble decode + matmul for Hopper (sm_90a): the kernel body that
 // three sources instantiate, each with its own C entry point:
-//   fused_decode_matmul.cu   K1/K2: int32 nibble planes (split P = 1);
+//   fused_decode_matmul.cu   K1:    int32 nibble planes (split P = 1);
 //   sw_decode_matmul.cu      K11:   the same words stored as int16 / int8
 //                                   subwords (sw2 / sw4, P = 2 / 4);
 //   ksplit_decode_matmul.cu  K6:    K1 with the group axis split into
@@ -61,8 +61,10 @@
 //   - a warp-shuffle reduction ends each row, then the epilogue.
 // q_out and m need no divisibility (ragged edges are masked); Gp and the
 // chunk width must be multiples of 4 (plane rows are padded to 128
-// groups). Not done yet (a later PR): cp.async/TMA staging, tensor-core
-// products for m >= 8.
+// groups). Above 32 rows the nibble layout runs the tensor-core kernel
+// instead (K2, fused_decode_matmul_tc.cu); sw2/sw4 (K11) keep this body at
+// every m. Not done yet (a later PR): cp.async/TMA staging, and
+// tensor-core products for K11 above 32 rows.
 #pragma once
 
 #include <cuda_runtime.h>

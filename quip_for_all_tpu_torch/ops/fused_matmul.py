@@ -1,11 +1,15 @@
-"""Fused codebook-decode + matmul: the wrapper of the hand-written CUDA
-kernel ``csrc/fused_decode_matmul.cu`` and its plain torch twin.
+"""Fused codebook-decode + matmul: the wrappers of the hand-written CUDA
+kernels ``csrc/fused_decode_matmul.cu`` (K1) and
+``csrc/fused_decode_matmul_tc.cu`` (K2) and their plain torch twin.
 
 Counterpart of ``quip_for_all_tpu/ops/dequant_pallas.py`` (nibble layout,
-split=1): one kernel ports ``_make_kernel`` through both ``_fused_call``
-grids (1-D at m <= 32 after the pad, 2-D m-tiled above). The weights never
-exist densely in device memory: the int32 word planes stream once and each
-nibble is decoded in registers.
+split=1), ``_make_kernel`` through ``_fused_call``'s two grids: calls of at
+most 32 rows after the pad to 8 (the 1-D grid, decode and short prompts)
+launch K1, which decodes each nibble in registers for its few rows; larger
+calls (the 2-D m-tiled grid: prefill, training) launch K2, which decodes
+each plane slab once per tile of 64-128 rows into shared memory and
+multiplies on the tensor cores. The weights never exist densely in device
+memory.
 
     out(m, q_out) = sum_s alpha_s * (x_perm @ nib_s^T)
                     + beta_total * rowsum(x_perm),  times scale_vec per
@@ -49,7 +53,12 @@ from .rowpair_matmul import (paired_decode_matmul, rowpair_matmul_ref,
                              rowpair_pb_matmul, rowpair_u3_matmul)
 
 KERNEL = "fused_decode_matmul"
+TC_KERNEL = "fused_decode_matmul_tc"
 BWD_KERNEL = "fused_decode_matmul_bwd"
+# K1 takes calls of up to this many rows, K2 the larger ones: the padded m
+# at which the JAX package leaves its 1-D grid for the 2-D m-tiled one
+# (TM = min(m, 32), dequant_pallas.py:852)
+K1_MAX_ROWS = 32
 
 
 def fused_decode_matmul_ref(x_perm: torch.Tensor,
@@ -80,10 +89,15 @@ def fused_decode_matmul(x_perm: torch.Tensor,
                         scale_vec: Optional[torch.Tensor] = None,
                         rows: Optional[int] = None) -> torch.Tensor:
     """Kernel wrapper: (rows, q_out) from the first ``rows`` rows of x_perm
-    (default all; the rest may be padding that is never read).
-    ``fused_decode_matmul.launches`` counts kernel launches (plain-twin
-    calls on CPU tensors are not counted)."""
+    (default all; the rest may be padding that is never read). Calls of
+    more than ``K1_MAX_ROWS`` rows go to K2 (``fused_decode_matmul_tc``,
+    counted there), the rest launch K1, counted in
+    ``fused_decode_matmul.launches`` (plain-twin calls on CPU tensors are
+    not counted)."""
     rows = x_perm.shape[0] if rows is None else rows
+    if rows > K1_MAX_ROWS:
+        return fused_decode_matmul_tc(x_perm, planes, affine, scale_vec,
+                                      rows)
     q_out, Gp = planes[0].shape
     check_call(x_perm, planes, affine, scale_vec, rows, q_out, Gp,
                torch.int32, (q_out, Gp))
@@ -97,6 +111,31 @@ def fused_decode_matmul(x_perm: torch.Tensor,
 
 
 fused_decode_matmul.launches = 0
+
+
+def fused_decode_matmul_tc(x_perm: torch.Tensor,
+                           planes: Sequence[torch.Tensor], affine,
+                           scale_vec: Optional[torch.Tensor] = None,
+                           rows: Optional[int] = None) -> torch.Tensor:
+    """K2 wrapper: the function of ``fused_decode_matmul`` (same twin) on
+    the tensor-core kernel, at any number of rows; ``fused_decode_matmul``
+    sends it the calls of more than ``K1_MAX_ROWS`` rows.
+    ``fused_decode_matmul_tc.launches`` counts kernel launches (plain-twin
+    calls on CPU tensors are not counted)."""
+    rows = x_perm.shape[0] if rows is None else rows
+    q_out, Gp = planes[0].shape
+    check_call(x_perm, planes, affine, scale_vec, rows, q_out, Gp,
+               torch.int32, (q_out, Gp))
+    if x_perm.device.type == "cpu":
+        return fused_decode_matmul_ref(x_perm[:rows], planes, affine,
+                                       scale_vec)
+    out = launch(TC_KERNEL, "qfa_fused_decode_matmul_tc", x_perm, planes,
+                 affine, scale_vec, rows, q_out, Gp)
+    fused_decode_matmul_tc.launches += 1
+    return out
+
+
+fused_decode_matmul_tc.launches = 0
 
 
 def fused_decode_matmul_bwd_ref(g: torch.Tensor,
@@ -264,7 +303,8 @@ def _forward(x_perm: torch.Tensor, qt: QuantizedTensor,
     group-sum rounding, and split-K for its m rule). The layout picks the
     kernel as ``_fused_call`` does (``:775-828``): u3/pb/paired, bfp,
     sw2/sw4, and nibble through split-K (K6) when
-    ``pick_ksplit(ksplit, Gp) > 1`` and the padded m is <= 32, else K1/K2.
+    ``pick_ksplit(ksplit, Gp) > 1`` and the padded m is <= 32, else K1 (m
+    <= 32) or K2 (``fused_decode_matmul`` picks).
     ``plain`` runs the chosen kernel's plain twin on any device (used to
     hold the kernel against it)."""
     m = x_perm.shape[0]

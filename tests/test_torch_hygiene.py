@@ -73,7 +73,8 @@ def test_port_keeps_its_own_assets():
                 "bfp_decode_matmul.cu", "sw_decode_matmul.cu",
                 "ksplit_decode_matmul.cu", "paired_decode_matmul.cu",
                 "fused_decode_matmul_bwd.cu", "mb_kernel.cu", "mb_tn.cu",
-                "mb_decode.cu", "mb_bfp_probe.cu"):
+                "mb_decode.cu", "mb_bfp_probe.cu", "nibble_mma.cuh",
+                "fused_decode_matmul_tc.cu"):
         assert os.path.isfile(os.path.join(pkg, "csrc", src))
 
 

@@ -73,6 +73,24 @@ def test_kernel_matches_twin(cuda, q_out, q_in, m, n_sets, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("q_out,q_in", [(4096, 4096), (11008, 4096)])
+def test_bf16_g_with_and_without_a_scale(cuda, q_out, q_in, scaled):
+    """bf16 g at a LoRA step's 1022 rows: without a scale vector g is exact
+    in bf16 and takes one MMA (the training path); with one, gs = g*scale
+    is not a bf16 value and the kernel splits it into three bf16 terms."""
+    g0 = torch.Generator(device=cuda).manual_seed(q_out + scaled)
+    G = q_in // 8
+    planes = _planes(q_out, G, 1, g0, cuda)
+    g = torch.randn((1022, q_out), generator=g0,
+                    device=cuda).to(torch.bfloat16)
+    scale = (torch.rand(q_out, generator=g0, device=cuda) + 0.5
+             if scaled else None)
+    got = fm.fused_decode_matmul_bwd(g, planes, AFFINE[1], scale, G, G)
+    want = fm.fused_decode_matmul_bwd_ref(g, planes, AFFINE[1], scale, G, G)
+    _close(got, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("split,Gp_out", [(1, 256), (2, 128), (4, 128),
                                           (4, 256)])
 def test_kernel_lane_orders_and_wider_gp(cuda, split, Gp_out):
@@ -111,9 +129,9 @@ def test_kernel_is_deterministic_and_replays_in_a_graph(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_autograd_runs_the_kernels(cuda, dtype):
-    """fused_quant_matmul_pre under autograd on the card: the forward
-    kernel, and K3 for dx (plus the forward kernel again, in f32, for
-    d scale_vec), each against the plain route."""
+    """fused_quant_matmul_pre under autograd on the card at 40 rows: the
+    forward kernel (K2, above 32 rows), and K3 for dx (plus K2 again, in
+    f32, for d scale_vec), each against the plain route."""
     g0 = torch.Generator(device=cuda).manual_seed(11)
     q_out, q_in, m = 512, 1536, 40
     qt = QuantizedTensor({"w0": _planes(q_out, 256, 1, g0, cuda)[0]},
@@ -126,14 +144,14 @@ def test_autograd_runs_the_kernels(cuda, dtype):
     for plain in (False, True):
         xp = x.to(dtype).requires_grad_(True)
         sp = scale.clone().requires_grad_(True)
-        before = (fm.fused_decode_matmul.launches,
-                  fm.fused_decode_matmul_bwd.launches)
+        counters = (fm.fused_decode_matmul, fm.fused_decode_matmul_tc,
+                    fm.fused_decode_matmul_bwd)
+        before = [c.launches for c in counters]
         out = fm.fused_quant_matmul_pre(xp, qt, sp, plain=plain)
         (out.float() * probe).sum().backward()
         torch.cuda.synchronize()
-        launched = (fm.fused_decode_matmul.launches - before[0],
-                    fm.fused_decode_matmul_bwd.launches - before[1])
-        assert launched == ((0, 0) if plain else (2, 1))
+        launched = tuple(c.launches - b for c, b in zip(counters, before))
+        assert launched == ((0, 0, 0) if plain else (0, 2, 1))
         grads[plain] = (xp.grad, sp.grad)
     _close(grads[False][0], grads[True][0], dtype)
     _close(grads[False][1], grads[True][1], torch.float32)

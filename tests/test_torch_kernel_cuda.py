@@ -1,6 +1,9 @@
-"""The CUDA kernel against its plain twin, on a card. This file imports
-neither JAX nor the JAX package (the card's machine has no JAX), so it runs
-there without tests/conftest.py:
+"""K1 and K2, the CUDA kernels of ``fused_decode_matmul``, against their
+plain twin, on a card: calls of at most 32 rows launch K1
+(csrc/fused_decode_matmul.cu), larger ones K2, the tensor-core kernel
+(csrc/fused_decode_matmul_tc.cu). This file imports neither JAX nor the
+JAX package (the card's machine has no JAX), so it runs there without
+tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 
@@ -40,25 +43,57 @@ def _planes(q_out, Gp, n_sets, device, seed):
             for _ in range(n_sets)]
 
 
+def _counts():
+    return (fm.fused_decode_matmul.launches,
+            fm.fused_decode_matmul_tc.launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_sets", [1, 2])
-@pytest.mark.parametrize("m", [1, 2, 3, 8, 40])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 33, 40, 63, 64, 65, 127, 1022])
 @pytest.mark.parametrize("q_out,Gp", [(128, 128), (200, 1408), (4096, 512)])
 def test_kernel_matches_plain_twin(cuda, q_out, Gp, m, n_sets, dtype):
-    """Ragged q_out (200 is no multiple of a block's rows), every
-    accumulator size, both plane-set counts, both dtypes."""
+    """Ragged q_out (200 is no multiple of a block's rows) and m (x padded
+    to 8 rows as the main path pads it, the real m computed), every K1
+    accumulator size and K2 above 32 rows, both plane-set counts, both
+    dtypes; the counter of the kernel that ran moves by one."""
     planes = _planes(q_out, Gp, n_sets, cuda, seed=m + q_out)
     affine = ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))[:n_sets]
     g = torch.Generator().manual_seed(m)
-    x = torch.randn((m, 8 * Gp), generator=g).to(dtype).to(cuda)
+    mp = max(8, -(-m // 8) * 8)
+    x = torch.randn((mp, 8 * Gp), generator=g).to(dtype).to(cuda)
     scale = (torch.rand(q_out, generator=g) + 0.5).to(cuda)
-    before = fm.fused_decode_matmul.launches
-    got = fm.fused_decode_matmul(x, planes, affine, scale)
-    want = fm.fused_decode_matmul_ref(x, planes, affine, scale)
+    before = _counts()
+    got = fm.fused_decode_matmul(x, planes, affine, scale, rows=m)
+    want = fm.fused_decode_matmul_ref(x[:m], planes, affine, scale)
     torch.cuda.synchronize()
-    assert fm.fused_decode_matmul.launches == before + 1
+    moved = tuple(a - b for a, b in zip(_counts(), before))
+    assert moved == ((1, 0) if m <= fm.K1_MAX_ROWS else (0, 1))
     assert got.shape == (m, q_out) and got.dtype == dtype
     _close(got, want, dtype)
+
+
+def test_k2_is_deterministic_and_replays_in_a_graph(cuda):
+    """K2 at a training shape: a second call and a CUDA-graph replay give
+    the first call's bits, and only K2's counter moves."""
+    planes = _planes(4096, 512, 2, cuda, seed=3)
+    affine = ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1024, 8 * 512), generator=g).to(torch.bfloat16).to(cuda)
+    before = _counts()
+    first = fm.fused_decode_matmul(x, planes, affine, rows=1022)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        again = fm.fused_decode_matmul(x, planes, affine, rows=1022)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fm.fused_decode_matmul(x, planes, affine, rows=1022)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first) and torch.equal(out, first)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 3)
 
 
 def test_rows_skip_the_pad(cuda):
