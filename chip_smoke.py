@@ -8,11 +8,14 @@ Phases (each prints its lines; any failure exits non-zero with no result
 line):
   1. the card (nvidia-smi name and power limit) and the kernels' build from
      the repo's sources (one nvcc per source, all started together);
-  2. fused_decode_matmul against its plain torch twin at the Llama-2-7B
-     shapes of the main path, m = 1, 8 (K1) and 64 (K2, the tensor-core
-     kernel above 32 rows), and Mixtral's GQA qkv at m = 1, with times on
-     the card (CUDA-graph replays, L2-cold), the plain twin's time, the
-     bound from device-memory bytes at 3.35 TB/s, and a library yardstick;
+  2. fused_decode_matmul (K1, the tensor-core body at m <= 32) against
+     its plain torch twin at the Llama-2-7B shapes of the main path, m =
+     1, 8, 16 and 32 with one plane set and m = 1 and 32 with two, and
+     Mixtral's GQA qkv at m = 1, with times on the card (CUDA-graph
+     replays, L2-cold), the plain twin's time, the bound from
+     device-memory bytes at 3.35 TB/s, and a library yardstick (one dense
+     bf16 product of the same shape); sums per token (m = 1, 8) and per
+     prefill (m = 16, 32);
   3. moe_decode_matmul against its plain twin at Mixtral-8x7B's w13 and w2
      shapes with 8 experts, R = 2 (bs=1 decode), 16 and 62 rows (top-2
      over 8 and 31 tokens), timed the same way;
@@ -20,8 +23,9 @@ line):
   5. the main path: Llama-2-7B E8P12 (random codes, seed 0), fused qkv and
      gate/up, quantized head, cache_len 2048, bs=1: a 32-token prompt and
      128 greedy tokens through ``generate``, twice, with kernel launch
-     counts, and the first 16 tokens held against the same path with every
-     linear on the plain twin;
+     counts, the first 16 tokens held against the same path with every
+     linear on the plain twin, and the device time of one decode step and
+     of the 32-token prefill (CUDA-graph replays);
   6. the Mixtral path: Mixtral-8x7B E8P12 at all 32 layers (random codes,
      seed 0, experts stacked, fused qkv, quantized head), the same
      prompt/greedy runs with 64 new tokens, exact launch counts of both
@@ -45,7 +49,8 @@ line):
      sw2 and sw4), ksplit_decode_matmul (K6, 2 and 4 chunks; down 11) and
      paired_decode_matmul (K7) against their plain twins at the Llama-2-7B
      shapes, m = 1, 8, 32, 64 in bf16 and 1 in f32, timed as in phase 2,
-     beside fused_decode_matmul on the same codes (and K7 beside pb), and
+     beside fused_decode_matmul on the same codes (and K7 beside pb), with
+     K11's sums per token (m = 1, 8) and per prefill (m = 32, 64), and
      the I2F count of every built library's SASS (phase 1);
  11. the golden fixtures in the new layouts: e8p12 as bfp, sw2 and sw4,
      e8p12rvq4b as paired and bfp;
@@ -175,12 +180,16 @@ RP_CASES = [(1, "bfloat16"), (8, "bfloat16"), (32, "bfloat16"),
 # fused_decode_matmul linears: (name, q_out, q_in, scale vector in the
 # epilogue on the main path, rows m timed). The first five are Llama-2-7B's
 # per decode token; Mixtral-8x7B shares o and head and has its own GQA qkv.
-SHAPES = [("qkv", 12288, 4096, True, (1, 8, 64)),
-          ("o", 4096, 4096, False, (1, 8, 64)),
-          ("gateup", 22016, 4096, True, (1, 8, 64)),
-          ("down", 4096, 11008, False, (1, 8, 64)),
-          ("head", 32000, 4096, False, (1, 8, 64)),
+SHAPES = [("qkv", 12288, 4096, True, (1, 8, 16, 32)),
+          ("o", 4096, 4096, False, (1, 8, 16, 32)),
+          ("gateup", 22016, 4096, True, (1, 8, 16, 32)),
+          ("down", 4096, 11008, False, (1, 8, 16, 32)),
+          ("head", 32000, 4096, False, (1, 8, 16, 32)),
           ("qkv_gqa", 6144, 4096, True, (1,))]
+# K1 with two plane sets (E8P12RVQ4B in nibble) at these m; the affine
+# pairs of one and two sets
+K1_2SETS_M = (1, 32)
+K1_AFFINE = ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))
 LAYERS = 32
 # the kernel each runtime layout's linears launch
 LAYOUT_KERNEL = {"u3": "rowpair_u3_decode_matmul",
@@ -273,7 +282,8 @@ def log_int_to_float(sources):
 
 
 def phase_kernels():
-    """fused_decode_matmul vs its plain twin at the main paths' shapes."""
+    """fused_decode_matmul (K1) vs its plain twin at the main paths' shapes:
+    m = 1, 8, 16 and 32 with one plane set and m = 1 and 32 with two."""
     import torch
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
     from quip_for_all_tpu_torch.ops.dequant import decode_weights
@@ -281,22 +291,23 @@ def phase_kernels():
     from quip_for_all_tpu_torch.utils.random_quantized import \
         random_e8p_planes
     gen = torch.Generator(device="cuda").manual_seed(1)
-    affine = ((0.5, -2.75),)
     rows, max_err = [], 0.0
     for name, q_out, q_in, with_scale, ms in SHAPES:
         G = q_in // 8
-        w = random_e8p_planes(q_out, q_in, gen, "cuda")
-        Gp = w.shape[1]
-        plane_bytes = w.numel() * 4
-        copies = max(2, math.ceil(2 * tm.L2_BYTES / plane_bytes))
-        ws = [w] + [w.clone() for _ in range(copies - 1)]
+        w = [random_e8p_planes(q_out, q_in, gen, "cuda") for _ in range(2)]
+        Gp = w[0].shape[1]
+        cps = {n: tm.cold_copies(w[:n]) for n in (1, 2)}
         scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
                  if with_scale else None)
-        W = decode_weights(QuantizedTensor({"w0": w}, "E8P12", q_out, q_in),
-                           dtype=torch.bfloat16)
-        w_copies = max(2, math.ceil(2 * tm.L2_BYTES / (W.numel() * 2)))
-        Ws = [W] + [W.clone() for _ in range(w_copies - 1)]
-        for m in ms:
+        # the library yardstick: one dense bf16 product of the same shape
+        # (two plane sets decode to one dense W as well)
+        W = decode_weights(QuantizedTensor({"w0": w[0]}, "E8P12", q_out,
+                                           q_in), dtype=torch.bfloat16)
+        Ws = tm.cold_copies([W])
+        cases = [(m, 1) for m in ms] + [(m, 2) for m in ms if m in K1_2SETS_M]
+        for m, n_sets in cases:
+            affine = K1_AFFINE[:n_sets]
+            cp = cps[n_sets]
             # as the main path gives it: x padded to a multiple of 8 rows,
             # the kernel computing the m real ones
             mp = max(8, -(-m // 8) * 8)
@@ -304,42 +315,52 @@ def phase_kernels():
             x[:m, :, :G] = torch.randn((m, 8, G), generator=gen,
                                        device="cuda")
             x = x.reshape(mp, 8 * Gp).to(torch.bfloat16)
-            got = fm.fused_decode_matmul(x, [w], affine, scale, rows=m)
-            want = fm.fused_decode_matmul_ref(x[:m], [w], affine, scale)
+            got = fm.fused_decode_matmul(x, cp[0], affine, scale, rows=m)
+            want = fm.fused_decode_matmul_ref(x[:m], cp[0], affine, scale)
             torch.cuda.synchronize()
             ok, err = tm.compare(got, want, bf16_step=True)[:2]
             max_err = max(max_err, err)
             if not ok:
                 raise AssertionError(
-                    f"{name} m={m}: kernel vs plain twin beyond tolerance "
-                    f"(max |diff| {err})")
+                    f"{name} m={m} {n_sets} set(s): kernel vs plain twin "
+                    f"beyond tolerance (max |diff| {err})")
             x_nat = x[:m].reshape(m, 8, Gp)[:, :, :G].transpose(
                 1, 2).reshape(m, q_in).contiguous()
             k_ms = 1e-3 * tm.graph_us(lambda i: fm.fused_decode_matmul(
-                x, [ws[i % copies]], affine, scale, rows=m), 4 * copies)
+                x, cp[i % len(cp)], affine, scale, rows=m), 4 * len(cp))
             p_ms = 1e-3 * tm.event_us(lambda i: fm.fused_decode_matmul_ref(
-                x[:m], [ws[i % copies]], affine, scale), 3)
+                x[:m], cp[i % len(cp)], affine, scale), 3)
             lib_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
-                x_nat, Ws[i % w_copies].T), 4 * w_copies)
-            nbytes = plane_bytes + m * 8 * Gp * 2 + m * q_out * 2 + (
-                q_out * 4 if with_scale else 0)
+                x_nat, Ws[i % len(Ws)][0].T), 4 * len(Ws))
+            nbytes = n_sets * w[0].numel() * 4 + m * 8 * Gp * 2 + \
+                m * q_out * 2 + (q_out * 4 if with_scale else 0)
             ops = 2 * m * q_out * 8 * Gp
             b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
             b_ops = ops / tm.BF16_OPS_PER_S * 1e3
             row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
-                   "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": lib_ms, "bound_ms": max(b_bytes, b_ops),
+                   "sets": n_sets, "max_abs_err": err, "ms": k_ms,
+                   "plain_ms": p_ms, "library_ms": lib_ms,
+                   "bound_ms": max(b_bytes, b_ops),
                    "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                    "bytes": nbytes}
             rows.append(row)
-            log(f"kernel {name:6s} {q_out}x{Gp} m={m:2d}: max|k-plain| "
-                f"{err:.3g} (tol 1 bf16 ulp + 1e-5 max) | kernel {k_ms * 1e3:.1f} us "
-                f"| plain {p_ms * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.1f}"
-                f" us ({row['bound_by']}) | {k_ms and row['bound_ms'] / k_ms:.0%}"
-                f" of bound | library {lib_ms * 1e3:.1f} us (dense bf16 GEMV, "
-                f"4x the bytes, not the same function)")
-        del ws, Ws, W
+            log(f"kernel {name:6s} {q_out}x{Gp} m={m:2d} {n_sets} set(s): "
+                f"max|k-plain| {err:.3g} (tol 1 bf16 ulp + 1e-5 max) | "
+                f"kernel {k_ms * 1e3:.1f} us | plain {p_ms * 1e3:.1f} us | "
+                f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
+                f"{k_ms and row['bound_ms'] / k_ms:.0%} of bound | library "
+                f"{lib_ms * 1e3:.1f} us (dense bf16 product of the same "
+                f"shape, 4x the plane bytes a set)")
+        del cps, Ws, W, w
         torch.cuda.empty_cache()
+    for m, n_sets in [(m, 1) for m in SHAPES[0][4]] + [
+            (m, 2) for m in K1_2SETS_M]:
+        per = {key: call_sum(rows, LLAMA_CALLS, key, m=m, sets=n_sets)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        log(f"kernel fused_decode_matmul K1 per Llama-2-7B "
+            f"{'token' if m <= 8 else 'prefill'} at m={m} ({n_sets} "
+            f"set(s), bf16, 129 calls): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in per.items()))
     return rows, max_err
 
 
@@ -595,6 +616,10 @@ def phase_main():
     log(f"main: one decode step (position {S}): device time {dev_ms:.2f} ms "
         f"(CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
         f"{1 - dev_ms / eager_ms:.0%} of the eager step")
+    pre_ms, pre_eager = prefill_device_ms(cfg, model, prompt, CACHE)
+    log(f"main: the {S}-token prefill (K1 at m = {S}): device time "
+        f"{pre_ms:.2f} ms (CUDA-graph replay), eager {pre_eager:.2f} ms -> "
+        f"device idle {1 - pre_ms / pre_eager:.0%} of the eager prefill")
     # the f32 logits that the re-laid paths (d)-(f) are held to
     _, ref = f32_logits(cfg, model, prompt)
     return launches["fused_decode_matmul"], {
@@ -1015,6 +1040,17 @@ def phase_layout_kernels():
             f"same codes {per_tok['nibble_ms']:.3f} ms" + (
                 f"; pb (K8) {per_tok['pb_ms']:.3f} ms"
                 if label == "paired" else ""))
+    # K11 beyond decode: per token at m = 8, per 32- and 64-token prefill
+    for label in ("sw2", "sw4"):
+        for m in (8, 32, 64):
+            per = {key: call_sum([r for r in rows if r["variant"] == label],
+                                 LLAMA_CALLS, key, m=m, dtype="bfloat16")
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                               "nibble_ms")}
+            log(f"kernel {label} per Llama-2-7B "
+                f"{'token' if m <= 8 else 'prefill'} at m={m} (bf16, 129 "
+                f"calls): " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in per.items()))
     return rows, max_err
 
 
@@ -1163,6 +1199,27 @@ def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
         return M.model_apply(cfg, model, tok, positions=pos,
                              kv_caches=caches, cache_position=S,
                              dtype=torch.bfloat16, attn_window=w)[0]
+    eager = 1e-3 * tm.event_us(step, n)
+    return 1e-3 * tm.graph_us(step, 1, reps=n), eager
+
+
+def prefill_device_ms(cfg, model, prompt, cache_len, n=10):
+    """Device time of the bf16 prefill of ``prompt`` (the cache written at
+    positions 0..S-1, as generate's first step): captured once in a CUDA
+    graph and replayed n times between CUDA events, beside the same
+    prefill run eagerly n times."""
+    import torch
+    from quip_for_all_tpu_torch.models import llama as M
+    from quip_for_all_tpu_torch.runtime.generate import (attn_bucket,
+                                                         init_kv_caches)
+    S = prompt.shape[1]
+    caches = init_kv_caches(cfg, 1, cache_len, torch.bfloat16, "cuda")
+    w = attn_bucket(S, cache_len)
+
+    def step(_):
+        return M.model_apply(cfg, model, prompt, kv_caches=caches,
+                             cache_position=0, dtype=torch.bfloat16,
+                             attn_window=w)[0]
     eager = 1e-3 * tm.event_us(step, n)
     return 1e-3 * tm.graph_us(step, 1, reps=n), eager
 
@@ -1807,14 +1864,15 @@ def call_sum(rows, calls, key, **match):
                and all(r.get(f) == v for f, v in match.items()))
 
 
-def log_k2(rows):
-    """K2 (fused_decode_matmul above 32 rows: the tensor-core kernel) over
-    one prefill launch set of Llama-2-7B at m = 64, the 129 calls summed."""
-    parts = {key: call_sum(rows, LLAMA_CALLS, key, m=64)
-             for key in ("bound_ms", "ms", "plain_ms", "library_ms")}
-    log("kernel fused_decode_matmul_tc K2 (Llama-2-7B prefill launch set, "
-        "m=64, 129 calls): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in parts.items()))
+def small_m_sums(rows, match):
+    """K1's or K11's Llama-2-7B sums beyond decode at m = 1, for the
+    kernels line: per token at m = 8 and per 32-token prefill at m = 32
+    (129 calls each, bf16, the rows that ``match``)."""
+    out = {}
+    for key, m in (("per_token_m8", 8), ("per_prefill_m32", 32)):
+        out[key] = {k: call_sum(rows, LLAMA_CALLS, k, m=m, **match)
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return out
 
 
 def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
@@ -1835,8 +1893,9 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
                     bound_by=("bytes" if all(r["bound_by"] == "bytes"
                                              for r in sel) else "operations"),
                     library_ms=call_sum(sel, calls, "library_ms"))
-    fused = entry(KERNELS[0], rows, LLAMA_CALLS, {"m": 1}, llama_launches,
-                  max_err)
+    fused = entry(KERNELS[0], rows, LLAMA_CALLS, {"m": 1, "sets": 1},
+                  llama_launches, max_err)
+    fused.update(small_m_sums(rows, {"sets": 1}))
     fused["launches_by_path"] = {
         "llama2_7b": llama_launches,
         "mixtral_8x7b": mix["launches"]["fused_decode_matmul"],
@@ -1845,12 +1904,13 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
                 mix["launches"]["moe_decode_matmul"], moe_err)
     # Mixtral's decode step: its fused calls (GQA qkv, o, head) and its
     # MoE calls, against the graphed step's device time
-    mix_fused = call_sum(rows, MIXTRAL_FUSED_CALLS, "ms", m=1)
+    mix_fused = call_sum(rows, MIXTRAL_FUSED_CALLS, "ms", m=1, sets=1)
     log(f"mixtral: per decode token the kernels take {mix_fused:.3f} ms "
         f"(fused_decode_matmul) + {moe['ms']:.3f} ms (moe_decode_matmul) of"
         f" {mix['dev_ms']:.3f} ms graphed device time "
         f"({(mix_fused + moe['ms']) / mix['dev_ms']:.0%}); bound "
-        f"{call_sum(rows, MIXTRAL_FUSED_CALLS, 'bound_ms', m=1):.3f} + "
+        f"{call_sum(rows, MIXTRAL_FUSED_CALLS, 'bound_ms', m=1, sets=1):.3f}"
+        f" + "
         f"{moe['bound_ms']:.3f} ms")
     entries = [fused, moe]
     for (layout, _, kname), path in zip(ROWPAIR, ("a_u3", "b_pb")):
@@ -1884,6 +1944,9 @@ def layout_entries(rows, max_err, paths):
                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
                  bound_by=("bytes" if all(r["bound_by"] == "bytes"
                                           for r in sel) else "operations"))
+        if label == "sw4":
+            e.update(small_m_sums(rows, {"variant": "sw4",
+                                         "dtype": "bfloat16"}))
         log(f"{path}: per decode token the {label} kernel takes "
             f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
             f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
@@ -2046,7 +2109,6 @@ def main() -> int:
             f"{k['replaces']})" for k in KERNELS))
         rows, max_err = at("2", phase_kernels)
         moe_rows, moe_err = at("3", phase_moe_kernels)
-        log_k2(rows)
         rp_rows, rp_err = at("7", phase_rowpair_kernels)
         lay_rows, lay_err = at("10", phase_layout_kernels)
         k3_rows, k3_err = at("13", phase_k3_kernels)

@@ -1,10 +1,10 @@
-// Affine-nibble decode + matmul for Hopper (sm_90a): the kernel body that
-// three sources instantiate, each with its own C entry point:
-//   fused_decode_matmul.cu   K1:    int32 nibble planes (split P = 1);
-//   sw_decode_matmul.cu      K11:   the same words stored as int16 / int8
-//                                   subwords (sw2 / sw4, P = 2 / 4);
-//   ksplit_decode_matmul.cu  K6:    K1 with the group axis split into
-//                                   chunks (split-K), partials in f32.
+// Affine-nibble decode + matmul for Hopper (sm_90a) on the CUDA cores (the
+// SIMT body): split-K K6 (ksplit_decode_matmul.cu) instantiates it with its
+// own C entry point, K10 (bfp_decode_matmul.cu) uses its helpers, and T1
+// (mb_kernel.cu) and T4 (mb_tn.cu) copy its loop. K1 and K11 ran it until
+// they moved to the tensor-core body nibble_mma_small.cuh; its template
+// still takes the subword split P of K11's layouts (the variants tool,
+// tools/variants_small_m.py, times it against the new body).
 //
 // Computes, for x_perm (m, 8*Gp) in the layout's grouped lane order and 1
 // or 2 plane sets of words (q_out, Gp):
@@ -61,10 +61,11 @@
 //   - a warp-shuffle reduction ends each row, then the epilogue.
 // q_out and m need no divisibility (ragged edges are masked); Gp and the
 // chunk width must be multiples of 4 (plane rows are padded to 128
-// groups). Above 32 rows the nibble layout runs the tensor-core kernel
-// instead (K2, fused_decode_matmul_tc.cu); sw2/sw4 (K11) keep this body at
-// every m. Not done yet (a later PR): cp.async/TMA staging, and
-// tensor-core products for K11 above 32 rows.
+// groups). K6 runs it at m <= 32 only (the padded-m rule of split-K);
+// the nibble calls run the tensor cores otherwise (K1 at m <= 32,
+// nibble_mma_small.cuh; K2 above, fused_decode_matmul_tc.cu), and so do
+// sw2/sw4 (K11) at every m. Not done yet (a later PR): split-K on the
+// tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>

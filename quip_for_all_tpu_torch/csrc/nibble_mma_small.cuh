@@ -1,0 +1,608 @@
+// Affine-nibble decode + matmul at small m (m <= 32 rows a block) on
+// Hopper's tensor cores (sm_90a): the kernel body of two sources, each
+// with its own C entry point:
+//   fused_decode_matmul.cu   K1:  int32 nibble planes (split P = 1);
+//   sw_decode_matmul.cu      K11: the same words stored as int16 / int8
+//                                 subwords (sw2 / sw4, P = 2 / 4).
+//
+// Computes, for x_perm (m, 8*Gp) in the layout's grouped lane order and 1
+// or 2 plane sets of words (q_out, Gp):
+//
+//   out[r, n] = (sum_s alpha_s * sum_{g,i} x_perm[r, lane(g, i)]
+//                                          * nib_s[n, g, i]
+//                + beta_total * rowsum(x_perm[r])) * scale[n]
+//
+// (no scale when none is given), cast to x's dtype. With P subwords a word
+// and NQ = 8 / P fields a subword, nibble i of word g lies in subword
+// j = i div NQ at field q = i mod NQ and meets lane(g, i) = q*(P*Gp) + P*g + j.
+//
+// What bounds it on the card: device-memory bytes. A call reads
+// n_sets*q_out*Gp*4 plane bytes, and x and the output are small next to
+// them at m <= 32: a Llama-2-7B token's 129 calls read 3.32 GB of planes,
+// ~0.99 ms at the H100 SXM data-sheet 3.35 TB/s, at m = 1 and at m = 32
+// alike. The SIMT body this replaces (nibble_decode.cuh) tiled m by 8 at
+// most, so a 32-row call streamed and decoded every word 4 times, kept an
+// 8-row f32 accumulator at the register limit, and spent an int->float
+// convert and an f32 FMA a nibble a row on the CUDA cores.
+//
+// Design (what it does about that; tools/variants_small_m.py times the
+// alternatives):
+//   - One pass over the planes a call: a block takes 32 or 64 output
+//     channels and all m <= 32 rows of x (gridDim.y walks further tiles of
+//     32 rows, for K11 above 32). The rows are 1, 2 or 4 n8 tiles (NT) of
+//     one mma.sync.m16n8k16 (bf16 in, f32 accumulate) with the decoded
+//     words as A (16 channels x 16 k) and x as B (16 k x 8 rows), so every
+//     word is decoded once for all the block's rows.
+//   - Decode straight into A-fragment registers: lane (g, t) of a warp
+//     loads, for each of its channel rows, the uint4 of words 4t..4t+3 of
+//     a 16-group slab, and the k order of the slab's 8 k-steps is chosen
+//     so that each A register is two nibbles of its own words that sit in
+//     two adjacent x lanes: (word 2p, word 2p+1) at one nibble for P = 1,
+//     nibbles (q, q+4) of one word for P = 2, (q+4h, q+4h+2) for P = 4.
+//     (0x4300 | nib) is the bf16 of 128 + nib: one shift or byte permute,
+//     one lop3 and one bf16x2 subtract of 128 (exact) a register, with no
+//     int->float convert. The words of the next slab are loaded while this
+//     one is multiplied.
+//   - x is staged in shared memory by cp.async, in x_perm's own order: for
+//     each field q, the P*SG lanes of a stage of SG groups are one
+//     contiguous run, so a lane reads its bf16 B registers for the P
+//     k-steps of a field with one 8-32 byte load. The whole row is one
+//     stage when the block's rows fit (always at m = 1); else two buffers
+//     alternate, the next stage in flight while this one is multiplied.
+//     f32 x is split as a lane reads it into three bf16 terms (hi + mid +
+//     lo, exact, each its own MMA); every product is exact in f32.
+//   - Each slab (128 k) starts a fresh MMA accumulator, added into f32 sums
+//     (times alpha_s) after the slab; the row sums of beta come from one
+//     more MMA with an all-ones A, flushed the same way. f32 outputs stay
+//     inside 1e-5 of the max only with this flush (tools/ablate_mma.py
+//     measured it on K2).
+//   - A block's 8 warps split WN across channels (32 each) and WK = 8 / WN
+//     across the slabs of a stage; the WK partial sums meet in shared
+//     memory at the end of a tile, in warp order (deterministic), and the
+//     block stores the tile row by row. WN = 2 above 8 rows only on layers
+//     wide enough to give every SM two blocks of 64 channels (x's L2 bytes
+//     halve); elsewhere the fill of the card matters more.
+//   - The grid is as many blocks as the card holds at once (at most one a
+//     tile); each walks every gridDim.x-th tile, and a resident x is
+//     staged once for all of them.
+//   - Counters, not integer divisions, walk the slabs and the copies: a
+//     runtime division in the slab loop made m = 1 18% slower on an H100.
+#pragma once
+
+#include "nibble_mma.cuh"
+
+namespace {
+namespace sm {
+
+constexpr int THREADS = 256;        // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int MT = 2;               // m16 channel tiles a warp
+constexpr int WCH = 16 * MT;        // channels a warp
+constexpr int SLAB = 16;            // groups a warp step (4 lanes x uint4)
+constexpr int MAX_ROWS = 32;        // rows of x a block (4 n8 tiles)
+constexpr int STAGE_BUDGET = 96 * 1024;   // smem for x before it must split
+constexpr int SMEM_MAX = 232448;    // a block's shared memory on sm_90
+constexpr int PF = 1;               // word slabs a lane loads ahead
+constexpr uint32_t ONES = 0x3F803F80u;    // bf16 pair (1, 1)
+
+// Warp layout for NT n8 tiles of rows and WN channel warps: a block's x
+// bytes from L2 are 4*m / BN times its plane bytes in bf16, so two channel
+// warps halve them, and halve the tiles that fill the card.
+template <int NT, int WN_>
+struct Shape {
+  static constexpr int WN = WN_;               // warps across channels
+  static constexpr int WK = WARPS / WN;        // warps across slabs
+  static constexpr int BN = WN * WCH;          // channels a block
+  static constexpr int ROWS = 8 * NT;
+  static constexpr int RED_STRIDE = BN + 4;    // f32 a row of the reduce
+  static constexpr int RED_B = WK * ROWS * (RED_STRIDE + 1) * 4;
+};
+
+// Bytes of one field run of a lane's 4 groups (4*P values); the pad after
+// each x row keeps a warp's loads of them free of bank conflicts (all but
+// f32 at P = 4, whose lanes' 16-byte loads meet two to a bank).
+template <typename T, int P>
+__host__ __device__ constexpr int run_bytes() { return 4 * P * (int)sizeof(T); }
+template <typename T, int P>
+__host__ __device__ constexpr int pad_bytes() {
+  return run_bytes<T, P>() <= 16 ? 4 * run_bytes<T, P>() : 16;
+}
+template <typename T, int P>
+__host__ __device__ constexpr int row_bytes(int SG) {
+  return 8 * SG * (int)sizeof(T) + pad_bytes<T, P>();
+}
+
+// bf16x2 (128 + a, 128 + b) from t = a | b << 16 (a, b in 0..15) -> (a, b)
+__device__ __forceinline__ uint32_t unbias(uint32_t t) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&t);
+  v = __hsub2(v, __floats2bfloat162_rn(128.f, 128.f));
+  return tc::bf16x2_bits(v);
+}
+
+// The A register of B register rho (0..15) of a lane's 4 words w: the two
+// nibbles that meet the two x values of that register (see the header).
+template <int P>
+__device__ __forceinline__ uint32_t a_reg(const uint32_t w[4], int rho) {
+  uint32_t t;
+  if (P == 1) {                 // rho = 2i + p: words 2p, 2p+1 at nibble i
+    const int i = rho >> 1, p = rho & 1;
+    const uint32_t h = __byte_perm(w[2 * p], w[2 * p + 1],
+                                   i < 4 ? 0x5410 : 0x7632);
+    t = (h >> (4 * (i & 3))) & 0x000F000Fu;
+  } else if (P == 2) {          // rho = 4q + v: word v, nibbles q, q+4
+    const int q = rho >> 2, v = rho & 3;
+    t = (w[v] >> (4 * q)) & 0x000F000Fu;
+  } else {                      // rho = 8q + 2e + h: word e, 4h+q, 4h+q+2
+    const int q = rho >> 3, e = (rho >> 1) & 3, h = rho & 1;
+    t = __byte_perm(w[e] >> (4 * q), 0, h ? 0x4342 : 0x4140) & 0x000F000Fu;
+  }
+  return unbias(t | 0x43004300u);
+}
+
+// The three bf16 terms of an f32 pair (hi = bf16(v), mid, lo: exact sum)
+__device__ __forceinline__ void split3(float a, float b, uint32_t out[3]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float ra = a - __low2float(h), rb = b - __high2float(h);
+  const __nv_bfloat162 mi = __floats2bfloat162_rn(ra, rb);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(ra - __low2float(mi),
+                                                  rb - __high2float(mi));
+  out[0] = tc::bf16x2_bits(h);
+  out[1] = tc::bf16x2_bits(mi);
+  out[2] = tc::bf16x2_bits(lo);
+}
+
+// A lane's x values of one field run (its 4 groups: 4*P values) in
+// shared memory. bf16: the whole run, loaded at the field's first k-step
+// (8, 16 or 32 bytes) and held for its P k-steps; f32: the 4 values of one
+// k-step (16 bytes), split into three bf16 terms as they are used.
+template <typename T, int P>
+struct XRun {
+  static constexpr bool WHOLE = sizeof(T) == 2;
+  static constexpr int N = WHOLE ? 2 * P : 4;    // 32-bit words held
+  uint32_t v[N];
+  __device__ __forceinline__ void load(const T* p) {
+    if (N == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      v[0] = u.x; v[1] = u.y;
+    } else {
+#pragma unroll
+      for (int c = 0; c < N / 4; ++c) {
+        const uint4 u = reinterpret_cast<const uint4*>(p)[c];
+        v[4 * c] = u.x; v[4 * c + 1] = u.y;
+        v[4 * c + 2] = u.z; v[4 * c + 3] = u.w;
+      }
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] = 0u;
+  }
+  // the TERMS bf16x2 B registers of pair u (values 2u, 2u+1) held
+  template <int TERMS>
+  __device__ __forceinline__ void b_reg(int u, uint32_t out[TERMS]) const {
+    if (TERMS == 1) {
+      out[0] = v[u];
+    } else {
+      uint32_t t3[3];
+      split3(__uint_as_float(v[2 * u]), __uint_as_float(v[2 * u + 1]), t3);
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k) out[k] = t3[k];
+    }
+  }
+};
+
+template <typename T, int NSETS, int P, int NT, int WN>
+__global__ void __launch_bounds__(THREADS)
+nibble_mma_small_kernel(const T* __restrict__ x,
+                        const uint32_t* __restrict__ w0,
+                        const uint32_t* __restrict__ w1,
+                        const float* __restrict__ scale,
+                        T* __restrict__ out, int m, int q_out, int Gp,
+                        int SG, float alpha0, float alpha1,
+                        float beta_total) {
+  using S = Shape<NT, WN>;
+  constexpr int NQ = 8 / P;
+  constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wn = warp % S::WN, wk = warp / S::WN;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * MAX_ROWS;
+  const int mr = min(MAX_ROWS, m - m0);          // the block's rows
+  const size_t K = 8 * (size_t)Gp;
+  const int RSB = row_bytes<T, P>(SG);           // smem bytes an x row
+  const int nslab = (Gp + SLAB - 1) / SLAB;
+  const int spst = SG / SLAB;                    // slabs a stage
+  const int nstage = (nslab + spst - 1) / spst;
+  const int per = spst / S::WK;                  // a warp's slabs a stage
+  // the block's tiles of BN channels: blockIdx.x, + gridDim.x, ...
+  const int ntiles = (q_out + S::BN - 1) / S::BN;
+  const int ntile = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  // one stage holds the whole row: x stays in shared memory for every
+  // tile of the block
+  const bool resident = nstage == 1;
+  const bool vec = Gp % 16 == 0;               // runs of 16-byte copies
+  float* red = reinterpret_cast<float*>(
+      smem + (size_t)(resident ? 1 : 2) * mr * RSB);
+  float* rs = red + S::WK * S::ROWS * S::RED_STRIDE;
+
+  // x's stage st (groups st*SG ..) into buffer b: row r, field q is the
+  // run [q*P*SG, (q+1)*P*SG) of the row
+  auto stage = [&](int st, int b) {
+    unsigned char* buf = smem + (size_t)b * mr * RSB;
+    const int G0 = st * SG;
+    if (vec) {
+      constexpr int EPC = 16 / (int)sizeof(T);   // values a copy
+      const int cpr = P * min(SG, Gp - G0) / EPC;   // copies a run
+      const int total = mr * NQ * cpr;
+      // copy c is copy k of run rq = r*NQ + q; c steps by THREADS
+      const int drq = THREADS / cpr, dk = THREADS - drq * cpr;
+      int rq = threadIdx.x / cpr, k = threadIdx.x - rq * cpr;
+      for (int c = threadIdx.x; c < total; c += THREADS) {
+        const int r = rq / NQ, q = rq % NQ;
+        const T* src = x + (size_t)(m0 + r) * K + (size_t)q * P * Gp +
+                       (size_t)P * G0 + k * EPC;
+        T* dst = reinterpret_cast<T*>(buf + r * RSB) + q * P * SG + k * EPC;
+        tc::cp_async16(dst, src, true);
+        rq += drq;
+        k += dk;
+        if (k >= cpr) {
+          k -= cpr;
+          ++rq;
+        }
+      }
+    } else {
+      const int gs = min(SG, nslab * SLAB - G0);  // whole slabs, zero past Gp
+      const int run = P * gs, total = mr * NQ * run;
+      for (int c = threadIdx.x; c < total; c += THREADS) {
+        const int r = c / (NQ * run), rem = c - r * NQ * run;
+        const int q = rem / run, e = rem - q * run;
+        T* dst = reinterpret_cast<T*>(buf + r * RSB) + q * P * SG + e;
+        *dst = G0 + e / P < Gp
+                   ? x[(size_t)(m0 + r) * K + (size_t)q * P * Gp +
+                       (size_t)P * G0 + e]
+                   : tc::zero_val<T>();
+      }
+    }
+    tc::cp_async_commit();
+  };
+  // the lane's words (set, m16 tile, half: row g or g + 8) of the next
+  // item to load: tile pk of the block, stage pst, the warp's pl-th slab
+  // of the stage (pst*spst + pl*WK + wk); zero past Gp and past the
+  // block's last item. Counters, not divisions, walk the items.
+  int pk = 0, pst = 0, pl = 0;
+  auto load_next = [&](uint4 (&wv)[NSETS][MT][2]) {
+    const int s = pst * spst + pl * S::WK + wk;
+    const int c = s * SLAB + 4 * t;
+    const bool ok = pk < ntile && s < nslab && c < Gp;
+    const int n0 = (blockIdx.x + pk * gridDim.x) * S::BN + wn * WCH;
+#pragma unroll
+    for (int st = 0; st < NSETS; ++st)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = min(n0 + mt * 16 + g + 8 * h, q_out - 1);
+          const uint32_t* w = st == 0 ? w0 : w1;
+          wv[st][mt][h] = ok ? __ldg(reinterpret_cast<const uint4*>(
+                                   w + (size_t)n * Gp + c))
+                             : make_uint4(0u, 0u, 0u, 0u);
+        }
+    if (++pl == per) {
+      pl = 0;
+      if (++pst == nstage) {
+        pst = 0;
+        ++pk;
+      }
+    }
+  };
+  const bool sums = wn == 0;     // these warps take the row sums
+
+  // x's stages alternate between two buffers (gst counts them), or stay
+  // in one when resident; the words stream PF items ahead in registers
+  int gst = 0;
+  uint4 wbuf[PF + 1][NSETS][MT][2];
+  stage(0, 0);
+#pragma unroll
+  for (int p = 0; p < PF; ++p) load_next(wbuf[p]);
+  for (int k = 0; k < ntile; ++k) {
+    const bool last_tile = k + 1 == ntile;
+    float tot[MT][NT][4], rtot[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      rtot[nt][0] = rtot[nt][1] = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.f;
+    }
+    for (int sg = 0; sg < nstage; ++sg) {
+      if (!resident || k == 0) {
+        // a new stage: it has landed, and the other buffer's readers are
+        // done; then the next stage (of this tile or the next) streams in
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (sg + 1 < nstage)
+          stage(sg + 1, (gst + 1) & 1);
+        else if (!resident && !last_tile)
+          stage(0, (gst + 1) & 1);
+      }
+      const unsigned char* xb = smem + (size_t)(gst & 1) * mr * RSB;
+      for (int l = 0; l < per; ++l) {
+        load_next(wbuf[PF]);
+        const int ls = l * S::WK + wk;             // the slab in the stage
+        const int s = sg * spst + ls;
+        if (s < nslab) {
+          // this lane's x: row nt*8 + g, groups 4t.. of the slab, field q at
+          // q*P*SG + P*(ls*16 + 4t)
+          const T* xr[NT];
+          bool live[NT];
+  #pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int r = nt * 8 + g;
+            live[nt] = r < mr;
+            xr[nt] = reinterpret_cast<const T*>(xb +
+                                                (size_t)min(r, mr - 1) * RSB)
+                     + P * (ls * SLAB + 4 * t);
+          }
+  #pragma unroll
+          for (int st = 0; st < NSETS; ++st) {
+            float acc[MT][NT][4], racc[NT][4];
+            XRun<T, P> run[NT];
+  #pragma unroll
+            for (int ks = 0; ks < 8; ++ks) {
+              // k-step ks is field q = ks / P, values 4u..4u+3 of the run
+              // (u = ks % P: B registers rho = 2ks, 2ks + 1)
+              const int u = ks % P;
+              if (!XRun<T, P>::WHOLE || u == 0) {
+  #pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                  if (live[nt])
+                    run[nt].load(xr[nt] + (ks / P) * P * SG +
+                                 (XRun<T, P>::WHOLE ? 0 : 4 * u));
+                  else
+                    run[nt].zero();
+                }
+              }
+              const int pr = XRun<T, P>::WHOLE ? 2 * u : 0;
+              uint32_t b[NT][2][TERMS];
+  #pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                run[nt].template b_reg<TERMS>(pr, b[nt][0]);
+                run[nt].template b_reg<TERMS>(pr + 1, b[nt][1]);
+              }
+  #pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                const uint4 ug = wbuf[0][st][mt][0], uh = wbuf[0][st][mt][1];
+                const uint32_t wg[4] = {ug.x, ug.y, ug.z, ug.w};
+                const uint32_t wh[4] = {uh.x, uh.y, uh.z, uh.w};
+                const uint32_t a[4] = {a_reg<P>(wg, 2 * ks),
+                                       a_reg<P>(wh, 2 * ks),
+                                       a_reg<P>(wg, 2 * ks + 1),
+                                       a_reg<P>(wh, 2 * ks + 1)};
+  #pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+  #pragma unroll
+                  for (int q = 0; q < TERMS; ++q) {
+                    const uint32_t bb[2] = {b[nt][0][q], b[nt][1][q]};
+                    if (ks == 0 && q == 0)
+                      tc::mma_first(acc[mt][nt], a, bb);
+                    else
+                      tc::mma_acc(acc[mt][nt], a, bb);
+                  }
+              }
+              if (st == 0 && sums) {
+                const uint32_t a[4] = {ONES, ONES, ONES, ONES};
+  #pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+  #pragma unroll
+                  for (int q = 0; q < TERMS; ++q) {
+                    const uint32_t bb[2] = {b[nt][0][q], b[nt][1][q]};
+                    if (ks == 0 && q == 0)
+                      tc::mma_first(racc[nt], a, bb);
+                    else
+                      tc::mma_acc(racc[nt], a, bb);
+                  }
+              }
+            }
+            const float alpha = st == 0 ? alpha0 : alpha1;
+  #pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+  #pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+  #pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  tot[mt][nt][e] = fmaf(alpha, acc[mt][nt][e], tot[mt][nt][e]);
+            if (st == 0 && sums) {
+  #pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                rtot[nt][0] += racc[nt][0];
+                rtot[nt][1] += racc[nt][1];
+              }
+            }
+          }
+        }
+  #pragma unroll
+        for (int p = 0; p < PF; ++p)
+  #pragma unroll
+          for (int st = 0; st < NSETS; ++st)
+  #pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              wbuf[p][st][mt][0] = wbuf[p + 1][st][mt][0];
+              wbuf[p][st][mt][1] = wbuf[p + 1][st][mt][1];
+            }
+      }
+      if (!resident) ++gst;      // the stage is done
+    }
+
+    // the WK partial sums meet in shared memory: red[wk][row][channel],
+    // then rs[wk][row] (after the last tile's readers of red are done)
+    __syncthreads();
+    // C fragment: channel g (+8 for e >= 2), rows 2t, 2t+1 of each n8 tile
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = wn * WCH + mt * 16 + g + 8 * (e >> 1);
+          const int row = nt * 8 + 2 * t + (e & 1);
+          red[(wk * S::ROWS + row) * S::RED_STRIDE + ch] = tot[mt][nt][e];
+        }
+    if (sums && g == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        rs[wk * S::ROWS + nt * 8 + 2 * t] = rtot[nt][0];
+        rs[wk * S::ROWS + nt * 8 + 2 * t + 1] = rtot[nt][1];
+      }
+    }
+    __syncthreads();
+    const int nb = (blockIdx.x + k * gridDim.x) * S::BN;
+    for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
+      const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
+      if (n >= q_out) continue;
+      float v = 0.f, r = 0.f;
+#pragma unroll
+      for (int q = 0; q < S::WK; ++q) {
+        v += red[(q * S::ROWS + row) * S::RED_STRIDE + ch];
+        r += rs[q * S::ROWS + row];
+      }
+      v += beta_total * r;
+      if (scale != nullptr) v *= __ldg(scale + n);
+      tc::store1(out + (size_t)(m0 + row) * q_out + n, v);
+    }
+  }
+  tc::cp_async_wait<0>();
+}
+
+// Groups a stage: the whole (slab-rounded) row when the block's rows of x
+// fit STAGE_BUDGET in one buffer, else the most that two buffers of half
+// of it hold (at least one slab a warp; launch_nt keeps the total under
+// SMEM_MAX).
+template <typename T, int P, int NT, int WN>
+int stage_groups(int Gp, int mr) {
+  const int unit = Shape<NT, WN>::WK * SLAB;
+  const int all = (Gp + unit - 1) / unit * unit;
+  if ((size_t)mr * row_bytes<T, P>(all) <= (size_t)STAGE_BUDGET) return all;
+  const int fit = (STAGE_BUDGET / 2 / mr - pad_bytes<T, P>()) /
+                  (8 * (int)sizeof(T)) / unit * unit;
+  return fit < unit ? unit : fit;
+}
+
+// Shared memory of a launch: x's stage buffers and the reduce.
+template <typename T, int P, int NT, int WN>
+int smem_bytes(int Gp, int mr) {
+  const int SG = stage_groups<T, P, NT, WN>(Gp, mr);
+  const int nstage = (Gp + SG - 1) / SG;
+  return (nstage > 1 ? 2 : 1) * mr * row_bytes<T, P>(SG) +
+         Shape<NT, WN>::RED_B;
+}
+
+// The card's SMs (0 when the query fails), once.
+inline int sm_count() {
+  static int sms = -1;
+  if (sms < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+template <typename T, int NSETS, int P, int NT, int WN>
+int launch(const void* x, const void* w0, const void* w1, const void* scale,
+           void* out, int m, int q_out, int Gp, float alpha0, float alpha1,
+           float beta_total, cudaStream_t stream) {
+  using S = Shape<NT, WN>;
+  auto kernel = nibble_mma_small_kernel<T, NSETS, P, NT, WN>;
+  // once per instantiation: the shared-memory limit; the blocks a card
+  // holds at the last launch's shared memory
+  static bool smem_set = false;
+  static int last_smem = -1, resident_blocks = 0;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (sm_count() < 1) return static_cast<int>(cudaErrorInvalidDevice);
+    smem_set = true;
+  }
+  const int mr = m < MAX_ROWS ? m : MAX_ROWS;
+  const int SG = stage_groups<T, P, NT, WN>(Gp, mr);
+  const int smem = smem_bytes<T, P, NT, WN>(Gp, mr);
+  if (smem != last_smem) {
+    int per_sm = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, THREADS, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident_blocks = per_sm * sm_count();
+    last_smem = smem;
+  }
+  // as many blocks as the card holds at once (at most one a tile), each
+  // walking every gridDim.x-th tile
+  const int ntiles = (q_out + S::BN - 1) / S::BN;
+  const dim3 grid(ntiles < resident_blocks ? ntiles : resident_blocks,
+                  (m + MAX_ROWS - 1) / MAX_ROWS);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint32_t*>(w0),
+      static_cast<const uint32_t*>(w1), static_cast<const float*>(scale),
+      static_cast<T*>(out), m, q_out, Gp, SG, alpha0, alpha1, beta_total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NT n8 tiles for m rows (a block takes at most 32), and above 8 rows two
+// channel warps when even 64-channel tiles give every SM two blocks (the
+// x traffic then matters more than the fill), else one.
+template <typename T, int NSETS, int P>
+int launch_nt(const void* x, const void* w0, const void* w1,
+              const void* scale, void* out, int m, int q_out, int Gp,
+              float alpha0, float alpha1, float beta_total, cudaStream_t s) {
+  const int mr = m < MAX_ROWS ? m : MAX_ROWS;
+  const bool wide = (q_out + 2 * WCH - 1) / (2 * WCH) >= 2 * sm_count();
+  if (m <= 8)
+    return launch<T, NSETS, P, 1, 1>(x, w0, w1, scale, out, m, q_out, Gp,
+                                     alpha0, alpha1, beta_total, s);
+  // (and when one channel warp's slab stages of f32 x would not fit)
+  if (m <= 16 && (wide || smem_bytes<T, P, 2, 1>(Gp, mr) > SMEM_MAX))
+    return launch<T, NSETS, P, 2, 2>(x, w0, w1, scale, out, m, q_out, Gp,
+                                     alpha0, alpha1, beta_total, s);
+  if (m <= 16)
+    return launch<T, NSETS, P, 2, 1>(x, w0, w1, scale, out, m, q_out, Gp,
+                                     alpha0, alpha1, beta_total, s);
+  if (wide || smem_bytes<T, P, 4, 1>(Gp, mr) > SMEM_MAX)
+    return launch<T, NSETS, P, 4, 2>(x, w0, w1, scale, out, m, q_out, Gp,
+                                     alpha0, alpha1, beta_total, s);
+  return launch<T, NSETS, P, 4, 1>(x, w0, w1, scale, out, m, q_out, Gp,
+                                   alpha0, alpha1, beta_total, s);
+}
+
+// The launch for n_sets plane sets and x's dtype; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
+// the kernel does not take (the Python wrappers check them first).
+template <int P>
+int dispatch(const void* x, const void* w0, const void* w1,
+             const void* scale, void* out, int m, int q_out, int Gp,
+             int n_sets, float alpha0, float alpha1, float beta_total,
+             int x_is_bf16, void* stream) {
+  if (m < 1 || q_out < 1 || Gp < 4 || Gp % 4 || n_sets < 1 || n_sets > 2 ||
+      (n_sets == 2 && w1 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_sets == 1 && x_is_bf16)
+    return launch_nt<__nv_bfloat16, 1, P>(x, w0, w1, scale, out, m, q_out,
+                                          Gp, alpha0, alpha1, beta_total, s);
+  if (n_sets == 1)
+    return launch_nt<float, 1, P>(x, w0, w1, scale, out, m, q_out, Gp,
+                                  alpha0, alpha1, beta_total, s);
+  if (x_is_bf16)
+    return launch_nt<__nv_bfloat16, 2, P>(x, w0, w1, scale, out, m, q_out,
+                                          Gp, alpha0, alpha1, beta_total, s);
+  return launch_nt<float, 2, P>(x, w0, w1, scale, out, m, q_out, Gp, alpha0,
+                                alpha1, beta_total, s);
+}
+
+}  // namespace sm
+}  // namespace

@@ -5,11 +5,12 @@ kernels ``csrc/fused_decode_matmul.cu`` (K1) and
 Counterpart of ``quip_for_all_tpu/ops/dequant_pallas.py`` (nibble layout,
 split=1), ``_make_kernel`` through ``_fused_call``'s two grids: calls of at
 most 32 rows after the pad to 8 (the 1-D grid, decode and short prompts)
-launch K1, which decodes each nibble in registers for its few rows; larger
-calls (the 2-D m-tiled grid: prefill, training) launch K2, which decodes
-each plane slab once per tile of 64-128 rows into shared memory and
-multiplies on the tensor cores. The weights never exist densely in device
-memory.
+launch K1, which decodes each plane word once for all its rows straight
+into tensor-core operand registers (``csrc/nibble_mma_small.cuh``, shared
+with K11); larger calls (the 2-D m-tiled grid: prefill, training) launch
+K2, which decodes each plane slab once per tile of 64-128 rows into shared
+memory. Both multiply on the tensor cores. The weights never exist densely
+in device memory.
 
     out(m, q_out) = sum_s alpha_s * (x_perm @ nib_s^T)
                     + beta_total * rowsum(x_perm),  times scale_vec per

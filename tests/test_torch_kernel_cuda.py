@@ -50,13 +50,15 @@ def _counts():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_sets", [1, 2])
-@pytest.mark.parametrize("m", [1, 2, 3, 8, 33, 40, 63, 64, 65, 127, 1022])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 16, 17, 24, 31, 32, 33,
+                               40, 63, 64, 65, 127, 1022])
 @pytest.mark.parametrize("q_out,Gp", [(128, 128), (200, 1408), (4096, 512)])
 def test_kernel_matches_plain_twin(cuda, q_out, Gp, m, n_sets, dtype):
-    """Ragged q_out (200 is no multiple of a block's rows) and m (x padded
-    to 8 rows as the main path pads it, the real m computed), every K1
-    accumulator size and K2 above 32 rows, both plane-set counts, both
-    dtypes; the counter of the kernel that ran moves by one."""
+    """Ragged q_out (200 is no multiple of a block's channels) and m (x
+    padded to 8 rows as the main path pads it, the real m computed), K1's
+    edges of 1, 2 and 4 n8 tiles of rows (4, 5, 9, 16, 17, 24, 31, 32) and
+    K2 above 32 rows, both plane-set counts, both dtypes; the counter of
+    the kernel that ran moves by one."""
     planes = _planes(q_out, Gp, n_sets, cuda, seed=m + q_out)
     affine = ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))[:n_sets]
     g = torch.Generator().manual_seed(m)
@@ -94,6 +96,29 @@ def test_k2_is_deterministic_and_replays_in_a_graph(cuda):
     torch.cuda.synchronize()
     assert torch.equal(again, first) and torch.equal(out, first)
     assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 3)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_k1_is_deterministic_and_replays_in_a_graph(cuda, m):
+    """K1 at a decode shape: a second call and a CUDA-graph replay give the
+    first call's bits (the partial sums of a block's warps meet in a fixed
+    order), and only K1's counter moves."""
+    planes = _planes(4096, 1408, 1, cuda, seed=5)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((max(8, m), 8 * 1408), generator=g).to(
+        torch.bfloat16).to(cuda)
+    affine = ((0.5, -2.75),)
+    before = _counts()
+    first = fm.fused_decode_matmul(x, planes, affine, rows=m)
+    again = fm.fused_decode_matmul(x, planes, affine, rows=m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fm.fused_decode_matmul(x, planes, affine, rows=m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first) and torch.equal(out, first)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (3, 0)
 
 
 def test_rows_skip_the_pad(cuda):

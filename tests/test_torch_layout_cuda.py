@@ -133,6 +133,17 @@ def test_kernel_matches_plain_twin_at_ragged_shapes(cuda, kernel, q_out, m,
            dtype, cuda, seed=m + q_out, n_sets=n_sets, mp=mp)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 5, 9, 16, 17, 24, 31, 32, 33, 64, 65])
+@pytest.mark.parametrize("kernel", ["sw2", "sw4"])
+def test_sw_row_tiles(cuda, kernel, m, dtype):
+    """K11 at the edges of 1, 2 and 4 n8 tiles of rows and across blocks of
+    32 rows (33, 64, 65), at a ragged q_out and down's 1408 groups, 1 and 2
+    plane sets."""
+    _check(kernel, 200, 11008, m, dtype, cuda, seed=m, n_sets=1 + m % 2,
+           mp=-(-m // 8) * 8)
+
+
 @pytest.mark.parametrize("chunks", [2, 3, 4, 11])
 def test_ksplit_chunk_counts(cuda, chunks):
     """Chunks of 128-group multiples, and 3 chunks of a 384-group row."""
