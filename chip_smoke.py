@@ -32,33 +32,36 @@ line):
      kernels, a 16-token prompt through the sparse prefill, and the
      kernel-vs-plain check with the kernel run on the plain run's top-2
      routing (a fork accepted only at a near-tie of the tokens);
-  7. the row-pair kernels (u3 and pb) against their plain twins at the
-     Llama-2-7B shapes, m = 1, 8, 32 and 64 in bf16 and m = 1 in f32,
-     timed as in phase 2, each beside fused_decode_matmul on the nibble
-     planes of the same codes (E8P12 1 plane for u3, E8P12RVQ4B 2 planes
-     for pb);
+  7. the row-pair kernels (u3 on the SIMT body, pb on the tensor-core
+     body) against their plain twins at the Llama-2-7B shapes, m = 1, 8,
+     32 and 64 in bf16 and m = 1 in f32, timed as in phase 2, each beside
+     fused_decode_matmul on the nibble planes of the same codes (E8P12 1
+     plane for u3, E8P12RVQ4B 2 planes for pb), with sums per token (m =
+     1, 8) and per prefill (m = 32, 64);
   8. the golden fixtures in the byte-cut layouts: e8p12 as u3, e8p12rvq4b
      as nibble and as pb;
   9. the byte-cut paths at full width, all 32 layers, random codes from
      seed 0: (a) Llama-2-7B E8P12 in u3 and (b) E8P12RVQ4B in pb through
      the row-pair kernels, (c) E8P12RVQ4B in nibble through
      fused_decode_matmul with 2 plane sets; each a 32-token prompt and 32
-     greedy tokens twice, exact launch counts, one graphed step, and the
-     kernel-vs-plain check over 16 tokens;
+     greedy tokens twice, exact launch counts, one graphed step, the
+     graphed 32-token prefill, and the kernel-vs-plain check over 16
+     tokens;
  10. bfp_decode_matmul (K10, 1 and 2 plane sets), sw_decode_matmul (K11,
      sw2 and sw4), ksplit_decode_matmul (K6, 2 and 4 chunks; down 11) and
      paired_decode_matmul (K7) against their plain twins at the Llama-2-7B
      shapes, m = 1, 8, 32, 64 in bf16 and 1 in f32, timed as in phase 2,
      beside fused_decode_matmul on the same codes (and K7 beside pb), with
-     K11's sums per token (m = 1, 8) and per prefill (m = 32, 64), and
-     the I2F count of every built library's SASS (phase 1);
+     K11's and K7's sums per token (m = 1, 8) and per prefill (m = 32,
+     64), and the I2F count of every built library's SASS (phase 1);
  11. the golden fixtures in the new layouts: e8p12 as bfp, sw2 and sw4,
      e8p12rvq4b as paired and bfp;
  12. the new paths at full width, all 32 layers, right after phase 5 on
      its model: (f) split-K = 4 on the main path's planes, (e) those
      planes re-laid as sw4 and (d) as bfp, each first held to phase 5's
-     f32 logits, then (g) E8P12RVQ4B paired from seed 0; each as in phase
-     9, with the exact launch counts of its kernels;
+     f32 logits, then (g) E8P12RVQ4B paired from seed 0 (with its graphed
+     32-token prefill); each as in phase 9, with the exact launch counts
+     of its kernels;
  13. fused_decode_matmul_bwd (K3, the tensor-core backward of K1/K2)
      against its plain twin at Llama-2-7B's unfused shapes (q/k/v/o,
      gate/up, down, head), m = 1, 64 and 1022, bf16 and f32, 1 and 2 plane
@@ -809,6 +812,15 @@ def phase_rowpair_kernels():
             f"the nibble planes of the same "
             f"codes {per_tok['nibble_ms']:.3f} ms against "
             f"{per_tok['nibble_bound_ms']:.3f} ms")
+        for m in (8, 32, 64):
+            per = {key: call_sum([r for r in rows if r["kernel"] == kname],
+                                 LLAMA_CALLS, key, m=m, dtype="bfloat16")
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                               "nibble_ms")}
+            log(f"kernel {kname} per Llama-2-7B "
+                f"{'token' if m <= 8 else 'prefill'} at m={m} (bf16, 129 "
+                f"calls): " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in per.items()))
     return rows, max_err
 
 
@@ -866,8 +878,10 @@ def phase_rowpair_paths():
         log(f"{tag}: one decode step (position {S}): device time "
             f"{dev_ms:.2f} ms (CUDA-graph replay), eager {eager_ms:.2f} ms "
             f"-> device idle {1 - dev_ms / eager_ms:.0%} of the eager step")
+        pre_ms = log_prefill(tag, cfg, model, prompt, CACHE, kname)
         out[tag] = {"kernel": kname, "launches": launches[kname],
-                    "ms_tok": ms_tok, "dev_ms": dev_ms, "eager_ms": eager_ms}
+                    "ms_tok": ms_tok, "dev_ms": dev_ms, "eager_ms": eager_ms,
+                    "prefill_device_ms": pre_ms}
         del model, run
         gc.collect()
         torch.cuda.empty_cache()
@@ -1040,8 +1054,9 @@ def phase_layout_kernels():
             f"same codes {per_tok['nibble_ms']:.3f} ms" + (
                 f"; pb (K8) {per_tok['pb_ms']:.3f} ms"
                 if label == "paired" else ""))
-    # K11 beyond decode: per token at m = 8, per 32- and 64-token prefill
-    for label in ("sw2", "sw4"):
+    # K11 and K7 beyond decode: per token at m = 8, per 32- and 64-token
+    # prefill
+    for label in ("sw2", "sw4", "paired"):
         for m in (8, 32, 64):
             per = {key: call_sum([r for r in rows if r["variant"] == label],
                                  LLAMA_CALLS, key, m=m, dtype="bfloat16")
@@ -1173,6 +1188,8 @@ def phase_layout_paths(main):
         f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
     out["g_paired"] = run_path("g_paired", cfg, model, prompt,
                                {"paired_decode_matmul": per_step})
+    out["g_paired"]["prefill_device_ms"] = log_prefill(
+        "g_paired", cfg, model, prompt, 2048, "paired_decode_matmul")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1222,6 +1239,17 @@ def prefill_device_ms(cfg, model, prompt, cache_len, n=10):
                              attn_window=w)[0]
     eager = 1e-3 * tm.event_us(step, n)
     return 1e-3 * tm.graph_us(step, 1, reps=n), eager
+
+
+def log_prefill(tag, cfg, model, prompt, cache_len, kname):
+    """A path's bf16 prefill of ``prompt``: its device time by CUDA-graph
+    replay, logged beside the eager time. Returns the device ms."""
+    pre_ms, pre_eager = prefill_device_ms(cfg, model, prompt, cache_len)
+    log(f"{tag}: the {prompt.shape[1]}-token prefill ({kname} at m = "
+        f"{prompt.shape[1]}): device time {pre_ms:.2f} ms (CUDA-graph "
+        f"replay), eager {pre_eager:.2f} ms -> device idle "
+        f"{1 - pre_ms / pre_eager:.0%} of the eager prefill")
+    return pre_ms
 
 
 @contextlib.contextmanager
@@ -1865,9 +1893,9 @@ def call_sum(rows, calls, key, **match):
 
 
 def small_m_sums(rows, match):
-    """K1's or K11's Llama-2-7B sums beyond decode at m = 1, for the
-    kernels line: per token at m = 8 and per 32-token prefill at m = 32
-    (129 calls each, bf16, the rows that ``match``)."""
+    """K1's, K11's, K7's or K8's Llama-2-7B sums beyond decode at m = 1,
+    for the kernels line: per token at m = 8 and per 32-token prefill at
+    m = 32 (129 calls each, bf16, the rows that ``match``)."""
     out = {}
     for key, m in (("per_token_m8", 8), ("per_prefill_m32", 32)):
         out[key] = {k: call_sum(rows, LLAMA_CALLS, k, m=m, **match)
@@ -1917,6 +1945,9 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
         e = entry(next(k for k in KERNELS if k["name"] == kname), rp_rows,
                   LLAMA_CALLS, {"kernel": kname, "m": 1, "dtype": "bfloat16"},
                   paths[path]["launches"], rp_err[kname])
+        if layout == "pb":
+            e.update(small_m_sums(rp_rows, {"kernel": kname,
+                                            "dtype": "bfloat16"}))
         log(f"{path}: per decode token the {layout} kernel takes "
             f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
             f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
@@ -1944,8 +1975,8 @@ def layout_entries(rows, max_err, paths):
                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
                  bound_by=("bytes" if all(r["bound_by"] == "bytes"
                                           for r in sel) else "operations"))
-        if label == "sw4":
-            e.update(small_m_sums(rows, {"variant": "sw4",
+        if label in ("sw4", "paired"):
+            e.update(small_m_sums(rows, {"variant": label,
                                          "dtype": "bfloat16"}))
         log(f"{path}: per decode token the {label} kernel takes "
             f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "

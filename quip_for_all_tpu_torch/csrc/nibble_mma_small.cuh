@@ -4,6 +4,11 @@
 //   fused_decode_matmul.cu   K1:  int32 nibble planes (split P = 1);
 //   sw_decode_matmul.cu      K11: the same words stored as int16 / int8
 //                                 subwords (sw2 / sw4, P = 2 / 4).
+// The body is a skeleton over a codes policy (NibbleCodes here): the
+// policy says which words a lane loads and how they become A registers;
+// the skeleton stages x, walks the slabs and tiles, multiplies, flushes
+// and stores. ucode_mma_small.cuh runs the same skeleton on the
+// E8P12RVQ4B u-codes of K7 and K8.
 //
 // Computes, for x_perm (m, 8*Gp) in the layout's grouped lane order and 1
 // or 2 plane sets of words (q_out, Gp):
@@ -76,7 +81,7 @@ namespace sm {
 
 constexpr int THREADS = 256;        // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int MT = 2;               // m16 channel tiles a warp
+constexpr int MT = 2;               // m16 channel tiles a warp (K1/K11)
 constexpr int WCH = 16 * MT;        // channels a warp
 constexpr int SLAB = 16;            // groups a warp step (4 lanes x uint4)
 constexpr int MAX_ROWS = 32;        // rows of x a block (4 n8 tiles)
@@ -85,13 +90,16 @@ constexpr int SMEM_MAX = 232448;    // a block's shared memory on sm_90
 constexpr int PF = 1;               // word slabs a lane loads ahead
 constexpr uint32_t ONES = 0x3F803F80u;    // bf16 pair (1, 1)
 
-// Warp layout for NT n8 tiles of rows and WN channel warps: a block's x
-// bytes from L2 are 4*m / BN times its plane bytes in bf16, so two channel
-// warps halve them, and halve the tiles that fill the card.
-template <int NT, int WN_>
+// Warp layout for NT n8 tiles of rows, WN channel warps and MTS m16 tiles
+// a warp: a block's x bytes from L2 are 4*m / BN times its plane bytes in
+// bf16, so two channel warps halve them, and halve the tiles that fill
+// the card.
+template <int NT, int WN_, int MTS_ = MT>
 struct Shape {
   static constexpr int WN = WN_;               // warps across channels
   static constexpr int WK = WARPS / WN;        // warps across slabs
+  static constexpr int MTS = MTS_;             // m16 tiles a warp
+  static constexpr int WCH = 16 * MTS;         // channels a warp
   static constexpr int BN = WN * WCH;          // channels a block
   static constexpr int ROWS = 8 * NT;
   static constexpr int RED_STRIDE = BN + 4;    // f32 a row of the reduce
@@ -151,6 +159,12 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t out[3]) {
   out[2] = tc::bf16x2_bits(lo);
 }
 
+// a + b rounded to bf16: both are bf16 values, so the f32 sum rounded
+// once more is the correctly rounded bf16 sum
+__device__ __forceinline__ float add_bf16(float a, float b) {
+  return __bfloat162float(__float2bfloat16_rn(a + b));
+}
+
 // A lane's x values of one field run (its 4 groups: 4*P values) in
 // shared memory. bf16: the whole run, loaded at the field's first k-step
 // (8, 16 or 32 bytes) and held for its P k-steps; f32: the 4 values of one
@@ -177,6 +191,11 @@ struct XRun {
 #pragma unroll
     for (int c = 0; c < N; ++c) v[c] = 0u;
   }
+  // value e (0..3) of a P = 1 run, as f32 (exact)
+  __device__ __forceinline__ float value(int e) const {
+    if (!WHOLE) return __uint_as_float(v[e]);
+    return __uint_as_float(e & 1 ? v[e >> 1] & 0xFFFF0000u : v[e >> 1] << 16);
+  }
   // the TERMS bf16x2 B registers of pair u (values 2u, 2u+1) held
   template <int TERMS>
   __device__ __forceinline__ void b_reg(int u, uint32_t out[TERMS]) const {
@@ -191,16 +210,90 @@ struct XRun {
   }
 };
 
-template <typename T, int NSETS, int P, int NT, int WN>
+// The affine-nibble codes of K1 and K11 (the codes policy of the
+// skeleton below): NSETS sets of int32 words (q_out, Gp), nibble i of word
+// g meeting x lane lane(g, i) of split P. Each set is one pass over a
+// slab, its sums times alpha_s. A policy gives the skeleton:
+//   NSETS, P     sets (of codes, each times its alpha) and x's split;
+//   fused(NT)    whether one pass over a slab takes all the sets (an
+//                accumulator each), else a pass a set;
+//   mtiles(NT)   m16 channel tiles a warp at NT n8 tiles of rows;
+//   NW           uint4 a lane loads for an m16 tile of channels;
+//   ROWSUMS      beta * rowsum(x) from an all-ones A (else the codes
+//                carry beta themselves);
+//   PARITY       a parity k-step after the 8 of a pass (u-codes with
+//                bf16 group sums), B the group sums of the lane's groups;
+//   PAIR_ROWS    A row g is channel 2g and g + 8 is 2g + 1 (row-pair
+//                words), not g and g + 8;
+//   Planes, Walk the plane pointers (a kernel argument) and what the slab
+//                walk tracks besides the skeleton's counters;
+//   load, ctx    a lane's words of the next item, and a word of context
+//                about it kept beside them;
+//   Pass, pass   what a pass over an m16 tile's words computes once for
+//                its 8 k-steps;
+//   a_frag       the A registers of k-step ks of pass st; p_frag the
+//                parity A registers of pass st.
+template <int NSETS_, int P_>
+struct NibbleCodes {
+  static constexpr int NSETS = NSETS_, P = P_, NW = 2 * NSETS_;
+  static constexpr bool ROWSUMS = true, PARITY = false, PAIR_ROWS = false;
+  __host__ __device__ static constexpr bool fused(int) { return false; }
+  __host__ __device__ static constexpr int mtiles(int) { return MT; }
+  struct Planes {
+    const uint32_t* w0;
+    const uint32_t* w1;
+  };
+  struct Walk {                       // nothing beyond the counters
+    __device__ Walk(const Planes&, int, int) {}
+    __device__ void next(bool) {}
+  };
+  __device__ static uint32_t ctx(const Walk&, int, const Planes&) {
+    return 0u;
+  }
+  // set st's words of rows g and g + 8 of m16 tile mt: w[mt][2*st + h]
+  template <int MTW>
+  __device__ static void load(uint4 (&w)[MTW][NW], const Planes& pl, int n0,
+                              int g, int c, const Walk&, int q_out, int Gp,
+                              bool ok) {
+#pragma unroll
+    for (int st = 0; st < NSETS; ++st)
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = min(n0 + mt * 16 + g + 8 * h, q_out - 1);
+          const uint32_t* p = st == 0 ? pl.w0 : pl.w1;
+          w[mt][2 * st + h] = ok ? __ldg(reinterpret_cast<const uint4*>(
+                                       p + (size_t)n * Gp + c))
+                                 : make_uint4(0u, 0u, 0u, 0u);
+        }
+  }
+  struct Pass {};
+  __device__ static Pass pass(const uint4 (&)[NW], int, uint32_t) {
+    return {};
+  }
+  __device__ static void a_frag(const uint4 (&w)[NW], const Pass&, int st,
+                                int ks, uint32_t a[4]) {
+    const uint4 ug = w[2 * st], uh = w[2 * st + 1];
+    const uint32_t wg[4] = {ug.x, ug.y, ug.z, ug.w};
+    const uint32_t wh[4] = {uh.x, uh.y, uh.z, uh.w};
+    a[0] = a_reg<P>(wg, 2 * ks);
+    a[1] = a_reg<P>(wh, 2 * ks);
+    a[2] = a_reg<P>(wg, 2 * ks + 1);
+    a[3] = a_reg<P>(wh, 2 * ks + 1);
+  }
+};
+
+template <typename T, class C, int NT, int WN>
 __global__ void __launch_bounds__(THREADS)
-nibble_mma_small_kernel(const T* __restrict__ x,
-                        const uint32_t* __restrict__ w0,
-                        const uint32_t* __restrict__ w1,
-                        const float* __restrict__ scale,
-                        T* __restrict__ out, int m, int q_out, int Gp,
-                        int SG, float alpha0, float alpha1,
-                        float beta_total) {
-  using S = Shape<NT, WN>;
+mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
+                 const float* __restrict__ scale, T* __restrict__ out, int m,
+                 int q_out, int Gp, int SG, float alpha0, float alpha1,
+                 float beta_total) {
+  using S = Shape<NT, WN, C::mtiles(NT)>;
+  constexpr int P = C::P, NSETS = C::NSETS, NW = C::NW;
+  constexpr int MTW = S::MTS;                    // m16 tiles a warp
+  constexpr int FS = C::fused(NT) ? NSETS : 1;   // sets a pass
   constexpr int NQ = 8 / P;
   constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -267,28 +360,20 @@ nibble_mma_small_kernel(const T* __restrict__ x,
     }
     tc::cp_async_commit();
   };
-  // the lane's words (set, m16 tile, half: row g or g + 8) of the next
-  // item to load: tile pk of the block, stage pst, the warp's pl-th slab
-  // of the stage (pst*spst + pl*WK + wk); zero past Gp and past the
-  // block's last item. Counters, not divisions, walk the items.
+  // the lane's words (per m16 tile, as the policy lays them out) of the
+  // next item to load: tile pk of the block, stage pst, the warp's pl-th
+  // slab of the stage (pst*spst + pl*WK + wk); zero past Gp and past the
+  // block's last item. Counters, not divisions, walk the items: within a
+  // tile the slab steps by WK, which the policy's Walk follows.
   int pk = 0, pst = 0, pl = 0;
-  auto load_next = [&](uint4 (&wv)[NSETS][MT][2]) {
+  typename C::Walk walk(planes, S::WK, wk * SLAB + 4 * t);
+  auto load_next = [&](uint4 (&wv)[MTW][NW], uint32_t& cx) {
     const int s = pst * spst + pl * S::WK + wk;
     const int c = s * SLAB + 4 * t;
     const bool ok = pk < ntile && s < nslab && c < Gp;
-    const int n0 = (blockIdx.x + pk * gridDim.x) * S::BN + wn * WCH;
-#pragma unroll
-    for (int st = 0; st < NSETS; ++st)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = min(n0 + mt * 16 + g + 8 * h, q_out - 1);
-          const uint32_t* w = st == 0 ? w0 : w1;
-          wv[st][mt][h] = ok ? __ldg(reinterpret_cast<const uint4*>(
-                                   w + (size_t)n * Gp + c))
-                             : make_uint4(0u, 0u, 0u, 0u);
-        }
+    const int n0 = (blockIdx.x + pk * gridDim.x) * S::BN + wn * S::WCH;
+    cx = C::ctx(walk, c, planes);
+    C::load(wv, planes, n0, g, c, walk, q_out, Gp, ok);
     if (++pl == per) {
       pl = 0;
       if (++pst == nstage) {
@@ -296,24 +381,26 @@ nibble_mma_small_kernel(const T* __restrict__ x,
         ++pk;
       }
     }
+    walk.next(pl == 0 && pst == 0);    // a new tile walks from its start
   };
-  const bool sums = wn == 0;     // these warps take the row sums
+  const bool sums = C::ROWSUMS && wn == 0;   // these warps take the row sums
 
   // x's stages alternate between two buffers (gst counts them), or stay
   // in one when resident; the words stream PF items ahead in registers
   int gst = 0;
-  uint4 wbuf[PF + 1][NSETS][MT][2];
+  uint4 wbuf[PF + 1][MTW][NW];
+  uint32_t cbuf[PF + 1];
   stage(0, 0);
 #pragma unroll
-  for (int p = 0; p < PF; ++p) load_next(wbuf[p]);
+  for (int p = 0; p < PF; ++p) load_next(wbuf[p], cbuf[p]);
   for (int k = 0; k < ntile; ++k) {
     const bool last_tile = k + 1 == ntile;
-    float tot[MT][NT][4], rtot[NT][2];
+    float tot[MTW][NT][4], rtot[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       rtot[nt][0] = rtot[nt][1] = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.f;
     }
@@ -330,7 +417,7 @@ nibble_mma_small_kernel(const T* __restrict__ x,
       }
       const unsigned char* xb = smem + (size_t)(gst & 1) * mr * RSB;
       for (int l = 0; l < per; ++l) {
-        load_next(wbuf[PF]);
+        load_next(wbuf[PF], cbuf[PF]);
         const int ls = l * S::WK + wk;             // the slab in the stage
         const int s = sg * spst + ls;
         if (s < nslab) {
@@ -346,10 +433,19 @@ nibble_mma_small_kernel(const T* __restrict__ x,
                                                 (size_t)min(r, mr - 1) * RSB)
                      + P * (ls * SLAB + 4 * t);
           }
+          // the group sums gx of the lane's 4 groups (row nt*8 + g), bf16
+          [[maybe_unused]] float gx[C::PARITY ? NT : 1][4];
   #pragma unroll
-          for (int st = 0; st < NSETS; ++st) {
-            float acc[MT][NT][4], racc[NT][4];
+          for (int s0 = 0; s0 < NSETS; s0 += FS) {
+            // a pass takes FS sets, each its own accumulator
+            float acc[FS][MTW][NT][4], racc[NT][4];
             XRun<T, P> run[NT];
+            typename C::Pass pd[FS][MTW];
+  #pragma unroll
+            for (int f = 0; f < FS; ++f)
+  #pragma unroll
+              for (int mt = 0; mt < MTW; ++mt)
+                pd[f][mt] = C::pass(wbuf[0][mt], s0 + f, cbuf[0]);
   #pragma unroll
             for (int ks = 0; ks < 8; ++ks) {
               // k-step ks is field q = ks / P, values 4u..4u+3 of the run
@@ -365,6 +461,20 @@ nibble_mma_small_kernel(const T* __restrict__ x,
                     run[nt].zero();
                 }
               }
+              if constexpr (C::PARITY) {
+                // at P = 1 k-step ks is position i = ks: gx sums the 8
+                // positions left to right, each add rounded to bf16 as the
+                // Pallas body's bf16 sum
+                if (s0 == 0) {
+  #pragma unroll
+                  for (int nt = 0; nt < NT; ++nt)
+  #pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      const float v = run[nt].value(e);
+                      gx[nt][e] = ks == 0 ? v : add_bf16(gx[nt][e], v);
+                    }
+                }
+              }
               const int pr = XRun<T, P>::WHOLE ? 2 * u : 0;
               uint32_t b[NT][2][TERMS];
   #pragma unroll
@@ -373,26 +483,23 @@ nibble_mma_small_kernel(const T* __restrict__ x,
                 run[nt].template b_reg<TERMS>(pr + 1, b[nt][1]);
               }
   #pragma unroll
-              for (int mt = 0; mt < MT; ++mt) {
-                const uint4 ug = wbuf[0][st][mt][0], uh = wbuf[0][st][mt][1];
-                const uint32_t wg[4] = {ug.x, ug.y, ug.z, ug.w};
-                const uint32_t wh[4] = {uh.x, uh.y, uh.z, uh.w};
-                const uint32_t a[4] = {a_reg<P>(wg, 2 * ks),
-                                       a_reg<P>(wh, 2 * ks),
-                                       a_reg<P>(wg, 2 * ks + 1),
-                                       a_reg<P>(wh, 2 * ks + 1)};
+              for (int f = 0; f < FS; ++f)
   #pragma unroll
-                for (int nt = 0; nt < NT; ++nt)
+                for (int mt = 0; mt < MTW; ++mt) {
+                  uint32_t a[4];
+                  C::a_frag(wbuf[0][mt], pd[f][mt], s0 + f, ks, a);
   #pragma unroll
-                  for (int q = 0; q < TERMS; ++q) {
-                    const uint32_t bb[2] = {b[nt][0][q], b[nt][1][q]};
-                    if (ks == 0 && q == 0)
-                      tc::mma_first(acc[mt][nt], a, bb);
-                    else
-                      tc::mma_acc(acc[mt][nt], a, bb);
-                  }
-              }
-              if (st == 0 && sums) {
+                  for (int nt = 0; nt < NT; ++nt)
+  #pragma unroll
+                    for (int q = 0; q < TERMS; ++q) {
+                      const uint32_t bb[2] = {b[nt][0][q], b[nt][1][q]};
+                      if (ks == 0 && q == 0)
+                        tc::mma_first(acc[f][mt][nt], a, bb);
+                      else
+                        tc::mma_acc(acc[f][mt][nt], a, bb);
+                    }
+                }
+              if (s0 == 0 && sums) {
                 const uint32_t a[4] = {ONES, ONES, ONES, ONES};
   #pragma unroll
                 for (int nt = 0; nt < NT; ++nt)
@@ -406,15 +513,42 @@ nibble_mma_small_kernel(const T* __restrict__ x,
                   }
               }
             }
-            const float alpha = st == 0 ? alpha0 : alpha1;
+            // one more k-step over the slab's 16 groups: A the set's
+            // parity term (bf16, exact), B the bf16 group sums
+            [[maybe_unused]] uint32_t gb[C::PARITY ? NT : 1][2];
+            if constexpr (C::PARITY) {
   #pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
+              for (int nt = 0; nt < NT; ++nt) {
+                gb[nt][0] = tc::bf16x2_bits(
+                    __floats2bfloat162_rn(gx[nt][0], gx[nt][1]));
+                gb[nt][1] = tc::bf16x2_bits(
+                    __floats2bfloat162_rn(gx[nt][2], gx[nt][3]));
+              }
+            }
   #pragma unroll
-              for (int nt = 0; nt < NT; ++nt)
+            for (int f = 0; f < FS; ++f) {
+              const int st = s0 + f;
+              if constexpr (C::PARITY) {
   #pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  tot[mt][nt][e] = fmaf(alpha, acc[mt][nt][e], tot[mt][nt][e]);
-            if (st == 0 && sums) {
+                for (int mt = 0; mt < MTW; ++mt) {
+                  uint32_t a[4];
+                  C::p_frag(wbuf[0][mt], st, cbuf[0], a);
+  #pragma unroll
+                  for (int nt = 0; nt < NT; ++nt)
+                    tc::mma_acc(acc[f][mt][nt], a, gb[nt]);
+                }
+              }
+              const float alpha = st == 0 ? alpha0 : alpha1;
+  #pragma unroll
+              for (int mt = 0; mt < MTW; ++mt)
+  #pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+  #pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    tot[mt][nt][e] = fmaf(alpha, acc[f][mt][nt][e],
+                                          tot[mt][nt][e]);
+            }
+            if (s0 == 0 && sums) {
   #pragma unroll
               for (int nt = 0; nt < NT; ++nt) {
                 rtot[nt][0] += racc[nt][0];
@@ -424,14 +558,13 @@ nibble_mma_small_kernel(const T* __restrict__ x,
           }
         }
   #pragma unroll
-        for (int p = 0; p < PF; ++p)
+        for (int p = 0; p < PF; ++p) {
+          cbuf[p] = cbuf[p + 1];
   #pragma unroll
-          for (int st = 0; st < NSETS; ++st)
+          for (int mt = 0; mt < MTW; ++mt)
   #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              wbuf[p][st][mt][0] = wbuf[p + 1][st][mt][0];
-              wbuf[p][st][mt][1] = wbuf[p + 1][st][mt][1];
-            }
+            for (int j = 0; j < NW; ++j) wbuf[p][mt][j] = wbuf[p + 1][mt][j];
+        }
       }
       if (!resident) ++gst;      // the stage is done
     }
@@ -439,14 +572,16 @@ nibble_mma_small_kernel(const T* __restrict__ x,
     // the WK partial sums meet in shared memory: red[wk][row][channel],
     // then rs[wk][row] (after the last tile's readers of red are done)
     __syncthreads();
-    // C fragment: channel g (+8 for e >= 2), rows 2t, 2t+1 of each n8 tile
+    // C fragment: A row g (+8 for e >= 2), rows 2t, 2t+1 of x of each n8
+    // tile; A row g is channel g, or 2g for row-pair words
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int ch = wn * WCH + mt * 16 + g + 8 * (e >> 1);
+          const int ch = wn * S::WCH + mt * 16 +
+                         (C::PAIR_ROWS ? 2 * g + (e >> 1) : g + 8 * (e >> 1));
           const int row = nt * 8 + 2 * t + (e & 1);
           red[(wk * S::ROWS + row) * S::RED_STRIDE + ch] = tot[mt][nt][e];
         }
@@ -466,9 +601,9 @@ nibble_mma_small_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int q = 0; q < S::WK; ++q) {
         v += red[(q * S::ROWS + row) * S::RED_STRIDE + ch];
-        r += rs[q * S::ROWS + row];
+        if (C::ROWSUMS) r += rs[q * S::ROWS + row];
       }
-      v += beta_total * r;
+      if (C::ROWSUMS) v += beta_total * r;
       if (scale != nullptr) v *= __ldg(scale + n);
       tc::store1(out + (size_t)(m0 + row) * q_out + n, v);
     }
@@ -491,12 +626,12 @@ int stage_groups(int Gp, int mr) {
 }
 
 // Shared memory of a launch: x's stage buffers and the reduce.
-template <typename T, int P, int NT, int WN>
+template <typename T, class C, int NT, int WN>
 int smem_bytes(int Gp, int mr) {
-  const int SG = stage_groups<T, P, NT, WN>(Gp, mr);
+  const int SG = stage_groups<T, C::P, NT, WN>(Gp, mr);
   const int nstage = (Gp + SG - 1) / SG;
-  return (nstage > 1 ? 2 : 1) * mr * row_bytes<T, P>(SG) +
-         Shape<NT, WN>::RED_B;
+  return (nstage > 1 ? 2 : 1) * mr * row_bytes<T, C::P>(SG) +
+         Shape<NT, WN, C::mtiles(NT)>::RED_B;
 }
 
 // The card's SMs (0 when the query fails), once.
@@ -512,12 +647,19 @@ inline int sm_count() {
   return sms;
 }
 
-template <typename T, int NSETS, int P, int NT, int WN>
-int launch(const void* x, const void* w0, const void* w1, const void* scale,
-           void* out, int m, int q_out, int Gp, float alpha0, float alpha1,
-           float beta_total, cudaStream_t stream) {
-  using S = Shape<NT, WN>;
-  auto kernel = nibble_mma_small_kernel<T, NSETS, P, NT, WN>;
+// What a launch is given besides x, the planes and the output.
+struct Args {
+  const void* scale;
+  void* out;
+  int m, q_out, Gp;
+  float alpha0, alpha1, beta_total;
+};
+
+template <typename T, class C, int NT, int WN>
+int launch(const void* x, const typename C::Planes& planes, const Args& a,
+           cudaStream_t stream) {
+  using S = Shape<NT, WN, C::mtiles(NT)>;
+  auto kernel = mma_small_kernel<T, C, NT, WN>;
   // once per instantiation: the shared-memory limit; the blocks a card
   // holds at the last launch's shared memory
   static bool smem_set = false;
@@ -529,9 +671,9 @@ int launch(const void* x, const void* w0, const void* w1, const void* scale,
     if (sm_count() < 1) return static_cast<int>(cudaErrorInvalidDevice);
     smem_set = true;
   }
-  const int mr = m < MAX_ROWS ? m : MAX_ROWS;
-  const int SG = stage_groups<T, P, NT, WN>(Gp, mr);
-  const int smem = smem_bytes<T, P, NT, WN>(Gp, mr);
+  const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
+  const int SG = stage_groups<T, C::P, NT, WN>(a.Gp, mr);
+  const int smem = smem_bytes<T, C, NT, WN>(a.Gp, mr);
   if (smem != last_smem) {
     int per_sm = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -543,40 +685,32 @@ int launch(const void* x, const void* w0, const void* w1, const void* scale,
   }
   // as many blocks as the card holds at once (at most one a tile), each
   // walking every gridDim.x-th tile
-  const int ntiles = (q_out + S::BN - 1) / S::BN;
+  const int ntiles = (a.q_out + S::BN - 1) / S::BN;
   const dim3 grid(ntiles < resident_blocks ? ntiles : resident_blocks,
-                  (m + MAX_ROWS - 1) / MAX_ROWS);
+                  (a.m + MAX_ROWS - 1) / MAX_ROWS);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(w0),
-      static_cast<const uint32_t*>(w1), static_cast<const float*>(scale),
-      static_cast<T*>(out), m, q_out, Gp, SG, alpha0, alpha1, beta_total);
+      static_cast<const T*>(x), planes, static_cast<const float*>(a.scale),
+      static_cast<T*>(a.out), a.m, a.q_out, a.Gp, SG, a.alpha0, a.alpha1,
+      a.beta_total);
   return static_cast<int>(cudaGetLastError());
 }
 
 // NT n8 tiles for m rows (a block takes at most 32), and above 8 rows two
 // channel warps when even 64-channel tiles give every SM two blocks (the
 // x traffic then matters more than the fill), else one.
-template <typename T, int NSETS, int P>
-int launch_nt(const void* x, const void* w0, const void* w1,
-              const void* scale, void* out, int m, int q_out, int Gp,
-              float alpha0, float alpha1, float beta_total, cudaStream_t s) {
-  const int mr = m < MAX_ROWS ? m : MAX_ROWS;
-  const bool wide = (q_out + 2 * WCH - 1) / (2 * WCH) >= 2 * sm_count();
-  if (m <= 8)
-    return launch<T, NSETS, P, 1, 1>(x, w0, w1, scale, out, m, q_out, Gp,
-                                     alpha0, alpha1, beta_total, s);
+template <typename T, class C>
+int launch_nt(const void* x, const typename C::Planes& planes, const Args& a,
+              cudaStream_t s) {
+  const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
+  const bool wide = (a.q_out + 2 * WCH - 1) / (2 * WCH) >= 2 * sm_count();
+  if (a.m <= 8) return launch<T, C, 1, 1>(x, planes, a, s);
   // (and when one channel warp's slab stages of f32 x would not fit)
-  if (m <= 16 && (wide || smem_bytes<T, P, 2, 1>(Gp, mr) > SMEM_MAX))
-    return launch<T, NSETS, P, 2, 2>(x, w0, w1, scale, out, m, q_out, Gp,
-                                     alpha0, alpha1, beta_total, s);
-  if (m <= 16)
-    return launch<T, NSETS, P, 2, 1>(x, w0, w1, scale, out, m, q_out, Gp,
-                                     alpha0, alpha1, beta_total, s);
-  if (wide || smem_bytes<T, P, 4, 1>(Gp, mr) > SMEM_MAX)
-    return launch<T, NSETS, P, 4, 2>(x, w0, w1, scale, out, m, q_out, Gp,
-                                     alpha0, alpha1, beta_total, s);
-  return launch<T, NSETS, P, 4, 1>(x, w0, w1, scale, out, m, q_out, Gp,
-                                   alpha0, alpha1, beta_total, s);
+  if (a.m <= 16 && (wide || smem_bytes<T, C, 2, 1>(a.Gp, mr) > SMEM_MAX))
+    return launch<T, C, 2, 2>(x, planes, a, s);
+  if (a.m <= 16) return launch<T, C, 2, 1>(x, planes, a, s);
+  if (wide || smem_bytes<T, C, 4, 1>(a.Gp, mr) > SMEM_MAX)
+    return launch<T, C, 4, 2>(x, planes, a, s);
+  return launch<T, C, 4, 1>(x, planes, a, s);
 }
 
 // The launch for n_sets plane sets and x's dtype; returns
@@ -591,17 +725,16 @@ int dispatch(const void* x, const void* w0, const void* w1,
       (n_sets == 2 && w1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{scale, out, m, q_out, Gp, alpha0, alpha1, beta_total};
+  const typename NibbleCodes<1, P>::Planes p1{
+      static_cast<const uint32_t*>(w0), static_cast<const uint32_t*>(w1)};
+  const typename NibbleCodes<2, P>::Planes p2{p1.w0, p1.w1};
   if (n_sets == 1 && x_is_bf16)
-    return launch_nt<__nv_bfloat16, 1, P>(x, w0, w1, scale, out, m, q_out,
-                                          Gp, alpha0, alpha1, beta_total, s);
-  if (n_sets == 1)
-    return launch_nt<float, 1, P>(x, w0, w1, scale, out, m, q_out, Gp,
-                                  alpha0, alpha1, beta_total, s);
+    return launch_nt<__nv_bfloat16, NibbleCodes<1, P>>(x, p1, a, s);
+  if (n_sets == 1) return launch_nt<float, NibbleCodes<1, P>>(x, p1, a, s);
   if (x_is_bf16)
-    return launch_nt<__nv_bfloat16, 2, P>(x, w0, w1, scale, out, m, q_out,
-                                          Gp, alpha0, alpha1, beta_total, s);
-  return launch_nt<float, 2, P>(x, w0, w1, scale, out, m, q_out, Gp, alpha0,
-                                alpha1, beta_total, s);
+    return launch_nt<__nv_bfloat16, NibbleCodes<2, P>>(x, p2, a, s);
+  return launch_nt<float, NibbleCodes<2, P>>(x, p2, a, s);
 }
 
 }  // namespace sm

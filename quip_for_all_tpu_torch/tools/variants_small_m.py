@@ -1,17 +1,24 @@
-"""Design variants of K1 and K11's small-m body on the card: the tile
-sizes of ``csrc/nibble_mma_small.cuh`` (the tensor-core body of
-``csrc/fused_decode_matmul.cu`` and ``csrc/sw_decode_matmul.cu``) timed
-against each other, against the SIMT body those kernels ran before
-(``csrc/nibble_decode.cuh``, which K6 still runs) and against one library
-call, at Llama-2-7B's decode linears.
+"""Design variants of the small-m tensor-core body on the card: the tile
+sizes of ``csrc/nibble_mma_small.cuh`` (the body of K1,
+``csrc/fused_decode_matmul.cu``, and K11, ``csrc/sw_decode_matmul.cu``,
+and with the u-code policy of ``csrc/ucode_mma_small.cuh`` the body of K8's
+pb entry, ``csrc/rowpair_decode_matmul.cu``, and K7,
+``csrc/paired_decode_matmul.cu``) timed against each other, against the
+SIMT body K1 and K11 ran before (``csrc/nibble_decode.cuh``, which K6
+still runs), against the sources of another checkout and against one
+library call, at Llama-2-7B's decode linears.
 
-Each variant is a copy of the three sources with one setting changed,
-built with the port's nvcc flags into ``build/variants/<variant>/`` at the
-root of the checkout and called through the kernels' C entry points:
+Each variant is a copy of the sources with one setting changed, built
+with the port's nvcc flags into ``build/variants/<variant>/`` at the root
+of the checkout and called through the kernels' C entry points:
 
   base    the sources as they are;
-  simt    the SIMT body (m tiled by at most 8 rows, f32 FMAs on the CUDA
-          cores): the entry points as they were before the tensor cores;
+  parent  the csrc directory given by ``--parent`` as it is (for example
+          another commit's, unpacked with ``git archive``), whose entry
+          points take the same arguments;
+  simt    (nibble, sw2, sw4) the SIMT body (m tiled by at most 8 rows, f32
+          FMAs on the CUDA cores): the entry points as they were before
+          the tensor cores;
   wn1     one channel warp a block at every m (32 channels, 8 warps over
           the slabs), not two on the widest layers above 8 rows;
   wn2     two channel warps at every m above 8 rows (64 channels, 4 warps
@@ -23,28 +30,38 @@ root of the checkout and called through the kernels' C entry points:
   warps4  4 warps a block instead of 8;
   stage32 x staged in stages of at most 32 KB (two buffers of 16 KB)
           instead of 96 KB;
-  pf2     a lane's words loaded two slabs ahead instead of one.
+  pf2     a lane's words loaded two slabs ahead instead of one;
+  pf0     no words loaded ahead;
+  occ2    at one n8 tile of rows, registers capped for two blocks an SM;
+  nofuse  (u-codes) a pass a set at one n8 tile of rows too;
+  umt2    (u-codes) two m16 tiles a warp at one n8 tile of rows too.
 
 Every variant computes the kernels' function and is held to the plain
-twins (``ops/fused_matmul.py``, ``ops/layout_matmul.py``) with the ratio
-of its worst error to the tolerance printed (1e-5 of the max plus one
-bf16 ulp). Times are CUDA-graph replays over L2-cold plane copies
-(``tools/_timing.py``) in bf16 with one plane set, every variant timed in
-the order given and back, summed over a token's (m = 1, 8) or a prefill's
-(m = 16, 32) 129 calls, beside the bound from the plane, x and output
-bytes at 3.35 TB/s and the library call ``x @ W.T`` on bf16 weights
-decoded beforehand (4x the plane bytes; the port never makes it). Needs
-a card:
+twins (``ops/fused_matmul.py``, ``ops/layout_matmul.py``,
+``ops/rowpair_matmul.py``) with the ratio of its worst error to the
+tolerance printed (1e-5 of the max plus one bf16 ulp). The nibble layouts
+run one plane set of random words, pb and paired random E8P12RVQ4B codes.
+Times are CUDA-graph replays over L2-cold plane copies
+(``tools/_timing.py``) in bf16, every variant timed in the order given and
+back, summed over a token's (m = 1, 8) or a prefill's (m = 16, 32) 129
+calls, beside the bound from the plane, x and output bytes at 3.35 TB/s
+and the library call ``x @ W.T`` on bf16 weights decoded beforehand (the
+port never makes it). Needs a card:
 
     python -m quip_for_all_tpu_torch.tools.variants_small_m
     python -m quip_for_all_tpu_torch.tools.variants_small_m \
         --variants base,simt --m 1,32 --layouts nibble,sw4
+    git archive <commit> quip_for_all_tpu_torch/csrc | tar -x -C build/parent
+    python -m quip_for_all_tpu_torch.tools.variants_small_m \
+        --variants base,parent --parent build/parent/quip_for_all_tpu_torch/csrc \
+        --layouts pb,paired --prefill
 
 One JSON line per variant, layout, shape and m, then one per variant,
 layout and m with the sums; the card's name and power limit first. With
-``--prefill``, then one line per variant with the device ms of
-Llama-2-7B's 32-token prefill (chip_smoke.py's main path) run on that
-variant's K1.
+``--prefill``, then one line per variant and layout family with the
+device ms of Llama-2-7B's 32-token prefill (chip_smoke.py's paths: the
+main path's E8P12 nibble for nibble/sw, E8P12RVQ4B pb or paired) run on
+that variant's kernel.
 """
 from __future__ import annotations
 
@@ -63,13 +80,23 @@ from . import _timing as tm
 from ..ops import _build
 from ..ops import fused_matmul as fm
 from ..ops import layout_matmul as lm
+from ..ops import rowpair_matmul as rm
 from ..ops.dequant import decode_weights
 from ..ops.qtensor import QuantizedTensor, to_subword
+from ..utils.random_quantized import random_qtensor
 
 HEADER = "nibble_mma_small.cuh"
-ENTRIES = {"nibble": "fused_decode_matmul", "sw2": "sw_decode_matmul",
-           "sw4": "sw_decode_matmul"}
+# the headers the rules edit (each rule must apply in one of them)
+RULE_HEADERS = (HEADER, "ucode_mma_small.cuh")
+# layout -> (source stem, C entry point)
+ENTRIES = {"nibble": ("fused_decode_matmul", "qfa_fused_decode_matmul"),
+           "sw2": ("sw_decode_matmul", "qfa_sw_decode_matmul"),
+           "sw4": ("sw_decode_matmul", "qfa_sw_decode_matmul"),
+           "pb": ("rowpair_decode_matmul", "qfa_rowpair_pb_matmul"),
+           "paired": ("paired_decode_matmul", "qfa_paired_decode_matmul")}
+UCODE = ("pb", "paired")
 SOURCES = (HEADER, "fused_decode_matmul.cu", "sw_decode_matmul.cu")
+UCODE_SOURCES = ("rowpair_decode_matmul.cu", "paired_decode_matmul.cu")
 # variant -> [(regular expression, replacement)] over the header; every
 # rule must apply at least once
 RULES = {
@@ -84,8 +111,15 @@ RULES = {
                 "constexpr int THREADS = 128;")],
     "stage32": [(r"STAGE_BUDGET = 96 \* 1024;", "STAGE_BUDGET = 32 * 1024;")],
     "pf2": [(r"constexpr int PF = 1;", "constexpr int PF = 2;")],
+    "pf0": [(r"constexpr int PF = 1;", "constexpr int PF = 0;")],
+    "occ2": [(r"__launch_bounds__\(THREADS\)\nmma_small_kernel",
+              "__launch_bounds__(THREADS, NT == 1 ? 2 : 1)\nmma_small_kernel")],
+    "nofuse": [(r"bool fused\(int nt\) \{ return nt == 1; \}",
+                "bool fused(int nt) { return false; }")],
+    "umt2": [(r"return nt == 1 \? 1 : MT;", "return MT;")],
 }
-# the simt variant's entry points: the SIMT body's dispatch
+# the simt variant's entry points (the nibble layouts): the SIMT body's
+# dispatch
 SIMT_ENTRY = {
     "fused_decode_matmul.cu": '''#include "nibble_decode.cuh"
 extern "C" int qfa_fused_decode_matmul(const void* x, const void* w0,
@@ -117,43 +151,56 @@ CALLS = {"qkv": 32, "o": 32, "gateup": 32, "down": 32, "head": 1}
 AFFINE = ((0.5, -2.75),)
 
 
-def _apply(text: str, rules, where: str) -> str:
+def _apply(texts: Dict[str, str], rules, where: str) -> Dict[str, str]:
+    """Each rule over every text; it must change at least one."""
+    texts = dict(texts)
     for pattern, repl in rules:
-        text, n = re.subn(pattern, repl, text)
-        if n == 0:
+        found = 0
+        for f in texts:
+            texts[f], n = re.subn(pattern, repl, texts[f])
+            found += n
+        if found == 0:
             raise RuntimeError(f"variant rule {pattern!r} found nothing in "
                                f"{where}")
-    return text
+    return texts
 
 
-def write_variant(name: str, out_dir: str) -> str:
+def write_variant(name: str, out_dir: str, parent: str = None) -> str:
     """The variant's sources (and the headers they include) in
-    out_dir/name; returns that path."""
-    if name not in RULES:
-        raise ValueError(f"variant {name!r} not in {sorted(RULES)}")
+    out_dir/name; returns that path. The ``parent`` variant copies the
+    csrc directory ``parent`` as it is."""
+    if name not in RULES and name != "parent":
+        raise ValueError(f"variant {name!r} not in "
+                         f"{sorted(RULES) + ['parent']}")
+    if name == "parent" and not parent:
+        raise ValueError("the parent variant needs --parent <csrc dir>")
+    src = parent if name == "parent" else _build.CSRC
     d = os.path.join(out_dir, name)
     os.makedirs(d, exist_ok=True)
-    for f in sorted(os.listdir(_build.CSRC)):
-        if not f.endswith(".cuh") and f not in SOURCES:
-            continue
-        with open(os.path.join(_build.CSRC, f)) as fh:
-            text = fh.read()
-        if f == HEADER:
-            text = _apply(text, RULES[name], f"{name}/{f}")
-        elif name == "simt" and f in SIMT_ENTRY:
-            text = SIMT_ENTRY[f]
+    texts = {}
+    for f in sorted(os.listdir(src)):
+        if f.endswith(".cuh") or f in SOURCES + UCODE_SOURCES:
+            with open(os.path.join(src, f)) as fh:
+                texts[f] = fh.read()
+    if name != "parent":
+        texts.update(_apply({f: texts[f] for f in RULE_HEADERS}, RULES[name],
+                            f"{name}/{'+'.join(RULE_HEADERS)}"))
+    if name == "simt":
+        texts.update(SIMT_ENTRY)
+    for f, text in texts.items():
         with open(os.path.join(d, f), "w") as fh:
             fh.write(text)
     return d
 
 
-def build(names: List[str], out_dir: str) -> Dict:
-    """nvcc every variant's two entry sources at once;
+def build(names: List[str], out_dir: str, stems: List[str],
+          parent: str = None) -> Dict:
+    """nvcc every variant's entry sources of ``stems`` at once;
     {(variant, source stem): loaded library}."""
     procs = []
     for v in names:
-        d = write_variant(v, out_dir)
-        for src in SOURCES[1:]:
+        d = write_variant(v, out_dir, parent)
+        for src in (f + ".cu" for f in stems):
             so = os.path.join(d, "lib" + src[:-3] + ".so")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
                    os.path.join(d, src)]
@@ -184,19 +231,39 @@ def build(names: List[str], out_dir: str) -> Dict:
     return fns
 
 
-def entry(lib, stem: str):
-    """The C entry point of a variant's library, its types set."""
-    fn = getattr(lib, "qfa_" + stem)
-    extra = 1 if stem == "sw_decode_matmul" else 0
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * (1 + extra)
-                   + [ctypes.c_void_p])
+def entry(lib, layout: str):
+    """The C entry point of a variant's library for a layout, its types
+    set."""
+    fn = getattr(lib, ENTRIES[layout][1])
+    if layout in UCODE:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+    else:
+        extra = 0 if layout == "nibble" else 1
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * (1 + extra)
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _call(fn, layout, x, w, m):
-    """One launch of a variant's entry on words w (q_out, Gp) int32."""
+def _call(fn, layout, x, w, m, rs=-1.0):
+    """One launch of a variant's entry on words w (q_out, Gp) int32, or on
+    a u-code layout's planes {w0, w1, w2} with residual scale rs."""
+    if layout in UCODE:
+        q_out = w["w2"].shape[0] * (1 if layout == "paired" else 2)
+        out = torch.empty((m, q_out), dtype=x.dtype, device=x.device)
+        err = fn(x.data_ptr(), w["w0"].data_ptr(), w["w1"].data_ptr(),
+                 w["w2"].data_ptr(), None, out.data_ptr(), m, q_out,
+                 w["w0"].shape[-1], w["w2"].shape[-1], rs, 2.25 * (1 + rs),
+                 int(rm.group_sum_in_bf16(x)),
+                 int(x.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{layout} variant launch failed: cudaError "
+                               f"{err}")
+        return out
     q_out, Gp = w.shape
     out = torch.empty((m, q_out), dtype=x.dtype, device=x.device)
     extra = () if layout == "nibble" else (int(layout[2]),)
@@ -218,50 +285,74 @@ def err_over_tol(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((g - w).abs() / tol).max())
 
 
+def _case(layout: str, q_out: int, q_in: int, gen, dev):
+    """(words or planes, their L2-cold copies, plane bytes, the bf16 weights
+    of the library call, P, rs, twin(x) on the first copy) of one layer:
+    random words for the nibble layouts (one plane set), random E8P12RVQ4B
+    codes for pb and paired."""
+    if layout in UCODE:
+        qt = random_qtensor("E8P12RVQ4B", layout, q_out, q_in, gen, dev)
+        planes, rs = qt.planes, qt.opt_resid_scale
+        return (planes, tm.cold_copies(planes),
+                sum(v.numel() * 4 for v in planes.values()),
+                decode_weights(qt, dtype=torch.bfloat16), 1, rs,
+                lambda x, m: rm.rowpair_matmul_ref(x, layout, planes, rs,
+                                                   rows=m))
+    Gp = -(-(q_in // 8) // 128) * 128
+    w = torch.randint(-2 ** 31, 2 ** 31 - 1, (q_out, Gp), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    qt = QuantizedTensor({"w0": w}, "E8P12", q_out, q_in)
+    P = 1 if layout == "nibble" else int(layout[2])
+    if P == 1:
+        twin = lambda x, m: fm.fused_decode_matmul_ref(x[:m], [w], AFFINE)
+    else:
+        sw = to_subword(qt, P).plane_list()
+        twin = lambda x, m: lm.sw_decode_matmul_ref(x[:m], sw, AFFINE)
+    return (w, [c[0] for c in tm.cold_copies([w])], w.numel() * 4,
+            decode_weights(qt, dtype=torch.bfloat16), P, -1.0, twin)
+
+
 def run(variants: List[str], ms: List[int], layouts: List[str],
-        seed: int = 0, prefill: bool = False) -> List[Dict]:
+        seed: int = 0, prefill: bool = False,
+        parent: str = None) -> List[Dict]:
+    if "simt" in variants and any(lay in UCODE for lay in layouts):
+        raise ValueError("the simt variant is the nibble layouts' SIMT "
+                         "body; time pb's and paired's SIMT bodies as the "
+                         "parent variant of a commit that ran them")
     if not torch.cuda.is_available():
         raise RuntimeError("the variants need a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
-    libs = build(variants, os.path.join(_build.BUILD_DIR, "variants"))
+    stems = sorted({ENTRIES[lay][0] for lay in layouts})
+    libs = build(variants, os.path.join(_build.BUILD_DIR, "variants"), stems,
+                 parent)
     print(json.dumps({"build_s": time.time() - t0}), flush=True)
-    fns = {k: entry(lib, k[1]) for k, lib in libs.items()}
+    fns = {(v, lay): entry(libs[(v, ENTRIES[lay][0])], lay)
+           for v in variants for lay in layouts}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     order = variants + variants[::-1]
     recs = []
     for name, q_out, q_in in SHAPES:
-        G = q_in // 8
-        Gp = -(-G // 128) * 128
-        w = torch.randint(-2 ** 31, 2 ** 31 - 1, (q_out, Gp), generator=gen,
-                          device=dev, dtype=torch.int64).to(torch.int32)
-        cp = tm.cold_copies([w])
-        W = decode_weights(QuantizedTensor({"w0": w}, "E8P12", q_out, q_in),
-                           dtype=torch.bfloat16)
-        Wc = tm.cold_copies([W])
-        for m in ms:
-            x_nat = torch.randn((m, q_in), generator=gen, device=dev).to(
-                torch.bfloat16)
-            lib_us = tm.graph_us(lambda i: torch.matmul(
-                x_nat, Wc[i % len(Wc)][0].T), 4 * len(Wc))
-            for layout in layouts:
-                P = 1 if layout == "nibble" else int(layout[2])
+        for layout in layouts:
+            w, cp, plane_bytes, W, P, rs, twin = _case(layout, q_out, q_in,
+                                                        gen, dev)
+            Gp = (w["w0"] if layout in UCODE else w).shape[-1]
+            Wc = tm.cold_copies([W])
+            for m in ms:
+                x_nat = torch.randn((m, q_in), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                lib_us = tm.graph_us(lambda i: torch.matmul(
+                    x_nat, Wc[i % len(Wc)][0].T), 4 * len(Wc))
                 x = fm.grouped_permute(x_nat, Gp, P).contiguous()
-                if layout == "nibble":
-                    want = fm.fused_decode_matmul_ref(x, [w], AFFINE)
-                else:
-                    sw = to_subword(QuantizedTensor({"w0": w}, "E8P12", q_out,
-                                                    q_in), P).plane_list()
-                    want = lm.sw_decode_matmul_ref(x, sw, AFFINE)
-                stem = ENTRIES[layout]
+                want = twin(x, m)
                 times = {v: [] for v in variants}
                 for v in order:
-                    f = fns[(v, stem)]
+                    f = fns[(v, layout)]
                     times[v].append(tm.graph_us(
-                        lambda i: _call(f, layout, x, cp[i % len(cp)][0], m),
+                        lambda i: _call(f, layout, x, cp[i % len(cp)], m, rs),
                         4 * len(cp)))
-                nbytes = w.numel() * 4 + x.numel() * 2 + m * q_out * 2
+                nbytes = plane_bytes + x.numel() * 2 + m * q_out * 2
                 for v in variants:
                     rec = {"variant": v, "layout": layout, "layer": name,
                            "q_out": q_out, "Gp": Gp, "m": m,
@@ -269,11 +360,12 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
                            "bound_us": nbytes / tm.HBM_BYTES_PER_S * 1e6,
                            "library_us": lib_us,
                            "err_over_tol": err_over_tol(
-                               _call(fns[(v, stem)], layout, x, w, m), want)}
+                               _call(fns[(v, layout)], layout, x, w, m, rs),
+                               want)}
                     recs.append(rec)
                     print(json.dumps(rec), flush=True)
-        del cp, W, Wc
-        torch.cuda.empty_cache()
+            del w, cp, W, Wc
+            torch.cuda.empty_cache()
     for v in variants:
         for layout in layouts:
             for m in ms:
@@ -291,25 +383,37 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
                     "worst_err_over_tol": max(r["err_over_tol"]
                                               for r in sel)}), flush=True)
     if prefill:
-        prefill_ms(variants, libs, seed)
+        for layout in ([lay for lay in layouts if lay in UCODE]
+                       + (["nibble"] if "nibble" in layouts else [])):
+            prefill_ms(variants, libs, seed, layout=layout)
     return recs
 
 
 def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
-               S: int = 32, reps: int = 10) -> Dict:
-    """Device ms of Llama-2-7B E8P12's S-token bf16 prefill (random codes
-    from ``seed``, fused qkv and gate/up, quantized head, the main path of
-    chip_smoke.py) with each variant's K1 in place of the built one: the
-    prefill captured in a CUDA graph and replayed ``reps`` times, every
-    variant in the order given and back. The 129 linears must launch K1
-    (fused_decode_matmul.launches counts them)."""
+               S: int = 32, reps: int = 10, layout: str = "nibble") -> Dict:
+    """Device ms of Llama-2-7B's S-token bf16 prefill (random codes from
+    ``seed``, fused qkv and gate/up, quantized head, as chip_smoke.py's
+    paths: E8P12 nibble for ``layout`` nibble, E8P12RVQ4B pb or paired)
+    with each variant's kernel in place of the built one: the prefill
+    captured in a CUDA graph and replayed ``reps`` times, every variant in
+    the order given and back. The 129 linears must launch the layout's
+    kernel (its wrapper's counter counts them)."""
     import quip_for_all_tpu_torch as qt
     from ..models import llama as M
     from ..runtime.generate import attn_bucket, init_kv_caches
+    stem = ENTRIES[layout][0]
+    counter = {"nibble": fm.fused_decode_matmul, "pb": rm.rowpair_pb_matmul,
+               "paired": rm.paired_decode_matmul}[layout]
     cfg = qt.llama2_7b_config()
-    model = qt.fuse_for_inference(cfg, qt.random_quantized_model(
-        cfg, seed=seed, dtype=torch.bfloat16, quantize_head=True,
-        device="cuda"))
+    if layout == "nibble":
+        model = qt.random_quantized_model(
+            cfg, seed=seed, dtype=torch.bfloat16, quantize_head=True,
+            device="cuda")
+    else:
+        model = qt.random_quantized_model(
+            cfg, "E8P12RVQ4B", seed=seed, dtype=torch.bfloat16,
+            quantize_head=True, device="cuda", layout=layout)
+    model = qt.fuse_for_inference(cfg, model)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device="cuda")
@@ -323,38 +427,50 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
     times = {v: [] for v in variants}
     try:
         for v in variants + variants[::-1]:
-            _build._libs["fused_decode_matmul"] = libs[
-                (v, "fused_decode_matmul")]
-            before = fm.fused_decode_matmul.launches
+            _build._libs[stem] = libs[(v, stem)]
+            before = counter.launches
             step(0)
             torch.cuda.synchronize()
-            if fm.fused_decode_matmul.launches - before != 4 * 32 + 1:
-                raise RuntimeError("the prefill did not run K1 129 times")
+            if counter.launches - before != 4 * 32 + 1:
+                raise RuntimeError(f"the prefill did not run the {layout} "
+                                   f"kernel 129 times")
             times[v].append(1e-3 * tm.graph_us(step, 1, reps=reps))
     finally:
-        _build._libs.pop("fused_decode_matmul", None)
+        _build._libs.pop(stem, None)
+        del model, caches
+        torch.cuda.empty_cache()
     for v in variants:
-        print(json.dumps({"variant": v, "prefill_tokens": S,
+        print(json.dumps({"variant": v, "layout": layout,
+                          "prefill_tokens": S,
                           "prefill_device_ms": times[v]}), flush=True)
     return times
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", default=",".join(RULES))
+    ap.add_argument("--variants", default=None,
+                    help="default: every variant of RULES (but simt with "
+                         "pb or paired)")
     ap.add_argument("--m", default="1,8,16,32")
-    ap.add_argument("--layouts", default="nibble,sw4")
+    ap.add_argument("--layouts", default="nibble,sw4",
+                    help="of nibble, sw2, sw4, pb, paired")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="the csrc directory of the parent variant")
     ap.add_argument("--prefill", action="store_true",
                     help="also time Llama-2-7B's 32-token prefill with "
-                         "each variant's K1")
+                         "each variant's kernel (nibble: K1; pb, paired)")
     a = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(json.dumps({"card": smi.stdout.strip()}), flush=True)
-    run(a.variants.split(","), [int(v) for v in a.m.split(",")],
-        a.layouts.split(","), a.seed, a.prefill)
+    layouts = a.layouts.split(",")
+    variants = (a.variants.split(",") if a.variants else
+                [v for v in RULES if v != "simt"
+                 or not any(lay in UCODE for lay in layouts)])
+    run(variants, [int(v) for v in a.m.split(",")], layouts, a.seed,
+        a.prefill, a.parent)
     return 0
 
 

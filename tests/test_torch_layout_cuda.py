@@ -1,5 +1,6 @@
-"""The bfp (K10), sw2/sw4 (K11), split-K (K6) and paired (K7) CUDA kernels
-against their plain twins, on a card. This file imports neither JAX nor
+"""The bfp (K10), sw2/sw4 (K11), split-K (K6) and paired (K7, the
+tensor-core body csrc/ucode_mma_small.cuh) CUDA kernels against their
+plain twins, on a card. This file imports neither JAX nor
 the JAX package (the card's machine has no JAX), so it runs there without
 tests/conftest.py:
 
@@ -88,12 +89,13 @@ def _case(kernel, q_out, q_in, n_sets, device, seed, chunks=2):
 
 
 def _check(kernel, q_out, q_in, m, dtype, device, seed, n_sets=1, mp=None,
-           chunks=2):
+           chunks=2, with_scale=True):
     Gp, call, twin, counter = _case(kernel, q_out, q_in, n_sets, device,
                                     seed, chunks)
     g = torch.Generator(device=device).manual_seed(seed + 1)
     x = torch.randn((mp or m, 8 * Gp), generator=g, device=device).to(dtype)
     scale = torch.rand(q_out, generator=g, device=device) + 0.5
+    scale = scale if with_scale else None
     before = counter.launches
     got = call(x, scale, m)
     want = twin(x, scale, m)
@@ -142,6 +144,42 @@ def test_sw_row_tiles(cuda, kernel, m, dtype):
     plane sets."""
     _check(kernel, 200, 11008, m, dtype, cuda, seed=m, n_sets=1 + m % 2,
            mp=-(-m // 8) * 8)
+
+
+@pytest.mark.parametrize("with_scale", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", list(range(1, 10)) + [16, 17, 24, 31, 32, 33,
+                                                     64, 65])
+def test_paired_row_tiles(cuda, m, dtype, with_scale):
+    """K7's tensor-core body at the edges of 1, 2 and 4 n8 tiles of rows and
+    across blocks of 32 rows (33, 64, 65), at a ragged q_out and down's
+    1536 groups, x padded to a multiple of 8 rows as the dispatch pads it
+    (both group-sum roundings)."""
+    _check("paired", 200, 11008, m, dtype, cuda, seed=m,
+           mp=max(8, -(-m // 8) * 8), with_scale=with_scale)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 65])
+def test_paired_is_deterministic_and_replays_in_a_graph(cuda, m):
+    """A second call and a CUDA-graph replay give the first call's bits (a
+    block's warps add their partial sums in a fixed order), and only K7's
+    counter moves."""
+    Gp, call, twin, counter = _case("paired", 4096, 11008, 1, cuda, seed=5)
+    x = torch.randn((max(8, -(-m // 8) * 8), 8 * Gp), generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda).to(torch.bfloat16)
+    before = (counter.launches, rm.rowpair_pb_matmul.launches)
+    first = call(x, None, m)
+    again = call(x, None, m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(x, None, m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first) and torch.equal(out, first)
+    after = (counter.launches, rm.rowpair_pb_matmul.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 0)
+    _close(first, twin(x, None, m), torch.bfloat16)
 
 
 @pytest.mark.parametrize("chunks", [2, 3, 4, 11])

@@ -1,4 +1,5 @@
-"""The row-pair CUDA kernels (u3, pb) against their plain twins, on a card.
+"""The row-pair CUDA kernels (u3, and pb on the tensor-core body
+csrc/ucode_mma_small.cuh) against their plain twins, on a card.
 This file imports neither JAX nor the JAX package (the card's machine has
 no JAX), so it runs there without tests/conftest.py:
 
@@ -64,11 +65,13 @@ def _call(layout, x, planes, scale=None, rows=None):
     return rm.rowpair_pb_matmul(x, planes, RS, scale, rows=rows)
 
 
-def _check(layout, q_out, q_in, m, dtype, device, seed, mp=None):
+def _check(layout, q_out, q_in, m, dtype, device, seed, mp=None,
+           with_scale=True):
     planes, Gp = _planes(layout, q_out, q_in, device, seed)
     g = torch.Generator(device=device).manual_seed(seed + 1)
     x = torch.randn((mp or m, 8 * Gp), generator=g, device=device).to(dtype)
     scale = torch.rand(q_out, generator=g, device=device) + 0.5
+    scale = scale if with_scale else None
     counter = getattr(rm, f"rowpair_{layout}_matmul")
     before = counter.launches
     got = _call(layout, x, planes, scale, rows=m)
@@ -101,6 +104,45 @@ def test_kernel_matches_plain_twin_at_a_ragged_q_out(cuda, layout, m, mp,
     _check(layout, 200, 1376 * 8, m, dtype, cuda, seed=m, mp=mp)
 
 
+@pytest.mark.parametrize("with_scale", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", list(range(1, 10)) + [16, 17, 24, 31, 32, 33,
+                                                     64, 65])
+def test_pb_row_tiles(cuda, m, dtype, with_scale):
+    """K8's tensor-core body at the edges of 1, 2 and 4 n8 tiles of rows and
+    across blocks of 32 rows (33, 64, 65), at a ragged q_out (100 row
+    pairs) and down's 1408 groups, x padded to a multiple of 8 rows as the
+    dispatch pads it (both group-sum roundings)."""
+    _check("pb", 200, 11008, m, dtype, cuda, seed=m, mp=max(8, -(-m // 8) * 8),
+           with_scale=with_scale)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 65])
+def test_pb_is_deterministic_and_replays_in_a_graph(cuda, m):
+    """A second call and a CUDA-graph replay give the first call's bits (a
+    block's warps add their partial sums in a fixed order), and only the pb
+    counter moves."""
+    planes, Gp = _planes("pb", 4096, 11008, cuda, seed=5)
+    x = torch.randn((max(8, -(-m // 8) * 8), 8 * Gp), generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda).to(torch.bfloat16)
+    before = (rm.rowpair_pb_matmul.launches, rm.rowpair_u3_matmul.launches,
+              rm.paired_decode_matmul.launches)
+    first = _call("pb", x, planes, rows=m)
+    again = _call("pb", x, planes, rows=m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _call("pb", x, planes, rows=m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first) and torch.equal(out, first)
+    after = (rm.rowpair_pb_matmul.launches, rm.rowpair_u3_matmul.launches,
+             rm.paired_decode_matmul.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 0, 0)
+    _close(first, rm.rowpair_matmul_ref(x, "pb", planes, RS, rows=m),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("layout", ["u3", "pb"])
 def test_a_call_replays_in_a_cuda_graph(cuda, layout):
     """The wrapper reads nothing back to the host: one call captured in a
@@ -127,3 +169,32 @@ def test_misaligned_planes_raise(cuda):
     bad = dict(planes, w0=flat[1:].view(planes["w0"].shape))   # 4-byte off
     with pytest.raises(ValueError, match="aligned"):
         rm.rowpair_u3_matmul(torch.zeros((1, 8 * Gp), device=cuda), bad)
+
+
+@pytest.mark.parametrize("layout", ["pb", "paired"])
+def test_ucode_entries_refuse_a_beta_the_codes_do_not_carry(cuda, layout):
+    """K8 and K7 carry beta = 2.25*(1+rs) in their codes: their C entry
+    points refuse any other beta (cudaErrorInvalidValue, 1) instead of
+    ignoring it, and take the wrapper's own."""
+    from quip_for_all_tpu_torch.ops._build import load
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qt = random_qtensor("E8P12RVQ4B", layout, 192, 4096, g, cuda)
+    planes, rs = qt.planes, qt.opt_resid_scale
+    Gp, PL = planes["w0"].shape[-1], planes["w2"].shape[-1]
+    x = torch.randn((8, 8 * Gp), generator=g, device=cuda).to(torch.bfloat16)
+    entry = ("qfa_paired_decode_matmul" if layout == "paired"
+             else "qfa_rowpair_pb_matmul")
+    out = rm._launch(entry, x, layout, planes, rs, None, 1)
+    torch.cuda.synchronize()
+    _close(out, rm.rowpair_matmul_ref(x, layout, planes, rs, rows=1),
+           torch.bfloat16)
+    fn = getattr(load(rm.PAIRED_KERNEL if layout == "paired" else rm.KERNEL),
+                 entry)
+    beta = 2.25 * (1 + rs)
+    for bad in (beta + 0.01 * max(1.0, abs(beta)), beta - 0.01, 2.25 * rs):
+        err = fn(x.data_ptr(), planes["w0"].data_ptr(),
+                 planes["w1"].data_ptr(), planes["w2"].data_ptr(), None,
+                 out.data_ptr(), 1, 192, Gp, PL, float(rs), bad, 0, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 1, (bad, err)

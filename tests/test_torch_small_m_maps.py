@@ -29,6 +29,17 @@ from quip_for_all_tpu_torch.ops import layout_matmul as lm
 
 pytestmark = pytest.mark.fast
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor ops: on one thread they take seconds, while a
+    thread pool per worker of a parallel test run oversubscribes the
+    cores by orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 AFFINE = {1: ((0.5, -2.75),),
           2: ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))}
 SLAB = 16                      # groups a slab (4 lanes x 4 words)

@@ -1,9 +1,10 @@
-"""The design-variants tool of K1 and K11's small-m body
-(quip_for_all_tpu_torch/tools/variants_small_m.py) on the CPU: every
-variant's rules still find what they change in the current header, so an
-edit of the kernel cannot silently turn a variant into the unchanged
-body; the SIMT variant's entry points still name the SIMT body's
-dispatch. The timing itself needs a card."""
+"""The design-variants tool of the small-m tensor-core body of K1, K11, K8
+and K7 (quip_for_all_tpu_torch/tools/variants_small_m.py) on the CPU:
+every variant's rules still find what they change in the current headers,
+so an edit of the kernel cannot silently turn a variant into the
+unchanged body; the SIMT variant's entry points still name the SIMT
+body's dispatch; the parent variant copies another csrc directory. The
+timing itself needs a card."""
 import os
 
 import pytest
@@ -18,7 +19,7 @@ pytestmark = pytest.mark.fast
 def test_every_variant_applies_to_the_sources(variant, tmp_path):
     d = vs.write_variant(variant, str(tmp_path))
     changed = []
-    for f in vs.SOURCES:
+    for f in sorted(set(vs.SOURCES + vs.UCODE_SOURCES + vs.RULE_HEADERS)):
         with open(os.path.join(_build.CSRC, f)) as a, \
                 open(os.path.join(d, f)) as b:
             changed.append(a.read() != b.read())
@@ -26,6 +27,7 @@ def test_every_variant_applies_to_the_sources(variant, tmp_path):
     # the headers the sources include come along
     assert os.path.isfile(os.path.join(d, "nibble_decode.cuh"))
     assert os.path.isfile(os.path.join(d, "nibble_mma.cuh"))
+    assert os.path.isfile(os.path.join(d, "ucode_mma_small.cuh"))
 
 
 def test_simt_entries_call_the_simt_body(tmp_path):
@@ -46,3 +48,35 @@ def test_unknown_variant_and_no_card_raise(tmp_path):
     if not vs.torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="card"):
             vs.run(["base"], [1], ["nibble"])
+
+
+def test_ucode_entries_run_the_tensor_core_body_and_refuse_simt(tmp_path):
+    """pb and paired have no SIMT body in the sources: every variant's
+    u-code entries run the tensor-core body, and asking for the simt
+    variant with a u-code layout raises (before any card is needed)."""
+    for v in ("base", "simt"):
+        d = vs.write_variant(v, str(tmp_path))
+        for src in vs.UCODE_SOURCES:
+            with open(os.path.join(d, src)) as f:
+                assert "sm::dispatch_ucode<" in f.read()
+    assert set(vs.UCODE) <= set(vs.ENTRIES)
+    for layout in vs.UCODE:
+        with pytest.raises(ValueError, match="parent"):
+            vs.run(["base", "simt"], [1], [layout])
+
+
+def test_parent_variant_copies_another_csrc_as_it_is(tmp_path):
+    """The parent variant takes the sources of another csrc directory
+    without the rules, and needs one."""
+    other = tmp_path / "other"
+    other.mkdir()
+    for f in os.listdir(_build.CSRC):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(_build.CSRC, f)) as a:
+                (other / f).write_text(a.read() + "// another commit\n")
+    d = vs.write_variant("parent", str(tmp_path / "v"), str(other))
+    for f in sorted(set(vs.SOURCES + vs.UCODE_SOURCES + vs.RULE_HEADERS)):
+        with open(os.path.join(d, f)) as b:
+            assert b.read() == (other / f).read_text()
+    with pytest.raises(ValueError, match="--parent"):
+        vs.write_variant("parent", str(tmp_path / "v"))
