@@ -32,9 +32,10 @@ line):
      kernels, a 16-token prompt through the sparse prefill, and the
      kernel-vs-plain check with the kernel run on the plain run's top-2
      routing (a fork accepted only at a near-tie of the tokens);
-  7. the row-pair kernels (u3 on the SIMT body, pb on the tensor-core
-     body) against their plain twins at the Llama-2-7B shapes, m = 1, 8,
-     32 and 64 in bf16 and m = 1 in f32, timed as in phase 2, each beside
+  7. the row-pair kernels (u3 and pb, each its codes policy on the
+     tensor-core body ucode_mma_small.cuh) against their plain twins at
+     the Llama-2-7B shapes, m = 1, 8, 32 and 64 in bf16 and m = 1 in f32
+     (gx in bf16 above 8 rows), timed as in phase 2, each beside
      fused_decode_matmul on the nibble planes of the same codes (E8P12 1
      plane for u3, E8P12RVQ4B 2 planes for pb), with sums per token (m =
      1, 8) and per prefill (m = 32, 64);
@@ -47,21 +48,23 @@ line):
      greedy tokens twice, exact launch counts, one graphed step, the
      graphed 32-token prefill, and the kernel-vs-plain check over 16
      tokens;
- 10. bfp_decode_matmul (K10, 1 and 2 plane sets), sw_decode_matmul (K11,
-     sw2 and sw4), ksplit_decode_matmul (K6, 2 and 4 chunks; down 11) and
-     paired_decode_matmul (K7) against their plain twins at the Llama-2-7B
-     shapes, m = 1, 8, 32, 64 in bf16 and 1 in f32, timed as in phase 2,
-     beside fused_decode_matmul on the same codes (and K7 beside pb), with
-     K11's and K7's sums per token (m = 1, 8) and per prefill (m = 32,
+ 10. bfp_decode_matmul (K10, the SIMT body nibble_decode.cuh, 1 and 2
+     plane sets), sw_decode_matmul (K11, sw2 and sw4), ksplit_decode_matmul
+     (K6, K1's tensor-core body over (tile, chunk) units and a reduce where
+     the split pays, else over whole tiles; 2 and 4 chunks;
+     down 11) and paired_decode_matmul (K7) against their plain twins at
+     the Llama-2-7B shapes, m = 1, 8, 32, 64 in bf16 and 1 in f32, timed
+     as in phase 2, beside fused_decode_matmul on the same codes (and K7
+     beside pb), with sums per token (m = 1, 8) and per prefill (m = 32,
      64), and the I2F count of every built library's SASS (phase 1);
  11. the golden fixtures in the new layouts: e8p12 as bfp, sw2 and sw4,
      e8p12rvq4b as paired and bfp;
  12. the new paths at full width, all 32 layers, right after phase 5 on
      its model: (f) split-K = 4 on the main path's planes, (e) those
      planes re-laid as sw4 and (d) as bfp, each first held to phase 5's
-     f32 logits, then (g) E8P12RVQ4B paired from seed 0 (with its graphed
-     32-token prefill); each as in phase 9, with the exact launch counts
-     of its kernels;
+     f32 logits, then (g) E8P12RVQ4B paired from seed 0; each as in phase
+     9 (the graphed 32-token prefill too), with the exact launch counts of
+     its kernels;
  13. fused_decode_matmul_bwd (K3, the tensor-core backward of K1/K2)
      against its plain twin at Llama-2-7B's unfused shapes (q/k/v/o,
      gate/up, down, head), m = 1, 64 and 1022, bf16 and f32, 1 and 2 plane
@@ -1054,18 +1057,19 @@ def phase_layout_kernels():
             f"same codes {per_tok['nibble_ms']:.3f} ms" + (
                 f"; pb (K8) {per_tok['pb_ms']:.3f} ms"
                 if label == "paired" else ""))
-    # K11 and K7 beyond decode: per token at m = 8, per 32- and 64-token
-    # prefill
-    for label in ("sw2", "sw4", "paired"):
+    # beyond decode: per token at m = 8, per 32- and 64-token prefill
+    for label, calls in (("bfp", LLAMA_CALLS), ("sw2", LLAMA_CALLS),
+                         ("sw4", LLAMA_CALLS), ("ksplit4", KSPLIT_CALLS),
+                         ("paired", LLAMA_CALLS)):
         for m in (8, 32, 64):
             per = {key: call_sum([r for r in rows if r["variant"] == label],
-                                 LLAMA_CALLS, key, m=m, dtype="bfloat16")
+                                 calls, key, m=m, dtype="bfloat16")
                    for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                "nibble_ms")}
             log(f"kernel {label} per Llama-2-7B "
-                f"{'token' if m <= 8 else 'prefill'} at m={m} (bf16, 129 "
-                f"calls): " + ", ".join(f"{k} {v:.3f}"
-                                        for k, v in per.items()))
+                f"{'token' if m <= 8 else 'prefill'} at m={m} (bf16, "
+                f"{sum(calls.values())} calls): " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in per.items()))
     return rows, max_err
 
 
@@ -1168,6 +1172,8 @@ def phase_layout_paths(main):
             raise AssertionError(f"{tag}: f32 logits differ from K1's by "
                                  f"{rel}")
         out[tag] = run_path(tag, cfg, model, prompt, expect)
+        out[tag]["prefill_device_ms"] = log_prefill(
+            tag, cfg, model, prompt, 2048, ", ".join(expect))
         back()
         gc.collect()
         torch.cuda.empty_cache()
@@ -1892,15 +1898,27 @@ def call_sum(rows, calls, key, **match):
                and all(r.get(f) == v for f, v in match.items()))
 
 
-def small_m_sums(rows, match):
-    """K1's, K11's, K7's or K8's Llama-2-7B sums beyond decode at m = 1,
-    for the kernels line: per token at m = 8 and per 32-token prefill at
-    m = 32 (129 calls each, bf16, the rows that ``match``)."""
+def small_m_sums(rows, match, calls=None):
+    """A kernel's Llama-2-7B sums beyond decode at m = 1, for the kernels
+    line: per token at m = 8 and per 32-token prefill at m = 32 (bf16, the
+    rows that ``match``, each layer times its ``calls``: 129 a token, 97
+    for split-K)."""
     out = {}
     for key, m in (("per_token_m8", 8), ("per_prefill_m32", 32)):
-        out[key] = {k: call_sum(rows, LLAMA_CALLS, k, m=m, **match)
+        out[key] = {k: call_sum(rows, calls or LLAMA_CALLS, k, m=m, **match)
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     return out
+
+
+def moe_sums(moe_rows):
+    """The MoE kernel's Mixtral-8x7B sums beyond decode, for the kernels
+    line: R = 16 (8 tokens) and R = 62 (a 31-token sparse prefill), w13
+    and w2 of each of the 32 layers."""
+    calls = {"w13": LAYERS, "w2": LAYERS}
+    return {key: {k: call_sum(moe_rows, calls, k, R=R)
+                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for key, R in (("per_8_tokens_R16", 16),
+                           ("per_31_token_prefill_R62", 62))}
 
 
 def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
@@ -1930,6 +1948,7 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
         "llama2_7b_rvq4b_nibble": paths["c_rvq4b_nibble"]["launches"]}
     moe = entry(KERNELS[1], moe_rows, moe_calls, {"R": 2},
                 mix["launches"]["moe_decode_matmul"], moe_err)
+    moe.update(moe_sums(moe_rows))
     # Mixtral's decode step: its fused calls (GQA qkv, o, head) and its
     # MoE calls, against the graphed step's device time
     mix_fused = call_sum(rows, MIXTRAL_FUSED_CALLS, "ms", m=1, sets=1)
@@ -1945,9 +1964,8 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
         e = entry(next(k for k in KERNELS if k["name"] == kname), rp_rows,
                   LLAMA_CALLS, {"kernel": kname, "m": 1, "dtype": "bfloat16"},
                   paths[path]["launches"], rp_err[kname])
-        if layout == "pb":
-            e.update(small_m_sums(rp_rows, {"kernel": kname,
-                                            "dtype": "bfloat16"}))
+        e.update(small_m_sums(rp_rows, {"kernel": kname,
+                                        "dtype": "bfloat16"}))
         log(f"{path}: per decode token the {layout} kernel takes "
             f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
             f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
@@ -1975,9 +1993,8 @@ def layout_entries(rows, max_err, paths):
                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
                  bound_by=("bytes" if all(r["bound_by"] == "bytes"
                                           for r in sel) else "operations"))
-        if label in ("sw4", "paired"):
-            e.update(small_m_sums(rows, {"variant": label,
-                                         "dtype": "bfloat16"}))
+        e.update(small_m_sums(rows, {"variant": label, "dtype": "bfloat16"},
+                              calls))
         log(f"{path}: per decode token the {label} kernel takes "
             f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
             f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "

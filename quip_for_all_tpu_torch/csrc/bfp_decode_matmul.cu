@@ -199,8 +199,8 @@ extern "C" int qfa_bfp_decode_matmul(const void* x, const void* w0,
   if (m < 1 || q_out < 2 || q_out % 2 || Gp < 4 || Gp % 4 || n_sets < 1 ||
       n_sets > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const NibbleArgs a{x, w0, w1, scale, out, nullptr, m, q_out, Gp, 1,
-                     alpha0, alpha1, beta_total};
+  const NibbleArgs a{x, w0, w1, scale, out, m, q_out, Gp, alpha0, alpha1,
+                     beta_total};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_sets == 1 && x_is_bf16)
     launch_bfp_mt<__nv_bfloat16, 1>(a, s);

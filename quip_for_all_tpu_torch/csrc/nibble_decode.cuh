@@ -1,10 +1,9 @@
 // Affine-nibble decode + matmul for Hopper (sm_90a) on the CUDA cores (the
-// SIMT body): split-K K6 (ksplit_decode_matmul.cu) instantiates it with its
-// own C entry point, K10 (bfp_decode_matmul.cu) uses its helpers, and T1
-// (mb_kernel.cu) and T4 (mb_tn.cu) copy its loop. K1 and K11 ran it until
-// they moved to the tensor-core body nibble_mma_small.cuh; its template
-// still takes the subword split P of K11's layouts (the variants tool,
-// tools/variants_small_m.py, times it against the new body).
+// SIMT body): K10 (bfp_decode_matmul.cu) uses its helpers, T1
+// (mb_kernel.cu) and T4 (mb_tn.cu) copy its loop, and the variants tool's
+// simt variant (tools/variants_small_m.py) builds K1 and K11's entry
+// points on its dispatch, which takes the subword split P of K11's
+// layouts.
 //
 // Computes, for x_perm (m, 8*Gp) in the layout's grouped lane order and 1
 // or 2 plane sets of words (q_out, Gp):
@@ -16,18 +15,13 @@
 // cast to x's dtype. With P subwords per word and nq = 8 / P, nibble i of
 // word g lies in subword j = i div nq at field q = i mod nq and meets
 //   lane(g, i) = q*(P*Gp) + P*g + j
-// (P = 1: lane i*Gp + g). Split-K with C chunks runs the same sum over the
-// groups [k*Gp/C, (k+1)*Gp/C) of chunk k, writes the chunk's partial
-// (alphas and the chunk's beta*rowsum applied, no scale) to an f32
-// workspace ws[k, r, n], and a second kernel adds the partials in chunk
-// order and runs the epilogue (ksplit_decode_matmul.cu). Every product is
-// exact in f32 (x is bf16- or f32-valued, nibbles are 0..15), so results
-// differ from the plain twins only by f32 summation order. Nibbles are
-// taken from the word as uint32, so the shift of nibble 7 is logical.
+// (P = 1: lane i*Gp + g). Every product is exact in f32 (x is bf16- or
+// f32-valued, nibbles are 0..15), so results differ from the plain twins
+// only by f32 summation order. Nibbles are taken from the word as uint32,
+// so the shift of nibble 7 is logical.
 //
 // What bounds it on the card: device-memory bytes. Each call must read
-// n_sets*q_out*Gp*4 plane bytes plus x and write out (split-K adds an f32
-// partial per chunk and output, small at decode m); at decode sizes the
+// n_sets*q_out*Gp*4 plane bytes plus x and write out; at decode sizes the
 // arithmetic (2 FMAs per plane byte per row of x) is far below the card's
 // rate. At bs=1 on Llama-2-7B the planes per token are:
 //
@@ -55,17 +49,12 @@
 //     m: 8 rows of down_proj's f32 x are 360 KB);
 //   - the accumulator holds MT rows of x, MT in {1, 2, 4, 8} picked from m
 //     so decode (m = 1) carries one row; gridDim.y walks m-tiles of MT;
-//   - split-K adds gridDim.z = chunks, so a 4096-row layer at m = 1 runs
-//     4x the blocks (1024 rather than 256 on 132 SMs), each streaming a
-//     quarter of the row;
 //   - a warp-shuffle reduction ends each row, then the epilogue.
-// q_out and m need no divisibility (ragged edges are masked); Gp and the
-// chunk width must be multiples of 4 (plane rows are padded to 128
-// groups). K6 runs it at m <= 32 only (the padded-m rule of split-K);
-// the nibble calls run the tensor cores otherwise (K1 at m <= 32,
+// q_out and m need no divisibility (ragged edges are masked); Gp must be a
+// multiple of 4 (plane rows are padded to 128 groups). The nibble calls
+// run the tensor cores (K1 and split-K K6 at m <= 32,
 // nibble_mma_small.cuh; K2 above, fused_decode_matmul_tc.cu), and so do
-// sw2/sw4 (K11) at every m. Not done yet (a later PR): split-K on the
-// tensor cores.
+// sw2/sw4 (K11) at every m.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -104,34 +93,27 @@ struct NibbleArgs {
   const void* w1;       // second plane set, or null
   const void* scale;    // (q_out,) f32, or null
   void* out;
-  float* ws;            // split-K partials (chunks, m, q_out), else null
-  int m, q_out, Gp, chunks;
+  int m, q_out, Gp;
   float alpha0, alpha1, beta_total;
 };
 
-template <typename T, int NSETS, int MT, int P, bool KS>
+template <typename T, int NSETS, int MT, int P>
 __global__ void __launch_bounds__(WARPS * 32)
 nibble_decode_matmul_kernel(const T* __restrict__ x,
                             const uint32_t* __restrict__ w0,
                             const uint32_t* __restrict__ w1,
                             const float* __restrict__ scale,
-                            T* __restrict__ out, float* __restrict__ ws,
-                            int m, int q_out, int Gp, int Gc, float alpha0,
-                            float alpha1, float beta_total) {
+                            T* __restrict__ out, int m, int q_out, int Gp,
+                            float alpha0, float alpha1, float beta_total) {
   constexpr int ROWS = rows_per_warp<MT>();
   constexpr int NQ = 8 / P;
   static_assert(P == 1 || P == 2 || P == 4, "split P in {1, 2, 4}");
-  static_assert(!KS || P == 1, "split-K runs on int32 nibble planes");
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int n0 = (blockIdx.x * WARPS + warp) * ROWS;
   if (n0 >= q_out) return;  // the whole warp leaves together; no block sync
   const int r0 = blockIdx.y * MT;
   const size_t K = 8 * (size_t)Gp;
-  // this chunk's groups; without split-K the whole row, with no extra
-  // live register (the 8-row accumulator is at the 255-register limit)
-  const int g_lo = KS ? blockIdx.z * Gc : 0;
-  const int g_hi = KS ? g_lo + Gc : Gp;
 
   float acc[NSETS][ROWS][MT];
   float xs[MT];
@@ -145,7 +127,7 @@ nibble_decode_matmul_kernel(const T* __restrict__ x,
   }
 
 #pragma unroll 2
-  for (int g = g_lo + lane * 4; g < g_hi; g += 128) {
+  for (int g = lane * 4; g < Gp; g += 128) {
     uint4 wv[NSETS][ROWS];
 #pragma unroll
     for (int j = 0; j < ROWS; ++j) {
@@ -205,8 +187,7 @@ nibble_decode_matmul_kernel(const T* __restrict__ x,
     }
   }
 
-  // epilogue: lane (j*MT + r) writes out[r0 + r, n0 + j] (split-K: the
-  // chunk's partial to ws[blockIdx.z, r0 + r, n0 + j])
+  // epilogue: lane (j*MT + r) writes out[r0 + r, n0 + j]
 #pragma unroll
   for (int j = 0; j < ROWS; ++j) {
 #pragma unroll
@@ -216,63 +197,57 @@ nibble_decode_matmul_kernel(const T* __restrict__ x,
         float v = acc[0][j][r] * alpha0;
         if (NSETS > 1) v += acc[NSETS - 1][j][r] * alpha1;
         v += beta_total * xs[r];
-        if (KS) {
-          ws[((size_t)blockIdx.z * m + row) * q_out + n] = v;
-        } else {
-          if (scale != nullptr) v *= scale[n];
-          store(out + (size_t)row * q_out + n, v);
-        }
+        if (scale != nullptr) v *= scale[n];
+        store(out + (size_t)row * q_out + n, v);
       }
     }
   }
 }
 
-template <typename T, int NSETS, int MT, int P, bool KS>
+template <typename T, int NSETS, int MT, int P>
 void launch(const NibbleArgs& a, cudaStream_t stream) {
   static_assert(rows_per_warp<MT>() * MT <= 32,
                 "epilogue gives one lane per output");
   const int rows_per_block = WARPS * rows_per_warp<MT>();
   dim3 grid((a.q_out + rows_per_block - 1) / rows_per_block,
-            (a.m + MT - 1) / MT, a.chunks);
-  nibble_decode_matmul_kernel<T, NSETS, MT, P, KS>
+            (a.m + MT - 1) / MT);
+  nibble_decode_matmul_kernel<T, NSETS, MT, P>
       <<<grid, WARPS * 32, 0, stream>>>(
           static_cast<const T*>(a.x), static_cast<const uint32_t*>(a.w0),
           static_cast<const uint32_t*>(a.w1),
-          static_cast<const float*>(a.scale), static_cast<T*>(a.out), a.ws,
-          a.m, a.q_out, a.Gp, a.Gp / a.chunks, a.alpha0, a.alpha1,
-          a.beta_total);
+          static_cast<const float*>(a.scale), static_cast<T*>(a.out), a.m,
+          a.q_out, a.Gp, a.alpha0, a.alpha1, a.beta_total);
 }
 
-template <typename T, int NSETS, int P, bool KS>
+template <typename T, int NSETS, int P>
 void launch_mt(const NibbleArgs& a, cudaStream_t s) {
   if (a.m == 1)
-    launch<T, NSETS, 1, P, KS>(a, s);
+    launch<T, NSETS, 1, P>(a, s);
   else if (a.m == 2)
-    launch<T, NSETS, 2, P, KS>(a, s);
+    launch<T, NSETS, 2, P>(a, s);
   else if (a.m <= 4)
-    launch<T, NSETS, 4, P, KS>(a, s);
+    launch<T, NSETS, 4, P>(a, s);
   else
-    launch<T, NSETS, 8, P, KS>(a, s);
+    launch<T, NSETS, 8, P>(a, s);
 }
 
 // The launch for n_sets plane sets and x's dtype; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
 // the kernel does not take (the Python wrappers check them first).
-template <int P, bool KS>
+template <int P>
 int dispatch(const NibbleArgs& a, int n_sets, int x_is_bf16, void* stream) {
-  if (a.m < 1 || a.q_out < 1 || a.Gp < 4 || a.Gp % 4 || a.chunks < 1 ||
-      a.Gp % a.chunks || (a.Gp / a.chunks) % 4 || n_sets < 1 || n_sets > 2 ||
-      (KS && a.ws == nullptr))
+  if (a.m < 1 || a.q_out < 1 || a.Gp < 4 || a.Gp % 4 || n_sets < 1 ||
+      n_sets > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_sets == 1 && x_is_bf16)
-    launch_mt<__nv_bfloat16, 1, P, KS>(a, s);
+    launch_mt<__nv_bfloat16, 1, P>(a, s);
   else if (n_sets == 1)
-    launch_mt<float, 1, P, KS>(a, s);
+    launch_mt<float, 1, P>(a, s);
   else if (x_is_bf16)
-    launch_mt<__nv_bfloat16, 2, P, KS>(a, s);
+    launch_mt<__nv_bfloat16, 2, P>(a, s);
   else
-    launch_mt<float, 2, P, KS>(a, s);
+    launch_mt<float, 2, P>(a, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,16 @@
 // Affine-nibble decode + matmul at small m (m <= 32 rows a block) on
-// Hopper's tensor cores (sm_90a): the kernel body of two sources, each
+// Hopper's tensor cores (sm_90a): the kernel body of three sources, each
 // with its own C entry point:
 //   fused_decode_matmul.cu   K1:  int32 nibble planes (split P = 1);
 //   sw_decode_matmul.cu      K11: the same words stored as int16 / int8
-//                                 subwords (sw2 / sw4, P = 2 / 4).
+//                                 subwords (sw2 / sw4, P = 2 / 4);
+//   ksplit_decode_matmul.cu  K6:  K1's function with the groups split
+//                                 into chunks (split-K, below).
 // The body is a skeleton over a codes policy (NibbleCodes here): the
 // policy says which words a lane loads and how they become A registers;
 // the skeleton stages x, walks the slabs and tiles, multiplies, flushes
-// and stores. ucode_mma_small.cuh runs the same skeleton on the
-// E8P12RVQ4B u-codes of K7 and K8.
+// and stores. ucode_mma_small.cuh runs the same skeleton on the u-codes
+// of K7, K8 and K9.
 //
 // Computes, for x_perm (m, 8*Gp) in the layout's grouped lane order and 1
 // or 2 plane sets of words (q_out, Gp):
@@ -72,6 +74,17 @@
 //     staged once for all of them.
 //   - Counters, not integer divisions, walk the slabs and the copies: a
 //     runtime division in the slab loop made m = 1 18% slower on an H100.
+//   - Split-K (KS, K6): a unit of work is (channel tile, chunk), and the
+//     grid is a multiple of the chunk count, so a block keeps one chunk
+//     (its groups [gb, gb + Gc), Gc a multiple of 16: whole slabs), stages
+//     only that chunk's x and walks every (gridDim.x / chunks)-th tile.
+//     Its f32 partial (alphas and the chunk's beta row sums applied) goes
+//     to a (chunks, m, q_out) workspace, which ksplit_decode_matmul.cu's
+//     second kernel adds in chunk order. Without KS the chunk is the whole
+//     row (Gc = Gp) and the split's terms fold away at compile time.
+//     split_pays says where the split runs: where it does not, K6 is this
+//     body over whole tiles, each warp's f32 sum walking the chunks' slabs
+//     in order.
 #pragma once
 
 #include "nibble_mma.cuh"
@@ -284,12 +297,12 @@ struct NibbleCodes {
   }
 };
 
-template <typename T, class C, int NT, int WN>
+template <typename T, class C, int NT, int WN, bool KS = false>
 __global__ void __launch_bounds__(THREADS)
 mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
                  const float* __restrict__ scale, T* __restrict__ out, int m,
                  int q_out, int Gp, int SG, float alpha0, float alpha1,
-                 float beta_total) {
+                 float beta_total, int nch, float* __restrict__ ws) {
   using S = Shape<NT, WN, C::mtiles(NT)>;
   constexpr int P = C::P, NSETS = C::NSETS, NW = C::NW;
   constexpr int MTW = S::MTS;                    // m16 tiles a warp
@@ -304,30 +317,41 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   const int m0 = blockIdx.y * MAX_ROWS;
   const int mr = min(MAX_ROWS, m - m0);          // the block's rows
   const size_t K = 8 * (size_t)Gp;
+  // split-K: the reduce kernel may be scheduled now (it waits for this
+  // grid's end before it reads the workspace)
+  if constexpr (KS) asm volatile("griddepcontrol.launch_dependents;");
+  // split-K: the block's chunk, its first group gb and its Gk groups;
+  // else the whole row
+  const int chunk = KS ? blockIdx.x % nch : 0;
+  const int Gk = KS ? Gp / nch : Gp;
+  const int gb = chunk * Gk;
   const int RSB = row_bytes<T, P>(SG);           // smem bytes an x row
-  const int nslab = (Gp + SLAB - 1) / SLAB;
+  const int nslab = (Gk + SLAB - 1) / SLAB;
   const int spst = SG / SLAB;                    // slabs a stage
   const int nstage = (nslab + spst - 1) / spst;
   const int per = spst / S::WK;                  // a warp's slabs a stage
-  // the block's tiles of BN channels: blockIdx.x, + gridDim.x, ...
+  // the block's tiles of BN channels: tb, tb + tstep, ... (split-K: the
+  // nch blocks of a tile walker share tb and tstep)
   const int ntiles = (q_out + S::BN - 1) / S::BN;
-  const int ntile = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  // one stage holds the whole row: x stays in shared memory for every
-  // tile of the block
+  const int tb = KS ? blockIdx.x / nch : blockIdx.x;
+  const int tstep = KS ? gridDim.x / nch : gridDim.x;
+  const int ntile = (ntiles - tb + tstep - 1) / tstep;
+  // one stage holds the whole row (chunk): x stays in shared memory for
+  // every tile of the block
   const bool resident = nstage == 1;
-  const bool vec = Gp % 16 == 0;               // runs of 16-byte copies
+  const bool vec = Gk % 16 == 0;               // runs of 16-byte copies
   float* red = reinterpret_cast<float*>(
       smem + (size_t)(resident ? 1 : 2) * mr * RSB);
   float* rs = red + S::WK * S::ROWS * S::RED_STRIDE;
 
-  // x's stage st (groups st*SG ..) into buffer b: row r, field q is the
-  // run [q*P*SG, (q+1)*P*SG) of the row
+  // x's stage st (groups gb + st*SG ..) into buffer b: row r, field q is
+  // the run [q*P*SG, (q+1)*P*SG) of the row
   auto stage = [&](int st, int b) {
     unsigned char* buf = smem + (size_t)b * mr * RSB;
     const int G0 = st * SG;
     if (vec) {
       constexpr int EPC = 16 / (int)sizeof(T);   // values a copy
-      const int cpr = P * min(SG, Gp - G0) / EPC;   // copies a run
+      const int cpr = P * min(SG, Gk - G0) / EPC;   // copies a run
       const int total = mr * NQ * cpr;
       // copy c is copy k of run rq = r*NQ + q; c steps by THREADS
       const int drq = THREADS / cpr, dk = THREADS - drq * cpr;
@@ -335,7 +359,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       for (int c = threadIdx.x; c < total; c += THREADS) {
         const int r = rq / NQ, q = rq % NQ;
         const T* src = x + (size_t)(m0 + r) * K + (size_t)q * P * Gp +
-                       (size_t)P * G0 + k * EPC;
+                       (size_t)P * (gb + G0) + k * EPC;
         T* dst = reinterpret_cast<T*>(buf + r * RSB) + q * P * SG + k * EPC;
         tc::cp_async16(dst, src, true);
         rq += drq;
@@ -346,15 +370,15 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
         }
       }
     } else {
-      const int gs = min(SG, nslab * SLAB - G0);  // whole slabs, zero past Gp
+      const int gs = min(SG, nslab * SLAB - G0);  // whole slabs, zero past Gk
       const int run = P * gs, total = mr * NQ * run;
       for (int c = threadIdx.x; c < total; c += THREADS) {
         const int r = c / (NQ * run), rem = c - r * NQ * run;
         const int q = rem / run, e = rem - q * run;
         T* dst = reinterpret_cast<T*>(buf + r * RSB) + q * P * SG + e;
-        *dst = G0 + e / P < Gp
+        *dst = G0 + e / P < Gk
                    ? x[(size_t)(m0 + r) * K + (size_t)q * P * Gp +
-                       (size_t)P * G0 + e]
+                       (size_t)P * (gb + G0) + e]
                    : tc::zero_val<T>();
       }
     }
@@ -362,18 +386,19 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   };
   // the lane's words (per m16 tile, as the policy lays them out) of the
   // next item to load: tile pk of the block, stage pst, the warp's pl-th
-  // slab of the stage (pst*spst + pl*WK + wk); zero past Gp and past the
-  // block's last item. Counters, not divisions, walk the items: within a
-  // tile the slab steps by WK, which the policy's Walk follows.
+  // slab of the stage (pst*spst + pl*WK + wk); zero past the chunk's
+  // groups and past the block's last item. Counters, not divisions, walk
+  // the items: within a tile the slab steps by WK, which the policy's Walk
+  // follows.
   int pk = 0, pst = 0, pl = 0;
-  typename C::Walk walk(planes, S::WK, wk * SLAB + 4 * t);
+  typename C::Walk walk(planes, S::WK, gb + wk * SLAB + 4 * t);
   auto load_next = [&](uint4 (&wv)[MTW][NW], uint32_t& cx) {
     const int s = pst * spst + pl * S::WK + wk;
     const int c = s * SLAB + 4 * t;
-    const bool ok = pk < ntile && s < nslab && c < Gp;
-    const int n0 = (blockIdx.x + pk * gridDim.x) * S::BN + wn * S::WCH;
-    cx = C::ctx(walk, c, planes);
-    C::load(wv, planes, n0, g, c, walk, q_out, Gp, ok);
+    const bool ok = pk < ntile && s < nslab && c < Gk;
+    const int n0 = (tb + pk * tstep) * S::BN + wn * S::WCH;
+    cx = C::ctx(walk, gb + c, planes);
+    C::load(wv, planes, n0, g, gb + c, walk, q_out, Gp, ok);
     if (++pl == per) {
       pl = 0;
       if (++pst == nstage) {
@@ -593,7 +618,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       }
     }
     __syncthreads();
-    const int nb = (blockIdx.x + k * gridDim.x) * S::BN;
+    const int tile = tb + k * tstep, nb = tile * S::BN;
     for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
       const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
       if (n >= q_out) continue;
@@ -604,8 +629,13 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
         if (C::ROWSUMS) r += rs[q * S::ROWS + row];
       }
       if (C::ROWSUMS) v += beta_total * r;
+      const size_t off = (size_t)(m0 + row) * q_out + n;
+      if (KS) {      // the chunk's partial; a second kernel adds them
+        ws[(size_t)chunk * m * q_out + off] = v;
+        continue;
+      }
       if (scale != nullptr) v *= __ldg(scale + n);
-      tc::store1(out + (size_t)(m0 + row) * q_out + n, v);
+      tc::store1(out + off, v);
     }
   }
   tc::cp_async_wait<0>();
@@ -647,21 +677,24 @@ inline int sm_count() {
   return sms;
 }
 
-// What a launch is given besides x, the planes and the output.
+// What a launch is given besides x, the planes and the output; split-K
+// adds its chunks and the f32 workspace (chunks, m, q_out).
 struct Args {
   const void* scale;
   void* out;
   int m, q_out, Gp;
   float alpha0, alpha1, beta_total;
+  int chunks;
+  void* ws;
 };
 
-template <typename T, class C, int NT, int WN>
-int launch(const void* x, const typename C::Planes& planes, const Args& a,
-           cudaStream_t stream) {
-  using S = Shape<NT, WN, C::mtiles(NT)>;
-  auto kernel = mma_small_kernel<T, C, NT, WN>;
-  // once per instantiation: the shared-memory limit; the blocks a card
-  // holds at the last launch's shared memory
+// The blocks of an instantiation the card holds at once at smem bytes of
+// shared memory, into *blocks; returns a CUDA error (0 on success). Once
+// per instantiation it sets the shared-memory limit; the count is kept for
+// the last smem asked.
+template <typename T, class C, int NT, int WN, bool KS = false>
+int resident(int smem, int* blocks) {
+  auto kernel = mma_small_kernel<T, C, NT, WN, KS>;
   static bool smem_set = false;
   static int last_smem = -1, resident_blocks = 0;
   if (!smem_set) {
@@ -671,9 +704,6 @@ int launch(const void* x, const typename C::Planes& planes, const Args& a,
     if (sm_count() < 1) return static_cast<int>(cudaErrorInvalidDevice);
     smem_set = true;
   }
-  const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
-  const int SG = stage_groups<T, C::P, NT, WN>(a.Gp, mr);
-  const int smem = smem_bytes<T, C, NT, WN>(a.Gp, mr);
   if (smem != last_smem) {
     int per_sm = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -683,15 +713,34 @@ int launch(const void* x, const typename C::Planes& planes, const Args& a,
     resident_blocks = per_sm * sm_count();
     last_smem = smem;
   }
-  // as many blocks as the card holds at once (at most one a tile), each
-  // walking every gridDim.x-th tile
+  *blocks = resident_blocks;
+  return 0;
+}
+
+template <typename T, class C, int NT, int WN, bool KS = false>
+int launch(const void* x, const typename C::Planes& planes, const Args& a,
+           cudaStream_t stream) {
+  using S = Shape<NT, WN, C::mtiles(NT)>;
+  const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
+  const int nch = KS ? a.chunks : 1;
+  const int Gk = a.Gp / nch;                 // groups a block stages
+  const int SG = stage_groups<T, C::P, NT, WN>(Gk, mr);
+  const int smem = smem_bytes<T, C, NT, WN>(Gk, mr);
+  int resident_blocks = 0;
+  const int err = resident<T, C, NT, WN, KS>(smem, &resident_blocks);
+  if (err != 0) return err;
+  // as many blocks as the card holds at once (at most one a unit of
+  // work: a tile, or a tile's chunk), each walking every gridDim.x-th
+  // unit; split-K rounds the grid to whole multiples of the chunks
   const int ntiles = (a.q_out + S::BN - 1) / S::BN;
-  const dim3 grid(ntiles < resident_blocks ? ntiles : resident_blocks,
-                  (a.m + MAX_ROWS - 1) / MAX_ROWS);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  int blocks = ntiles * nch < resident_blocks ? ntiles * nch
+                                              : resident_blocks;
+  if (KS) blocks = blocks < nch ? nch : blocks / nch * nch;
+  const dim3 grid(blocks, (a.m + MAX_ROWS - 1) / MAX_ROWS);
+  mma_small_kernel<T, C, NT, WN, KS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), planes, static_cast<const float*>(a.scale),
       static_cast<T*>(a.out), a.m, a.q_out, a.Gp, SG, a.alpha0, a.alpha1,
-      a.beta_total);
+      a.beta_total, nch, static_cast<float*>(a.ws));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -711,6 +760,52 @@ int launch_nt(const void* x, const typename C::Planes& planes, const Args& a,
   if (wide || smem_bytes<T, C, 4, 1>(a.Gp, mr) > SMEM_MAX)
     return launch<T, C, 4, 2>(x, planes, a, s);
   return launch<T, C, 4, 1>(x, planes, a, s);
+}
+
+template <typename T, class C, int NT>
+int launch_ks_wn(int wn, const void* x, const typename C::Planes& planes,
+                 const Args& a, cudaStream_t s) {
+  if (wn == 1) return launch<T, C, NT, 1, true>(x, planes, a, s);
+  if (wn == 2) return launch<T, C, NT, 2, true>(x, planes, a, s);
+  return launch<T, C, NT, 4, true>(x, planes, a, s);
+}
+
+// Split-K: whether the (tile, chunk) split runs, into *split. Above 8
+// rows it always does. At one n8 tile of rows it does only where K1's
+// whole tiles (32 channels, one channel warp) leave a last wave at most
+// half full on the card: elsewhere a split unit's workspace store and the
+// reduce launch cost more than the tail it fills (on an H100 at m = 1 and
+// 8 the split beat K1 on the 384 tiles of a 7B model's qkv and lost on o's
+// 128, gate/up's 688 and the head's 1000, with 264 resident blocks).
+template <typename T, class C>
+int split_pays(const Args& a, bool* split) {
+  *split = true;
+  if (a.m > 8) return 0;
+  int rb = 0;
+  const int err = resident<T, C, 1, 1>(smem_bytes<T, C, 1, 1>(a.Gp, a.m),
+                                       &rb);
+  if (err != 0) return err;
+  const int ntiles = (a.q_out + WCH - 1) / WCH, tail = ntiles % rb;
+  *split = ntiles > rb && tail > 0 && 2 * tail <= rb;
+  return 0;
+}
+
+// Split-K with the split on: NT n8 tiles for m rows as launch_nt, and the
+// fewest channel warps WN (of 1, 2, 4) that give a warp at least 2 of its
+// chunk's slabs a unit up to 16 rows, 4 above, where a unit's epilogue
+// (its partials through shared memory and out to the workspace) grows
+// with the rows. Finer units balance the grid better: on an H100, 64-
+// channel units beat 32 and 128 at m = 1 and 8, and 128 beat 64 and 32 at
+// m = 32.
+template <typename T, class C>
+int launch_ks(const void* x, const typename C::Planes& planes, const Args& a,
+              cudaStream_t s) {
+  const int spc = a.Gp / a.chunks / SLAB;        // slabs a chunk
+  const int want = 8 * (a.m <= 16 ? 2 : 4);      // spc * wn / 8 >= per warp
+  const int wn = spc >= want ? 1 : 2 * spc >= want ? 2 : 4;
+  if (a.m <= 8) return launch_ks_wn<T, C, 1>(wn, x, planes, a, s);
+  if (a.m <= 16) return launch_ks_wn<T, C, 2>(wn, x, planes, a, s);
+  return launch_ks_wn<T, C, 4>(wn, x, planes, a, s);
 }
 
 // The launch for n_sets plane sets and x's dtype; returns

@@ -244,15 +244,17 @@ def ksplit_decode_matmul(x_perm: torch.Tensor,
                          scale_vec: Optional[torch.Tensor] = None,
                          rows: Optional[int] = None) -> torch.Tensor:
     """K6 wrapper: nibble planes (q_out, Gp) int32 with the group axis in
-    ``chunks`` >= 2 chunks of a multiple of 4 groups; the f32 partials
-    (chunks, rows, q_out) come from the caching allocator."""
+    ``chunks`` >= 2 chunks of a multiple of 16 groups (the kernel's whole
+    slabs; every ``pick_ksplit`` chunk is a multiple of 128); the f32
+    partials (chunks, rows, q_out) come from the caching allocator (the
+    kernel leaves them unused where it runs K1's body over whole tiles)."""
     rows = x_perm.shape[0] if rows is None else rows
     q_out, Gp = planes[0].shape
     check_call(x_perm, planes, affine, scale_vec, rows, q_out, Gp, torch.int32,
            (q_out, Gp))
-    if chunks < 2 or Gp % chunks or (Gp // chunks) % 4:
+    if chunks < 2 or Gp % chunks or (Gp // chunks) % 16:
         raise ValueError(f"{chunks} chunks do not split Gp={Gp} into "
-                         "multiples of 4 groups")
+                         "multiples of 16 groups")
     if x_perm.device.type == "cpu":
         return ksplit_decode_matmul_ref(x_perm[:rows], planes, affine,
                                         chunks, scale_vec)

@@ -1,12 +1,13 @@
 """Design variants of the small-m tensor-core body on the card: the tile
 sizes of ``csrc/nibble_mma_small.cuh`` (the body of K1,
-``csrc/fused_decode_matmul.cu``, and K11, ``csrc/sw_decode_matmul.cu``,
-and with the u-code policy of ``csrc/ucode_mma_small.cuh`` the body of K8's
-pb entry, ``csrc/rowpair_decode_matmul.cu``, and K7,
-``csrc/paired_decode_matmul.cu``) timed against each other, against the
-SIMT body K1 and K11 ran before (``csrc/nibble_decode.cuh``, which K6
-still runs), against the sources of another checkout and against one
-library call, at Llama-2-7B's decode linears.
+``csrc/fused_decode_matmul.cu``, K11, ``csrc/sw_decode_matmul.cu``, and
+split-K K6, ``csrc/ksplit_decode_matmul.cu``, and with the u-code policies
+of ``csrc/ucode_mma_small.cuh`` the body of K8's pb and K9's u3 entries,
+``csrc/rowpair_decode_matmul.cu``, and K7, ``csrc/paired_decode_matmul.cu``)
+timed against each other, against the SIMT body K1 and K11 ran before
+(``csrc/nibble_decode.cuh``, which K10 still runs), against the sources of
+another checkout and against one library call, at Llama-2-7B's decode
+linears.
 
 Each variant is a copy of the sources with one setting changed, built
 with the port's nvcc flags into ``build/variants/<variant>/`` at the root
@@ -23,45 +24,52 @@ of the checkout and called through the kernels' C entry points:
           the slabs), not two on the widest layers above 8 rows;
   wn2     two channel warps at every m above 8 rows (64 channels, 4 warps
           over the slabs);
-  mt1     16 channels a warp (one m16 tile) instead of 32;
-  tiles   one block a tile of channels (a grid of all the tiles) instead
-          of as many blocks as the card holds at once, each walking tiles
-          with x kept in shared memory;
+  mt1     16 channels a warp (one m16 tile) instead of 32 (u3 too: 16 at
+          every row count);
+  tiles   one block a unit of work (a tile of channels, split-K: a tile's
+          chunk; a grid of all of them) instead of as many blocks as the
+          card holds at once, each walking units with x kept in shared
+          memory;
   warps4  4 warps a block instead of 8;
   stage32 x staged in stages of at most 32 KB (two buffers of 16 KB)
           instead of 96 KB;
   pf2     a lane's words loaded two slabs ahead instead of one;
   pf0     no words loaded ahead;
   occ2    at one n8 tile of rows, registers capped for two blocks an SM;
-  nofuse  (u-codes) a pass a set at one n8 tile of rows too;
-  umt2    (u-codes) two m16 tiles a warp at one n8 tile of rows too.
+  nofuse  (pb, paired) a pass a set at one n8 tile of rows too;
+  umt2    (pb, paired) two m16 tiles a warp at one n8 tile of rows too.
 
-Every variant computes the kernels' function and is held to the plain
-twins (``ops/fused_matmul.py``, ``ops/layout_matmul.py``,
+The layouts: nibble (K1), sw2 and sw4 (K11), ksplit4 (K6 on nibble words:
+4 chunks, 11 at down's 1408 groups, as chip_smoke.py runs it; its sums
+leave down out, as path (f) does), pb (K8), paired (K7) and u3 (K9). Every
+variant computes the kernels' function and is held to the plain twins
+(``ops/fused_matmul.py``, ``ops/layout_matmul.py``,
 ``ops/rowpair_matmul.py``) with the ratio of its worst error to the
 tolerance printed (1e-5 of the max plus one bf16 ulp). The nibble layouts
-run one plane set of random words, pb and paired random E8P12RVQ4B codes.
+run one plane set of random words, pb and paired random E8P12RVQ4B codes,
+u3 random E8P12 codes.
 Times are CUDA-graph replays over L2-cold plane copies
 (``tools/_timing.py``) in bf16, every variant timed in the order given and
 back, summed over a token's (m = 1, 8) or a prefill's (m = 16, 32) 129
-calls, beside the bound from the plane, x and output bytes at 3.35 TB/s
-and the library call ``x @ W.T`` on bf16 weights decoded beforehand (the
-port never makes it). Needs a card:
+calls (split-K: 97, and every layout's sum without down as well), beside
+the bound from the plane, x and output bytes at 3.35 TB/s and the library
+call ``x @ W.T`` on bf16 weights decoded beforehand (the port never makes
+it). Needs a card:
 
     python -m quip_for_all_tpu_torch.tools.variants_small_m
     python -m quip_for_all_tpu_torch.tools.variants_small_m \
         --variants base,simt --m 1,32 --layouts nibble,sw4
     git archive <commit> quip_for_all_tpu_torch/csrc | tar -x -C build/parent
     python -m quip_for_all_tpu_torch.tools.variants_small_m \
-        --variants base,parent --parent build/parent/quip_for_all_tpu_torch/csrc \
-        --layouts pb,paired --prefill
+        --variants parent,base --parent $PWD/build/parent/quip_for_all_tpu_torch/csrc \
+        --layouts u3,ksplit4 --m 1,8,32 --prefill
 
 One JSON line per variant, layout, shape and m, then one per variant,
 layout and m with the sums; the card's name and power limit first. With
 ``--prefill``, then one line per variant and layout family with the
 device ms of Llama-2-7B's 32-token prefill (chip_smoke.py's paths: the
-main path's E8P12 nibble for nibble/sw, E8P12RVQ4B pb or paired) run on
-that variant's kernel.
+main path's E8P12 nibble for nibble/sw, E8P12RVQ4B pb or paired, E8P12
+u3) run on that variant's kernel.
 """
 from __future__ import annotations
 
@@ -86,27 +94,32 @@ from ..ops.qtensor import QuantizedTensor, to_subword
 from ..utils.random_quantized import random_qtensor
 
 HEADER = "nibble_mma_small.cuh"
-# the headers the rules edit (each rule must apply in one of them)
+# the sources the rules edit (each rule must apply in one of them)
 RULE_HEADERS = (HEADER, "ucode_mma_small.cuh")
 # layout -> (source stem, C entry point)
 ENTRIES = {"nibble": ("fused_decode_matmul", "qfa_fused_decode_matmul"),
            "sw2": ("sw_decode_matmul", "qfa_sw_decode_matmul"),
            "sw4": ("sw_decode_matmul", "qfa_sw_decode_matmul"),
            "pb": ("rowpair_decode_matmul", "qfa_rowpair_pb_matmul"),
-           "paired": ("paired_decode_matmul", "qfa_paired_decode_matmul")}
-UCODE = ("pb", "paired")
+           "paired": ("paired_decode_matmul", "qfa_paired_decode_matmul"),
+           "u3": ("rowpair_decode_matmul", "qfa_rowpair_u3_matmul"),
+           "ksplit4": ("ksplit_decode_matmul", "qfa_ksplit_decode_matmul")}
+UCODE = ("pb", "paired", "u3")
+# the layouts the simt variant has a body for
+SIMT_LAYOUTS = ("nibble", "sw2", "sw4")
 SOURCES = (HEADER, "fused_decode_matmul.cu", "sw_decode_matmul.cu")
 UCODE_SOURCES = ("rowpair_decode_matmul.cu", "paired_decode_matmul.cu")
-# variant -> [(regular expression, replacement)] over the header; every
-# rule must apply at least once
+KSPLIT_SOURCE = "ksplit_decode_matmul.cu"
+# variant -> [(regular expression, replacement)] over the rule sources;
+# every rule must apply at least once
 RULES = {
     "base": [],
     "simt": [],
     "wn1": [(r"const bool wide = [^;]*;", "const bool wide = false;")],
     "wn2": [(r"const bool wide = [^;]*;", "const bool wide = true;")],
     "mt1": [(r"constexpr int MT = 2;", "constexpr int MT = 1;")],
-    "tiles": [(r"ntiles < resident_blocks \? ntiles : resident_blocks",
-               "ntiles")],
+    "tiles": [(r"ntiles \* nch < resident_blocks \? ntiles \* nch\s*"
+               r": resident_blocks", "ntiles * nch")],
     "warps4": [(r"constexpr int THREADS = 256;",
                 "constexpr int THREADS = 128;")],
     "stage32": [(r"STAGE_BUDGET = 96 \* 1024;", "STAGE_BUDGET = 32 * 1024;")],
@@ -126,9 +139,9 @@ extern "C" int qfa_fused_decode_matmul(const void* x, const void* w0,
     const void* w1, const void* scale, void* out, int m, int q_out, int Gp,
     int n_sets, float alpha0, float alpha1, float beta_total, int x_is_bf16,
     void* stream) {
-  const NibbleArgs a{x, w0, w1, scale, out, nullptr, m, q_out, Gp, 1,
-                     alpha0, alpha1, beta_total};
-  return dispatch<1, false>(a, n_sets, x_is_bf16, stream);
+  const NibbleArgs a{x, w0, w1, scale, out, m, q_out, Gp, alpha0, alpha1,
+                     beta_total};
+  return dispatch<1>(a, n_sets, x_is_bf16, stream);
 }
 ''',
     "sw_decode_matmul.cu": '''#include "nibble_decode.cuh"
@@ -136,10 +149,10 @@ extern "C" int qfa_sw_decode_matmul(const void* x, const void* w0,
     const void* w1, const void* scale, void* out, int m, int q_out, int Gp,
     int n_sets, float alpha0, float alpha1, float beta_total, int x_is_bf16,
     int split, void* stream) {
-  const NibbleArgs a{x, w0, w1, scale, out, nullptr, m, q_out, Gp, 1,
-                     alpha0, alpha1, beta_total};
-  if (split == 2) return dispatch<2, false>(a, n_sets, x_is_bf16, stream);
-  if (split == 4) return dispatch<4, false>(a, n_sets, x_is_bf16, stream);
+  const NibbleArgs a{x, w0, w1, scale, out, m, q_out, Gp, alpha0, alpha1,
+                     beta_total};
+  if (split == 2) return dispatch<2>(a, n_sets, x_is_bf16, stream);
+  if (split == 4) return dispatch<4>(a, n_sets, x_is_bf16, stream);
   return 11;
 }
 '''}
@@ -148,6 +161,8 @@ extern "C" int qfa_sw_decode_matmul(const void* x, const void* w0,
 SHAPES = [("qkv", 12288, 4096), ("o", 4096, 4096), ("gateup", 22016, 4096),
           ("down", 4096, 11008), ("head", 32000, 4096)]
 CALLS = {"qkv": 32, "o": 32, "gateup": 32, "down": 32, "head": 1}
+# path (f): down's 11 lane blocks do not split 4 ways, so it stays on K1
+KSPLIT_CALLS = {k: v for k, v in CALLS.items() if k != "down"}
 AFFINE = ((0.5, -2.75),)
 
 
@@ -179,7 +194,8 @@ def write_variant(name: str, out_dir: str, parent: str = None) -> str:
     os.makedirs(d, exist_ok=True)
     texts = {}
     for f in sorted(os.listdir(src)):
-        if f.endswith(".cuh") or f in SOURCES + UCODE_SOURCES:
+        if f.endswith(".cuh") or f in SOURCES + UCODE_SOURCES + (
+                KSPLIT_SOURCE,):
             with open(os.path.join(src, f)) as fh:
                 texts[f] = fh.read()
     if name != "parent":
@@ -235,7 +251,11 @@ def entry(lib, layout: str):
     """The C entry point of a variant's library for a layout, its types
     set."""
     fn = getattr(lib, ENTRIES[layout][1])
-    if layout in UCODE:
+    if layout == "ksplit4":
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    elif layout in UCODE:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
@@ -248,15 +268,17 @@ def entry(lib, layout: str):
     return fn
 
 
-def _call(fn, layout, x, w, m, rs=-1.0):
-    """One launch of a variant's entry on words w (q_out, Gp) int32, or on
-    a u-code layout's planes {w0, w1, w2} with residual scale rs."""
+def _call(fn, layout, x, w, m, rs=-1.0, chunks=1):
+    """One call of a variant's entry on words w (q_out, Gp) int32 (split
+    into ``chunks`` for ksplit4), or on a u-code layout's planes {w0, w1,
+    w2} with residual scale rs."""
     if layout in UCODE:
         q_out = w["w2"].shape[0] * (1 if layout == "paired" else 2)
         out = torch.empty((m, q_out), dtype=x.dtype, device=x.device)
         err = fn(x.data_ptr(), w["w0"].data_ptr(), w["w1"].data_ptr(),
                  w["w2"].data_ptr(), None, out.data_ptr(), m, q_out,
-                 w["w0"].shape[-1], w["w2"].shape[-1], rs, 2.25 * (1 + rs),
+                 w["w0"].shape[-1], w["w2"].shape[-1], rs,
+                 2.25 if layout == "u3" else 2.25 * (1 + rs),
                  int(rm.group_sum_in_bf16(x)),
                  int(x.dtype == torch.bfloat16),
                  torch.cuda.current_stream().cuda_stream)
@@ -266,6 +288,17 @@ def _call(fn, layout, x, w, m, rs=-1.0):
         return out
     q_out, Gp = w.shape
     out = torch.empty((m, q_out), dtype=x.dtype, device=x.device)
+    if layout == "ksplit4":
+        ws = torch.empty(chunks * m * q_out, dtype=torch.float32,
+                         device=x.device)
+        err = fn(x.data_ptr(), w.data_ptr(), None, None, ws.data_ptr(),
+                 out.data_ptr(), m, q_out, Gp, 1, AFFINE[0][0], 0.0,
+                 AFFINE[0][1], int(x.dtype == torch.bfloat16), chunks,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ksplit4 variant launch failed: cudaError "
+                               f"{err}")
+        return out
     extra = () if layout == "nibble" else (int(layout[2]),)
     err = fn(x.data_ptr(), w.data_ptr(), None, None, out.data_ptr(), m,
              q_out, Gp, 1, AFFINE[0][0], 0.0, AFFINE[0][1],
@@ -287,38 +320,48 @@ def err_over_tol(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def _case(layout: str, q_out: int, q_in: int, gen, dev):
     """(words or planes, their L2-cold copies, plane bytes, the bf16 weights
-    of the library call, P, rs, twin(x) on the first copy) of one layer:
-    random words for the nibble layouts (one plane set), random E8P12RVQ4B
-    codes for pb and paired."""
+    of the library call, P, rs, chunks, twin(x) on the first copy) of one
+    layer: random words for the nibble layouts (one plane set), random
+    E8P12RVQ4B codes for pb and paired, random E8P12 codes for u3."""
     if layout in UCODE:
-        qt = random_qtensor("E8P12RVQ4B", layout, q_out, q_in, gen, dev)
+        qt = random_qtensor("E8P12" if layout == "u3" else "E8P12RVQ4B",
+                            layout, q_out, q_in, gen, dev)
         planes, rs = qt.planes, qt.opt_resid_scale
         return (planes, tm.cold_copies(planes),
                 sum(v.numel() * 4 for v in planes.values()),
-                decode_weights(qt, dtype=torch.bfloat16), 1, rs,
+                decode_weights(qt, dtype=torch.bfloat16), 1, rs, 1,
                 lambda x, m: rm.rowpair_matmul_ref(x, layout, planes, rs,
                                                    rows=m))
     Gp = -(-(q_in // 8) // 128) * 128
     w = torch.randint(-2 ** 31, 2 ** 31 - 1, (q_out, Gp), generator=gen,
                       device=dev, dtype=torch.int64).to(torch.int32)
     qt = QuantizedTensor({"w0": w}, "E8P12", q_out, q_in)
-    P = 1 if layout == "nibble" else int(layout[2])
-    if P == 1:
+    P = 1 if layout in ("nibble", "ksplit4") else int(layout[2])
+    # split-K: 4 chunks, or 11 where 4 do not split the 128-group blocks
+    chunks = 1
+    if layout == "ksplit4":
+        chunks = lm.pick_ksplit(4, Gp) if lm.pick_ksplit(4, Gp) > 1 else \
+            lm.pick_ksplit(11, Gp)
+        twin = lambda x, m: lm.ksplit_decode_matmul_ref(x[:m], [w], AFFINE,
+                                                        chunks)
+    elif P == 1:
         twin = lambda x, m: fm.fused_decode_matmul_ref(x[:m], [w], AFFINE)
     else:
         sw = to_subword(qt, P).plane_list()
         twin = lambda x, m: lm.sw_decode_matmul_ref(x[:m], sw, AFFINE)
     return (w, [c[0] for c in tm.cold_copies([w])], w.numel() * 4,
-            decode_weights(qt, dtype=torch.bfloat16), P, -1.0, twin)
+            decode_weights(qt, dtype=torch.bfloat16), P, -1.0, chunks, twin)
 
 
 def run(variants: List[str], ms: List[int], layouts: List[str],
         seed: int = 0, prefill: bool = False,
         parent: str = None) -> List[Dict]:
-    if "simt" in variants and any(lay in UCODE for lay in layouts):
+    if "simt" in variants and any(lay not in SIMT_LAYOUTS
+                                  for lay in layouts):
         raise ValueError("the simt variant is the nibble layouts' SIMT "
-                         "body; time pb's and paired's SIMT bodies as the "
-                         "parent variant of a commit that ran them")
+                         "body; time the SIMT bodies of pb, paired, u3 and "
+                         "split-K as the parent variant of a commit that "
+                         "ran them")
     if not torch.cuda.is_available():
         raise RuntimeError("the variants need a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -335,8 +378,8 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
     recs = []
     for name, q_out, q_in in SHAPES:
         for layout in layouts:
-            w, cp, plane_bytes, W, P, rs, twin = _case(layout, q_out, q_in,
-                                                        gen, dev)
+            w, cp, plane_bytes, W, P, rs, chunks, twin = _case(
+                layout, q_out, q_in, gen, dev)
             Gp = (w["w0"] if layout in UCODE else w).shape[-1]
             Wc = tm.cold_copies([W])
             for m in ms:
@@ -350,18 +393,19 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
                 for v in order:
                     f = fns[(v, layout)]
                     times[v].append(tm.graph_us(
-                        lambda i: _call(f, layout, x, cp[i % len(cp)], m, rs),
+                        lambda i: _call(f, layout, x, cp[i % len(cp)], m, rs,
+                                        chunks),
                         4 * len(cp)))
                 nbytes = plane_bytes + x.numel() * 2 + m * q_out * 2
                 for v in variants:
                     rec = {"variant": v, "layout": layout, "layer": name,
                            "q_out": q_out, "Gp": Gp, "m": m,
-                           "us": times[v],
+                           "chunks": chunks, "us": times[v],
                            "bound_us": nbytes / tm.HBM_BYTES_PER_S * 1e6,
                            "library_us": lib_us,
                            "err_over_tol": err_over_tol(
-                               _call(fns[(v, layout)], layout, x, w, m, rs),
-                               want)}
+                               _call(fns[(v, layout)], layout, x, w, m, rs,
+                                     chunks), want)}
                     recs.append(rec)
                     print(json.dumps(rec), flush=True)
             del w, cp, W, Wc
@@ -371,15 +415,19 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
             for m in ms:
                 sel = [r for r in recs if r["variant"] == v
                        and r["layout"] == layout and r["m"] == m]
-                tot = {k: sum(CALLS[r["layer"]] * (sum(r[k]) / len(r[k])
-                                                    if k == "us" else r[k])
-                              for r in sel) * 1e-3
-                       for k in ("us", "bound_us", "library_us")}
+
+                def tot(k, calls):
+                    return sum(calls.get(r["layer"], 0) * (
+                        sum(r[k]) / len(r[k]) if k == "us" else r[k])
+                        for r in sel) * 1e-3
+                calls = KSPLIT_CALLS if layout == "ksplit4" else CALLS
                 print(json.dumps({
                     "variant": v, "layout": layout, "m": m,
                     "per": "token" if m <= 8 else "prefill",
-                    "ms": tot["us"], "bound_ms": tot["bound_us"],
-                    "library_ms": tot["library_us"],
+                    "calls": sum(calls.values()),
+                    "ms": tot("us", calls), "bound_ms": tot("bound_us", calls),
+                    "library_ms": tot("library_us", calls),
+                    "ms_no_down": tot("us", KSPLIT_CALLS),
                     "worst_err_over_tol": max(r["err_over_tol"]
                                               for r in sel)}), flush=True)
     if prefill:
@@ -393,7 +441,8 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
                S: int = 32, reps: int = 10, layout: str = "nibble") -> Dict:
     """Device ms of Llama-2-7B's S-token bf16 prefill (random codes from
     ``seed``, fused qkv and gate/up, quantized head, as chip_smoke.py's
-    paths: E8P12 nibble for ``layout`` nibble, E8P12RVQ4B pb or paired)
+    paths: E8P12 nibble for ``layout`` nibble, E8P12RVQ4B pb or paired,
+    E8P12 u3)
     with each variant's kernel in place of the built one: the prefill
     captured in a CUDA graph and replayed ``reps`` times, every variant in
     the order given and back. The 129 linears must launch the layout's
@@ -403,7 +452,8 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
     from ..runtime.generate import attn_bucket, init_kv_caches
     stem = ENTRIES[layout][0]
     counter = {"nibble": fm.fused_decode_matmul, "pb": rm.rowpair_pb_matmul,
-               "paired": rm.paired_decode_matmul}[layout]
+               "paired": rm.paired_decode_matmul,
+               "u3": rm.rowpair_u3_matmul}[layout]
     cfg = qt.llama2_7b_config()
     if layout == "nibble":
         model = qt.random_quantized_model(
@@ -411,8 +461,9 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
             device="cuda")
     else:
         model = qt.random_quantized_model(
-            cfg, "E8P12RVQ4B", seed=seed, dtype=torch.bfloat16,
-            quantize_head=True, device="cuda", layout=layout)
+            cfg, "E8P12" if layout == "u3" else "E8P12RVQ4B", seed=seed,
+            dtype=torch.bfloat16, quantize_head=True, device="cuda",
+            layout=layout)
     model = qt.fuse_for_inference(cfg, model)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
@@ -450,16 +501,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=None,
                     help="default: every variant of RULES (but simt with "
-                         "pb or paired)")
+                         "a layout it has no body for)")
     ap.add_argument("--m", default="1,8,16,32")
     ap.add_argument("--layouts", default="nibble,sw4",
-                    help="of nibble, sw2, sw4, pb, paired")
+                    help="of nibble, sw2, sw4, ksplit4, pb, paired, u3")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="the csrc directory of the parent variant")
     ap.add_argument("--prefill", action="store_true",
                     help="also time Llama-2-7B's 32-token prefill with "
-                         "each variant's kernel (nibble: K1; pb, paired)")
+                         "each variant's kernel (nibble: K1; pb, paired, "
+                         "u3)")
     a = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -468,7 +520,7 @@ def main(argv=None) -> int:
     layouts = a.layouts.split(",")
     variants = (a.variants.split(",") if a.variants else
                 [v for v in RULES if v != "simt"
-                 or not any(lay in UCODE for lay in layouts)])
+                 or all(lay in SIMT_LAYOUTS for lay in layouts)])
     run(variants, [int(v) for v in a.m.split(",")], layouts, a.seed,
         a.prefill, a.parent)
     return 0

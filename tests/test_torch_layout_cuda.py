@@ -1,4 +1,5 @@
-"""The bfp (K10), sw2/sw4 (K11), split-K (K6) and paired (K7, the
+"""The bfp (K10), sw2/sw4 (K11), split-K (K6, partials from the
+tensor-core body csrc/nibble_mma_small.cuh) and paired (K7, the
 tensor-core body csrc/ucode_mma_small.cuh) CUDA kernels against their
 plain twins, on a card. This file imports neither JAX nor
 the JAX package (the card's machine has no JAX), so it runs there without
@@ -188,6 +189,73 @@ def test_ksplit_chunk_counts(cuda, chunks):
     q_in = 11264 if chunks == 11 else (3072 if chunks == 3 else 4096)
     _check("ksplit", 4096, q_in, 1, torch.bfloat16, cuda, seed=chunks,
            chunks=chunks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 9, 16, 17, 24, 31, 32, 33, 65])
+@pytest.mark.parametrize("chunks", [4, 11])
+def test_ksplit_row_tiles(cuda, chunks, m, dtype):
+    """K6 at the edges of 1, 2 and 4 n8 tiles of rows and across blocks of
+    32 rows, at a ragged q_out, 4
+    chunks of a 512-group row and 11 of down's 1408, 1 and 2 plane
+    sets."""
+    _check("ksplit", 200, 11264 if chunks == 11 else 4096, m, dtype, cuda,
+           seed=m + chunks, n_sets=1 + m % 2, mp=max(8, -(-m // 8) * 8),
+           chunks=chunks)
+
+
+@pytest.mark.parametrize("m", [1, 32, 40])
+@pytest.mark.parametrize("chunks", [2, 4, 11])
+def test_ksplit_is_deterministic_and_replays_in_a_graph(cuda, chunks, m):
+    """A second call and CUDA-graph replays give the first call's bits (the
+    partials are added in chunk order), and only K6's counter moves, by
+    one a call."""
+    q_in = 11264 if chunks == 11 else 4096
+    Gp, call, twin, counter = _case("ksplit", 4096, q_in, 1, cuda, seed=8,
+                                    chunks=chunks)
+    x = torch.randn((max(8, -(-m // 8) * 8), 8 * Gp),
+                    generator=torch.Generator(device=cuda).manual_seed(8),
+                    device=cuda).to(torch.bfloat16)
+    before = (counter.launches, rm.paired_decode_matmul.launches)
+    first = call(x, None, m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(x, None, m)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first) and torch.equal(call(x, None, m), first)
+    after = (counter.launches, rm.paired_decode_matmul.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 0)
+    _close(first, twin(x, None, m), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_ksplit_splits_a_wave_tail_at_decode_rows(cuda, m, dtype):
+    """At m <= 8 K6 splits only where K1's whole tiles leave a last wave at
+    most half full: 12288 channels are 384 tiles of 32, a wave and 120
+    tiles at an H100's 264 resident blocks. The split's partials and
+    reduce at 1 and 2 plane sets, held to the twin; a CUDA-graph replay
+    gives the first call's bits."""
+    n_sets = 1 + m % 2
+    Gp, call, twin, counter = _case("ksplit", 12288, 4096, n_sets, cuda,
+                                    seed=m, chunks=4)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((8, 8 * Gp), generator=g, device=cuda).to(dtype)
+    scale = torch.rand(12288, generator=g, device=cuda) + 0.5
+    before = counter.launches
+    first = call(x, scale, m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(x, scale, m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(out, first)
+    _close(first, twin(x, scale, m), dtype)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)

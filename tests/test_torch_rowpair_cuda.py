@@ -1,4 +1,4 @@
-"""The row-pair CUDA kernels (u3, and pb on the tensor-core body
+"""The row-pair CUDA kernels (u3 and pb, both on the tensor-core body
 csrc/ucode_mma_small.cuh) against their plain twins, on a card.
 This file imports neither JAX nor the JAX package (the card's machine has
 no JAX), so it runs there without tests/conftest.py:
@@ -117,6 +117,44 @@ def test_pb_row_tiles(cuda, m, dtype, with_scale):
            with_scale=with_scale)
 
 
+@pytest.mark.parametrize("with_scale", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", list(range(1, 10)) + [16, 17, 24, 31, 32, 33,
+                                                     64, 65])
+def test_u3_row_tiles(cuda, m, dtype, with_scale):
+    """K9's tensor-core body (one code set, two m16 tiles a warp) at the
+    edges of 1, 2 and 4 n8 tiles of rows and across blocks of 32 rows, at
+    a ragged q_out (100 row pairs) and down's 1536 groups (both halves of
+    w1, 12 parity fields), x padded to a multiple of 8 rows as the
+    dispatch pads it (both group-sum roundings)."""
+    _check("u3", 200, 11008, m, dtype, cuda, seed=m, mp=max(8, -(-m // 8) * 8),
+           with_scale=with_scale)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 65])
+def test_u3_is_deterministic_and_replays_in_a_graph(cuda, m):
+    """As the pb test below: the same bits on a second call and a graph
+    replay, and only the u3 counter moves."""
+    planes, Gp = _planes("u3", 4096, 11008, cuda, seed=6)
+    x = torch.randn((max(8, -(-m // 8) * 8), 8 * Gp),
+                    generator=torch.Generator(device=cuda).manual_seed(6),
+                    device=cuda).to(torch.bfloat16)
+    before = (rm.rowpair_u3_matmul.launches, rm.rowpair_pb_matmul.launches)
+    first = _call("u3", x, planes, rows=m)
+    again = _call("u3", x, planes, rows=m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _call("u3", x, planes, rows=m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first) and torch.equal(out, first)
+    after = (rm.rowpair_u3_matmul.launches, rm.rowpair_pb_matmul.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 0)
+    _close(first, rm.rowpair_matmul_ref(x, "u3", planes, RS, rows=m),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("m", [1, 8, 32, 65])
 def test_pb_is_deterministic_and_replays_in_a_graph(cuda, m):
     """A second call and a CUDA-graph replay give the first call's bits (a
@@ -196,5 +234,25 @@ def test_ucode_entries_refuse_a_beta_the_codes_do_not_carry(cuda, layout):
         err = fn(x.data_ptr(), planes["w0"].data_ptr(),
                  planes["w1"].data_ptr(), planes["w2"].data_ptr(), None,
                  out.data_ptr(), 1, 192, Gp, PL, float(rs), bad, 0, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 1, (bad, err)
+
+
+def test_u3_entry_refuses_a_beta_the_codes_do_not_carry(cuda):
+    """K9's codes carry beta = 2.25 (4u - 9): its C entry point refuses any
+    other (cudaErrorInvalidValue, 1) and takes the wrapper's."""
+    from quip_for_all_tpu_torch.ops._build import load
+    planes, Gp = _planes("u3", 192, 4096, cuda, seed=9)
+    PL = planes["w2"].shape[-1]
+    x = torch.randn((8, 8 * Gp), device=cuda).to(torch.bfloat16)
+    out = rm._launch("qfa_rowpair_u3_matmul", x, "u3", planes, -1.0, None, 1)
+    torch.cuda.synchronize()
+    _close(out, rm.rowpair_matmul_ref(x, "u3", planes, rows=1),
+           torch.bfloat16)
+    fn = load(rm.KERNEL).qfa_rowpair_u3_matmul
+    for bad in (2.26, 2.24, 0.0):
+        err = fn(x.data_ptr(), planes["w0"].data_ptr(),
+                 planes["w1"].data_ptr(), planes["w2"].data_ptr(), None,
+                 out.data_ptr(), 1, 192, Gp, PL, -1.0, bad, 0, 1,
                  torch.cuda.current_stream().cuda_stream)
         assert err == 1, (bad, err)

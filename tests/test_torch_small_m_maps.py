@@ -19,6 +19,21 @@ bit operations) and holds the result to the plain twins
 with the kernels' tolerance: 1e-5 of the max, plus one bf16 ulp for bf16
 outputs. A wrong pairing (the two nibbles of each A register swapped)
 must miss it.
+
+K6 (csrc/ksplit_decode_matmul.cu) runs the same body with its split-K
+switch on: the grid is a multiple of the chunk count C, block b keeps
+chunk b mod C and walks the tiles b div C, + gridDim/C, ..., each unit
+(tile, chunk) taking the slabs of its chunk's Gc = Gp/C groups and writing
+its partial (alphas and the chunk's beta row sums applied); a second
+kernel adds the C partials in chunk order, then the scale and the cast.
+The emulation of that slab walk and reduce is held to
+``ksplit_decode_matmul_ref`` at 2, 3, 4 and 11 chunks; a walk that
+forgets the chunk's first group must miss; the grid's units cover every
+(tile, chunk) once. Where the split does not pay (at m <= 8, unless the
+card's last wave of whole tiles is at most half full), K6 runs the body
+over whole tiles: each of the 8 warps sums its slabs (warp w: w, w + 8,
+...) in f32 in order, through the chunks, and the warps meet in warp order
+at the tile's end; that association is held to the chunk-order twin too.
 """
 import numpy as np
 import pytest
@@ -206,3 +221,125 @@ def test_a_wrong_pairing_misses(P):
                  torch.float32)
     assert not close(emulate(x_perm, words, affine, scale, P, wrong=True),
                      want, torch.float32)
+
+
+def ksplit_emulate(x_perm, planes, affine, scale, chunks, no_gb=False):
+    """K6's arithmetic: the unit of chunk k walks slabs [k*Gc/16,
+    (k+1)*Gc/16) (from slab 0 with ``no_gb``, the chunk's first group
+    forgotten, as a negative control), each slab a fresh accumulator times
+    alpha and the row sums by an all-ones A; its partial adds beta times
+    its row sums; the partials are added in chunk order, then the scale
+    and the cast."""
+    xf = x_perm.float()
+    terms = split3(xf) if x_perm.dtype == torch.float32 else (xf,)
+    Bs = [b_matrix(tm, 1) for tm in terms]
+    As = [a_matrix(w, 1) for w in planes]
+    m, nslab = xf.shape[0], Bs[0].shape[1]
+    per = nslab // chunks
+    beta_total = sum(b for _, b in affine)
+    total = None
+    for k in range(chunks):
+        tot = torch.zeros((m, planes[0].shape[0]))
+        rs = torch.zeros((m,))
+        first = 0 if no_gb else k * per
+        for s in range(first, first + per):
+            for (alpha, _), A in zip(affine, As):
+                acc = sum(B[:, s].reshape(m, -1)
+                          @ A[:, s].reshape(A.shape[0], -1).T for B in Bs)
+                tot = tot + alpha * acc
+            rs = rs + sum(B[:, s].reshape(m, -1).sum(1) for B in Bs)
+        part = tot + beta_total * rs[:, None]
+        total = part if total is None else total + part
+    if scale is not None:
+        total = total * scale
+    return total.to(x_perm.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("chunks,q_in", [(2, 4096), (3, 3072), (4, 4096),
+                                         (11, 11264)])
+def test_ksplit_walk_and_reduce_match_the_twin(chunks, q_in, m, dtype):
+    x_perm, words, affine, scale, _ = make(1, q_in, m, dtype,
+                                           1 + (m == 8), seed=chunks + m)
+    want = lm.ksplit_decode_matmul_ref(x_perm, words, affine, chunks, scale)
+    got = ksplit_emulate(x_perm, words, affine, scale, chunks)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert close(got, want, dtype)
+
+
+@pytest.mark.parametrize("chunks", [2, 11])
+def test_a_ksplit_walk_without_the_chunk_offset_misses(chunks):
+    """Negative control: every unit walks the first chunk's slabs."""
+    q_in = 11264 if chunks == 11 else 4096
+    x_perm, words, affine, scale, _ = make(1, q_in, 8, torch.float32, 1,
+                                           seed=chunks)
+    want = lm.ksplit_decode_matmul_ref(x_perm, words, affine, chunks, scale)
+    assert close(ksplit_emulate(x_perm, words, affine, scale, chunks), want,
+                 torch.float32)
+    assert not close(ksplit_emulate(x_perm, words, affine, scale, chunks,
+                                    no_gb=True), want, torch.float32)
+
+
+def whole_tile_emulate(x_perm, planes, affine, scale, warps=8):
+    """K6 without the split: warp w walks slabs w, w + warps, ... of the
+    whole row, each slab a fresh accumulator times alpha added into its
+    f32 sums (the row sums likewise); the warps' sums meet in warp order,
+    then beta, the scale and the cast."""
+    xf = x_perm.float()
+    terms = split3(xf) if x_perm.dtype == torch.float32 else (xf,)
+    Bs = [b_matrix(tm, 1) for tm in terms]
+    As = [a_matrix(w, 1) for w in planes]
+    m, nslab = xf.shape[0], Bs[0].shape[1]
+    v = torch.zeros((m, planes[0].shape[0]))
+    r = torch.zeros((m,))
+    for w in range(warps):
+        tot = torch.zeros((m, planes[0].shape[0]))
+        rs = torch.zeros((m,))
+        for s in range(w, nslab, warps):
+            for (alpha, _), A in zip(affine, As):
+                acc = sum(B[:, s].reshape(m, -1)
+                          @ A[:, s].reshape(A.shape[0], -1).T for B in Bs)
+                tot = tot + alpha * acc
+            rs = rs + sum(B[:, s].reshape(m, -1).sum(1) for B in Bs)
+        v, r = v + tot, r + rs
+    out = v + sum(b for _, b in affine) * r[:, None]
+    if scale is not None:
+        out = out * scale
+    return out.to(x_perm.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("chunks,q_in", [(2, 4096), (3, 3072), (4, 4096),
+                                         (11, 11264)])
+def test_whole_tile_sums_match_the_chunk_order_twin(chunks, q_in, m, dtype):
+    x_perm, words, affine, scale, _ = make(1, q_in, m, dtype,
+                                           1 + (m == 8), seed=3 * chunks + m)
+    want = lm.ksplit_decode_matmul_ref(x_perm, words, affine, chunks, scale)
+    got = whole_tile_emulate(x_perm, words, affine, scale)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert close(got, want, dtype)
+
+
+def ksplit_units(ntiles: int, nch: int, resident: int):
+    """The (tile, chunk) units each block of K6's grid takes: the launch's
+    grid (as many blocks as the card holds, at most one a unit, rounded to
+    whole multiples of the chunks) and the kernel's walk."""
+    blocks = min(ntiles * nch, resident)
+    blocks = nch if blocks < nch else blocks // nch * nch
+    units = []
+    for b in range(blocks):
+        chunk, tb, tstep = b % nch, b // nch, blocks // nch
+        ntile = (ntiles - tb + tstep - 1) // tstep
+        units += [(tb + k * tstep, chunk) for k in range(ntile)]
+    return units
+
+
+@pytest.mark.parametrize("resident", [5, 132, 264])
+@pytest.mark.parametrize("nch", [2, 3, 4, 11])
+@pytest.mark.parametrize("ntiles", [1, 7, 64, 192, 344, 1000])
+def test_ksplit_grid_takes_every_unit_once(ntiles, nch, resident):
+    units = ksplit_units(ntiles, nch, resident)
+    assert sorted(units) == [(t, c) for t in range(ntiles)
+                             for c in range(nch)]

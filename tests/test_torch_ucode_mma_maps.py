@@ -1,7 +1,7 @@
-"""The index maps of K7 and K8's tensor-core body on the CPU, before the
-card runs it.
+"""The index maps of K7, K8 and K9's tensor-core body on the CPU, before
+the card runs it.
 
-K7 (csrc/paired_decode_matmul.cu) and K8's pb entry
+K7 (csrc/paired_decode_matmul.cu) and K8's pb and K9's u3 entries
 (csrc/rowpair_decode_matmul.cu) run one body, csrc/ucode_mma_small.cuh, on
 the skeleton of csrc/nibble_mma_small.cuh: a warp lane (g, t) loads words
 4t..4t+3 of a 16-group slab and decodes them straight into the A registers
@@ -14,17 +14,23 @@ accumulator flushed into f32 sums times 1/4 and rs/4. Where the Pallas
 block sums gx in bf16 (bf16 x, more than 8 rows) a pass ends with one more
 k-step whose A is -2 where the pass's parity bit is set and whose B is
 gx, summed left to right over the positions with each add rounded to bf16.
+K9's u3 policy (U3Codes) takes one code set, u = lo2 + 4*hi1, from three
+row-pair words a lane: A row g is channel 2g (the words' low halves) and
+g + 8 channel 2g + 1 (high halves); the lo2 pairs are one byte permute of
+w0, the hi1 bits one byte permute of w1 that picks the byte of w1's half
+d; its one pass a slab is flushed times 1/4.
 
 This file emulates those maps in torch (the A and B registers of every
 k-step of every slab, built from the planes and x_perm by the kernel's own
 bit operations) and holds the result to the plain twin
 ``rowpair_matmul_ref`` at Llama-2-7B widths (q_in 4096 and 11008: pb Gp
-1408, paired Gp 1536), m = 1, 8, 16 and 32 (gx in f32 up to 8 rows, in
-bf16 above), bf16 and f32 x, with and without a scale, at the kernels'
-tolerance: 1e-5 of the max, plus one bf16 ulp for bf16 outputs. A wrong
-pairing (the two halves of each u register swapped) must miss it, and so
-must bf16 group sums taken in f32 (the parity folded into the codes at
-m = 32). The counter walk of the parity field is held to a division.
+1408, paired and u3 Gp 1536), m = 1, 8, 16 and 32 (gx in f32 up to 8
+rows, in bf16 above), bf16 and f32 x, with and without a scale, at the
+kernels' tolerance: 1e-5 of the max, plus one bf16 ulp for bf16 outputs.
+A wrong pairing (the two halves of each u register swapped) must miss it,
+and so must bf16 group sums taken in f32 (the parity folded into the
+codes at m = 32). The counter walk of the parity field is held to a
+division.
 """
 import numpy as np
 import pytest
@@ -32,7 +38,8 @@ import torch
 
 from quip_for_all_tpu_torch.ops import fused_matmul as fm
 from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
-from quip_for_all_tpu_torch.ops.qtensor import paired_wp, pb_parity_lanes
+from quip_for_all_tpu_torch.ops.qtensor import (paired_wp, pb_parity_lanes,
+                                                u3_parity_lanes)
 
 pytestmark = pytest.mark.fast
 
@@ -56,13 +63,10 @@ LOW, HIGH = 0x5410, 0x7632     # __byte_perm: low / high halves of 2 words
 def byte_perm(x: torch.Tensor, y: torch.Tensor, sel) -> torch.Tensor:
     """CUDA's __byte_perm on int64 tensors holding uint32 values; ``sel``
     an int or an int64 tensor of selectors."""
-    if not isinstance(sel, int):
-        return torch.where(sel == LOW, byte_perm(x, y, LOW),
-                           byte_perm(x, y, HIGH))
     out = torch.zeros_like(x)
     for k in range(4):
         b = (sel >> (4 * k)) & 7
-        src = x if b < 4 else y
+        src = torch.where(torch.as_tensor(b < 4), x, y)
         out |= ((src >> (8 * (b % 4))) & 0xFF) << (8 * k)
     return out
 
@@ -95,6 +99,16 @@ def u_reg(L, H, i, st, bias, wrong=False):
     return (v - bf16_pair(bias).to(torch.bfloat16)).float()
 
 
+def u3_reg(L, H, i, bias, wrong=False):
+    """The u3 policy's a_frag: the bf16 pair (0x4300 | 4*lo2 | 16*hi1) -
+    bias at position i, as (..., 2) f32."""
+    t = (shl(L, 2 - 2 * i) & 0x000C000C) | (shl(H, 4 - i) & 0x00100010)
+    if wrong:
+        t = ((t >> 16) | (t << 16)) & M32
+    v = bf16_pair(t | 0x43004300).to(torch.bfloat16)
+    return (v - bf16_pair(bias).to(torch.bfloat16)).float()
+
+
 def channel_words(layout, planes, q_out):
     """Per output channel n and group g (q_out, Gp), as the lane loads them:
     the lo4 words of positions 0-3 and 4-7, the hi2 word, the parity word,
@@ -116,6 +130,16 @@ def channel_words(layout, planes, q_out):
     PL = w["w2"].shape[-1]
     rp, hr = n // 2, n % 2            # row pair and its half: A row g / g+8
     sel = torch.where(hr == 1, HIGH, LOW).expand(q_out, Gp)
+    if layout == "u3":
+        # w1's half d of group g; its byte 2*hr + d of each word
+        Gh = Gp // 2
+        d = g // Gh
+        return dict(lo_a=w["w0"][rp[:, 0]], lo_b=w["w0"][rp[:, 0]],
+                    hi=w["w1"][rp[:, 0]][:, g % Gh],
+                    par=w["w2"][rp[:, 0]][:, g % PL],
+                    sel_lo=lambda i: sel,
+                    sel_hi=(2 * hr + d) * 0x1111 + 0x4400,
+                    bit=16 * hr + g // PL)
     return dict(lo_a=w["w0"][0][rp[:, 0]], lo_b=w["w0"][1][rp[:, 0]],
                 hi=w["w1"][rp[:, 0]], par=w["w2"][rp[:, 0]][:, g % PL],
                 sel_lo=lambda i: sel, sel_hi=sel,
@@ -137,12 +161,12 @@ def k_map():
 def a_matrices(layout, planes, q_out, fold, wrong=False):
     """[pass st] -> (A (q_out, nslab, 8, 16) the values 4u - 9 - 2p (fold)
     or 4u - 9 in the kernel's k order, PA (q_out, nslab, 16) the parity
-    k-step's -2p)."""
+    k-step's -2p); u3 has one pass."""
     cw = channel_words(layout, planes, q_out)
     t, p, elem = k_map()
     par, bit = slab_view(cw["par"]), slab_view(cw["bit"])
     out = []
-    for st in (0, 1):
+    for st in ((0,) if layout == "u3" else (0, 1)):
         pbits = [bit_pair(par[..., 2 * pp], par[..., 2 * pp + 1],
                           bit[..., 2 * pp] + st) for pp in (0, 1)]
         bias = [0x43094309 + (pb << 1) if fold
@@ -159,7 +183,9 @@ def a_matrices(layout, planes, q_out, fold, wrong=False):
                               sl if isinstance(sl, int) else sl[..., 2 * pp])
                 H = byte_perm(hi[..., 2 * pp], hi[..., 2 * pp + 1],
                               sh[..., 2 * pp])
-                regs.append(u_reg(L, H, i, st, bias[pp], wrong))
+                regs.append(u3_reg(L, H, i, bias[pp], wrong)
+                            if layout == "u3"
+                            else u_reg(L, H, i, st, bias[pp], wrong))
             vals = torch.stack(regs, dim=3)               # (n, s, t, p, 2)
             steps.append(vals[:, :, t, p, elem])          # (n, s, 16)
         pregs = torch.stack([bf16_pair((pb * 0xC000) & M32) for pb in pbits],
@@ -247,6 +273,10 @@ def make(layout, q_in, m, dtype, with_scale, seed, q_out=48):
         Gp = -(-G // 256) * 256
         shapes = {"w0": (q_out, Gp), "w1": (q_out, Gp // 2),
                   "w2": (q_out, paired_wp(Gp))}
+    elif layout == "u3":
+        Gp = -(-G // 256) * 256
+        shapes = {"w0": (q_out // 2, Gp), "w1": (q_out // 2, Gp // 2),
+                  "w2": (q_out // 2, u3_parity_lanes(Gp))}
     else:
         Gp = -(-G // 128) * 128
         shapes = {"w0": (2, q_out // 2, Gp), "w1": (q_out // 2, Gp),
@@ -269,7 +299,7 @@ def make(layout, q_in, m, dtype, with_scale, seed, q_out=48):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 8, 16, 32])
 @pytest.mark.parametrize("q_in", [4096, 11008])
-@pytest.mark.parametrize("layout", ["pb", "paired"])
+@pytest.mark.parametrize("layout", ["pb", "paired", "u3"])
 def test_body_maps_match_the_twin(layout, q_in, m, dtype, with_scale):
     x_perm, planes, scale, want = make(layout, q_in, m, dtype, with_scale,
                                        seed=m + q_in % 7)
@@ -278,7 +308,7 @@ def test_body_maps_match_the_twin(layout, q_in, m, dtype, with_scale):
     assert close(got, want, dtype)
 
 
-@pytest.mark.parametrize("layout", ["pb", "paired"])
+@pytest.mark.parametrize("layout", ["pb", "paired", "u3"])
 def test_a_wrong_pairing_misses(layout):
     """Negative control: the two halves of each u register swapped."""
     x_perm, planes, scale, want = make(layout, 4096, 8, torch.float32, True,
@@ -289,7 +319,7 @@ def test_a_wrong_pairing_misses(layout):
                      want, torch.float32)
 
 
-@pytest.mark.parametrize("layout", ["pb", "paired"])
+@pytest.mark.parametrize("layout", ["pb", "paired", "u3"])
 def test_folding_the_parity_misses_bf16_group_sums(layout):
     """Negative control: at m = 32 in bf16 the Pallas body rounds gx to
     bf16, and the parity folded into the codes (f32 group sums) misses."""

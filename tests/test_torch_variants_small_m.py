@@ -1,6 +1,6 @@
-"""The design-variants tool of the small-m tensor-core body of K1, K11, K8
-and K7 (quip_for_all_tpu_torch/tools/variants_small_m.py) on the CPU:
-every variant's rules still find what they change in the current headers,
+"""The design-variants tool of the small-m tensor-core body of K1, K11,
+K6, K8, K9 and K7 (quip_for_all_tpu_torch/tools/variants_small_m.py) on
+the CPU: every variant's rules still find what they change in the current headers,
 so an edit of the kernel cannot silently turn a variant into the
 unchanged body; the SIMT variant's entry points still name the SIMT
 body's dispatch; the parent variant copies another csrc directory. The
@@ -80,3 +80,19 @@ def test_parent_variant_copies_another_csrc_as_it_is(tmp_path):
             assert b.read() == (other / f).read_text()
     with pytest.raises(ValueError, match="--parent"):
         vs.write_variant("parent", str(tmp_path / "v"))
+
+
+def test_ksplit_and_u3_layouts_run_the_tensor_core_body(tmp_path):
+    """Every variant copies the split-K source, whose entry runs the
+    small-m body with the split switched on, and the u3 entry runs its
+    codes policy; u3 and ksplit4 have no simt body."""
+    for v in ("base", "tiles"):
+        d = vs.write_variant(v, str(tmp_path))
+        with open(os.path.join(d, vs.KSPLIT_SOURCE)) as f:
+            assert "sm::launch_ks<" in f.read()
+        with open(os.path.join(d, "rowpair_decode_matmul.cu")) as f:
+            assert "sm::dispatch_u3(" in f.read()
+    assert {"u3", "ksplit4"} <= set(vs.ENTRIES)
+    for layout in ("u3", "ksplit4"):
+        with pytest.raises(ValueError, match="parent"):
+            vs.run(["base", "simt"], [1], [layout])
