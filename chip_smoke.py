@@ -16,9 +16,11 @@ line):
      device-memory bytes at 3.35 TB/s, and a library yardstick (one dense
      bf16 product of the same shape); sums per token (m = 1, 8) and per
      prefill (m = 16, 32);
-  3. moe_decode_matmul against its plain twin at Mixtral-8x7B's w13 and w2
-     shapes with 8 experts, R = 2 (bs=1 decode), 16 and 62 rows (top-2
-     over 8 and 31 tokens), timed the same way;
+  3. moe_decode_matmul (K4/K5, K1's tensor-core body with a row map by
+     expert) against its plain twin at Mixtral-8x7B's w13 and w2 shapes
+     with 8 experts, R = 2 (bs=1 decode), 16 and 62 rows (top-2 over 8
+     and 31 tokens), timed the same way in bf16; also held to the twin,
+     untimed, in f32 at R = 2 and with 2 plane sets at R = 16;
   4. the golden reference-schema checkpoint through the kernel (f32);
   5. the main path: Llama-2-7B E8P12 (random codes, seed 0), fused qkv and
      gate/up, quantized head, cache_len 2048, bs=1: a 32-token prompt and
@@ -31,7 +33,8 @@ line):
      prompt/greedy runs with 64 new tokens, exact launch counts of both
      kernels, a 16-token prompt through the sparse prefill, and the
      kernel-vs-plain check with the kernel run on the plain run's top-2
-     routing (a fork accepted only at a near-tie of the tokens);
+     routing (a fork accepted only at a near-tie of the tokens), and the
+     device time of the 16-token sparse prefill (CUDA-graph replay);
   7. the row-pair kernels (u3 and pb, each its codes policy on the
      tensor-core body ucode_mma_small.cuh) against their plain twins at
      the Llama-2-7B shapes, m = 1, 8, 32 and 64 in bf16 and m = 1 in f32
@@ -48,8 +51,8 @@ line):
      greedy tokens twice, exact launch counts, one graphed step, the
      graphed 32-token prefill, and the kernel-vs-plain check over 16
      tokens;
- 10. bfp_decode_matmul (K10, the SIMT body nibble_decode.cuh, 1 and 2
-     plane sets), sw_decode_matmul (K11, sw2 and sw4), ksplit_decode_matmul
+ 10. bfp_decode_matmul (K10, K1's tensor-core body on row-pair words, 1
+     and 2 plane sets), sw_decode_matmul (K11, sw2 and sw4), ksplit_decode_matmul
      (K6, K1's tensor-core body over (tile, chunk) units and a reduce where
      the split pays, else over whole tiles; 2 and 4 chunks;
      down 11) and paired_decode_matmul (K7) against their plain twins at
@@ -213,6 +216,8 @@ MIXTRAL_FUSED_CALLS = {"qkv_gqa": LAYERS, "o": LAYERS, "head": 1}
 MOE_SHAPES = [("w13", 28672, 4096), ("w2", 4096, 14336)]
 MOE_E, MOE_K = 8, 2
 MOE_R = (2, 16, 62)
+# the MoE kernel held to its twin, untimed: R -> (x's dtype, plane sets)
+MOE_CHECK = {2: ("float32", 1), 16: ("bfloat16", 2)}
 # K3 at Llama-2-7B's unfused linears: (name, q_out, q_in); its calls per
 # LoRA training step (layer 0's q/k/v inputs need no gradient: 3*31 + 32
 # of the 4096x4096 shape) and the rows of that step (batch 2 x 511)
@@ -422,19 +427,33 @@ def phase_moe_kernels():
                     f"moe {name} R={R}: kernel vs plain twin beyond "
                     f"tolerance (max |diff| {err})")
 
-            def kernel(bound):
-                return lambda i: mm.moe_fused_matmul(
-                    x, eids, [ps[i % copies]], affine, bound)
-            k_ms = 1e-3 * tm.graph_us(kernel(m), 4 * copies)
-            acc_r = ""
-            if m < R <= 4:
-                # the accumulator sized from R (the bound of any routing)
-                # against the main path's bound, in turns: A B B A
-                b1 = 1e-3 * tm.graph_us(kernel(R), 4 * copies)
-                b2 = 1e-3 * tm.graph_us(kernel(R), 4 * copies)
-                k_ms = (k_ms + 1e-3 * tm.graph_us(kernel(m), 4 * copies)) / 2
-                acc_r = (f" | bound R ({R}-row accumulator) "
-                         f"{(b1 + b2) / 2 * 1e3:.1f} us")
+            # untimed: f32 x at R = 2, two plane sets at R = 16
+            if R in MOE_CHECK:
+                dt, n_sets = MOE_CHECK[R]
+                xc = x
+                if dt == "float32":
+                    xc = torch.zeros((R, 8, Gp), device="cuda")
+                    xc[:, :, :G] = torch.randn((R, 8, G), generator=gen,
+                                               device="cuda")
+                    xc = xc.reshape(R, 8 * Gp)
+                ws = [planes] + [planes.roll(1, 0).contiguous()] * (
+                    n_sets - 1)
+                got = mm.moe_fused_matmul(xc, eids, ws, K1_AFFINE[:n_sets],
+                                          m)
+                want = mm.moe_fused_matmul_ref(xc, eids, ws,
+                                               K1_AFFINE[:n_sets])
+                torch.cuda.synchronize()
+                ok, e2 = tm.compare(got, want, bf16_step=True)[:2]
+                max_err = max(max_err, e2)
+                log(f"kernel moe {name:3s} R={R:2d} {dt}, {n_sets} set(s): "
+                    f"max|k-plain| {e2:.3g} (tol 1 bf16 ulp + 1e-5 max)")
+                if not ok:
+                    raise AssertionError(
+                        f"moe {name} R={R} {dt} {n_sets} set(s): kernel vs "
+                        f"plain twin beyond tolerance (max |diff| {e2})")
+                del ws
+            k_ms = 1e-3 * tm.graph_us(lambda i: mm.moe_fused_matmul(
+                x, eids, [ps[i % copies]], affine, m), 4 * copies)
             p_ms = 1e-3 * tm.event_us(lambda i: mm.moe_fused_matmul_ref(
                 x, eids, [ps[i % copies]], affine), 3)
             # yardstick: one dense bf16 product per distinct expert on its
@@ -468,7 +487,7 @@ def phase_moe_kernels():
                 f"{p_ms * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.1f} us "
                 f"({row['bound_by']}) | {row['bound_ms'] / k_ms:.0%} of "
                 f"bound | library {lib_ms * 1e3:.1f} us (dense bf16 matmul "
-                f"per expert, 4x the bytes, not the same function){acc_r}")
+                f"per expert, 4x the bytes, not the same function)")
         del ps, planes
         torch.cuda.empty_cache()
     return rows, max_err
@@ -686,6 +705,8 @@ def phase_mixtral():
                     "moe_decode_matmul": 4 * 2 * L})
     if not torch.isfinite(torch.stack(logits_s)).all():
         raise AssertionError("mixtral: 16-token prompt logits not finite")
+    pre_ms = log_prefill("mixtral", cfg, model, short, CACHE,
+                         "moe_decode_matmul")
 
     for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
         check_plain(cfg, model, prompt, dt, tol, CACHE, tag="mixtral")
@@ -694,7 +715,7 @@ def phase_mixtral():
         f" ms (CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
         f"{1 - dev_ms / eager_ms:.0%} of the eager step")
     return {"launches": launches, "ms_tok": ms_tok, "dev_ms": dev_ms,
-            "eager_ms": eager_ms}
+            "eager_ms": eager_ms, "sparse_prefill_device_ms": pre_ms}
 
 
 def phase_rowpair_kernels():
@@ -1949,6 +1970,8 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
     moe = entry(KERNELS[1], moe_rows, moe_calls, {"R": 2},
                 mix["launches"]["moe_decode_matmul"], moe_err)
     moe.update(moe_sums(moe_rows))
+    moe["mixtral_16_token_sparse_prefill_device_ms"] = mix[
+        "sparse_prefill_device_ms"]
     # Mixtral's decode step: its fused calls (GQA qkv, o, head) and its
     # MoE calls, against the graphed step's device time
     mix_fused = call_sum(rows, MIXTRAL_FUSED_CALLS, "ms", m=1, sets=1)
@@ -1995,6 +2018,7 @@ def layout_entries(rows, max_err, paths):
                                           for r in sel) else "operations"))
         e.update(small_m_sums(rows, {"variant": label, "dtype": "bfloat16"},
                               calls))
+        e["path_prefill_device_ms"] = paths[path]["prefill_device_ms"]
         log(f"{path}: per decode token the {label} kernel takes "
             f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
             f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "

@@ -2,7 +2,8 @@
 //
 // Replaces: quip_for_all_tpu/ops/dequant_pallas.py:_make_kernel_bfp
 // (:281, the bfp runtime layout, QFA_BFP there) through both of
-// _fused_call's grids (:868, :888). One kernel takes any m.
+// _fused_call's grids (:868, :888): a block takes up to 32 rows of x and
+// gridDim.y walks further tiles of 32, so every m takes this body.
 //
 // The bfp planes hold the nibble words of an output-row PAIR:
 // w3[half][t, g] (2, q_out/2, Gp) carries nibble positions 4*half..+3 of
@@ -12,184 +13,98 @@
 //   f = ((w >> 4k) & 0x000F000F) | 0x43004300
 //
 // holds two bf16 values, 128 + nibble (4*half + k) of rows 2t (low) and
-// 2t+1 (high), exactly. The f32 value of a bf16 is its bits shifted up by
-// 16, so each nibble becomes a float with a shift or a mask and one exact
-// subtract of 128 -- no int->float convert instruction, which is what the
-// layout is for (the K1 kernel converts every nibble with an I2F). The
-// 128 is removed per element: folding it into the rowsum term is not the
-// same function (dequant_pallas.py:295-299). The math is then K1's:
+// 2t+1 (high), exactly: no int->float convert, which is what the layout
+// is for. The 128 is removed per element (folding it into the rowsum term
+// is not the same function, dequant_pallas.py:295-299). The math is then
+// K1's:
 //
 //   out[r, n] = (sum_s alpha_s * sum_{g,i} x_perm[r, i*Gp + g] * nib_s
 //                + beta_total * rowsum(x_perm[r])) * scale[n]
 //
 // cast to x's dtype, with x_perm in the grouped layout x_perm[r, i*Gp+g] =
-// x[r, 8g + i]. Every product is exact in f32; each lane visits its words
-// and positions in K1's order, so the sums differ from the plain twin
-// only by f32 summation order.
+// x[r, 8g + i]. Every product is exact in f32, so the result differs from
+// the plain twin (ops/layout_matmul.py) only by f32 summation order.
 //
 // What bounds it on the card: device-memory bytes, exactly K1's (the same
 // words in another order; 3.32 GB per Llama-2-7B token, ~0.99 ms at
-// 3.35 TB/s, reckoned from shapes). Design: nibble_decode.cuh's, with row
-// pairs: a warp owns 2 row pairs (1 with the 8-row accumulator), each
-// lane loads 4 consecutive words (uint4) of both position halves of each
-// pair per step, so one 32-bit word feeds two output rows.
+// 3.35 TB/s, reckoned from shapes), at m = 1 and at m = 32 alike.
+//
+// Design: K1's tensor-core body (nibble_mma_small.cuh: x staged by
+// cp.async, one pass over the planes for all m <= 32 rows of a block,
+// mma.sync m16n8k16 with the decoded words as A) with the codes policy
+// BfpCodes. The words are K1's, re-laid, so K1's k order holds: A
+// register rho = 2i + p of lane (g, t) pairs the lane's words 2p and
+// 2p + 1 (groups 4t + 2p, 4t + 2p + 1 of the slab) at position i. In K1
+// they are two words of one channel; here a row-pair word holds position
+// i of both channels of its pair, so one byte permute of the two words
+// takes the low halves (0x5410: channel 2t) or the high ones (0x7632:
+// channel 2t + 1), then K1's shift, mask, OR and bf16 subtract of 128.
+// A lane's two uint4 of an m16 tile are the two half planes of its row
+// pair (positions 0-3 and 4-7), where K1 loads rows g and g + 8; A row g
+// is channel 2g and row g + 8 channel 2g + 1 (PAIR_ROWS, as pb's), and the
+// store undoes the map. A bfp A register costs what K1's does.
 
-#include "nibble_decode.cuh"
+#include "nibble_mma_small.cuh"
 
 namespace {
+namespace sm {
 
-template <int MT>
-__host__ __device__ constexpr int bfp_pairs_per_warp() {
-  return rows_per_warp<MT>() / 2;
+// (0x4300 | nibble) pairs of the halves sel picks of words a and b at
+// position s/4 of their half plane, minus 128: the A register
+__device__ __forceinline__ uint32_t bfp_reg(uint32_t a, uint32_t b,
+                                            uint32_t sel, int s) {
+  return unbias(((__byte_perm(a, b, sel) >> s) & 0x000F000Fu) | 0x43004300u);
 }
 
-template <typename T, int NSETS, int MT>
-__global__ void __launch_bounds__(WARPS * 32)
-bfp_decode_matmul_kernel(const T* __restrict__ x,
-                         const uint32_t* __restrict__ w0,
-                         const uint32_t* __restrict__ w1,
-                         const float* __restrict__ scale,
-                         T* __restrict__ out, int m, int q_out, int Gp,
-                         float alpha0, float alpha1, float beta_total) {
-  constexpr int PAIRS = bfp_pairs_per_warp<MT>();
-  constexpr int ROWS = 2 * PAIRS;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int half = q_out >> 1;                       // row pairs
-  const int rp0 = (blockIdx.x * WARPS + warp) * PAIRS;
-  if (rp0 >= half) return;  // the whole warp leaves together; no block sync
-  const int r0 = blockIdx.y * MT;
-  const size_t K = 8 * (size_t)Gp;
-  const size_t hstride = (size_t)half * Gp;          // positions 4..7
-
-  float acc[NSETS][ROWS][MT];
-  float xs[MT];
+// K1's codes on bfp planes (2, q_out/2, Gp): a lane's words of an m16 tile
+// are w[mt][2*st + h], half plane h of row pair n0/2 + 8*mt + g.
+template <int NSETS_>
+struct BfpCodes : NibbleCodes<NSETS_, 1> {
+  using Base = NibbleCodes<NSETS_, 1>;
+  static constexpr int NSETS = NSETS_, NW = Base::NW;
+  static constexpr bool PAIR_ROWS = true;
+  template <int MTW>
+  __device__ static void load(uint4 (&w)[MTW][NW],
+                              const typename Base::Planes& pl, int n0, int g,
+                              int c, const typename Base::Walk&, int q_out,
+                              int Gp, bool ok) {
+    const int pairs = q_out >> 1;
 #pragma unroll
-  for (int r = 0; r < MT; ++r) {
-    xs[r] = 0.f;
+    for (int st = 0; st < NSETS; ++st)
 #pragma unroll
-    for (int j = 0; j < ROWS; ++j)
+      for (int mt = 0; mt < MTW; ++mt) {
+        const size_t rp = min(n0 / 2 + mt * 8 + g, pairs - 1);
+        const uint32_t* p = st == 0 ? pl.w0 : pl.w1;
 #pragma unroll
-      for (int s = 0; s < NSETS; ++s) acc[s][j][r] = 0.f;
-  }
-
-#pragma unroll 2
-  for (int g = lane * 4; g < Gp; g += 128) {
-    uint4 wv[NSETS][PAIRS][2];
-#pragma unroll
-    for (int pr = 0; pr < PAIRS; ++pr) {
-      const size_t rp = min(rp0 + pr, half - 1);  // ragged edge: re-read
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const size_t off = hf * hstride + rp * Gp + g;
-        wv[0][pr][hf] = __ldg(reinterpret_cast<const uint4*>(w0 + off));
-        if (NSETS > 1)
-          wv[NSETS - 1][pr][hf] =
-              __ldg(reinterpret_cast<const uint4*>(w1 + off));
+        for (int h = 0; h < 2; ++h)
+          w[mt][2 * st + h] =
+              ok ? __ldg(reinterpret_cast<const uint4*>(
+                       p + ((size_t)h * pairs + rp) * Gp + c))
+                 : make_uint4(0u, 0u, 0u, 0u);
       }
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = 4 * hf + k;                    // nibble position
-        float xv[MT][4];
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          if (r0 + r < m) {
-            load4(x + (size_t)(r0 + r) * K + (size_t)i * Gp + g, xv[r]);
-          } else {
-            xv[r][0] = xv[r][1] = xv[r][2] = xv[r][3] = 0.f;
-          }
-          xs[r] += (xv[r][0] + xv[r][1]) + (xv[r][2] + xv[r][3]);
-        }
-#pragma unroll
-        for (int s = 0; s < NSETS; ++s)
-#pragma unroll
-          for (int pr = 0; pr < PAIRS; ++pr) {
-            const uint4 w = wv[s][pr][hf];
-            const uint32_t wq[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const uint32_t f = ((wq[e] >> (4 * k)) & 0x000F000Fu) |
-                                 0x43004300u;
-              const float lo = __uint_as_float(f << 16) - 128.f;
-              const float hi = __uint_as_float(f & 0xFFFF0000u) - 128.f;
-#pragma unroll
-              for (int r = 0; r < MT; ++r) {
-                acc[s][2 * pr][r] = fmaf(xv[r][e], lo, acc[s][2 * pr][r]);
-                acc[s][2 * pr + 1][r] =
-                    fmaf(xv[r][e], hi, acc[s][2 * pr + 1][r]);
-              }
-            }
-          }
-      }
-    }
   }
-
-  // warp reduction: afterwards every lane holds the full sums
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      xs[r] += __shfl_xor_sync(0xffffffffu, xs[r], off);
-#pragma unroll
-      for (int j = 0; j < ROWS; ++j)
-#pragma unroll
-        for (int s = 0; s < NSETS; ++s)
-          acc[s][j][r] += __shfl_xor_sync(0xffffffffu, acc[s][j][r], off);
-    }
+  // k-step ks is position i = ks: half plane ks / 4, field ks mod 4
+  __device__ static void a_frag(const uint4 (&w)[NW],
+                                const typename Base::Pass&, int st, int ks,
+                                uint32_t a[4]) {
+    const uint4 u = w[2 * st + (ks >> 2)];
+    const int s = 4 * (ks & 3);
+    a[0] = bfp_reg(u.x, u.y, 0x5410, s);     // row g: channel 2g
+    a[1] = bfp_reg(u.x, u.y, 0x7632, s);     // row g + 8: channel 2g + 1
+    a[2] = bfp_reg(u.z, u.w, 0x5410, s);
+    a[3] = bfp_reg(u.z, u.w, 0x7632, s);
   }
+};
 
-  // epilogue: lane (j*MT + r) writes out[r0 + r, 2*rp0 + j]
-#pragma unroll
-  for (int j = 0; j < ROWS; ++j) {
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      const int n = 2 * rp0 + j, row = r0 + r;
-      if (lane == j * MT + r && n < q_out && row < m) {
-        float v = acc[0][j][r] * alpha0;
-        if (NSETS > 1) v += acc[NSETS - 1][j][r] * alpha1;
-        v += beta_total * xs[r];
-        if (scale != nullptr) v *= scale[n];
-        store(out + (size_t)row * q_out + n, v);
-      }
-    }
-  }
-}
-
-template <typename T, int NSETS, int MT>
-void launch_bfp(const NibbleArgs& a, cudaStream_t stream) {
-  const int pairs_per_block = WARPS * bfp_pairs_per_warp<MT>();
-  dim3 grid((a.q_out / 2 + pairs_per_block - 1) / pairs_per_block,
-            (a.m + MT - 1) / MT);
-  bfp_decode_matmul_kernel<T, NSETS, MT><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const uint32_t*>(a.w0),
-      static_cast<const uint32_t*>(a.w1), static_cast<const float*>(a.scale),
-      static_cast<T*>(a.out), a.m, a.q_out, a.Gp, a.alpha0, a.alpha1,
-      a.beta_total);
-}
-
-template <typename T, int NSETS>
-void launch_bfp_mt(const NibbleArgs& a, cudaStream_t s) {
-  if (a.m == 1)
-    launch_bfp<T, NSETS, 1>(a, s);
-  else if (a.m == 2)
-    launch_bfp<T, NSETS, 2>(a, s);
-  else if (a.m <= 4)
-    launch_bfp<T, NSETS, 4>(a, s);
-  else
-    launch_bfp<T, NSETS, 8>(a, s);
-}
-
+}  // namespace sm
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. x and out share one dtype
 // (x_is_bf16 ? bfloat16 : float32); w0 (and w1, or null) are bfp planes
-// (2, q_out/2, Gp); scale may be null; m is the number of rows of x to
-// compute (x's row stride is 8*Gp). Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for shapes the kernel
-// does not take (q_out odd, Gp not a multiple of 4).
+// (2, q_out/2, Gp), 16-byte aligned; scale may be null; m is the number of
+// rows of x to compute (x's row stride is 8*Gp). Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for shapes the
+// kernel does not take (q_out odd, Gp not a multiple of 4).
 extern "C" int qfa_bfp_decode_matmul(const void* x, const void* w0,
                                      const void* w1, const void* scale,
                                      void* out, int m, int q_out, int Gp,
@@ -197,18 +112,18 @@ extern "C" int qfa_bfp_decode_matmul(const void* x, const void* w0,
                                      float beta_total, int x_is_bf16,
                                      void* stream) {
   if (m < 1 || q_out < 2 || q_out % 2 || Gp < 4 || Gp % 4 || n_sets < 1 ||
-      n_sets > 2)
+      n_sets > 2 || (n_sets == 2 && w1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const NibbleArgs a{x, w0, w1, scale, out, m, q_out, Gp, alpha0, alpha1,
-                     beta_total};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_sets == 1 && x_is_bf16)
-    launch_bfp_mt<__nv_bfloat16, 1>(a, s);
-  else if (n_sets == 1)
-    launch_bfp_mt<float, 1>(a, s);
-  else if (x_is_bf16)
-    launch_bfp_mt<__nv_bfloat16, 2>(a, s);
-  else
-    launch_bfp_mt<float, 2>(a, s);
-  return static_cast<int>(cudaGetLastError());
+  const sm::Args a{scale, out, m, q_out, Gp, alpha0, alpha1, beta_total};
+  using B1 = sm::BfpCodes<1>;
+  using B2 = sm::BfpCodes<2>;
+  const B1::Planes p1{static_cast<const uint32_t*>(w0),
+                      static_cast<const uint32_t*>(w1)};
+  const B2::Planes p2{p1.w0, p1.w1};
+  if (n_sets == 1)
+    return x_is_bf16 ? sm::launch_nt<__nv_bfloat16, B1>(x, p1, a, s)
+                     : sm::launch_nt<float, B1>(x, p1, a, s);
+  return x_is_bf16 ? sm::launch_nt<__nv_bfloat16, B2>(x, p2, a, s)
+                   : sm::launch_nt<float, B2>(x, p2, a, s);
 }

@@ -1,9 +1,9 @@
 // Affine-nibble decode + matmul for Hopper (sm_90a) on the CUDA cores (the
-// SIMT body): K10 (bfp_decode_matmul.cu) uses its helpers, T1
-// (mb_kernel.cu) and T4 (mb_tn.cu) copy its loop, and the variants tool's
-// simt variant (tools/variants_small_m.py) builds K1 and K11's entry
-// points on its dispatch, which takes the subword split P of K11's
-// layouts.
+// SIMT body that K1 and K11 ran before the tensor cores): no kernel of the
+// port runs it. The variants tool's simt variant (tools/variants_small_m.py)
+// builds K1 and K11's entry points on its dispatch, which takes the
+// subword split P of K11's layouts, and T1 (mb_kernel.cu) and T4
+// (mb_tn.cu) copy its loop.
 //
 // Computes, for x_perm (m, 8*Gp) in the layout's grouped lane order and 1
 // or 2 plane sets of words (q_out, Gp):

@@ -1,11 +1,16 @@
 // Affine-nibble decode + matmul at small m (m <= 32 rows a block) on
-// Hopper's tensor cores (sm_90a): the kernel body of three sources, each
+// Hopper's tensor cores (sm_90a): the kernel body of five sources, each
 // with its own C entry point:
 //   fused_decode_matmul.cu   K1:  int32 nibble planes (split P = 1);
 //   sw_decode_matmul.cu      K11: the same words stored as int16 / int8
 //                                 subwords (sw2 / sw4, P = 2 / 4);
 //   ksplit_decode_matmul.cu  K6:  K1's function with the groups split
-//                                 into chunks (split-K, below).
+//                                 into chunks (split-K, below);
+//   bfp_decode_matmul.cu     K10: K1's words re-laid as row pairs
+//                                 (BfpCodes there);
+//   moe_decode_matmul.cu     K4/K5: K1's function with each row's planes
+//                                 those of its expert (MoeCodes there,
+//                                 the row map below).
 // The body is a skeleton over a codes policy (NibbleCodes here): the
 // policy says which words a lane loads and how they become A registers;
 // the skeleton stages x, walks the slabs and tiles, multiplies, flushes
@@ -85,6 +90,19 @@
 //     split_pays says where the split runs: where it does not, K6 is this
 //     body over whole tiles, each warp's f32 sum walking the chunks' slabs
 //     in order.
+//   - Row map (a policy with GATHER, K4/K5): a unit of work is (expert
+//     present, chunk of at most ROWS of its rows, channel tile), and the
+//     expert table (rows an expert, the experts present in ascending
+//     order) is built on the device from the ids by every block, so no
+//     host read of the routing is needed and a call records into a CUDA
+//     graph. Block b takes the units [b*U/G, (b+1)*U/G) of the U in the
+//     order (expert, chunk, tile), so it restages x only when the chunk
+//     changes; the chunk's rows, listed in row order by warp ballots, are
+//     a row map in shared memory: row r of the block reads x[rows[r]] and
+//     writes out[rows[r], n], and the planes are those of the unit's
+//     expert. launch_nt gives a row map one n8 tile (ROWS = 8).
+//     Without GATHER the block's rows are m0 .. m0 + mr - 1 and all of
+//     this folds away at compile time.
 #pragma once
 
 #include "nibble_mma.cuh"
@@ -102,6 +120,51 @@ constexpr int STAGE_BUDGET = 96 * 1024;   // smem for x before it must split
 constexpr int SMEM_MAX = 232448;    // a block's shared memory on sm_90
 constexpr int PF = 1;               // word slabs a lane loads ahead
 constexpr uint32_t ONES = 0x3F803F80u;    // bf16 pair (1, 1)
+constexpr int MAX_EXPERTS = 64;     // a row map's experts (K4/K5)
+constexpr unsigned FULL = 0xffffffffu;
+
+// Whether a codes policy maps its rows through the experts (C::GATHER).
+template <class C, class = void>
+struct gathers {
+  static constexpr bool value = false;
+};
+template <class C>
+struct gathers<C, decltype(void(C::GATHER))> {
+  static constexpr bool value = C::GATHER;
+};
+
+// A row map's shared memory: the expert table and the unit's rows. The
+// entry after the last expert present is a sentinel (expert 0, a chunk
+// count no walk reaches), so the walks may step past the block's units.
+struct GatherSmem {
+  int cnt[MAX_EXPERTS];           // rows of each expert id
+  int ex[MAX_EXPERTS + 1];        // the j-th expert present
+  int nck[MAX_EXPERTS + 1];       // its chunks of ROWS rows
+  int rows[MAX_ROWS];             // the unit's rows of x, in row order
+  int units;                      // the units of the call
+};
+
+// (j-th expert present, chunk, tile) of a block's units, walked in that
+// order by a counter each
+struct UnitWalk {
+  int j, c, tile;
+  __device__ void start(const GatherSmem* gs, int u, int ntiles) {
+    j = 0;
+    while (u >= gs->nck[j] * ntiles) {
+      u -= gs->nck[j] * ntiles;
+      ++j;
+    }
+    c = u / ntiles;
+    tile = u - c * ntiles;
+  }
+  __device__ void next(const GatherSmem* gs, int ntiles) {
+    if (++tile < ntiles) return;
+    tile = 0;
+    if (++c < gs->nck[j]) return;
+    c = 0;
+    ++j;
+  }
+};
 
 // Warp layout for NT n8 tiles of rows, WN channel warps and MTS m16 tiles
 // a warp: a block's x bytes from L2 are 4*m / BN times its plane bytes in
@@ -309,13 +372,17 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   constexpr int FS = C::fused(NT) ? NSETS : 1;   // sets a pass
   constexpr int NQ = 8 / P;
   constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
+  constexpr bool GATHER = gathers<C>::value;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wn = warp % S::WN, wk = warp / S::WN;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * MAX_ROWS;
-  const int mr = min(MAX_ROWS, m - m0);          // the block's rows
+  const int m0 = GATHER ? 0 : blockIdx.y * MAX_ROWS;
+  // the block's rows (a row map: the unit's, set with each chunk) and the
+  // rows an x buffer holds
+  int mr = GATHER ? 0 : min(MAX_ROWS, m - m0);
+  const int mcap = GATHER ? min(S::ROWS, m) : mr;
   const size_t K = 8 * (size_t)Gp;
   // split-K: the reduce kernel may be scheduled now (it waits for this
   // grid's end before it reads the workspace)
@@ -335,19 +402,64 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   const int ntiles = (q_out + S::BN - 1) / S::BN;
   const int tb = KS ? blockIdx.x / nch : blockIdx.x;
   const int tstep = KS ? gridDim.x / nch : gridDim.x;
-  const int ntile = (ntiles - tb + tstep - 1) / tstep;
+  int ntile = (ntiles - tb + tstep - 1) / tstep;
   // one stage holds the whole row (chunk): x stays in shared memory for
-  // every tile of the block
+  // every tile of the block (of a row map's chunk)
   const bool resident = nstage == 1;
   const bool vec = Gk % 16 == 0;               // runs of 16-byte copies
   float* red = reinterpret_cast<float*>(
-      smem + (size_t)(resident ? 1 : 2) * mr * RSB);
+      smem + (size_t)(resident ? 1 : 2) * mcap * RSB);
   float* rs = red + S::WK * S::ROWS * S::RED_STRIDE;
+  GatherSmem* gs = reinterpret_cast<GatherSmem*>(
+      smem + (size_t)(resident ? 1 : 2) * mcap * RSB + S::RED_B);
+  // a row map: the units of the block and the walks of the units computed
+  // (uw) and of the words loaded ahead (lw)
+  [[maybe_unused]] UnitWalk uw, lw;
+  if constexpr (GATHER) {
+    const int* eids = planes.eids;
+    for (int e = threadIdx.x; e < MAX_EXPERTS; e += THREADS) gs->cnt[e] = 0;
+    __syncthreads();
+    for (int r = threadIdx.x; r < m; r += THREADS) {
+      const int e = __ldg(eids + r);
+      if (e >= 0 && e < planes.E) atomicAdd(&gs->cnt[e], 1);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // the experts present in ascending order, their chunks, the units
+      int np = 0, chunks = 0;
+      for (int h = 0; h < MAX_EXPERTS; h += 32) {
+        const int c = gs->cnt[h + lane];
+        const unsigned b = __ballot_sync(FULL, c > 0);
+        const int nc = (c + S::ROWS - 1) / S::ROWS;
+        if (c > 0) {
+          const int j = np + __popc(b & ((1u << lane) - 1u));
+          gs->ex[j] = h + lane;
+          gs->nck[j] = nc;
+        }
+        np += __popc(b);
+        chunks += __reduce_add_sync(FULL, nc);
+      }
+      if (lane == 0) {
+        gs->ex[np] = 0;
+        gs->nck[np] = 1 << 30;
+        gs->units = chunks * ntiles;
+      }
+    }
+    __syncthreads();
+    const long long U = gs->units;
+    const int ub = (int)(U * blockIdx.x / gridDim.x);
+    ntile = (int)(U * (blockIdx.x + 1) / gridDim.x) - ub;
+    if (ntile == 0) return;              // the whole block leaves
+    uw.start(gs, ub, ntiles);
+    lw = uw;
+  }
+  // row r of the block's x and output
+  auto xrow = [&](int r) { return GATHER ? gs->rows[r] : m0 + r; };
 
   // x's stage st (groups gb + st*SG ..) into buffer b: row r, field q is
   // the run [q*P*SG, (q+1)*P*SG) of the row
   auto stage = [&](int st, int b) {
-    unsigned char* buf = smem + (size_t)b * mr * RSB;
+    unsigned char* buf = smem + (size_t)b * mcap * RSB;
     const int G0 = st * SG;
     if (vec) {
       constexpr int EPC = 16 / (int)sizeof(T);   // values a copy
@@ -358,7 +470,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       int rq = threadIdx.x / cpr, k = threadIdx.x - rq * cpr;
       for (int c = threadIdx.x; c < total; c += THREADS) {
         const int r = rq / NQ, q = rq % NQ;
-        const T* src = x + (size_t)(m0 + r) * K + (size_t)q * P * Gp +
+        const T* src = x + (size_t)xrow(r) * K + (size_t)q * P * Gp +
                        (size_t)P * (gb + G0) + k * EPC;
         T* dst = reinterpret_cast<T*>(buf + r * RSB) + q * P * SG + k * EPC;
         tc::cp_async16(dst, src, true);
@@ -377,7 +489,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
         const int q = rem / run, e = rem - q * run;
         T* dst = reinterpret_cast<T*>(buf + r * RSB) + q * P * SG + e;
         *dst = G0 + e / P < Gk
-                   ? x[(size_t)(m0 + r) * K + (size_t)q * P * Gp +
+                   ? x[(size_t)xrow(r) * K + (size_t)q * P * Gp +
                        (size_t)P * (gb + G0) + e]
                    : tc::zero_val<T>();
       }
@@ -392,18 +504,31 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   // follows.
   int pk = 0, pst = 0, pl = 0;
   typename C::Walk walk(planes, S::WK, gb + wk * SLAB + 4 * t);
+  // a row map: the planes of the loads' unit (its expert's)
+  [[maybe_unused]] typename C::Planes lpl;
+  if constexpr (GATHER) lpl = C::at(planes, gs->ex[lw.j], q_out, Gp);
   auto load_next = [&](uint4 (&wv)[MTW][NW], uint32_t& cx) {
     const int s = pst * spst + pl * S::WK + wk;
     const int c = s * SLAB + 4 * t;
     const bool ok = pk < ntile && s < nslab && c < Gk;
-    const int n0 = (tb + pk * tstep) * S::BN + wn * S::WCH;
-    cx = C::ctx(walk, gb + c, planes);
-    C::load(wv, planes, n0, g, gb + c, walk, q_out, Gp, ok);
+    if constexpr (GATHER) {
+      const int n0 = lw.tile * S::BN + wn * S::WCH;
+      cx = C::ctx(walk, gb + c, lpl);
+      C::load(wv, lpl, n0, g, gb + c, walk, q_out, Gp, ok);
+    } else {
+      const int n0 = (tb + pk * tstep) * S::BN + wn * S::WCH;
+      cx = C::ctx(walk, gb + c, planes);
+      C::load(wv, planes, n0, g, gb + c, walk, q_out, Gp, ok);
+    }
     if (++pl == per) {
       pl = 0;
       if (++pst == nstage) {
         pst = 0;
         ++pk;
+        if constexpr (GATHER) {
+          lw.next(gs, ntiles);
+          if (lw.tile == 0) lpl = C::at(planes, gs->ex[lw.j], q_out, Gp);
+        }
       }
     }
     walk.next(pl == 0 && pst == 0);    // a new tile walks from its start
@@ -415,11 +540,37 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   int gst = 0;
   uint4 wbuf[PF + 1][MTW][NW];
   uint32_t cbuf[PF + 1];
-  stage(0, 0);
+  if (!GATHER) stage(0, 0);
 #pragma unroll
   for (int p = 0; p < PF; ++p) load_next(wbuf[p], cbuf[p]);
   for (int k = 0; k < ntile; ++k) {
     const bool last_tile = k + 1 == ntile;
+    // a row map: a new chunk lists its rows and stages its x (the last
+    // tile's readers of the rows, the reduce and x done first); the next
+    // tile's x is staged ahead only within a chunk
+    bool regroup = false, next_regroup = false;
+    if constexpr (GATHER) {
+      regroup = k == 0 || uw.tile == 0;
+      next_regroup = uw.tile + 1 == ntiles;
+      if (regroup) {
+        __syncthreads();
+        const int e = gs->ex[uw.j], lo = uw.c * S::ROWS;
+        if (warp == 0) {
+          int count = 0;
+          for (int r0 = 0; r0 < m && count < lo + S::ROWS; r0 += 32) {
+            const int r = r0 + lane;
+            const bool hit = r < m && __ldg(planes.eids + r) == e;
+            const unsigned b = __ballot_sync(FULL, hit);
+            const int o = count + __popc(b & ((1u << lane) - 1u));
+            if (hit && o >= lo && o < lo + S::ROWS) gs->rows[o - lo] = r;
+            count += __popc(b);
+          }
+        }
+        __syncthreads();
+        mr = min(S::ROWS, gs->cnt[e] - lo);
+        stage(0, gst & 1);
+      }
+    }
     float tot[MTW][NT][4], rtot[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -430,17 +581,17 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
         for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.f;
     }
     for (int sg = 0; sg < nstage; ++sg) {
-      if (!resident || k == 0) {
+      if (!resident || k == 0 || regroup) {
         // a new stage: it has landed, and the other buffer's readers are
         // done; then the next stage (of this tile or the next) streams in
         tc::cp_async_wait<0>();
         __syncthreads();
         if (sg + 1 < nstage)
           stage(sg + 1, (gst + 1) & 1);
-        else if (!resident && !last_tile)
+        else if (!resident && !last_tile && !next_regroup)
           stage(0, (gst + 1) & 1);
       }
-      const unsigned char* xb = smem + (size_t)(gst & 1) * mr * RSB;
+      const unsigned char* xb = smem + (size_t)(gst & 1) * mcap * RSB;
       for (int l = 0; l < per; ++l) {
         load_next(wbuf[PF], cbuf[PF]);
         const int ls = l * S::WK + wk;             // the slab in the stage
@@ -618,7 +769,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       }
     }
     __syncthreads();
-    const int tile = tb + k * tstep, nb = tile * S::BN;
+    const int tile = GATHER ? uw.tile : tb + k * tstep, nb = tile * S::BN;
     for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
       const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
       if (n >= q_out) continue;
@@ -629,7 +780,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
         if (C::ROWSUMS) r += rs[q * S::ROWS + row];
       }
       if (C::ROWSUMS) v += beta_total * r;
-      const size_t off = (size_t)(m0 + row) * q_out + n;
+      const size_t off = (size_t)xrow(row) * q_out + n;
       if (KS) {      // the chunk's partial; a second kernel adds them
         ws[(size_t)chunk * m * q_out + off] = v;
         continue;
@@ -637,6 +788,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       if (scale != nullptr) v *= __ldg(scale + n);
       tc::store1(out + off, v);
     }
+    if constexpr (GATHER) uw.next(gs, ntiles);
   }
   tc::cp_async_wait<0>();
 }
@@ -655,13 +807,15 @@ int stage_groups(int Gp, int mr) {
   return fit < unit ? unit : fit;
 }
 
-// Shared memory of a launch: x's stage buffers and the reduce.
+// Shared memory of a launch: x's stage buffers, the reduce and a row
+// map's table.
 template <typename T, class C, int NT, int WN>
 int smem_bytes(int Gp, int mr) {
   const int SG = stage_groups<T, C::P, NT, WN>(Gp, mr);
   const int nstage = (Gp + SG - 1) / SG;
   return (nstage > 1 ? 2 : 1) * mr * row_bytes<T, C::P>(SG) +
-         Shape<NT, WN, C::mtiles(NT)>::RED_B;
+         Shape<NT, WN, C::mtiles(NT)>::RED_B +
+         (gathers<C>::value ? (int)sizeof(GatherSmem) : 0);
 }
 
 // The card's SMs (0 when the query fails), once.
@@ -717,13 +871,23 @@ int resident(int smem, int* blocks) {
   return 0;
 }
 
+// The chunks of ROWS rows that m rows routed among E experts can make at
+// most: each expert present has one with fewer than ROWS rows.
+__host__ __device__ constexpr int gather_chunks(int m, int E, int ROWS) {
+  return (E < m ? E : m) + m / ROWS;
+}
+
 template <typename T, class C, int NT, int WN, bool KS = false>
 int launch(const void* x, const typename C::Planes& planes, const Args& a,
            cudaStream_t stream) {
   using S = Shape<NT, WN, C::mtiles(NT)>;
-  const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
-  const int nch = KS ? a.chunks : 1;
-  const int Gk = a.Gp / nch;                 // groups a block stages
+  constexpr bool GATHER = gathers<C>::value;
+  const int mr = a.m < (GATHER ? S::ROWS : MAX_ROWS)
+                     ? a.m : (GATHER ? S::ROWS : MAX_ROWS);
+  // a tile's chunks: split-K's of the groups, a row map's of the rows
+  int nch = KS ? a.chunks : 1;
+  if constexpr (GATHER) nch = gather_chunks(a.m, planes.E, S::ROWS);
+  const int Gk = a.Gp / (KS ? nch : 1);      // groups a block stages
   const int SG = stage_groups<T, C::P, NT, WN>(Gk, mr);
   const int smem = smem_bytes<T, C, NT, WN>(Gk, mr);
   int resident_blocks = 0;
@@ -731,12 +895,13 @@ int launch(const void* x, const typename C::Planes& planes, const Args& a,
   if (err != 0) return err;
   // as many blocks as the card holds at once (at most one a unit of
   // work: a tile, or a tile's chunk), each walking every gridDim.x-th
-  // unit; split-K rounds the grid to whole multiples of the chunks
+  // unit (a row map: a run of consecutive units); split-K rounds the grid
+  // to whole multiples of the chunks
   const int ntiles = (a.q_out + S::BN - 1) / S::BN;
   int blocks = ntiles * nch < resident_blocks ? ntiles * nch
                                               : resident_blocks;
   if (KS) blocks = blocks < nch ? nch : blocks / nch * nch;
-  const dim3 grid(blocks, (a.m + MAX_ROWS - 1) / MAX_ROWS);
+  const dim3 grid(blocks, GATHER ? 1 : (a.m + MAX_ROWS - 1) / MAX_ROWS);
   mma_small_kernel<T, C, NT, WN, KS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), planes, static_cast<const float*>(a.scale),
       static_cast<T*>(a.out), a.m, a.q_out, a.Gp, SG, a.alpha0, a.alpha1,
@@ -746,20 +911,29 @@ int launch(const void* x, const typename C::Planes& planes, const Args& a,
 
 // NT n8 tiles for m rows (a block takes at most 32), and above 8 rows two
 // channel warps when even 64-channel tiles give every SM two blocks (the
-// x traffic then matters more than the fill), else one.
+// x traffic then matters more than the fill), else one. A row map takes
+// one n8 tile (chunks of 8 rows) at every m: on an H100 at Mixtral-8x7B's
+// 31-token prefill (about 8 rows an expert) 4 and 2 tiles a block took
+// 1.97x and 1.38x the time of one (their x no longer resident in shared
+// memory, restaged a tile), more than the planes an expert of over 8 rows
+// reads again a chunk.
 template <typename T, class C>
 int launch_nt(const void* x, const typename C::Planes& planes, const Args& a,
               cudaStream_t s) {
-  const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
-  const bool wide = (a.q_out + 2 * WCH - 1) / (2 * WCH) >= 2 * sm_count();
-  if (a.m <= 8) return launch<T, C, 1, 1>(x, planes, a, s);
-  // (and when one channel warp's slab stages of f32 x would not fit)
-  if (a.m <= 16 && (wide || smem_bytes<T, C, 2, 1>(a.Gp, mr) > SMEM_MAX))
-    return launch<T, C, 2, 2>(x, planes, a, s);
-  if (a.m <= 16) return launch<T, C, 2, 1>(x, planes, a, s);
-  if (wide || smem_bytes<T, C, 4, 1>(a.Gp, mr) > SMEM_MAX)
-    return launch<T, C, 4, 2>(x, planes, a, s);
-  return launch<T, C, 4, 1>(x, planes, a, s);
+  if constexpr (gathers<C>::value) {
+    return launch<T, C, 1, 1>(x, planes, a, s);
+  } else {
+    const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
+    const bool wide = (a.q_out + 2 * WCH - 1) / (2 * WCH) >= 2 * sm_count();
+    if (a.m <= 8) return launch<T, C, 1, 1>(x, planes, a, s);
+    // (and when one channel warp's slab stages of f32 x would not fit)
+    if (a.m <= 16 && (wide || smem_bytes<T, C, 2, 1>(a.Gp, mr) > SMEM_MAX))
+      return launch<T, C, 2, 2>(x, planes, a, s);
+    if (a.m <= 16) return launch<T, C, 2, 1>(x, planes, a, s);
+    if (wide || smem_bytes<T, C, 4, 1>(a.Gp, mr) > SMEM_MAX)
+      return launch<T, C, 4, 2>(x, planes, a, s);
+    return launch<T, C, 4, 1>(x, planes, a, s);
+  }
 }
 
 template <typename T, class C, int NT>

@@ -13,7 +13,8 @@ in f32, cast to x_perm's dtype. There is no scale epilogue: the
 per-expert ``pre_vec`` applies after the cast (``nn/qmoe.py``). x_perm is
 in the grouped layout x_perm[:, i*Gp + g] = x[:, 8g + i] (pad lanes zero),
 each row already in its expert's incoherence basis. Only the selected
-experts' planes are read, once per distinct expert. The JAX schedule knobs
+experts' planes are read, once per distinct expert (and chunk of up to 8
+of its rows) on K1's tensor-core body (``csrc/nibble_mma_small.cuh``). The JAX schedule knobs
 (``QFA_MOE_TILES_INNER``, ``QFA_MAGIC_MOE``, ``QFA_MOE_TN``) and the row
 sort in ``stacked_rows_apply`` change no result and have no counterpart.
 
@@ -95,8 +96,9 @@ def moe_fused_matmul(x_perm: torch.Tensor, eids: torch.Tensor,
     0..E-1, 1 or 2 stacked plane sets (E, q_out, Gp) int32 -> (R, q_out) in
     x_perm's dtype; q_out takes any value. ``rows_per_expert`` bounds how
     many rows any one expert has (top-K routing of m tokens gives at most
-    m; R bounds any routing): it sizes the kernel's accumulator, and a
-    wrong bound costs time, not the result. Raises
+    m; R bounds any routing); the kernel checks it and takes an expert's
+    rows in chunks of 8 whatever it says, so the result does not depend
+    on it. Raises
     ``NotImplementedError`` when gradients are on and x_perm requires grad.
     ``moe_fused_matmul.launches`` counts kernel launches (plain-twin calls
     on CPU tensors are not counted). The ids stay on the device: one

@@ -1,13 +1,15 @@
 """Design variants of the small-m tensor-core body on the card: the tile
 sizes of ``csrc/nibble_mma_small.cuh`` (the body of K1,
-``csrc/fused_decode_matmul.cu``, K11, ``csrc/sw_decode_matmul.cu``, and
-split-K K6, ``csrc/ksplit_decode_matmul.cu``, and with the u-code policies
-of ``csrc/ucode_mma_small.cuh`` the body of K8's pb and K9's u3 entries,
+``csrc/fused_decode_matmul.cu``, K11, ``csrc/sw_decode_matmul.cu``,
+split-K K6, ``csrc/ksplit_decode_matmul.cu``, bfp K10,
+``csrc/bfp_decode_matmul.cu``, and the MoE kernel K4/K5,
+``csrc/moe_decode_matmul.cu``, and with the u-code policies of
+``csrc/ucode_mma_small.cuh`` the body of K8's pb and K9's u3 entries,
 ``csrc/rowpair_decode_matmul.cu``, and K7, ``csrc/paired_decode_matmul.cu``)
 timed against each other, against the SIMT body K1 and K11 ran before
-(``csrc/nibble_decode.cuh``, which K10 still runs), against the sources of
-another checkout and against one library call, at Llama-2-7B's decode
-linears.
+(``csrc/nibble_decode.cuh``), against the sources of another checkout and
+against one library call, at Llama-2-7B's decode linears (the MoE kernel
+at Mixtral-8x7B's expert linears).
 
 Each variant is a copy of the sources with one setting changed, built
 with the port's nvcc flags into ``build/variants/<variant>/`` at the root
@@ -41,13 +43,16 @@ of the checkout and called through the kernels' C entry points:
 
 The layouts: nibble (K1), sw2 and sw4 (K11), ksplit4 (K6 on nibble words:
 4 chunks, 11 at down's 1408 groups, as chip_smoke.py runs it; its sums
-leave down out, as path (f) does), pb (K8), paired (K7) and u3 (K9). Every
-variant computes the kernels' function and is held to the plain twins
-(``ops/fused_matmul.py``, ``ops/layout_matmul.py``,
-``ops/rowpair_matmul.py``) with the ratio of its worst error to the
-tolerance printed (1e-5 of the max plus one bf16 ulp). The nibble layouts
-run one plane set of random words, pb and paired random E8P12RVQ4B codes,
-u3 random E8P12 codes.
+leave down out, as path (f) does), bfp (K10), pb (K8), paired (K7), u3
+(K9), and moe (K4/K5 at Mixtral-8x7B's w13 and w2 with 8 experts, top-2
+rows of R/2 tokens with the bound R/2, R = 2, 16 and 62 whatever --m
+says; summed over a step's 64 calls). Every variant computes the kernels'
+function and is held to the plain twins (``ops/fused_matmul.py``,
+``ops/layout_matmul.py``, ``ops/rowpair_matmul.py``,
+``ops/moe_matmul.py``) with the ratio of its worst error to the tolerance
+printed (1e-5 of the max plus one bf16 ulp). The nibble layouts run one
+plane set of random words, pb and paired random E8P12RVQ4B codes, u3
+random E8P12 codes.
 Times are CUDA-graph replays over L2-cold plane copies
 (``tools/_timing.py``) in bf16, every variant timed in the order given and
 back, summed over a token's (m = 1, 8) or a prefill's (m = 16, 32) 129
@@ -68,8 +73,9 @@ One JSON line per variant, layout, shape and m, then one per variant,
 layout and m with the sums; the card's name and power limit first. With
 ``--prefill``, then one line per variant and layout family with the
 device ms of Llama-2-7B's 32-token prefill (chip_smoke.py's paths: the
-main path's E8P12 nibble for nibble/sw, E8P12RVQ4B pb or paired, E8P12
-u3) run on that variant's kernel.
+main path's E8P12 nibble for nibble/sw, E8P12 bfp, E8P12RVQ4B pb or
+paired, E8P12 u3) run on that variant's kernel, and for moe Mixtral-8x7B's
+16-token sparse prefill (R = 32 rows a call, the bound 16).
 """
 from __future__ import annotations
 
@@ -90,7 +96,8 @@ from ..ops import fused_matmul as fm
 from ..ops import layout_matmul as lm
 from ..ops import rowpair_matmul as rm
 from ..ops.dequant import decode_weights
-from ..ops.qtensor import QuantizedTensor, to_subword
+from ..ops import moe_matmul as mm
+from ..ops.qtensor import QuantizedTensor, to_bfp, to_subword
 from ..utils.random_quantized import random_qtensor
 
 HEADER = "nibble_mma_small.cuh"
@@ -103,13 +110,17 @@ ENTRIES = {"nibble": ("fused_decode_matmul", "qfa_fused_decode_matmul"),
            "pb": ("rowpair_decode_matmul", "qfa_rowpair_pb_matmul"),
            "paired": ("paired_decode_matmul", "qfa_paired_decode_matmul"),
            "u3": ("rowpair_decode_matmul", "qfa_rowpair_u3_matmul"),
-           "ksplit4": ("ksplit_decode_matmul", "qfa_ksplit_decode_matmul")}
+           "ksplit4": ("ksplit_decode_matmul", "qfa_ksplit_decode_matmul"),
+           "bfp": ("bfp_decode_matmul", "qfa_bfp_decode_matmul"),
+           "moe": ("moe_decode_matmul", "qfa_moe_decode_matmul")}
 UCODE = ("pb", "paired", "u3")
 # the layouts the simt variant has a body for
 SIMT_LAYOUTS = ("nibble", "sw2", "sw4")
 SOURCES = (HEADER, "fused_decode_matmul.cu", "sw_decode_matmul.cu")
 UCODE_SOURCES = ("rowpair_decode_matmul.cu", "paired_decode_matmul.cu")
 KSPLIT_SOURCE = "ksplit_decode_matmul.cu"
+# the sources of K10 and K4/K5, on the same body
+ROWMAP_SOURCES = ("bfp_decode_matmul.cu", "moe_decode_matmul.cu")
 # variant -> [(regular expression, replacement)] over the rule sources;
 # every rule must apply at least once
 RULES = {
@@ -163,6 +174,10 @@ SHAPES = [("qkv", 12288, 4096), ("o", 4096, 4096), ("gateup", 22016, 4096),
 CALLS = {"qkv": 32, "o": 32, "gateup": 32, "down": 32, "head": 1}
 # path (f): down's 11 lane blocks do not split 4 ways, so it stays on K1
 KSPLIT_CALLS = {k: v for k, v in CALLS.items() if k != "down"}
+# Mixtral-8x7B's stacked experts (w1/w3 fused, w2) and their calls a step
+MOE_SHAPES = [("w13", 28672, 4096), ("w2", 4096, 14336)]
+MOE_CALLS = {"w13": 32, "w2": 32}
+MOE_E, MOE_R = 8, (2, 16, 62)
 AFFINE = ((0.5, -2.75),)
 
 
@@ -195,7 +210,7 @@ def write_variant(name: str, out_dir: str, parent: str = None) -> str:
     texts = {}
     for f in sorted(os.listdir(src)):
         if f.endswith(".cuh") or f in SOURCES + UCODE_SOURCES + (
-                KSPLIT_SOURCE,):
+                KSPLIT_SOURCE,) + ROWMAP_SOURCES:
             with open(os.path.join(src, f)) as fh:
                 texts[f] = fh.read()
     if name != "parent":
@@ -251,7 +266,11 @@ def entry(lib, layout: str):
     """The C entry point of a variant's library for a layout, its types
     set."""
     fn = getattr(lib, ENTRIES[layout][1])
-    if layout == "ksplit4":
+    if layout == "moe":
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+    elif layout == "ksplit4":
         fn.argtypes = ([ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -260,7 +279,7 @@ def entry(lib, layout: str):
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
     else:
-        extra = 0 if layout == "nibble" else 1
+        extra = 0 if layout in ("nibble", "bfp") else 1
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * (1 + extra)
                        + [ctypes.c_void_p])
@@ -286,7 +305,9 @@ def _call(fn, layout, x, w, m, rs=-1.0, chunks=1):
             raise RuntimeError(f"{layout} variant launch failed: cudaError "
                                f"{err}")
         return out
-    q_out, Gp = w.shape
+    # bfp planes (2, q_out/2, Gp)
+    q_out, Gp = ((2 * w.shape[1], w.shape[2]) if layout == "bfp"
+                 else w.shape)
     out = torch.empty((m, q_out), dtype=x.dtype, device=x.device)
     if layout == "ksplit4":
         ws = torch.empty(chunks * m * q_out, dtype=torch.float32,
@@ -299,7 +320,7 @@ def _call(fn, layout, x, w, m, rs=-1.0, chunks=1):
             raise RuntimeError(f"ksplit4 variant launch failed: cudaError "
                                f"{err}")
         return out
-    extra = () if layout == "nibble" else (int(layout[2]),)
+    extra = () if layout in ("nibble", "bfp") else (int(layout[2]),)
     err = fn(x.data_ptr(), w.data_ptr(), None, None, out.data_ptr(), m,
              q_out, Gp, 1, AFFINE[0][0], 0.0, AFFINE[0][1],
              int(x.dtype == torch.bfloat16), *extra,
@@ -336,7 +357,7 @@ def _case(layout: str, q_out: int, q_in: int, gen, dev):
     w = torch.randint(-2 ** 31, 2 ** 31 - 1, (q_out, Gp), generator=gen,
                       device=dev, dtype=torch.int64).to(torch.int32)
     qt = QuantizedTensor({"w0": w}, "E8P12", q_out, q_in)
-    P = 1 if layout in ("nibble", "ksplit4") else int(layout[2])
+    P = 1 if layout in ("nibble", "ksplit4", "bfp") else int(layout[2])
     # split-K: 4 chunks, or 11 where 4 do not split the 128-group blocks
     chunks = 1
     if layout == "ksplit4":
@@ -344,6 +365,11 @@ def _case(layout: str, q_out: int, q_in: int, gen, dev):
             lm.pick_ksplit(11, Gp)
         twin = lambda x, m: lm.ksplit_decode_matmul_ref(x[:m], [w], AFFINE,
                                                         chunks)
+    elif layout == "bfp":
+        w3 = to_bfp(qt).planes["w0"]
+        return (w3, [c[0] for c in tm.cold_copies([w3])], w3.numel() * 4,
+                decode_weights(qt, dtype=torch.bfloat16), 1, -1.0, 1,
+                lambda x, m: lm.bfp_decode_matmul_ref(x[:m], [w3], AFFINE))
     elif P == 1:
         twin = lambda x, m: fm.fused_decode_matmul_ref(x[:m], [w], AFFINE)
     else:
@@ -376,8 +402,9 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
     gen = torch.Generator(device=dev).manual_seed(seed)
     order = variants + variants[::-1]
     recs = []
+    llama = [lay for lay in layouts if lay != "moe"]
     for name, q_out, q_in in SHAPES:
-        for layout in layouts:
+        for layout in llama:
             w, cp, plane_bytes, W, P, rs, chunks, twin = _case(
                 layout, q_out, q_in, gen, dev)
             Gp = (w["w0"] if layout in UCODE else w).shape[-1]
@@ -411,7 +438,7 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
             del w, cp, W, Wc
             torch.cuda.empty_cache()
     for v in variants:
-        for layout in layouts:
+        for layout in llama:
             for m in ms:
                 sel = [r for r in recs if r["variant"] == v
                        and r["layout"] == layout and r["m"] == m]
@@ -430,10 +457,106 @@ def run(variants: List[str], ms: List[int], layouts: List[str],
                     "ms_no_down": tot("us", KSPLIT_CALLS),
                     "worst_err_over_tol": max(r["err_over_tol"]
                                               for r in sel)}), flush=True)
+    if "moe" in layouts:
+        recs += run_moe(variants, {v: fns[(v, "moe")] for v in variants},
+                        gen)
     if prefill:
         for layout in ([lay for lay in layouts if lay in UCODE]
-                       + (["nibble"] if "nibble" in layouts else [])):
+                       + [lay for lay in ("nibble", "bfp")
+                          if lay in layouts]):
             prefill_ms(variants, libs, seed, layout=layout)
+        if "moe" in layouts:
+            mixtral_prefill_ms(variants, libs, seed)
+    return recs
+
+
+def _moe_call(fn, x, eids, planes, bound):
+    """One call of a variant's MoE entry on one plane set."""
+    R = x.shape[0]
+    E, q_out, Gp = planes.shape
+    out = torch.empty((R, q_out), dtype=x.dtype, device=x.device)
+    err = fn(x.data_ptr(), eids.data_ptr(), planes.data_ptr(), None,
+             out.data_ptr(), R, bound, E, q_out, Gp, 1, AFFINE[0][0], 0.0,
+             AFFINE[0][1], int(x.dtype == torch.bfloat16),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"moe variant launch failed: cudaError {err}")
+    return out
+
+
+def run_moe(variants: List[str], fns: Dict, gen) -> List[Dict]:
+    """Each variant's MoE entry at Mixtral-8x7B's w13 and w2 (8 experts of
+    random words, one plane set, bf16 x) for R = 2, 16 and 62 top-2 rows
+    (R/2 tokens, the bound R/2), L2-cold planes, in the order given and
+    back; beside the bound (the distinct experts' planes, x and out at
+    3.35 TB/s) and the library yardstick, one bf16 product per distinct
+    expert on its weights decoded beforehand. Then the sums over a step's
+    64 calls."""
+    dev = torch.device("cuda")
+    order = variants + variants[::-1]
+    recs = []
+    for name, q_out, q_in in MOE_SHAPES:
+        G, Gp = q_in // 8, -(-(q_in // 8) // 128) * 128
+        planes = torch.randint(-2 ** 31, 2 ** 31 - 1, (MOE_E, q_out, Gp),
+                               generator=gen, device=dev,
+                               dtype=torch.int64).to(torch.int32)
+        cp = [c[0] for c in tm.cold_copies([planes])]
+        expert_bytes = q_out * Gp * 4
+        for R in MOE_R:
+            tokens = R // 2
+            eids = torch.stack([torch.randperm(MOE_E, generator=gen,
+                                               device=dev)[:2]
+                                for _ in range(tokens)]).reshape(-1).to(
+                torch.int32)
+            distinct = sorted(set(eids.tolist()))
+            x = torch.zeros((R, 8, Gp), device=dev)
+            x[:, :, :G] = torch.randn((R, 8, G), generator=gen, device=dev)
+            x = x.reshape(R, 8 * Gp).to(torch.bfloat16)
+            want = mm.moe_fused_matmul_ref(x, eids, [planes], AFFINE)
+            times = {v: [] for v in variants}
+            for v in order:
+                times[v].append(tm.graph_us(
+                    lambda i: _moe_call(fns[v], x, eids, cp[i % len(cp)],
+                                        tokens), 4 * len(cp)))
+            x_nat = x.reshape(R, 8, Gp)[:, :, :G].transpose(1, 2).reshape(
+                R, q_in)
+            xs = {e: x_nat[eids == e].contiguous() for e in distinct}
+            Ws = {e: decode_weights(QuantizedTensor(
+                {"w0": planes[e]}, "E8P12", q_out, q_in),
+                dtype=torch.bfloat16) for e in distinct}
+            lib_us = tm.graph_us(
+                lambda i: [torch.matmul(xs[e], Ws[e].T) for e in distinct], 4)
+            del Ws
+            nbytes = len(distinct) * expert_bytes + R * 8 * Gp * 2 + \
+                R * q_out * 2 + R * 4
+            for v in variants:
+                rec = {"variant": v, "layout": "moe", "layer": name,
+                       "q_out": q_out, "Gp": Gp, "R": R,
+                       "experts": len(distinct), "us": times[v],
+                       "bound_us": nbytes / tm.HBM_BYTES_PER_S * 1e6,
+                       "library_us": lib_us,
+                       "err_over_tol": err_over_tol(_moe_call(
+                           fns[v], x, eids, planes, tokens), want)}
+                recs.append(rec)
+                print(json.dumps(rec), flush=True)
+        del planes, cp
+        torch.cuda.empty_cache()
+    for v in variants:
+        for R in MOE_R:
+            sel = [r for r in recs if r["variant"] == v and r["R"] == R]
+
+            def tot(k):
+                return sum(MOE_CALLS[r["layer"]] * (
+                    sum(r[k]) / len(r[k]) if k == "us" else r[k])
+                    for r in sel) * 1e-3
+            print(json.dumps({
+                "variant": v, "layout": "moe", "R": R,
+                "per": {2: "token", 16: "8 tokens",
+                        62: "31-token prefill"}[R],
+                "calls": sum(MOE_CALLS.values()), "ms": tot("us"),
+                "bound_ms": tot("bound_us"), "library_ms": tot("library_us"),
+                "worst_err_over_tol": max(r["err_over_tol"] for r in sel)}),
+                flush=True)
     return recs
 
 
@@ -441,19 +564,18 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
                S: int = 32, reps: int = 10, layout: str = "nibble") -> Dict:
     """Device ms of Llama-2-7B's S-token bf16 prefill (random codes from
     ``seed``, fused qkv and gate/up, quantized head, as chip_smoke.py's
-    paths: E8P12 nibble for ``layout`` nibble, E8P12RVQ4B pb or paired,
-    E8P12 u3)
-    with each variant's kernel in place of the built one: the prefill
+    paths: E8P12 nibble for ``layout`` nibble, E8P12 bfp, E8P12RVQ4B pb or
+    paired, E8P12 u3) with each variant's kernel in place of the built
+    one: the prefill
     captured in a CUDA graph and replayed ``reps`` times, every variant in
     the order given and back. The 129 linears must launch the layout's
     kernel (its wrapper's counter counts them)."""
     import quip_for_all_tpu_torch as qt
-    from ..models import llama as M
-    from ..runtime.generate import attn_bucket, init_kv_caches
     stem = ENTRIES[layout][0]
     counter = {"nibble": fm.fused_decode_matmul, "pb": rm.rowpair_pb_matmul,
                "paired": rm.paired_decode_matmul,
-               "u3": rm.rowpair_u3_matmul}[layout]
+               "u3": rm.rowpair_u3_matmul,
+               "bfp": lm.bfp_decode_matmul}[layout]
     cfg = qt.llama2_7b_config()
     if layout == "nibble":
         model = qt.random_quantized_model(
@@ -461,10 +583,41 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
             device="cuda")
     else:
         model = qt.random_quantized_model(
-            cfg, "E8P12" if layout == "u3" else "E8P12RVQ4B", seed=seed,
-            dtype=torch.bfloat16, quantize_head=True, device="cuda",
-            layout=layout)
+            cfg, "E8P12" if layout in ("u3", "bfp") else "E8P12RVQ4B",
+            seed=seed, dtype=torch.bfloat16, quantize_head=True,
+            device="cuda", layout=layout)
     model = qt.fuse_for_inference(cfg, model)
+    return _time_prefill(variants, libs, cfg, model, seed, S, reps, stem,
+                         counter, 4 * 32 + 1, layout)
+
+
+def mixtral_prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
+                       S: int = 16, reps: int = 10) -> Dict:
+    """Device ms of Mixtral-8x7B's S-token bf16 sparse prefill (S < 32:
+    the MoE kernel takes R = 2S top-2 rows a call with the bound S; random
+    E8P12 codes from ``seed``, experts stacked, fused qkv, quantized head,
+    as chip_smoke.py's phase 6) with each variant's MoE kernel in place of
+    the built one, timed as ``prefill_ms``; the 32 layers' 64 MoE calls
+    must launch it."""
+    import quip_for_all_tpu_torch as qt
+    from ..models.config import mixtral_8x7b_config
+    cfg = mixtral_8x7b_config()
+    model = qt.fuse_for_inference(cfg, qt.random_quantized_model(
+        cfg, seed=seed, dtype=torch.bfloat16, quantize_head=True,
+        device="cuda"))
+    return _time_prefill(variants, libs, cfg, model, seed, S, reps,
+                         ENTRIES["moe"][0], mm.moe_fused_matmul,
+                         2 * cfg.num_hidden_layers, "moe")
+
+
+def _time_prefill(variants, libs, cfg, model, seed, S, reps, stem, counter,
+                  launches, layout):
+    """The S-token prefill of ``model`` captured in a CUDA graph and
+    replayed ``reps`` times with each variant's library ``stem`` in place,
+    in the order given and back; each variant's run must count
+    ``launches`` on ``counter``. Frees the model."""
+    from ..models import llama as M
+    from ..runtime.generate import attn_bucket, init_kv_caches
     gen = torch.Generator(device="cuda").manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device="cuda")
@@ -482,9 +635,9 @@ def prefill_ms(variants: List[str], libs: Dict, seed: int = 0,
             before = counter.launches
             step(0)
             torch.cuda.synchronize()
-            if counter.launches - before != 4 * 32 + 1:
+            if counter.launches - before != launches:
                 raise RuntimeError(f"the prefill did not run the {layout} "
-                                   f"kernel 129 times")
+                                   f"kernel {launches} times")
             times[v].append(1e-3 * tm.graph_us(step, 1, reps=reps))
     finally:
         _build._libs.pop(stem, None)
@@ -504,14 +657,16 @@ def main(argv=None) -> int:
                          "a layout it has no body for)")
     ap.add_argument("--m", default="1,8,16,32")
     ap.add_argument("--layouts", default="nibble,sw4",
-                    help="of nibble, sw2, sw4, ksplit4, pb, paired, u3")
+                    help="of nibble, sw2, sw4, ksplit4, bfp, pb, paired, "
+                         "u3, moe")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="the csrc directory of the parent variant")
     ap.add_argument("--prefill", action="store_true",
                     help="also time Llama-2-7B's 32-token prefill with "
-                         "each variant's kernel (nibble: K1; pb, paired, "
-                         "u3)")
+                         "each variant's kernel (nibble: K1; bfp, pb, "
+                         "paired, u3), and with moe Mixtral-8x7B's "
+                         "16-token sparse prefill")
     a = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,6 +1,7 @@
-"""The bfp (K10), sw2/sw4 (K11), split-K (K6, partials from the
-tensor-core body csrc/nibble_mma_small.cuh) and paired (K7, the
-tensor-core body csrc/ucode_mma_small.cuh) CUDA kernels against their
+"""The bfp (K10, the tensor-core body csrc/nibble_mma_small.cuh with its
+row-pair codes), sw2/sw4 (K11), split-K (K6, partials from the same
+body) and paired (K7, the tensor-core body csrc/ucode_mma_small.cuh)
+CUDA kernels against their
 plain twins, on a card. This file imports neither JAX nor
 the JAX package (the card's machine has no JAX), so it runs there without
 tests/conftest.py:
@@ -158,6 +159,34 @@ def test_paired_row_tiles(cuda, m, dtype, with_scale):
     (both group-sum roundings)."""
     _check("paired", 200, 11008, m, dtype, cuda, seed=m,
            mp=max(8, -(-m // 8) * 8), with_scale=with_scale)
+
+
+@pytest.mark.parametrize("n_sets", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16, 17, 31, 32, 33, 40, 64, 65,
+                               1022])
+def test_bfp_row_tiles(cuda, m, dtype, n_sets):
+    """K10 at the edges of 1, 2 and 4 n8 tiles of rows and across blocks of
+    32 rows (33 to 65, and a LoRA forward's 1022 rows), at a ragged q_out
+    and down's 1408 groups, x padded to a multiple of 8 rows as the
+    dispatch pads it."""
+    _check("bfp", 200, 11008, m, dtype, cuda, seed=m + n_sets,
+           n_sets=n_sets, mp=max(8, -(-m // 8) * 8))
+
+
+@pytest.mark.parametrize("m,mp", [(1, 8), (5, 8), (33, 40), (1022, 1024)])
+def test_bfp_rows_skip_the_pad(cuda, m, mp):
+    """x's pad rows past m hold NaN: the kernel reads none of them, writes
+    only the m rows, and every one is finite and held to the twin."""
+    Gp, call, twin, counter = _case("bfp", 192, 4096, 2, cuda, seed=m)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((mp, 8 * Gp), generator=g, device=cuda).to(
+        torch.bfloat16)
+    x[m:] = float("nan")
+    got = call(x, None, m)
+    torch.cuda.synchronize()
+    assert got.shape == (m, 192) and torch.isfinite(got.float()).all()
+    _close(got, twin(x, None, m), torch.bfloat16)
 
 
 @pytest.mark.parametrize("m", [1, 8, 32, 65])

@@ -1,4 +1,5 @@
-"""The expert-indexed CUDA kernel (csrc/moe_decode_matmul.cu) against its
+"""The expert-indexed CUDA kernel (csrc/moe_decode_matmul.cu, the
+tensor-core body csrc/nibble_mma_small.cuh with its row map) against its
 plain twin, on a card. This file imports neither JAX nor the JAX package
 (the card's machine has no JAX), so it runs there without
 tests/conftest.py:
@@ -70,10 +71,9 @@ def test_kernel_matches_plain_twin(cuda, E, q_out, Gp, R, n_sets, dtype):
 @pytest.mark.parametrize("bound", [None, 1, 3])
 @pytest.mark.parametrize("R", [2, 9, 300, 600])
 def test_one_expert_many_rows(cuda, R, bound):
-    """Every row on one expert: the block loops over chunks of the
-    accumulator's rows (also when ``rows_per_expert`` understates them;
-    None is the bound R), and over windows of 256 rows of ids past
-    R = 256."""
+    """Every row on one expert: its units walk chunks of 8 rows (whatever
+    ``rows_per_expert`` says, also when it understates them; None is the
+    bound R), each chunk's rows listed from all R ids."""
     eids = torch.full((R,), 5)
     x, eids, planes = _inputs(8, 256, 128, R, 1, torch.float32, cuda,
                               seed=R, eids=eids)
@@ -94,6 +94,22 @@ def test_top2_bound_on_distinct_experts(cuda, R):
     got = mm.moe_fused_matmul(x, eids, planes, AFFINE[:1], R // 2)
     _close(got, mm.moe_fused_matmul_ref(x, eids, planes, AFFINE[:1]),
            torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_sets", [1, 2])
+def test_mixtral_w2_sparse_prefill_in_f32(cuda, n_sets):
+    """A 31-token sparse prefill's call at Mixtral-8x7B's w2 shape (4096
+    channels, 1792 groups): R = 62 top-2 rows with the bound 31 (chunks of
+    8 rows, an expert of more rows in several; x staged in two buffers),
+    f32 x (three bf16 terms a value)."""
+    g = torch.Generator().manual_seed(31)
+    eids = torch.stack([torch.randperm(8, generator=g)[:2]
+                        for _ in range(31)]).reshape(-1)
+    x, eids, planes = _inputs(8, 4096, 1792, 62, n_sets, torch.float32,
+                              cuda, seed=62, eids=eids)
+    got = mm.moe_fused_matmul(x, eids, planes, AFFINE[:n_sets], 31)
+    _close(got, mm.moe_fused_matmul_ref(x, eids, planes, AFFINE[:n_sets]),
+           torch.float32)
 
 
 def test_all_64_experts(cuda):

@@ -96,3 +96,37 @@ def test_ksplit_and_u3_layouts_run_the_tensor_core_body(tmp_path):
     for layout in ("u3", "ksplit4"):
         with pytest.raises(ValueError, match="parent"):
             vs.run(["base", "simt"], [1], [layout])
+
+
+def test_bfp_and_moe_layouts_run_the_tensor_core_body(tmp_path):
+    """Every variant copies K10's and K4/K5's sources, whose entries launch
+    the small-m body with their codes policies (so every rule of the
+    header reaches them), and both layouts refuse the simt variant: their
+    SIMT bodies are timed as the parent variant of a commit that ran
+    them."""
+    for v in ("base", "wn2"):
+        d = vs.write_variant(v, str(tmp_path))
+        with open(os.path.join(d, "bfp_decode_matmul.cu")) as f:
+            text = f.read()
+        assert "sm::launch_nt<" in text and "BfpCodes" in text
+        assert "nibble_decode.cuh" not in text
+        with open(os.path.join(d, "moe_decode_matmul.cu")) as f:
+            text = f.read()
+        assert "launch_nt<T, MoeCodes<NSETS>>" in text
+        with open(os.path.join(d, vs.HEADER)) as f:
+            assert "GATHER" in f.read()
+    assert {"bfp", "moe"} <= set(vs.ENTRIES)
+    assert set(vs.ROWMAP_SOURCES) == {vs.ENTRIES[k][0] + ".cu"
+                                      for k in ("bfp", "moe")}
+    for layout in ("bfp", "moe"):
+        with pytest.raises(ValueError, match="parent"):
+            vs.run(["base", "simt"], [1], [layout])
+
+
+def test_moe_sums_cover_a_mixtral_step():
+    """The MoE timing covers Mixtral-8x7B's two expert linears at every
+    layer (64 calls a step) at the main path's rows: decode (R = 2), 8
+    tokens and a 31-token sparse prefill."""
+    assert sum(vs.MOE_CALLS.values()) == 64
+    assert {s[0] for s in vs.MOE_SHAPES} == set(vs.MOE_CALLS)
+    assert vs.MOE_R == (2, 16, 62)
