@@ -24,17 +24,33 @@ line):
   4. the golden reference-schema checkpoint through the kernel (f32);
   5. the main path: Llama-2-7B E8P12 (random codes, seed 0), fused qkv and
      gate/up, quantized head, cache_len 2048, bs=1: a 32-token prompt and
-     128 greedy tokens through ``generate``, twice, with kernel launch
-     counts, the first 16 tokens held against the same path with every
-     linear on the plain twin, and the device time of one decode step and
-     of the 32-token prefill (CUDA-graph replays);
+     128 greedy tokens through ``generate`` (its decode steps replayed as
+     one CUDA graph per attention bucket), twice, with kernel launch
+     counts (a replay adds what its capture recorded), the first 16
+     tokens held against the same path with every linear on the plain
+     twin (both as eager step loops), and the device time of one decode
+     step and of the 32-token prefill (CUDA-graph replays); then on the
+     same model (a) ``generate`` by the host clock over the whole call,
+     graphed beside the eager step loop and bitwise equal to it, a
+     240-token prompt across the 256 bucket (two graphs),
+     ``generate_stream`` in chunks of 8 and the int8 KV cache against the
+     bf16 cache; (b) ``ServingEngine``, 8 slots, 16 requests from seed 0
+     (prompts 16-512, 32-128 new tokens), chunked prefill of 128: tok/s,
+     time to first token, inter-token time, each graph's device time, and
+     4 requests in f32 held to f32 ``generate``; (e) ``torch.profiler``
+     over one eager decode step, and over one shaped as serving's at 8
+     slots (bucket 1024): device time by kernel and by model part;
+     (d) the CLIs ``cli.generate`` and ``cli.eval_ppl`` on the golden
+     checkpoint; each with exact launch counts;
   6. the Mixtral path: Mixtral-8x7B E8P12 at all 32 layers (random codes,
      seed 0, experts stacked, fused qkv, quantized head), the same
      prompt/greedy runs with 64 new tokens, exact launch counts of both
      kernels, a 16-token prompt through the sparse prefill, and the
      kernel-vs-plain check with the kernel run on the plain run's top-2
-     routing (a fork accepted only at a near-tie of the tokens), and the
-     device time of the 16-token sparse prefill (CUDA-graph replay);
+     routing (a fork accepted only at a near-tie of the tokens), the
+     device time of the 16-token sparse prefill (CUDA-graph replay), and
+     (c) ``ServingEngine`` at 4 slots, 4 requests of 16 new tokens
+     (dense expert loop in the prefill, K4 in decode);
   7. the row-pair kernels (u3 and pb, each its codes policy on the
      tensor-core body ucode_mma_small.cuh) against their plain twins at
      the Llama-2-7B shapes, m = 1, 8, 32 and 64 in bf16 and m = 1 in f32
@@ -100,7 +116,8 @@ line):
      decoded beforehand in x's dtype); at m = 1022 and 2044 (bf16, 1 set)
      the dense route (decode_weights + torch.matmul, as quant_matmul runs
      it above FUSED_MAX_M) timed beside K2: the fused/dense crossover.
-Phases run in the order 1-4, 7, 10, 13, 16, 15, 11, 5, 12, 6, 9, 14. The last
+Phases run in the order 1-4, 7, 10, 13, 16, 15, 11, 5 (with a, b, e, d),
+12, 6 (with c), 9, 14; each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
@@ -234,6 +251,14 @@ K2_CALLS = {"qkvo": 4 * LAYERS, "gateup": 2 * LAYERS, "down": LAYERS,
             "head": 1}
 K2_M = (64, 1022)
 DENSE_M = (1022, 2044)
+# (a): the int8 KV cache's logits against the bf16 cache's, a share of
+# max|logit| (int8 codes round at 1/254 of a row's max, bf16 at 2^-9 of
+# each value; both then go through 32 random layers, hence the bf16
+# kernel-vs-plain tolerance doubled)
+INT8_TOL = 0.1
+# (b): requests to the serving engine, drawn from seed 0: how many, prompt
+# lengths and max_new_tokens (uniform in each range)
+SERVE_N, SERVE_PROMPT, SERVE_NEW = 16, (16, 512), (32, 128)
 
 
 def log(*a):
@@ -524,41 +549,47 @@ def phase_golden(cases=(("e8p12", None),)):
                                      f"rel {rel}, {launched} launches")
 
 
-def timed_generate(cfg, model, prompt, cache_len):
-    """generate(prompt, n) timed on the host clock, synchronised."""
+def timed_generate(cfg, model, prompt, cache_len, graphs=None):
+    """generate(prompt, n) timed on the host clock, synchronised: the
+    port's loop (CUDA-graph replays; ``graphs=False`` the same step body
+    run eagerly). ``run.runner`` is the last call's ``StepRunner``."""
     import torch
-    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.runtime import generate as G
 
     def run(n, p=prompt, **kw):
+        kw.setdefault("dtype", torch.bfloat16)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = qt.generate(cfg, model, p, n, cache_len=cache_len,
-                          dtype=torch.bfloat16, return_logits=True, **kw)
+        out, logits, run.runner = G._generate(
+            cfg, model, p, n, cache_len=cache_len, return_logits=True,
+            graphs=graphs, **kw)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        return (out, logits), time.perf_counter() - t0
     return run
 
 
+def forwards(runner) -> int:
+    """Forward passes of one generate call: its prefill, the warm-up step
+    before each capture, and the decode steps replayed or run eagerly
+    (each replay launches what its capture recorded)."""
+    return 1 + runner.warmups + runner.replays + runner.eager_steps
+
+
+def graph_note(runner) -> str:
+    return (f"{runner.captures} graph(s) captured after as many warm-up "
+            f"steps, {runner.replays} replays, {runner.eager_steps} eager "
+            "steps")
+
+
 def _counters():
-    """Each kernel's wrapper, which counts its launches."""
-    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    """Each kernel's wrapper, which counts its launches: the model's
+    decode kernels (``runtime/graphs.py``) and the microbenchmarks'."""
+    from quip_for_all_tpu_torch.runtime.graphs import kernel_wrappers
     from quip_for_all_tpu_torch.tools import microbench_bfp as tb
     from quip_for_all_tpu_torch.tools import microbench_decode as td
     from quip_for_all_tpu_torch.tools import microbench_kernel as tk
     from quip_for_all_tpu_torch.tools import microbench_tn as tt
-    from quip_for_all_tpu_torch.ops import layout_matmul as lm
-    from quip_for_all_tpu_torch.ops import moe_matmul as mm
-    from quip_for_all_tpu_torch.ops import rowpair_matmul as rm
-    return {"fused_decode_matmul": fm.fused_decode_matmul,
-            "fused_decode_matmul_tc": fm.fused_decode_matmul_tc,
-            "moe_decode_matmul": mm.moe_fused_matmul,
-            "rowpair_u3_decode_matmul": rm.rowpair_u3_matmul,
-            "rowpair_pb_decode_matmul": rm.rowpair_pb_matmul,
-            "bfp_decode_matmul": lm.bfp_decode_matmul,
-            "sw_decode_matmul": lm.sw_decode_matmul,
-            "ksplit_decode_matmul": lm.ksplit_decode_matmul,
-            "paired_decode_matmul": rm.paired_decode_matmul,
-            "fused_decode_matmul_bwd": fm.fused_decode_matmul_bwd,
+    return {**kernel_wrappers(),
             **{f"mb_kernel:{v}": f for v, f in tk.WRAPPERS.items()},
             **{f"mb_decode:{v}": f for v, f in td.WRAPPERS.items()},
             **{f"mb_tn:{v}": f for v, f in tt.WRAPPERS.items()},
@@ -618,16 +649,19 @@ def phase_main():
     reset_launches()
     (ids1, logits1), t1 = run(NEW)
     launches = read_launches()
+    fwd = forwards(run.runner)
+    note = graph_note(run.runner)
     (ids2, _), t2 = run(NEW)
     per_step = 4 * LAYERS + 1
     ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
     ms_tok2 = (t2 - t_pre) / (NEW - 1) * 1e3
     log(f"main: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
         f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
-        f"({1e3 / ms_tok:.1f} tok/s); second run {ms_tok2:.2f} ms/token")
-    # prefill + (NEW - 1) decode steps, per_step launches each
+        f"({1e3 / ms_tok:.1f} tok/s); second run {ms_tok2:.2f} ms/token; "
+        f"{note}")
+    # prefill, warm-up and (NEW - 1) decode steps, per_step launches each
     check_launches("main", launches, {"fused_decode_matmul":
-                                      per_step * NEW,
+                                      per_step * fwd,
                                       "moe_decode_matmul": 0})
     check_runs("main", cfg, ids1, ids2, logits1, NEW)
 
@@ -648,7 +682,554 @@ def phase_main():
     # the f32 logits that the re-laid paths (d)-(f) are held to
     _, ref = f32_logits(cfg, model, prompt)
     return launches["fused_decode_matmul"], {
-        "cfg": cfg, "model": model, "prompt": prompt, "ref": ref}
+        "cfg": cfg, "model": model, "prompt": prompt, "ref": ref,
+        "dev_ms": dev_ms, "eager_ms": eager_ms}
+
+
+def phase_graphed(main):
+    """(a) ``generate`` on the main path's model (``main``, phase 5's):
+    the graphed loop timed on the host clock over the whole call beside
+    the eager step loop, the two bitwise equal, a run across the 256
+    bucket boundary, ``generate_stream``, the int8 KV cache, and the exact
+    K1 launches of each run."""
+    import numpy as np
+    import torch
+    from quip_for_all_tpu_torch.runtime import generate as G
+    cfg, model, prompt = main["cfg"], main["model"], main["prompt"]
+    S, NEW, CACHE = prompt.shape[1], 128, 2048
+    per_step = 4 * LAYERS + 1
+    graphed = timed_generate(cfg, model, prompt, CACHE)
+    eager = timed_generate(cfg, model, prompt, CACHE, graphs=False)
+    runs = {}
+    for tag, run in (("graphed", graphed), ("eager", eager)):
+        reset_launches()
+        (ids, logits), t = run(NEW)
+        check_launches(f"a {tag}", read_launches(), {
+            "fused_decode_matmul": per_step * forwards(run.runner)})
+        runs[tag] = (ids, torch.stack(logits), t, run.runner)
+        if tag == "graphed":
+            k1 = read_launches()["fused_decode_matmul"]
+    (ids_g, lg_g, t_g, r_g), (ids_e, lg_e, t_e, _) = (runs["graphed"],
+                                                       runs["eager"])
+    same = torch.equal(ids_g, ids_e) and torch.equal(lg_g, lg_e)
+    out = {"ms_tok": t_g / NEW * 1e3, "eager_ms_tok": t_e / NEW * 1e3,
+           "k1_launches": k1,
+           "dev_ms": main["dev_ms"], "eager_step_ms": main["eager_ms"]}
+    log(f"a: generate, prompt {S} + {NEW} greedy tokens, cache_len {CACHE}"
+        f", host clock over the whole call: graphed {out['ms_tok']:.2f} "
+        f"ms/token ({1e3 / out['ms_tok']:.1f} tok/s; {graph_note(r_g)}), "
+        f"eager step loop {out['eager_ms_tok']:.2f} ms/token; one graphed "
+        f"step's device time {main['dev_ms']:.2f} ms, one eager step "
+        f"{main['eager_ms']:.2f} ms (phase 5); graphed ids and logits "
+        f"bitwise equal to the eager loop's: {same}")
+    if not same:
+        raise AssertionError("a: graphed loop differs from the eager loop")
+
+    # across the 256 bucket boundary: two graphs
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    long = torch.randint(0, cfg.vocab_size, (1, 240), generator=gen,
+                         device="cuda")
+    reset_launches()
+    (ids_c, lg_c), t_c = graphed(32, p=long)
+    r_c = graphed.runner
+    # the 240-token prefill runs K2 (above 32 rows), each step K1
+    check_launches("a across 256", read_launches(), {
+        "fused_decode_matmul": per_step * (forwards(r_c) - 1),
+        "fused_decode_matmul_tc": per_step})
+    (ids_ce, lg_ce), _ = eager(32, p=long)
+    same = (torch.equal(ids_c, ids_ce)
+            and torch.equal(torch.stack(lg_c), torch.stack(lg_ce)))
+    log(f"a: prompt 240 + 32 tokens (buckets {sorted(r_c.graphs)}): "
+        f"{graph_note(r_c)}; {t_c / 32 * 1e3:.2f} ms/token over the call; "
+        f"bitwise equal to the eager loop: {same}")
+    if sorted(r_c.graphs) != [256, 512] or not same:
+        raise AssertionError("a: the run across 256 did not take two "
+                             "graphs or differs from the eager loop")
+
+    # generate_stream, chunks of 8: the JAX chunk sizes, the same ids
+    buckets = len({w for _, w in G._segments(S, NEW - 1, CACHE, 8)})
+    reset_launches()
+    t = time.perf_counter()
+    chunks = list(G.generate_stream(cfg, model, prompt, NEW, chunk=8,
+                                    cache_len=CACHE, dtype=torch.bfloat16))
+    t = time.perf_counter() - t
+    check_launches("a stream", read_launches(), {
+        "fused_decode_matmul": per_step * (NEW + buckets)})
+    sizes = [c.shape[1] for c in chunks]
+    got = np.concatenate(chunks, axis=1)[0]
+    same = bool(np.array_equal(got, ids_g[0, S:].cpu().numpy()))
+    log(f"a: generate_stream chunk 8: {len(chunks)} chunks, sizes "
+        f"{sizes[:3]}...{sizes[-2:]}, {t / NEW * 1e3:.2f} ms/token; ids "
+        f"equal generate's: {same}")
+    if not same or sizes != [1] + [8] * ((NEW - 1) // 8) + (
+            [(NEW - 1) % 8] if (NEW - 1) % 8 else []):
+        raise AssertionError("a: generate_stream differs from generate")
+
+    # the int8 KV cache: its first 8 steps against the bf16 cache's
+    reset_launches()
+    (ids_q, lg_q), t_q = graphed(NEW, kv_quantized=True)
+    check_launches("a int8 cache", read_launches(), {
+        "fused_decode_matmul": per_step * forwards(graphed.runner)})
+    lg_q = torch.stack(lg_q)
+    k_q, k_b = ids_q[0, S:S + 8], ids_g[0, S:S + 8]
+    same = int((k_q == k_b).long().cumprod(0).sum())
+    n_cmp = min(8, same + 1)          # steps fed the same tokens
+    rel = float(((lg_q[:n_cmp] - lg_g[:n_cmp]).abs().max()
+                 / lg_g[:n_cmp].abs().max()))
+    gap = 0.0
+    if same < 8:
+        row = lg_g[same][0]
+        gap = float((row.max() - row[k_q[same]]) / row.abs().max())
+    # all 8 steps on the same tokens: the bf16 run's prompt and first 7
+    # tokens in one forward through an int8 cache, against its 8 steps
+    from quip_for_all_tpu_torch.models import llama as M
+    caches = G.init_kv_caches(cfg, 1, CACHE, torch.bfloat16, "cuda",
+                              quantized=True)
+    lf, _ = M.model_apply(cfg, model, ids_g[:, :S + 7], kv_caches=caches,
+                          cache_position=0, dtype=torch.bfloat16,
+                          attn_window=G.attn_bucket(S + 7, CACHE))
+    lf = lf[0, S - 1:].float()
+    rel8 = float((lf - lg_g[:8, 0]).abs().max() / lg_g[:8].abs().max())
+    log(f"a: int8 KV cache, one forward over the bf16 run's prompt and "
+        f"first 7 tokens: logits of its 8 steps within {rel8:.3g} of "
+        f"max|logit| of the bf16 cache run's (tol {INT8_TOL})")
+    if not rel8 <= INT8_TOL:
+        raise AssertionError("a: int8 cache logits beyond tolerance")
+    out.update(int8_ms_tok=t_q / NEW * 1e3, int8_rel=rel,
+               int8_rel_8_steps=rel8)
+    log(f"a: int8 KV cache, {NEW} tokens: {out['int8_ms_tok']:.2f} "
+        f"ms/token over the call; logits of the first {n_cmp} steps fed the"
+        f" same tokens within {rel:.3g} of max|logit| of the bf16 cache's "
+        f"(tol {INT8_TOL}); greedy tokens equal for {same}/8 steps" + (
+            f"; at step {same} the int8 run's token is {gap:.3g} of "
+            f"max|logit| below the bf16 argmax (tol {INT8_TOL})"
+            if same < 8 else ""))
+    if not (rel <= INT8_TOL and gap <= INT8_TOL):
+        raise AssertionError("a: int8 cache logits beyond tolerance")
+    return out
+
+
+def serving_requests(cfg, n, seed, prompt_len, new_tokens):
+    """n requests from ``seed``: prompt lengths and max_new_tokens drawn
+    uniformly in the given (low, high) ranges, token ids uniform."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_len[0], prompt_len[1] + 1, n)
+    news = rng.integers(new_tokens[0], new_tokens[1] + 1, n)
+    return [(rng.integers(0, cfg.vocab_size, int(L)), int(m))
+            for L, m in zip(lens, news)]
+
+
+def serve(tag, cfg, model, requests, eng=None, **kw):
+    """``requests`` through a ``ServingEngine`` on the host clock: a new
+    one built from ``kw`` (cold: its captures and their warm-up steps
+    count in the run), or ``eng`` warm from an earlier run (graphs already
+    captured). Requests, tokens, wall seconds, aggregate tok/s, time to
+    first token, each request's time per output token after its first
+    ((last - first) / (n - 1) of its ``on_token`` stamps: tokens arrive
+    in fetched bursts, so the gap between two callbacks is not what a
+    user waits), the run's forwards by kind and the kernels' launches."""
+    import numpy as np
+    import torch
+    from quip_for_all_tpu_torch.runtime.serving import ServingEngine
+    stamps = {}
+
+    def on_token(rid, tok, done):
+        stamps.setdefault(rid, []).append(time.perf_counter())
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = eng is not None
+    if warm:
+        eng.on_token = on_token
+    else:
+        eng = ServingEngine(cfg, model, on_token=on_token, **kw)
+    r = eng.runner
+    graphs0, runs0 = set(r.graphs), dict(r.runs_by_key)
+    chunks0, steps0 = eng.prefill_chunks, eng.decode_steps
+    rids = [eng.add_request(p, m) for p, m in requests]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    new = set(r.graphs) - graphs0          # captured in this run
+    toks = sum(len(stamps[q]) for q in rids)
+    ttft = np.array([stamps[q][0] - t0 for q in rids]) * 1e3
+    tpot = np.array([(stamps[q][-1] - stamps[q][0]) / (len(stamps[q]) - 1)
+                     for q in rids if len(stamps[q]) > 1]) * 1e3
+    st = {"requests": len(rids), "tokens": toks, "wall_s": wall,
+          "warm": warm, "tok_s": toks / wall,
+          "ttft_ms_p50": float(np.percentile(ttft, 50)),
+          "ttft_ms_p99": float(np.percentile(ttft, 99)),
+          "tpot_ms_p50": float(np.percentile(tpot, 50)),
+          "tpot_ms_p99": float(np.percentile(tpot, 99)),
+          "prefill_chunks": eng.prefill_chunks - chunks0,
+          "decode_steps": eng.decode_steps - steps0,
+          "prefill_fwd": eng.prefill_chunks - chunks0 + sum(
+              1 for k in new if k[0] == "prefill"),
+          "decode_fwd": eng.decode_steps - steps0 + sum(
+              1 for k in new if k[0] == "decode"),
+          "captures": len(new),
+          "runs": {f"{k[0]} {k[1]}": n - runs0.get(k, 0)
+                   for k, n in r.runs_by_key.items()},
+          "graphs": sorted(r.graphs), "launches": launches}
+    how = ("warm engine, nothing captured" if warm else
+           "cold engine, its captures and warm-up steps included")
+    log(f"{tag}: {st['requests']} requests, {toks} tokens in {wall:.2f} s "
+        f"wall ({how}): {st['tok_s']:.1f} tok/s; time to first token p50 "
+        f"{st['ttft_ms_p50']:.0f} ms, p99 {st['ttft_ms_p99']:.0f} ms; time "
+        f"per output token after the first, per request, p50 "
+        f"{st['tpot_ms_p50']:.2f} ms, p99 {st['tpot_ms_p99']:.2f} ms; "
+        f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} "
+        f"decode steps; {len(new)} graph(s) captured, graphs "
+        f"{st['graphs']}")
+    if warm and new:
+        raise AssertionError(f"{tag}: the warm engine captured {new}")
+    for rid, (p, m) in zip(rids, requests):
+        if res[rid].shape[0] != p.shape[0] + m:
+            raise AssertionError(f"{tag}: request {rid} returned "
+                                 f"{res[rid].shape[0]} ids")
+    return [res[rid] for rid in rids], st, eng
+
+
+def graph_device_ms(eng, reps=5):
+    """Device ms of one replay of each of the engine's graphs (CUDA events
+    around each replay, the mean of ``reps`` after a warm one), by key.
+    The engine has finished: a replay rewrites only its scratch state
+    (the step index is put back to 0 before each, as a chunk starts);
+    launch counts are not touched."""
+    import torch
+    out = {}
+    for key, (graph, _) in sorted(eng.runner.graphs.items()):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        eng._j.zero_()
+        graph.replay()
+        for t0, t1 in ev:
+            eng._j.zero_()
+            t0.record()
+            graph.replay()
+            t1.record()
+        torch.cuda.synchronize()
+        out[key] = sum(t0.elapsed_time(t1) for t0, t1 in ev) / reps
+    return out
+
+
+def log_serving_device(tag, eng, runs):
+    """An estimate of each serving run's device busy share, not a trace:
+    each graph's replay is timed once the engine has finished, and a run's
+    prefill chunks and decode steps are reckoned at those times against
+    its wall time. ``runs`` are ``serve``'s stats of the engine's runs."""
+    ms = {f"{k[0]} {k[1]}": v for k, v in graph_device_ms(eng).items()}
+    log(f"{tag}: one replay's device time: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(ms.items())))
+    for st in runs:
+        busy = sum(ms[k] * n for k, n in st["runs"].items()) / 1e3
+        st.update(graph_ms=ms, device_busy_s_estimate=busy)
+        log(f"{tag} ({'warm' if st['warm'] else 'cold'}): estimated device "
+            f"busy {busy:.2f} s of {st['wall_s']:.2f} s wall "
+            f"({busy / st['wall_s']:.0%}; replays timed after the run, "
+            "not traced)")
+
+
+def check_serving_launches(tag, st, per_prefill, per_decode):
+    """Exact launches of a serving run: each kernel's count a forward of
+    each kind, times the run's forwards of that kind."""
+    check_launches(tag, st["launches"], {
+        k: per_prefill.get(k, 0) * st["prefill_fwd"]
+        + per_decode.get(k, 0) * st["decode_fwd"]
+        for k in set(per_prefill) | set(per_decode)})
+
+
+def check_traced(tag, slug, fn, runner_of):
+    """Run ``fn`` under ``torch.profiler`` (``tools/_timing.py``
+    ``traced_launches``): the kernels the trace sees ran on the card must
+    equal the wrappers' counts of the same run, which reckon every
+    CUDA-graph replay from its capture. ``runner_of()`` is the run's
+    ``StepRunner``, which must have replayed."""
+    from quip_for_all_tpu_torch.tools._timing import traced_launches
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    reset_launches()
+    seen = traced_launches(fn, os.path.join(REPO, "build",
+                                            f"trace_{slug}.json"))
+    got = read_launches()
+    counted = {k: got[k] for k in seen}
+    runner = runner_of()
+    log(f"{tag}: kernels the profiler trace saw {seen}; the wrappers' "
+        f"counts {counted}; {graph_note(runner)}")
+    if seen != counted or runner.replays == 0 or not any(seen.values()):
+        raise AssertionError(f"{tag}: the trace saw {seen}, the wrappers "
+                             f"counted {counted}")
+    return seen
+
+
+def phase_serving(main):
+    """(b) ``ServingEngine`` on the main path's model: 16 requests at 8
+    slots in bf16 on a cold engine, then the same requests again on the
+    warm engine, each with exact K1 / K2 launches; then 4 requests at 4
+    slots in f32, each request's ids held to f32 ``generate`` of its
+    prompt alone."""
+    import gc
+    import numpy as np
+    import torch
+    import quip_for_all_tpu_torch as qt
+    cfg, model = main["cfg"], main["model"]
+    per_fwd = 4 * LAYERS + 1
+    # prefill chunks of 8 x 128 = 1024 rows run K2, decode steps of 8
+    # rows K1; each forward runs every quantized linear once
+    counts = ({"fused_decode_matmul_tc": per_fwd},
+              {"fused_decode_matmul": per_fwd})
+    reqs = serving_requests(cfg, SERVE_N, 0, SERVE_PROMPT, SERVE_NEW)
+    _, st, eng = serve("b serving", cfg, model, reqs, max_batch=8,
+                       cache_len=2048, prefill_chunk=128, decode_chunk=8,
+                       dtype=torch.bfloat16)
+    check_serving_launches("b serving", st, *counts)
+    _, warm, _ = serve("b serving", cfg, model, reqs, eng=eng)
+    check_serving_launches("b serving (warm)", warm, *counts)
+    log_serving_device("b serving", eng, (st, warm))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = {"compute_dtype": torch.float32}
+    small = [(p, 16) for p, _ in reqs[:4]]
+    outs, st32, _ = serve("b serving f32", cfg, model, small, max_batch=4,
+                          cache_len=2048, prefill_chunk=128, decode_chunk=8,
+                          dtype=torch.float32, linear_kw=f32)
+    check_serving_launches("b serving f32", st32, *counts)
+    same = 0
+    for (p, m), got in zip(small, outs):
+        want = qt.generate(cfg, model, torch.as_tensor(p)[None].cuda(), m,
+                           cache_len=2048, dtype=torch.float32,
+                           linear_kw=f32)[0].cpu().numpy()
+        same += int(np.array_equal(got, want))
+    log(f"b serving f32: {same}/4 requests' ids equal f32 generate of the "
+        "prompt alone")
+    if same != 4:
+        raise AssertionError("b: f32 serving differs from f32 generate")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16": st, "bf16_warm": warm, "f32": st32}
+
+
+def phase_cli():
+    """(d) The port's CLIs on the golden checkpoint (tests/golden/e8p12,
+    one layer, unfused, head not quantized: 7 K1 or K2 launches a
+    forward): generate (8 greedy tokens, two runs as the JAX CLI makes)
+    and eval_ppl (synthetic, 4 windows of 64: K2 at 64 rows)."""
+    import io
+    from quip_for_all_tpu_torch.cli import eval_ppl, generate as cli_gen
+    path = os.path.join(REPO, "tests", "golden", "e8p12")
+    prompt = "Hello, my name is"
+    buf = io.StringIO()
+    reset_launches()
+    # the golden checkpoint has no tokenizer: the CLI's byte-id fallback,
+    # whether or not this machine has ``transformers``
+    saved = sys.modules.get("transformers")
+    sys.modules["transformers"] = None
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli_gen.main(["--model-path", path, "--prompt", prompt,
+                          "--max-new-tokens", "8", "--temperature", "0",
+                          "--cache-len", "64", "--device", "cuda"])
+    finally:
+        if saved is None:
+            del sys.modules["transformers"]
+        else:
+            sys.modules["transformers"] = saved
+    printed = buf.getvalue().strip().splitlines()
+    log("d: cli.generate printed: " + " | ".join(printed))
+    ids = json.loads(next(line for line in reversed(printed)
+                          if line.startswith("[")))
+    # per run: prefill, one warm-up, 7 replays (one bucket)
+    check_launches("d cli generate", read_launches(),
+                   {"fused_decode_matmul": 7 * 2 * (8 + 1)})
+    log(f"d: cli.generate --max-new-tokens 8 --temperature 0 --device "
+        f"cuda: {len(ids)} ids")
+    if len(ids) != len(prompt.encode()) + 8:
+        raise AssertionError("d: cli.generate printed the wrong length")
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        eval_ppl.main(["--model-path", path, "--dataset", "synthetic",
+                       "--nsamples", "4", "--seqlen", "64", "--device",
+                       "cuda"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    check_launches("d cli eval_ppl", read_launches(),
+                   {"fused_decode_matmul_tc": 7 * 4})
+    log(f"d: cli.eval_ppl --dataset synthetic --nsamples 4 --seqlen 64: "
+        f"{line}")
+    if not math.isfinite(json.loads(line)["ppl"]):
+        raise AssertionError("d: eval_ppl gave a non-finite ppl")
+
+
+@contextlib.contextmanager
+def labelled(targets):
+    """While active, each (module, name, label) function runs inside a
+    ``torch.profiler.record_function(label)`` range."""
+    from torch.profiler import record_function
+    saved = []
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+
+        def wrap(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+        setattr(mod, name, wrap)
+        saved.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def kernel_breakdown(trace):
+    """Device time of a chrome trace's kernels by name, and by the
+    innermost labelled range that launched them (a kernel's launch is
+    found by its correlation id)."""
+    ev = trace["traceEvents"]
+    ranges = sorted(((e["ts"], e["ts"] + e["dur"], e["name"])
+                     for e in ev if e.get("cat") == "user_annotation"
+                     and e.get("ph") == "X"), key=lambda r: r[0])
+    launch = {e["args"]["correlation"]: e["ts"] for e in ev
+              if str(e.get("cat", "")).startswith("cuda_")
+              and "correlation" in e.get("args", {})}
+    by_name, by_label, count, label_n = {}, {}, {}, {}
+    for e in ev:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e["name"]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"]
+        count[name] = count.get(name, 0) + 1
+        ts = launch.get(e.get("args", {}).get("correlation"))
+        label = "unlabelled"
+        if ts is not None:
+            inner = [r for r in ranges if r[0] <= ts <= r[1]]
+            if inner:
+                label = min(inner, key=lambda r: r[1] - r[0])[2]
+        if "mma_small_kernel" in name:
+            label = "K1 (fused_decode_matmul)"
+        by_label[label] = by_label.get(label, 0.0) + e["dur"]
+        label_n[label] = label_n.get(label, 0) + 1
+    return by_name, count, by_label, label_n
+
+
+def profile_step(tag, cfg, model, tok, pos, caches, window):
+    """``torch.profiler`` over one eager decode step (tokens ``tok`` (B, 1)
+    at cache position ``pos``: a host int or a (B,) tensor): device time
+    by kernel name (top 15), by the model part that launched it, and the
+    sum outside K1. The chrome trace goes to build/profile_<tag>.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from quip_for_all_tpu_torch.models import llama as M
+    from quip_for_all_tpu_torch.nn import qlinear as Q
+    B = tok.shape[0]
+    positions = (torch.full((B, 1), pos, device="cuda")
+                 if isinstance(pos, int) else pos[:, None])
+
+    def step():
+        M.model_apply(cfg, model, tok, positions=positions, kv_caches=caches,
+                      cache_position=pos, dtype=torch.bfloat16,
+                      attn_window=window)
+    targets = [(Q, "apply", "linear: right transform, scales, casts"),
+               (Q, "fused_apply", "linear: right transform, scales, casts"),
+               (Q, "_grouped_prologue_matmul", "linear: left transform"),
+               (Q, "hadamard_transform", "linear: right Hadamard"),
+               (Q, "matmul_hadU", "linear: right Hadamard"),
+               (M, "sdpa_cache_layout", "attention (scores, softmax, "
+                                        "values)"),
+               (M, "write_kv", "kv cache write"),
+               (M, "apply_rope", "rope"), (M, "rope_tables", "rope"),
+               (M, "rms_norm", "rms norm"), (M, "cache_mask", "mask")]
+    with labelled(targets):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    path = os.path.join(REPO, "build", f"profile_{tag}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        by_name, count, by_label, label_n = kernel_breakdown(json.load(f))
+    total = sum(by_name.values())
+    if total <= 0:
+        raise AssertionError("e: the profiler saw no device time")
+    k1 = by_label.get("K1 (fused_decode_matmul)", 0.0)
+    log(f"e {tag}: one eager decode step ({B} row(s), bucket {window}), "
+        f"torch.profiler: {sum(count.values())} device ops, "
+        f"{total / 1e3:.3f} ms device time; K1 {k1 / 1e3:.3f} ms "
+        f"({count_k1(count)} launches); outside K1 "
+        f"{(total - k1) / 1e3:.3f} ms")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"e {tag}: kernel {us / 1e3:8.3f} ms  x{count[name]:4d}  "
+            f"{name[:110]}")
+    for label, us in sorted(by_label.items(), key=lambda kv: -kv[1]):
+        log(f"e {tag}: part {us / 1e3:8.3f} ms ({us / total:.1%}) in "
+            f"{label_n[label]:4d} device ops  {label}")
+    return {"total_ms": total / 1e3, "k1_ms": k1 / 1e3,
+            "outside_k1_ms": (total - k1) / 1e3,
+            "by_part_ms": {k: v / 1e3 for k, v in by_label.items()},
+            "by_part_ops": label_n}
+
+
+def phase_profile(main):
+    """(e) ``torch.profiler`` over one eager decode step of the main path
+    (1 row at position 32, bucket 256, after the 32-token prefill), and
+    over one decode step shaped as the serving engine's at 8 slots (rows
+    at positions 960-967 of a 2048 + 128 cache, bucket 1024, per-row
+    cache positions); then the launch counts of a graphed generate and a
+    serving run held to the kernels their traces show."""
+    import torch
+    from quip_for_all_tpu_torch.models import llama as M
+    from quip_for_all_tpu_torch.runtime.generate import (attn_bucket,
+                                                         init_kv_caches)
+    from quip_for_all_tpu_torch.runtime.serving import ServingEngine
+    cfg, model, prompt = main["cfg"], main["model"], main["prompt"]
+    S, CACHE = prompt.shape[1], 2048
+    caches = init_kv_caches(cfg, 1, CACHE, torch.bfloat16, "cuda")
+    M.model_apply(cfg, model, prompt, kv_caches=caches, cache_position=0,
+                  dtype=torch.bfloat16, attn_window=attn_bucket(S, CACHE))
+    out = {"decode_step": profile_step(
+        "decode_step", cfg, model, prompt[:, -1:], S, caches,
+        attn_bucket(S + 1, CACHE))}
+    del caches
+    caches = init_kv_caches(cfg, 8, CACHE + 128, torch.bfloat16, "cuda")
+    pos = torch.arange(960, 968, device="cuda")
+    out["serving_step_8_rows"] = profile_step(
+        "serving_step", cfg, model, prompt[:, -1:].repeat(8, 1), pos,
+        caches, attn_bucket(968, CACHE))
+    del caches
+    torch.cuda.empty_cache()
+
+    # the counts under graphs held to a profiler trace: a graphed generate
+    # (K1) and a small serving run (prefill chunks of 8 x 128 rows on K2,
+    # decode steps on K1)
+    graphed = timed_generate(cfg, model, prompt, CACHE)
+    check_traced("e traced generate", "generate", lambda: graphed(8),
+                 lambda: graphed.runner)
+    made = {}
+
+    def serve_small():
+        eng = made["eng"] = ServingEngine(
+            cfg, model, max_batch=8, cache_len=CACHE, prefill_chunk=128,
+            decode_chunk=8, dtype=torch.bfloat16)
+        for p, m in serving_requests(cfg, 2, 1, (100, 200), (8, 8)):
+            eng.add_request(p, m)
+        eng.run()
+    seen = check_traced("e traced serving", "serving", serve_small,
+                        lambda: made["eng"].runner)
+    if not seen["fused_decode_matmul_tc"]:
+        raise AssertionError("e: the trace saw no K2 launch")
+    del made
+    torch.cuda.empty_cache()
+    return out
+
+
+def count_k1(count):
+    return sum(n for name, n in count.items() if "mma_small_kernel" in name)
 
 
 def phase_mixtral():
@@ -657,6 +1238,7 @@ def phase_mixtral():
     import torch
     import quip_for_all_tpu_torch as qt
     from quip_for_all_tpu_torch.models.config import mixtral_8x7b_config
+    from quip_for_all_tpu_torch.runtime.serving import ServingEngine
     cfg = mixtral_8x7b_config()
     L, E = cfg.num_hidden_layers, cfg.num_local_experts
     torch.cuda.reset_peak_memory_stats()
@@ -680,29 +1262,33 @@ def phase_mixtral():
     reset_launches()
     (ids1, logits1), t1 = run(NEW)
     launches = read_launches()
+    steps = forwards(run.runner) - 1
+    note = graph_note(run.runner)
     (ids2, _), t2 = run(NEW)
     ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
     ms_tok2 = (t2 - t_pre) / (NEW - 1) * 1e3
     log(f"mixtral: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
         f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
-        f"({1e3 / ms_tok:.1f} tok/s); second run {ms_tok2:.2f} ms/token")
+        f"({1e3 / ms_tok:.1f} tok/s); second run {ms_tok2:.2f} ms/token; "
+        f"{note}")
     # the 32-token prefill runs the dense masked expert loop (qkv, o and
     # 3 linears of each expert per layer, and the head through the fused
-    # kernel); each decode step the sparse route (qkv, o, head fused; w13
-    # and w2 per layer through the MoE kernel)
+    # kernel); each decode step (the warm-up's too) the sparse route (qkv,
+    # o, head fused; w13 and w2 per layer through the MoE kernel)
     check_launches("mixtral", launches, {
-        "fused_decode_matmul": L * (2 + 3 * E) + 1 + (NEW - 1) * (2 * L + 1),
-        "moe_decode_matmul": (NEW - 1) * 2 * L})
+        "fused_decode_matmul": L * (2 + 3 * E) + 1 + steps * (2 * L + 1),
+        "moe_decode_matmul": steps * 2 * L})
     check_runs("mixtral", cfg, ids1, ids2, logits1, NEW)
 
     # a prompt under 32 tokens prefills through the sparse route (R = 32)
     short = prompt[:, :16].contiguous()
     reset_launches()
     (ids_s, logits_s), _ = run(4, p=short)
+    fwd = forwards(run.runner)
     check_launches("mixtral (16-token prompt, sparse prefill)",
                    read_launches(),
-                   {"fused_decode_matmul": 4 * (2 * L + 1),
-                    "moe_decode_matmul": 4 * 2 * L})
+                   {"fused_decode_matmul": fwd * (2 * L + 1),
+                    "moe_decode_matmul": fwd * 2 * L})
     if not torch.isfinite(torch.stack(logits_s)).all():
         raise AssertionError("mixtral: 16-token prompt logits not finite")
     pre_ms = log_prefill("mixtral", cfg, model, short, CACHE,
@@ -714,8 +1300,42 @@ def phase_mixtral():
     log(f"mixtral: one decode step (position {S}): device time {dev_ms:.2f}"
         f" ms (CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
         f"{1 - dev_ms / eager_ms:.0%} of the eager step")
+
+    # (c) the serving engine: 4 requests at 4 slots, cold then warm; a
+    # prefill chunk of 4 x 128 rows takes the dense expert loop (K2), a
+    # decode step of 4 rows the sparse route (K1 for qkv, o and the head,
+    # K4 for w13, w2)
+    counts = ({"fused_decode_matmul_tc": L * (2 + 3 * E) + 1},
+              {"fused_decode_matmul": 2 * L + 1, "moe_decode_matmul": 2 * L})
+    reqs = serving_requests(cfg, 4, 0, (16, 128), (16, 16))
+    _, st, eng = serve("c mixtral serving", cfg, model, reqs, max_batch=4,
+                       cache_len=CACHE, prefill_chunk=128, decode_chunk=8,
+                       dtype=torch.bfloat16)
+    check_serving_launches("c mixtral serving", st, *counts)
+    _, warm, _ = serve("c mixtral serving", cfg, model, reqs, eng=eng)
+    check_serving_launches("c mixtral serving (warm)", warm, *counts)
+    log_serving_device("c mixtral serving", eng, (st, warm))
+    del eng
+    # the counts under graphs held to a profiler trace: a small serving
+    # run (prefill chunks of 4 x 32 rows on the dense expert loop, K2;
+    # decode steps on K1 and K4)
+    made = {}
+
+    def serve_small():
+        eng = made["eng"] = ServingEngine(
+            cfg, model, max_batch=4, cache_len=CACHE, prefill_chunk=32,
+            decode_chunk=4, dtype=torch.bfloat16)
+        for p, m in serving_requests(cfg, 2, 1, (16, 32), (6, 6)):
+            eng.add_request(p, m)
+        eng.run()
+    seen = check_traced("c traced mixtral serving", "mixtral_serving",
+                        serve_small, lambda: made["eng"].runner)
+    if not seen["moe_decode_matmul"]:
+        raise AssertionError("c: the trace saw no K4 launch")
+    del made
     return {"launches": launches, "ms_tok": ms_tok, "dev_ms": dev_ms,
-            "eager_ms": eager_ms, "sparse_prefill_device_ms": pre_ms}
+            "eager_ms": eager_ms, "sparse_prefill_device_ms": pre_ms,
+            "serving": st, "serving_warm": warm}
 
 
 def phase_rowpair_kernels():
@@ -887,13 +1507,15 @@ def phase_rowpair_paths():
         reset_launches()
         (ids1, logits1), t1 = run(NEW)
         launches = read_launches()
+        fwd = forwards(run.runner)
         (ids2, _), t2 = run(NEW)
         ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
         log(f"{tag}: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
             f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
             f"({1e3 / ms_tok:.1f} tok/s); second run "
-            f"{(t2 - t_pre) / (NEW - 1) * 1e3:.2f} ms/token")
-        check_launches(tag, launches, {kname: per_step * NEW})
+            f"{(t2 - t_pre) / (NEW - 1) * 1e3:.2f} ms/token; "
+            f"{graph_note(run.runner)}")
+        check_launches(tag, launches, {kname: per_step * fwd})
         check_runs(tag, cfg, ids1, ids2, logits1, NEW)
         for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
             check_plain(cfg, model, prompt, dt, tol, CACHE, tag=tag,
@@ -1131,13 +1753,15 @@ def run_path(tag, cfg, model, prompt, expect, NEW=32, CACHE=2048):
     reset_launches()
     (ids1, logits1), t1 = run(NEW)
     launches = read_launches()
+    fwd = forwards(run.runner)
     (ids2, _), t2 = run(NEW)
     ms_tok = (t1 - t_pre) / (NEW - 1) * 1e3
     log(f"{tag}: prompt {S} + {NEW} greedy tokens, cache_len {CACHE}: "
         f"prefill {t_pre * 1e3:.1f} ms, decode {ms_tok:.2f} ms/token "
         f"({1e3 / ms_tok:.1f} tok/s); second run "
-        f"{(t2 - t_pre) / (NEW - 1) * 1e3:.2f} ms/token")
-    check_launches(tag, launches, {k: v * NEW for k, v in expect.items()})
+        f"{(t2 - t_pre) / (NEW - 1) * 1e3:.2f} ms/token; "
+        f"{graph_note(run.runner)}")
+    check_launches(tag, launches, {k: v * fwd for k, v in expect.items()})
     check_runs(tag, cfg, ids1, ids2, logits1, NEW)
     for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
         check_plain(cfg, model, prompt, dt, tol, CACHE, tag=tag,
@@ -1226,8 +1850,8 @@ def phase_layout_paths(main):
 def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
     """Device time of one bf16 decode step: the step captured once in a
     CUDA graph and replayed n times between CUDA events (no host dispatch),
-    beside the same step run eagerly n times. The port's decode loop does
-    not use graphs yet; this only measures what the device spends."""
+    beside the same step run eagerly n times: what one step of
+    ``generate``'s graphed loop spends on the device, alone."""
     import torch
     from quip_for_all_tpu_torch.models import llama as M
     from quip_for_all_tpu_torch.runtime.generate import (attn_bucket,
@@ -1321,12 +1945,14 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
     first decode steps see different tokens, and the prompt's logits (the
     same inputs in both runs) are held to tol instead. ``per_step`` names
     the path's kernels with their launches per step, which the kernel run
-    must show n times over. On an MoE model the kernel run takes the plain run's routing
+    must show n times over. Both runs are the port's step loop run
+    eagerly (the plain MoE twin reads expert ids on the host, which a
+    CUDA graph cannot hold). On an MoE model the kernel run takes the plain run's routing
     (``shared_routing``): the runs then differ by the linears' rounding and
     not by a top-k choice that a near-tie of router logits flips, and the
     MoE kernel runs on every decode step of the kernel run."""
     import torch
-    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.runtime import generate as G
     S = prompt.shape[1]
     moe = cfg.arch == "mixtral"
     outs, router = {}, []
@@ -1336,11 +1962,11 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
                if moe else contextlib.nullcontext([0]))
         reset_launches()
         with ctx as flips:
-            outs[impl] = qt.generate(cfg, model, prompt, n,
+            outs[impl] = G._generate(cfg, model, prompt, n,
                                      cache_len=cache_len, dtype=dtype,
-                                     return_logits=True,
+                                     return_logits=True, graphs=False,
                                      linear_kw={"compute_dtype": dtype,
-                                                "matmul_impl": impl})
+                                                "matmul_impl": impl})[:2]
     launches = read_launches()
     (ids_k, lk), (ids_p, lp) = outs["auto"], outs["plain"]
 
@@ -1719,6 +2345,7 @@ def phase_train():
     from quip_for_all_tpu_torch.nn.lora import (add_lora,
                                                 collect_lora_trainable)
     from quip_for_all_tpu_torch.quantize.lora_train import train_lora
+    from quip_for_all_tpu_torch.runtime import generate as G
     cfg = qt.llama2_7b_config()
     per_fwd = 7 * LAYERS + 1                    # every quantized linear
     per_bwd = per_fwd - 3                       # less layer 0's q/k/v
@@ -1850,15 +2477,16 @@ def phase_train():
     prompt = torch.as_tensor(toks[:1, :32], device="cuda")
     n = 16
     reset_launches()
-    ids_b = qt.generate(cfg, model, prompt, n, cache_len=64)
-    check_launches("train: generate with adapters (bf16)", read_launches(),
-                   {"fused_decode_matmul": per_fwd * n})
+    ids_b, _, runner = G._generate(cfg, model, prompt, n, cache_len=64)
+    check_launches("train: generate with adapters (bf16, graphed)",
+                   read_launches(),
+                   {"fused_decode_matmul": per_fwd * forwards(runner)})
     outs = {}
     for impl in ("auto", "plain"):
-        outs[impl] = qt.generate(cfg, model, prompt, n, cache_len=64,
-                                 dtype=torch.float32, linear_kw={
-                                     "compute_dtype": torch.float32,
-                                     "matmul_impl": impl})
+        outs[impl] = G._generate(cfg, model, prompt, n, cache_len=64,
+                                 dtype=torch.float32, graphs=False,
+                                 linear_kw={"compute_dtype": torch.float32,
+                                            "matmul_impl": impl})[0]
     same = bool(torch.equal(outs["auto"], outs["plain"]))
     log(f"train: generate {n} greedy tokens with the trained adapters: "
         f"f32 kernel tokens equal the plain route's: {same}; bf16 tokens "
@@ -1909,6 +2537,26 @@ def k2_entry(rows, err, train):
         f"{train['fwd_ms']:.1f} ms forward; bound {e['bound_ms']:.2f} ms "
         f"({e['bound_by']}); library {e['library_ms']:.2f} ms")
     return e
+
+
+def serving_path_launches(entries, graphed, serving, mix):
+    """The serving path's launches beside each kernel's entry: K1 in the
+    graphed generate and the serving decode, K2 in the serving prefill,
+    K4 in Mixtral's serving decode."""
+    by = {e["name"]: e for e in entries}
+    k1 = by["fused_decode_matmul"].setdefault("launches_by_path", {})
+    k1.update(llama2_7b_graphed_generate=graphed["k1_launches"],
+              llama2_7b_serving=serving["bf16"]["launches"][
+                  "fused_decode_matmul"],
+              mixtral_8x7b_serving=mix["serving"]["launches"][
+                  "fused_decode_matmul"])
+    by["fused_decode_matmul_tc"].setdefault("launches_by_path", {}).update(
+        llama2_7b_serving_prefill=serving["bf16"]["launches"][
+            "fused_decode_matmul_tc"],
+        mixtral_8x7b_serving_prefill=mix["serving"]["launches"][
+            "fused_decode_matmul_tc"])
+    by["moe_decode_matmul"].setdefault("launches_by_path", {}).update(
+        mixtral_8x7b_serving=mix["serving"]["launches"]["moe_decode_matmul"])
 
 
 def call_sum(rows, calls, key, **match):
@@ -2192,6 +2840,10 @@ def main() -> int:
             ("e8p12", "sw4"), ("e8p12rvq4b", "paired"),
             ("e8p12rvq4b", "bfp")))
         launches, main = at("5", phase_main)
+        graphed = at("5a", phase_graphed, main)
+        serving = at("5b", phase_serving, main)
+        profile = at("5e", phase_profile, main)
+        at("5d", phase_cli)
         new_paths = at("12", phase_layout_paths, main)
         mix = at("6", phase_mixtral)
         paths = at("9", phase_rowpair_paths)
@@ -2202,6 +2854,11 @@ def main() -> int:
         entries.append(k3_entry(k3_rows, k3_err, train))
         entries.append(k2_entry(k2_rows, k2_err, train))
         entries += microbench_entries(mb_recs)
+        serving_path_launches(entries, graphed, serving, mix)
+        log("serving path: " + json.dumps({
+            "graphed_generate": graphed, "decode_step_profile": profile,
+            "serving": serving, "mixtral_serving": mix["serving"],
+            "mixtral_serving_warm": mix["serving_warm"]}))
         log(f"chip_smoke: wall time {time.time() - T0:.1f} s (limit 1200 s)")
     except Exception:
         traceback.print_exc()

@@ -5,11 +5,13 @@ caller passes device="cpu".
 """
 from .models.config import ModelConfig, llama2_7b_config, tiny_config
 from .models.llama import fuse_for_inference, set_ksplit
-from .runtime.generate import generate
+from .runtime.generate import generate, generate_stream, perplexity
+from .runtime.serving import ServingEngine
 from .utils.checkpoint import load_quantized
 from .utils.convert import from_jax_params
 from .utils.random_quantized import random_quantized_model
 
 __all__ = ["ModelConfig", "llama2_7b_config", "tiny_config",
            "fuse_for_inference", "set_ksplit", "generate",
+           "generate_stream", "perplexity", "ServingEngine",
            "load_quantized", "from_jax_params", "random_quantized_model"]

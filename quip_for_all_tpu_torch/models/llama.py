@@ -28,7 +28,7 @@ from ..nn.qlinear import (FusedQuantLinear, QuantLinear, fuse_qlinears,
                          same_tensor)
 from ..nn.qmoe import (StackedQuantLinear, moe_sparse_apply, stack_experts,
                        unstack_qlinear)
-from .common import sdpa_cache_layout, write_kv
+from .common import attn_bucket, kv_len, sdpa_cache_layout, write_kv
 from .config import ModelConfig
 
 
@@ -162,9 +162,20 @@ def apply_rope(q, k, cos, sin):
 
 # --------------------------------------------------------------- blocks
 
+def runtime_window(cache_position, S: int, T: int) -> Optional[int]:
+    """The JAX package's runtime bucket ``lax.switch`` (its attention,
+    taken without a static window at S == 1 and T >= 512), picked on the
+    host: the smallest of 256, 512, ... (capped at T) that covers the
+    write. A tensor position is not read back, so the whole cache is read
+    (None): masked slots give exact zeros, so the values are the same."""
+    if not (isinstance(cache_position, int) and S == 1 and T >= 512):
+        return None
+    return attn_bucket(cache_position + 1, T)
+
+
 def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
-              cos, sin, kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]],
-              cache_position: Optional[int], attn_mask: torch.Tensor,
+              cos, sin, kv_cache: Optional[tuple],
+              cache_position, attn_mask: torch.Tensor,
               linear_kw: dict, attn_window: Optional[int] = None):
     B, S, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -179,10 +190,13 @@ def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
     v = v.reshape(B, S, KV, hd)
     q, k = apply_rope(q, k, cos, sin)
     if kv_cache is not None:
+        # either cache kind (bf16 or QuantKVCache), any position kind
         ck, cv = kv_cache
         k = write_kv(ck, k, cache_position)
         v = write_kv(cv, v, cache_position)
         new_cache = (k, v)
+        if attn_window is None:
+            attn_window = runtime_window(cache_position, S, kv_len(k))
     else:
         new_cache, attn_window = None, None
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype, attn_window)
@@ -267,9 +281,12 @@ def model_apply(cfg: ModelConfig, model: LlamaModel,
                 attn_window: Optional[int] = None):
     """Full forward. input_ids (B, S) -> (logits (B, S, V), caches).
 
-    With kv_caches (per layer (k, v) of shape (B, S_max, KV, hd)) runs
-    incremental decoding, writing at cache_position; attn_window (static)
-    promises every query position is < attn_window."""
+    With kv_caches (per layer (k, v), each a (B, S_max, KV, hd) tensor or
+    a ``QuantKVCache``) runs incremental decoding, writing at
+    cache_position: a host int, a 0-d tensor or a (B,) tensor of per-row
+    starts (``models/common.py``); attn_window (static) promises every
+    query position is < attn_window. Nothing here reads a tensor back to
+    the host, so a decode step can be captured in a CUDA graph."""
     if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (ROADMAP.md slice 5)")
@@ -281,7 +298,7 @@ def model_apply(cfg: ModelConfig, model: LlamaModel,
     cos, sin = rope_tables(cfg, positions)
     if attn_mask is None:
         attn_mask = (causal_mask(S, S, dev) if kv_caches is None
-                     else cache_mask(positions, kv_caches[0][0].shape[1]))
+                     else cache_mask(positions, kv_len(kv_caches[0][0])))
     new_caches = [] if kv_caches is not None else None
     for i, blk in enumerate(model.layers):
         cache_i = kv_caches[i] if kv_caches is not None else None

@@ -125,6 +125,40 @@ def event_us(fn: Callable[[int], object], n: int = 3) -> float:
     return t0.elapsed_time(t1) * 1e3 / n
 
 
+# The device symbols of the serving path's kernels, by wrapper name
+# (``runtime/graphs.py`` ``kernel_wrappers``): every part must appear in
+# the symbol. K6 (split-K) shares K1's codes policy; no serving path runs it.
+KERNEL_SYMBOLS = (("moe_decode_matmul", ("mma_small_kernel", "MoeCodes<")),
+                  ("fused_decode_matmul_tc", ("nibble_mma_fwd_kernel",)),
+                  ("fused_decode_matmul", ("mma_small_kernel",
+                                           "NibbleCodes<")))
+
+
+def traced_launches(fn: Callable[[], object], path: str) -> Dict[str, int]:
+    """Run ``fn`` under ``torch.profiler`` and count, by wrapper name, the
+    kernels of ``KERNEL_SYMBOLS`` that the trace shows ran on the card
+    (the chrome trace is written to ``path``). A CUDA-graph replay does
+    not call the wrappers, so their host counts reckon it from the
+    capture; this count is the device's own."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {k: 0 for k, _ in KERNEL_SYMBOLS}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k, parts in KERNEL_SYMBOLS:
+            if all(p in e["name"] for p in parts):
+                counts[k] += 1
+                break
+    return counts
+
+
 def cold_copies(args) -> list:
     """``args`` (a list, tuple or dict of tensors) and clones of it, enough
     that cycling through them finds each set evicted from the L2."""

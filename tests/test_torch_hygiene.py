@@ -31,6 +31,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "test_torch_layout_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_k3_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_microbench_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_serving_cuda.py")
 
 
 def _imports(path):
@@ -53,7 +54,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 # the microbenchmarks
                 "tools/_timing.py", "tools/microbench_kernel.py",
                 "tools/microbench_decode.py", "tools/microbench_split.py",
-                "tools/microbench_tn.py", "tools/microbench_bfp.py"):
+                "tools/microbench_tn.py", "tools/microbench_bfp.py",
+                # the serving path
+                "runtime/graphs.py", "runtime/serving.py", "cli/generate.py",
+                "cli/eval_ppl.py"):
         assert os.path.join("quip_for_all_tpu_torch", mod) in scanned, mod
     bad = []
     for path in _port_sources():
@@ -85,7 +89,10 @@ def test_port_keeps_its_own_assets():
                                    "train_lora", "load_lora", "import_peft",
                                    "cli_finetune_lora", "microbench_kernel",
                                    "microbench_decode", "microbench_split",
-                                   "microbench_tn", "microbench_bfp"])
+                                   "microbench_tn", "microbench_bfp",
+                                   "generate_stream", "perplexity",
+                                   "serving", "caches_int8", "cli_generate",
+                                   "cli_eval_ppl"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -129,6 +136,31 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             import importlib
             importlib.import_module(
                 f"quip_for_all_tpu_torch.tools.{entry}").main([])
+        elif entry == "generate_stream":
+            from quip_for_all_tpu_torch.runtime.generate import \
+                generate_stream
+            model = qt.random_quantized_model(cfg, device="cpu")
+            next(generate_stream(cfg, model, torch.zeros((1, 3),
+                                                         dtype=torch.long), 2))
+        elif entry == "perplexity":
+            from quip_for_all_tpu_torch.runtime.generate import perplexity
+            perplexity(cfg, qt.random_quantized_model(cfg, device="cpu"),
+                       np.zeros((1, 8), dtype=np.int64))
+        elif entry == "serving":
+            from quip_for_all_tpu_torch.runtime.serving import ServingEngine
+            ServingEngine(cfg, qt.random_quantized_model(cfg, device="cpu"))
+        elif entry == "caches_int8":
+            from quip_for_all_tpu_torch.runtime.generate import \
+                init_kv_caches
+            init_kv_caches(cfg, 1, 8, quantized=True)
+        elif entry in ("cli_generate", "cli_eval_ppl"):
+            import importlib
+            importlib.import_module(
+                f"quip_for_all_tpu_torch.cli.{entry[4:]}").main([
+                    "--model-path", os.path.join(REPO, "tests", "golden",
+                                                 "e8p12"),
+                    "--dataset" if entry == "cli_eval_ppl" else "--prompt",
+                    "synthetic" if entry == "cli_eval_ppl" else "hi"])
         elif entry == "cli_finetune_lora":
             from quip_for_all_tpu_torch.cli import finetune_lora
             finetune_lora.main(["--model-path", os.path.join(
@@ -170,3 +202,21 @@ def test_random_model_is_seeded_and_fusable():
     assert sorted(f.layers[0]["self_attn"].keys()) == ["o_proj", "qkv_proj"]
     assert sorted(f.layers[0]["mlp"].keys()) == ["down_proj", "gateup_proj"]
     assert f.layers[0]["mlp"]["gateup_proj"].right_uniform
+
+
+def test_graph_runner_counts_every_kernel_wrapper():
+    """A replay adds its capture's launches to the wrappers that
+    ``runtime/graphs.py`` ``kernel_wrappers`` lists: every wrapper in
+    ``ops/`` that counts launches must be among them, or its replayed
+    launches would go uncounted."""
+    import importlib
+    import pkgutil
+    from quip_for_all_tpu_torch import ops
+    from quip_for_all_tpu_torch.runtime.graphs import kernel_wrappers
+    found = set()
+    for m in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{m.name}")
+        found |= {id(f) for f in vars(mod).values()
+                  if callable(f) and hasattr(f, "launches")}
+    listed = {id(f) for f in kernel_wrappers().values()}
+    assert found and found == listed
