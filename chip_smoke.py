@@ -116,8 +116,27 @@ line):
      decoded beforehand in x's dtype); at m = 1022 and 2044 (bf16, 1 set)
      the dense route (decode_weights + torch.matmul, as quant_matmul runs
      it above FUSED_MAX_M) timed beside K2: the fused/dense crossover.
-Phases run in the order 1-4, 7, 10, 13, 16, 15, 11, 5 (with a, b, e, d),
-12, 6 (with c), 9, 14; each logs its start and its seconds. The last
+ 17. the right transform's B-side factor in the kernels' epilogue
+     (right_hb, ``set_right_in_kernel``) and the combined residual decode
+     (``set_combine_planes``): (i) K1, K11 (sw4), K10, K6 (2 and 4
+     chunks), K7, K8 and K9 with right_hb at the five Llama-2-7B linears
+     (each segment's own M), m = 1, 8 and 32 in bf16 and m = 1 in f32, K2
+     at m = 64 and 1022, K3's backward (g times Hb first) at m = 1022:
+     each held to the same kernel without it followed by the torch
+     product, and to its plain twin; timed (bf16) beside the kernel
+     without it plus the torch product; (ii) K1, K11 and K2 with the
+     combined decode on E8P12RVQ4B and E8P12RVQ3B codes held to the
+     twin, K1 timed combined beside split; (iii) right after 5d, the main
+     path with the epilogue on: graphed ``generate`` 32 + 128 bitwise
+     equal to the eager loop, f32 logits of 8 steps held to the switch-off
+     run, exact launch counts (129 K1 a token), a graphed step's device
+     time beside the switch-off step's, and a profiled eager step by part;
+     (iv) within 9, path (c) again with both switches on (combine 8), 32
+     tokens, held to its plain twin; (v) within 4, the golden d4, hi and
+     e8p12rvq3b fixtures, also with the epilogue on.
+Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
+a, b, e, d), 17 (iii), 12, 6 (with c), 9 (with 17 iv), 14; each logs its
+start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
@@ -521,13 +540,18 @@ def phase_moe_kernels():
 def phase_golden(cases=(("e8p12", None),)):
     """Golden reference-schema fixtures, loaded by the port in a runtime
     layout and run on the card through the layout's kernel in f32: rel <
-    2e-4 as the JAX test holds, and a launch of the expected kernel."""
+    2e-4 as the JAX test holds, and a launch of the expected kernel. A case
+    (fixture, layout, True) runs with the right epilogue on."""
     import numpy as np
     import torch
+    from quip_for_all_tpu_torch.models.llama import set_right_in_kernel
     from quip_for_all_tpu_torch.utils.checkpoint import load_quantized
-    for fixture, layout in cases:
+    for fixture, layout, *right in cases:
         path = os.path.join(REPO, "tests", "golden", fixture)
         cfg, model, _ = load_quantized(path, device="cuda", layout=layout)
+        set_right_in_kernel(model, bool(right and right[0]))
+        if right and right[0]:
+            layout = f"{layout or 'nibble'}, right epilogue"
         exp = np.load(os.path.join(path, "expected.npz"))
         blk = model.layers[0]
         for role, lin in (("q_proj", blk["self_attn"]["q_proj"]),
@@ -536,6 +560,8 @@ def phase_golden(cases=(("e8p12", None),)):
             # the nibble layout's n rows: K1 up to 32, K2 above
             kernel = LAYOUT_KERNEL.get(layout, "fused_decode_matmul" if n <= 32
                                        else "fused_decode_matmul_tc")
+            if right and right[0]:
+                kernel = "fused_decode_matmul_tc"
             reset_launches()
             got = lin(torch.eye(n, device="cuda"),
                       compute_dtype=torch.float32).cpu().numpy()
@@ -1136,6 +1162,7 @@ def profile_step(tag, cfg, model, tok, pos, caches, window):
                (Q, "_grouped_prologue_matmul", "linear: left transform"),
                (Q, "hadamard_transform", "linear: right Hadamard"),
                (Q, "matmul_hadU", "linear: right Hadamard"),
+               (Q, "finish_right", "linear: right Hadamard"),
                (M, "sdpa_cache_layout", "attention (scores, softmax, "
                                         "values)"),
                (M, "write_kv", "kv cache write"),
@@ -1528,6 +1555,9 @@ def phase_rowpair_paths():
         out[tag] = {"kernel": kname, "launches": launches[kname],
                     "ms_tok": ms_tok, "dev_ms": dev_ms, "eager_ms": eager_ms,
                     "prefill_device_ms": pre_ms}
+        if tag == "c_rvq4b_nibble":
+            out[tag]["right_combine"] = right_combine_path(
+                "17 iv", cfg, model, prompt, dev_ms)
         del model, run
         gc.collect()
         torch.cuda.empty_cache()
@@ -2500,6 +2530,387 @@ def phase_train():
     return train
 
 
+# phase 17: (kernel name, codebook, layout, split-K chunks asked) of every
+# kernel that takes right_hb; the right transform's M of each Llama-2-7B
+# linear (random_quantized_model's use_rand factors: 4096 = 2^12, 11008 =
+# 43 * 256, 32000 = 125 * 256), so B = 128 everywhere
+RIGHT_KERNELS = [("fused_decode_matmul", "E8P12", "nibble", 0),
+                 ("sw_decode_matmul", "E8P12", "sw4", 0),
+                 ("bfp_decode_matmul", "E8P12", "bfp", 0),
+                 ("ksplit_decode_matmul", "E8P12", "nibble", 2),
+                 ("ksplit_decode_matmul", "E8P12", "nibble", 4),
+                 ("paired_decode_matmul", "E8P12RVQ4B", "paired", 0),
+                 ("rowpair_pb_decode_matmul", "E8P12RVQ4B", "pb", 0),
+                 ("rowpair_u3_decode_matmul", "E8P12", "u3", 0)]
+RIGHT_M = {"qkv": 4096, "o": 4096, "gateup": 256, "down": 4096, "head": 256}
+RIGHT_CASES = [(1, "bfloat16"), (8, "bfloat16"), (32, "bfloat16"),
+               (1, "float32")]
+# the combined decode: (m, rows bound n) on K1 (m <= 32) and K2 (above)
+COMBINE_CASES = [(1, 8), (8, 8), (40, 8), (64, 32)]
+
+
+def _right_check(tag, got, plain_k, want, plain_t, hb):
+    """A kernel's output with right_hb against the same kernel's without it
+    followed by the torch product (one rounding apart: 1 bf16 ulp + 1e-5
+    max), and against its plain twin with right_hb, whose tolerance adds
+    |Hb| times the kernel-vs-twin difference before the epilogue (a first
+    rounding one ulp apart is carried by the product). Returns the max
+    |diff| to the twin."""
+    import torch
+    from quip_for_all_tpu_torch.ops import layout_matmul as lm
+    ok, err = tm.compare(got, lm.right_epilogue(plain_k, hb),
+                         bf16_step=True)[:2]
+    if not ok:
+        raise AssertionError(f"{tag}: right epilogue vs the kernel without "
+                             f"it + the product beyond tolerance ({err})")
+    d = (plain_k.float() - plain_t.float()).abs()
+    m, q = d.shape
+    B = hb.shape[0]
+    carry = (d.reshape(m, q // B, B) @ hb.abs().T).reshape(m, q)
+    g, w = got.float(), want.float()
+    tol = 1e-5 * w.abs().max() + carry
+    if got.dtype == torch.bfloat16:
+        a = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        tol = tol + torch.exp2(torch.floor(torch.log2(a)) - 7)
+    diff = (g - w).abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{tag}: right epilogue vs plain twin beyond "
+                             f"tolerance ({float(diff.max())})")
+    return float(diff.max())
+
+
+def phase_right_kernels():
+    """(i) every kernel with right_hb, (ii) the combined decode (see the
+    module docstring). Returns the rows of (i) and (ii)."""
+    import dataclasses
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops import layout_matmul as lm
+    from quip_for_all_tpu_torch.transforms.incoherence import right_hb_tensor
+    from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for kname, cb, layout, ks in RIGHT_KERNELS:
+        for name, q_out, q_in, with_scale, _ in SHAPES[:5]:
+            chunks = (fm.pick_ksplit(ks, -(-(q_in // 8) // 128) * 128) if ks
+                      else 1)
+            if ks and chunks < 2:
+                continue                   # down: K1 (11 lane blocks)
+            qt = random_qtensor(cb, layout, q_out, q_in, gen, "cuda")
+            qts = [dataclasses.replace(qt, planes=p)
+                   for p in tm.cold_copies(qt.planes)]
+            hb = right_hb_tensor(RIGHT_M[name], torch.device("cuda"))
+            scale = (torch.rand(q_out, generator=gen, device="cuda") + 0.5
+                     if with_scale else None)
+            for m, dt in RIGHT_CASES:
+                dtype = getattr(torch, dt)
+                x = fm.grouped_permute(
+                    torch.randn((m, q_in), generator=gen, device="cuda"),
+                    qt.group_cols, qt.split).to(dtype)
+
+                def run(q, plain, right):
+                    return fm._forward(x, q, scale, plain, ks,
+                                       right_hb=hb if right else None)
+                tag = f"17 i {kname} [{layout} {ks or ''}] {name} m={m} {dt}"
+                got = run(qt, False, True)
+                err = _right_check(tag, got, run(qt, False, False),
+                                   run(qt, True, True), run(qt, True, False),
+                                   hb)
+                row = {"kernel": kname, "layout": layout, "ks": ks,
+                       "chunks": chunks, "layer": name, "m": m, "dtype": dt,
+                       "max_abs_err": err}
+                if dt == "bfloat16":
+                    row["right_ms"] = 1e-3 * tm.graph_us(
+                        lambda i: run(qts[i % len(qts)], False, True),
+                        4 * len(qts))
+                    row["base_ms"] = 1e-3 * tm.graph_us(
+                        lambda i: lm.right_epilogue(
+                            run(qts[i % len(qts)], False, False), hb),
+                        4 * len(qts))
+                    log(f"{tag}: max|k-twin| {err:.3g} | with the epilogue "
+                        f"{row['right_ms'] * 1e3:.1f} us | without it + the "
+                        f"torch B-block product {row['base_ms'] * 1e3:.1f} "
+                        f"us")
+                rows.append(row)
+            del qt, qts
+            torch.cuda.empty_cache()
+    # K2 (above 32 rows, bf16 and f32) and K3's backward at 1022 rows
+    from quip_for_all_tpu_torch.ops.qtensor import QuantizedTensor
+    from quip_for_all_tpu_torch.utils.random_quantized import \
+        random_e8p_planes
+    for name, q_out, q_in, with_scale, _ in SHAPES[:5]:
+        qt = QuantizedTensor({"w0": random_e8p_planes(q_out, q_in, gen,
+                                                      "cuda")},
+                             "E8P12", q_out, q_in)
+        qts = [dataclasses.replace(qt, planes=p)
+               for p in tm.cold_copies(qt.planes)]
+        hb = right_hb_tensor(RIGHT_M[name], torch.device("cuda"))
+        for m, dt in ((64, "bfloat16"), (1022, "bfloat16"),
+                      (64, "float32")):
+            dtype = getattr(torch, dt)
+            x = torch.randn((m, 8 * qt.group_cols), generator=gen,
+                            device="cuda").to(dtype)
+
+            def run(q, plain, right):
+                return fm._forward(x, q, None, plain, 0,
+                                   right_hb=hb if right else None)
+            tag = f"17 i fused_decode_matmul_tc {name} m={m} {dt}"
+            err = _right_check(tag, run(qt, False, True),
+                               run(qt, False, False), run(qt, True, True),
+                               run(qt, True, False), hb)
+            row = {"kernel": "fused_decode_matmul_tc", "layout": "nibble",
+                   "layer": name, "m": m, "dtype": dt, "max_abs_err": err}
+            if dt == "bfloat16":
+                row["right_ms"] = 1e-3 * tm.graph_us(
+                    lambda i: run(qts[i % len(qts)], False, True),
+                    2 * len(qts))
+                row["base_ms"] = 1e-3 * tm.graph_us(
+                    lambda i: lm.right_epilogue(
+                        run(qts[i % len(qts)], False, False), hb),
+                    2 * len(qts))
+                log(f"{tag}: max|k-twin| {err:.3g} | with the epilogue "
+                    f"{row['right_ms'] * 1e3:.1f} us | without it + the "
+                    f"torch B-block product {row['base_ms'] * 1e3:.1f} us")
+            rows.append(row)
+        # K3 at 1022 rows: g times Hb (f32), then the backward
+        g = torch.randn((1022, q_out), generator=gen, device="cuda")
+        got = fm.quant_matmul_bwd(g, qt, right_hb=hb)
+        want = fm.quant_matmul_bwd(g, qt, plain=True, right_hb=hb)
+        torch.cuda.synchronize()
+        ok, err = tm.compare(got, want)[:2]
+        if not ok:
+            raise AssertionError(f"17 i K3 {name}: backward with right_hb vs "
+                                 f"plain twin beyond tolerance ({err})")
+        r_ms = 1e-3 * tm.graph_us(lambda i: fm.quant_matmul_bwd(
+            g, qts[i % len(qts)], right_hb=hb), 2 * len(qts))
+        b_ms = 1e-3 * tm.graph_us(lambda i: fm.quant_matmul_bwd(
+            g, qts[i % len(qts)]), 2 * len(qts))
+        rows.append({"kernel": "fused_decode_matmul_bwd", "layer": name,
+                     "m": 1022, "dtype": "float32", "max_abs_err": err,
+                     "right_ms": r_ms, "base_ms": b_ms})
+        log(f"17 i fused_decode_matmul_bwd {name} m=1022 f32: max|k-twin| "
+            f"{err:.3g} | g times Hb + K3 {r_ms * 1e3:.1f} us | K3 alone "
+            f"{b_ms * 1e3:.1f} us")
+        del qt, qts, g
+        torch.cuda.empty_cache()
+    # (ii) the combined decode
+    for cb in ("E8P12RVQ4B", "E8P12RVQ3B"):
+        for name, q_out, q_in, with_scale, _ in SHAPES[:5]:
+            if cb == "E8P12RVQ3B" and name not in ("qkv", "down"):
+                continue
+            for layout in ("nibble", "sw4"):
+                qt = random_qtensor(cb, layout, q_out, q_in, gen, "cuda")
+                hb = right_hb_tensor(RIGHT_M[name], torch.device("cuda"))
+                for m, n in COMBINE_CASES:
+                    if layout == "sw4" and m > 32:
+                        continue
+                    x = fm.grouped_permute(torch.randn(
+                        (m, q_in), generator=gen, device="cuda"),
+                        qt.group_cols, qt.split).to(torch.bfloat16)
+                    tag = (f"17 ii combine {cb} [{layout}] {name} m={m} "
+                           f"n={n}")
+                    if not fm.combine_applies(qt, max(8, -(-m // 8) * 8), n):
+                        raise AssertionError(f"{tag}: does not combine")
+                    before = (fm.fused_decode_matmul.launches,
+                              fm.fused_decode_matmul_tc.launches,
+                              lm.sw_decode_matmul.launches)
+                    got = fm._forward(x, qt, None, False, 0, combine=n)
+                    after = (fm.fused_decode_matmul.launches,
+                             fm.fused_decode_matmul_tc.launches,
+                             lm.sw_decode_matmul.launches)
+                    want = fm._forward(x, qt, None, True, 0, combine=n)
+                    torch.cuda.synchronize()
+                    ok, err = tm.compare(got, want, bf16_step=True)[:2]
+                    if not ok or sum(after) - sum(before) != 1:
+                        raise AssertionError(f"{tag}: vs twin {err}, "
+                                             f"launches {before} {after}")
+                    gr = fm._forward(x, qt, None, False, 0, right_hb=hb,
+                                     combine=n)
+                    torch.cuda.synchronize()
+                    ok, e2 = tm.compare(gr, lm.right_epilogue(got, hb),
+                                        bf16_step=True)[:2]
+                    if not ok:
+                        raise AssertionError(f"{tag}: with right_hb {e2}")
+                    row = {"kernel": "combine", "codebook": cb,
+                           "layout": layout, "layer": name, "m": m,
+                           "dtype": "bfloat16", "max_abs_err": max(err, e2)}
+                    if m == 1 and cb == "E8P12RVQ4B":
+                        qts = [dataclasses.replace(qt, planes=p)
+                               for p in tm.cold_copies(qt.planes)]
+                        row["right_ms"] = 1e-3 * tm.graph_us(
+                            lambda i: fm._forward(x, qts[i % len(qts)], None,
+                                                  False, 0, combine=n),
+                            4 * len(qts))
+                        row["base_ms"] = 1e-3 * tm.graph_us(
+                            lambda i: fm._forward(x, qts[i % len(qts)], None,
+                                                  False, 0), 4 * len(qts))
+                        del qts
+                    log(f"{tag}: max|k-twin| {err:.3g}, with right_hb "
+                        f"{e2:.3g}" + (
+                            f" | combined {row['right_ms'] * 1e3:.1f} us, "
+                            f"split {row['base_ms'] * 1e3:.1f} us"
+                            if "right_ms" in row else ""))
+                    rows.append(row)
+                del qt
+                torch.cuda.empty_cache()
+    for kname, _, layout, ks in RIGHT_KERNELS:
+        calls = KSPLIT_CALLS if ks else LLAMA_CALLS
+        sel = [r for r in rows if r["kernel"] == kname
+               and r["layout"] == layout and r.get("ks") == ks]
+        for m in (1, 8, 32):
+            bf = dict(m=m, dtype="bfloat16")
+            log(f"17 i {kname} [{layout} {ks or ''}] per Llama-2-7B "
+                f"{'token' if m <= 8 else 'prefill'} at m={m} (bf16): with "
+                f"the epilogue {call_sum(sel, calls, 'right_ms', **bf):.3f} "
+                f"ms, without it + the torch product "
+                f"{call_sum(sel, calls, 'base_ms', **bf):.3f} ms")
+    return rows
+
+
+def right_entries(entries, rows):
+    """Each kernel's right-epilogue numbers on its kernels-line entry: per
+    Llama-2-7B decode token at m = 1 in bf16 (K2 per 64-row prefill, K3
+    per training step's 1022-row calls), with the epilogue (right_ms) and
+    without it plus the torch B-block product (right_base_ms); K1's entry
+    also the combined decode's per-token time beside the split one."""
+    by_name = {e["name"]: e for e in entries}
+    for kname, _, layout, ks in RIGHT_KERNELS:
+        if kname == "ksplit_decode_matmul" and ks != 4:
+            continue
+        calls = KSPLIT_CALLS if ks else LLAMA_CALLS
+        sel = [r for r in rows if r["kernel"] == kname
+               and r["layout"] == layout and r.get("ks") == ks]
+        e = by_name[kname]
+        e["right_ms"] = call_sum(sel, calls, "right_ms", m=1,
+                                 dtype="bfloat16")
+        e["right_base_ms"] = call_sum(sel, calls, "base_ms", m=1,
+                                      dtype="bfloat16")
+        e["right_max_abs_err"] = max(r["max_abs_err"] for r in sel)
+    # K2 per 64-row prefill and K3 per 1022-row backward of the main
+    # path's (fused) linears, 129 calls
+    for kname, m, dt in (("fused_decode_matmul_tc", 64, "bfloat16"),
+                         ("fused_decode_matmul_bwd", 1022, "float32")):
+        sel = [r for r in rows if r["kernel"] == kname]
+        e = by_name[kname]
+        e["right_m"] = m
+        e["right_ms"] = call_sum(sel, LLAMA_CALLS, "right_ms", m=m, dtype=dt)
+        e["right_base_ms"] = call_sum(sel, LLAMA_CALLS, "base_ms", m=m,
+                                      dtype=dt)
+        e["right_max_abs_err"] = max(r["max_abs_err"] for r in sel)
+    comb = [r for r in rows if r["kernel"] == "combine"]
+    k1 = by_name["fused_decode_matmul"]
+    k1["combine_ms"] = call_sum(comb, LLAMA_CALLS, "right_ms", m=1,
+                                layout="nibble", codebook="E8P12RVQ4B")
+    k1["combine_split_ms"] = call_sum(comb, LLAMA_CALLS, "base_ms", m=1,
+                                      layout="nibble", codebook="E8P12RVQ4B")
+    k1["combine_max_abs_err"] = max(r["max_abs_err"] for r in comb)
+
+
+def phase_right_main(main):
+    """(iii) the main path with the right epilogue on (``main``: phase 5's
+    model), switched off again at the end."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    cfg, model, prompt = main["cfg"], main["model"], main["prompt"]
+    S, NEW, CACHE = prompt.shape[1], 128, 2048
+    per_step = 4 * LAYERS + 1
+    _, off8 = f32_logits(cfg, model, prompt, n=8)
+    qt.set_right_in_kernel(model, True)
+    try:
+        _, on8 = f32_logits(cfg, model, prompt, n=8)
+        rel = float((on8 - off8).abs().max() / off8.abs().max())
+        log(f"17 iii: f32 logits of 8 steps with the epilogue on within "
+            f"{rel:.3g} of max|logit| of the switch-off run (tol 1e-3)")
+        if not rel <= 1e-3:
+            raise AssertionError("17 iii: switch-on f32 logits differ")
+        graphed = timed_generate(cfg, model, prompt, CACHE)
+        eager = timed_generate(cfg, model, prompt, CACHE, graphs=False)
+        graphed(4)
+        runs = {}
+        for tag, run in (("graphed", graphed), ("eager", eager)):
+            reset_launches()
+            (ids, logits), t = run(NEW)
+            check_launches(f"17 iii {tag}", read_launches(), {
+                "fused_decode_matmul": per_step * forwards(run.runner)})
+            runs[tag] = (ids, torch.stack(logits), t)
+        same = (torch.equal(runs["graphed"][0], runs["eager"][0])
+                and torch.equal(runs["graphed"][1], runs["eager"][1]))
+        if not same:
+            raise AssertionError("17 iii: graphed differs from eager")
+        (ids32, lg32), t32 = graphed(32)
+        (ids32e, lg32e), _ = eager(32)
+        if not (torch.equal(ids32, ids32e)
+                and torch.equal(torch.stack(lg32), torch.stack(lg32e))):
+            raise AssertionError("17 iii: 32-token graphed run differs")
+        dev_on, eager_on = decode_step_device_ms(cfg, model, prompt, CACHE)
+        from quip_for_all_tpu_torch.models import llama as M
+        from quip_for_all_tpu_torch.runtime.generate import (attn_bucket,
+                                                             init_kv_caches)
+        caches = init_kv_caches(cfg, 1, CACHE, torch.bfloat16, "cuda")
+        M.model_apply(cfg, model, prompt, kv_caches=caches, cache_position=0,
+                      dtype=torch.bfloat16,
+                      attn_window=attn_bucket(S, CACHE))
+        prof = profile_step("decode_step_right", cfg, model, prompt[:, -1:],
+                            S, caches, attn_bucket(S + 1, CACHE))
+        del caches
+    finally:
+        qt.set_right_in_kernel(model, False)
+    dev_off, eager_off = decode_step_device_ms(cfg, model, prompt, CACHE)
+    out = {"ms_tok": runs["graphed"][2] / NEW * 1e3,
+           "eager_ms_tok": runs["eager"][2] / NEW * 1e3,
+           "ms_tok_32": t32 / 32 * 1e3,
+           "dev_ms_on": dev_on, "dev_ms_off": dev_off,
+           "eager_step_ms_on": eager_on, "eager_step_ms_off": eager_off,
+           "f32_rel_8_steps": rel,
+           "right_ms_profiled": prof["by_part_ms"].get(
+               "linear: right Hadamard"),
+           "right_ops_profiled": prof["by_part_ops"].get(
+               "linear: right Hadamard"),
+           "profile": prof}
+    log(f"17 iii: epilogue on, generate {S} + {NEW}: graphed "
+        f"{out['ms_tok']:.2f} ms/token, eager {out['eager_ms_tok']:.2f} "
+        f"ms/token, bitwise equal; 32 tokens graphed {out['ms_tok_32']:.2f} "
+        f"ms/token; one graphed step's device time {dev_on:.3f} ms on, "
+        f"{dev_off:.3f} ms off (same call); eager step {eager_on:.2f} / "
+        f"{eager_off:.2f} ms; right transform in the profiled step "
+        f"{out['right_ms_profiled']} ms in {out['right_ops_profiled']} ops")
+    return out
+
+
+def right_combine_path(tag, cfg, model, prompt, dev_off):
+    """(iv) a full-width E8P12RVQ4B nibble model with both switches on
+    (right epilogue, combine 8): 32 greedy tokens graphed, exact K1
+    launches, held to its plain twin in bf16 and f32, one graphed step's
+    device time; both switched off again."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    S, NEW, CACHE = prompt.shape[1], 32, 2048
+    per_step = 4 * LAYERS + 1
+    qt.set_right_in_kernel(model, True)
+    qt.set_combine_planes(model, 8)
+    try:
+        run = timed_generate(cfg, model, prompt, CACHE)
+        run(4)
+        reset_launches()
+        (ids1, logits1), t1 = run(NEW)
+        check_launches(tag, read_launches(), {
+            "fused_decode_matmul": per_step * forwards(run.runner)})
+        (ids2, _), _ = run(NEW)
+        check_runs(tag, cfg, ids1, ids2, logits1, NEW)
+        for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+            check_plain(cfg, model, prompt, dt, tol, CACHE, tag=tag,
+                        per_step={"fused_decode_matmul": per_step})
+        dev_on, _ = decode_step_device_ms(cfg, model, prompt, CACHE)
+    finally:
+        qt.set_right_in_kernel(model, False)
+        qt.set_combine_planes(model, 0)
+    log(f"{tag}: E8P12RVQ4B nibble, right epilogue + combine 8: "
+        f"{t1 / NEW * 1e3:.2f} ms/token over the call; one graphed step's "
+        f"device time {dev_on:.3f} ms (both off: {dev_off:.3f} ms)")
+    return {"ms_tok": t1 / NEW * 1e3, "dev_ms_on": dev_on,
+            "dev_ms_off": dev_off}
+
+
 def k3_entry(rows, err, train):
     """The kernels line's K3 entry (the tensor-core backward): per LoRA
     training step (222 calls at m = 1022, bf16, 1 plane set, one MMA term),
@@ -2834,16 +3245,20 @@ def main() -> int:
         k3_rows, k3_err = at("13", phase_k3_kernels)
         k2_rows, k2_err = at("16", phase_k2_kernels)
         mb_recs = at("15", phase_microbench)
-        at("4, 8, 11", phase_golden, (
+        right_rows = at("17 (i, ii)", phase_right_kernels)
+        at("4, 8, 11, 17 (v)", phase_golden, (
             ("e8p12", None), ("e8p12", "u3"), ("e8p12rvq4b", None),
             ("e8p12rvq4b", "pb"), ("e8p12", "bfp"), ("e8p12", "sw2"),
             ("e8p12", "sw4"), ("e8p12rvq4b", "paired"),
-            ("e8p12rvq4b", "bfp")))
+            ("e8p12rvq4b", "bfp"), ("d4", None), ("hi", None),
+            ("e8p12rvq3b", None), ("d4", None, True), ("hi", None, True),
+            ("e8p12rvq3b", None, True), ("e8p12", None, True)))
         launches, main = at("5", phase_main)
         graphed = at("5a", phase_graphed, main)
         serving = at("5b", phase_serving, main)
         profile = at("5e", phase_profile, main)
         at("5d", phase_cli)
+        right_main = at("17 (iii)", phase_right_main, main)
         new_paths = at("12", phase_layout_paths, main)
         mix = at("6", phase_mixtral)
         paths = at("9", phase_rowpair_paths)
@@ -2854,7 +3269,11 @@ def main() -> int:
         entries.append(k3_entry(k3_rows, k3_err, train))
         entries.append(k2_entry(k2_rows, k2_err, train))
         entries += microbench_entries(mb_recs)
+        right_entries(entries, right_rows)
         serving_path_launches(entries, graphed, serving, mix)
+        log("right epilogue and combined decode: " + json.dumps({
+            "main_path": right_main,
+            "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

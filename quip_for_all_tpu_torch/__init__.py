@@ -4,7 +4,8 @@ never JAX or the JAX package. Entry points run on the card unless the
 caller passes device="cpu".
 """
 from .models.config import ModelConfig, llama2_7b_config, tiny_config
-from .models.llama import fuse_for_inference, set_ksplit
+from .models.llama import (fuse_for_inference, set_combine_planes,
+                           set_ksplit, set_right_in_kernel)
 from .runtime.generate import generate, generate_stream, perplexity
 from .runtime.serving import ServingEngine
 from .utils.checkpoint import load_quantized
@@ -12,6 +13,7 @@ from .utils.convert import from_jax_params
 from .utils.random_quantized import random_quantized_model
 
 __all__ = ["ModelConfig", "llama2_7b_config", "tiny_config",
-           "fuse_for_inference", "set_ksplit", "generate",
+           "fuse_for_inference", "set_ksplit", "set_right_in_kernel",
+           "set_combine_planes", "generate",
            "generate_stream", "perplexity", "ServingEngine",
            "load_quantized", "from_jax_params", "random_quantized_model"]

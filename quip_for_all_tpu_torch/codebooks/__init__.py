@@ -1,8 +1,7 @@
 """Codebook records — the part of ``quip_for_all_tpu/codebooks`` that
-loading needs: id, code size, packing factor and index unpacking.
-
-E8P12 and E8P12RVQ4B are served; the other three codebooks (D4, HI,
-E8P12RVQ3B) are queued for slice 2 of ROADMAP.md.
+loading needs: id, code size, packing factor, grids and index
+(un)packing. All five are served: E8P12, E8P12RVQ4B, E8P12RVQ3B, D4 and
+HI (``quantize`` waits for the quantization slice).
 """
 from __future__ import annotations
 
@@ -12,10 +11,11 @@ from typing import Optional
 
 import numpy as np
 
+from .d4 import D4
 from .e8p12 import E8P_CODESZ
+from .e8p12_rvq3 import E8P12RVQ3B
 from .e8p12_rvq4 import E8P12RVQ4B
-
-_NOT_PORTED = ("D4", "HI", "E8P12RVQ3B")
+from .hi import HI4B1C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,15 +39,17 @@ def get_codebook(name: str, opt_resid_scale: Optional[float] = None):
     the codebook's default (as the JAX package's ``get_codebook``)."""
     if name == "E8P12":
         return Codebook("E8P12", E8P_CODESZ, Fraction(1))
-    if name == "E8P12RVQ4B":
+    if name in ("E8P12RVQ4B", "E8P12RVQ3B"):
+        cls = E8P12RVQ4B if name == "E8P12RVQ4B" else E8P12RVQ3B
         if opt_resid_scale is not None and opt_resid_scale > 0:
-            return E8P12RVQ4B(opt_resid_scale=float(opt_resid_scale))
-        return E8P12RVQ4B()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"codebook {name!r} is not ported yet (ROADMAP.md queue 1, "
-            "slice 2)")
+            return cls(opt_resid_scale=float(opt_resid_scale))
+        return cls()
+    if name == "D4":
+        return D4()
+    if name == "HI":
+        return HI4B1C()
     raise ValueError(f"Invalid codebook {name!r}")
 
 
-__all__ = ["Codebook", "E8P12RVQ4B", "get_codebook"]
+__all__ = ["Codebook", "D4", "E8P12RVQ3B", "E8P12RVQ4B", "HI4B1C",
+           "get_codebook"]

@@ -105,17 +105,40 @@ struct BfpCodes : NibbleCodes<NSETS_, 1> {
 // rows of x to compute (x's row stride is 8*Gp). Returns cudaGetLastError()
 // after the launch (0 on success), or cudaErrorInvalidValue for shapes the
 // kernel does not take (q_out odd, Gp not a multiple of 4).
+extern "C" int qfa_bfp_decode_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* scale,
+    const void* hb, void* out, int m, int q_out, int Gp, int n_sets,
+    float alpha0, float alpha1, float beta_total, float ratio, int x_is_bf16,
+    int right_b, int combine, void* stream);
+
 extern "C" int qfa_bfp_decode_matmul(const void* x, const void* w0,
                                      const void* w1, const void* scale,
                                      void* out, int m, int q_out, int Gp,
                                      int n_sets, float alpha0, float alpha1,
                                      float beta_total, int x_is_bf16,
                                      void* stream) {
+  return qfa_bfp_decode_matmul_ex(x, w0, w1, scale, nullptr, out, m, q_out,
+                                  Gp, n_sets, alpha0, alpha1, beta_total, 0.f,
+                                  x_is_bf16, 0, 0, stream);
+}
+
+// The same with the right epilogue (hb, right_b as in
+// qfa_fused_decode_matmul_ex); the bfp body has no combined decode
+// (combine must be 0), as _make_kernel_bfp has none.
+extern "C" int qfa_bfp_decode_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* scale,
+    const void* hb, void* out, int m, int q_out, int Gp, int n_sets,
+    float alpha0, float alpha1, float beta_total, float ratio, int x_is_bf16,
+    int right_b, int combine, void* stream) {
+  (void)ratio;
   if (m < 1 || q_out < 2 || q_out % 2 || Gp < 4 || Gp % 4 || n_sets < 1 ||
-      n_sets > 2 || (n_sets == 2 && w1 == nullptr))
+      n_sets > 2 || (n_sets == 2 && w1 == nullptr) || combine ||
+      !sm::right_ok(hb, right_b, q_out))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const sm::Args a{scale, out, m, q_out, Gp, alpha0, alpha1, beta_total};
+  sm::Args a{scale, out, m, q_out, Gp, alpha0, alpha1, beta_total};
+  a.hb = static_cast<const float*>(hb);
+  a.B = right_b;
   using B1 = sm::BfpCodes<1>;
   using B2 = sm::BfpCodes<2>;
   const B1::Planes p1{static_cast<const uint32_t*>(w0),

@@ -29,3 +29,16 @@ extern "C" int qfa_fused_decode_matmul(const void* x, const void* w0,
   return sm::dispatch<1>(x, w0, w1, scale, out, m, q_out, Gp, n_sets, alpha0,
                          alpha1, beta_total, x_is_bf16, stream);
 }
+
+// The same with the right epilogue and the combined decode: hb (null, or
+// right_hb: B x B f32, H_B times its entry [0][0]) with right_b = B, and
+// combine (two plane sets) with ratio = f32(alpha1 / alpha0).
+extern "C" int qfa_fused_decode_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* scale,
+    const void* hb, void* out, int m, int q_out, int Gp, int n_sets,
+    float alpha0, float alpha1, float beta_total, float ratio, int x_is_bf16,
+    int right_b, int combine, void* stream) {
+  return sm::dispatch<1>(x, w0, w1, scale, out, m, q_out, Gp, n_sets, alpha0,
+                         alpha1, beta_total, x_is_bf16, stream, hb, right_b,
+                         combine, ratio);
+}

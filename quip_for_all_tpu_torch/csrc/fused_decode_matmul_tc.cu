@@ -44,22 +44,36 @@
 // ceil(m/BM) x ceil(q_out/128) with the m tile fastest, so the blocks in
 // flight share one column slab of the planes in L2. Not done yet (a later
 // PR): wgmma and TMA, a persistent grid, decode overlapped with the MMAs.
+//
+// The epilogue options of _make_kernel (qfa_fused_decode_matmul_tc_ex):
+//   - right_hb (:265-275): a block's 128 channels hold whole B-blocks
+//     (B <= 128, a power of 2), so the block rounds its tile to the output
+//     dtype into shared memory (the drained x stages), multiplies each
+//     row's B-blocks by H_B with a butterfly (exact +-1 factors, f32
+//     sums), and stores times Hb[0][0] rounded to the output dtype;
+//   - combine (:200-233, QFA_COMBINE_PLANES): the two sets' words decode
+//     into the three exact bf16 terms of v = nib_0 + ratio * nib_1
+//     (decode_slab_comb), each its own MMA into one accumulator, times
+//     alpha_0 (with f32 x, 3 x 3 products a k-step, 32 rows a block).
 
 #include "nibble_mma.cuh"
 
 namespace {
 
-template <typename T, int NSETS>
+template <typename T, int NSETS, bool COMB = false>
 __global__ void __launch_bounds__(tc::THREADS, 1)
 nibble_mma_fwd_kernel(const T* __restrict__ x,
                       const uint32_t* __restrict__ w0,
                       const uint32_t* __restrict__ w1,
                       const float* __restrict__ scale, T* __restrict__ out,
                       int m, int q_out, int Gp, float alpha0, float alpha1,
-                      float beta_total) {
+                      float beta_total, const float* __restrict__ hb, int B,
+                      float ratio) {
   using namespace tc;
   constexpr bool SPLIT = sizeof(T) == 4;
-  using C = TileCfg<T, NSETS, SPLIT>;
+  constexpr int ND = COMB ? 3 : NSETS;        // decoded planes a slab
+  constexpr int NA = COMB ? 1 : NSETS;        // accumulators
+  using C = TileCfg<T, NSETS, SPLIT, ND>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* raw = reinterpret_cast<T*>(smem);
   __nv_bfloat16* terms = reinterpret_cast<__nv_bfloat16*>(smem + C::OFF_TERMS);
@@ -99,10 +113,10 @@ nibble_mma_fwd_kernel(const T* __restrict__ x,
     cp_async_commit();
   };
 
-  float acc[NSETS][C::MT][4][4], tot[NSETS][C::MT][4][4];
+  float acc[NA][C::MT][4][4], tot[NA][C::MT][4][4];
   float part[C::RQ];
 #pragma unroll
-  for (int s = 0; s < NSETS; ++s)
+  for (int s = 0; s < NA; ++s)
 #pragma unroll
     for (int mt = 0; mt < C::MT; ++mt)
 #pragma unroll
@@ -128,16 +142,26 @@ nibble_mma_fwd_kernel(const T* __restrict__ x,
     else
       cp_async_commit();
     const T* a = raw + buf * C::BM * C::RAW;
-    decode_slab<NSETS>(words + buf * NSETS * WROWS * WSTRIDE, dec);
+    if (COMB)
+      decode_slab_comb(words + buf * NSETS * WROWS * WSTRIDE, dec, ratio);
+    else
+      decode_slab<NSETS>(words + buf * NSETS * WROWS * WSTRIDE, dec);
     if (SPLIT) stage_a<C>(a, terms, part, nullptr, 0, 0);
     __syncthreads();   // dec (and the terms) are ready
     if (!SPLIT) stage_a<C>(a, terms, part, nullptr, 0, 0);
-    mma_slab<C, NSETS, false>(
+    mma_slab<C, ND, false, COMB>(
         acc, SPLIT ? terms : reinterpret_cast<const __nv_bfloat16*>(a), dec);
-    flush<C, NSETS>(tot, acc);
+    flush<C, NA>(tot, acc);
   }
   finish_rowsums<C>(part, rs);
+  cp_async_wait<0>();   // the raw stages are free (the right epilogue's)
   __syncthreads();
+  // the right epilogue's tile: [BM][ESTRIDE] f32 over the raw stages
+  constexpr int ESTRIDE = BN + 4;
+  static_assert(C::BM * ESTRIDE * 4 <= C::STAGES * C::RAW_B,
+                "the right epilogue's tile fits the x stages");
+  float* et = reinterpret_cast<float*>(smem);
+  const bool right = hb != nullptr;
 
   // epilogue: thread (g = lane/4, t = lane%4) holds rows g, g+8 of each
   // m16 tile and columns 2t, 2t+1 of each n8 tile
@@ -160,12 +184,18 @@ nibble_mma_fwd_kernel(const T* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float t = tot[0][mt][nt][2 * h + e] * alpha0;
-          if (NSETS > 1) t += tot[NSETS - 1][mt][nt][2 * h + e] * alpha1;
+          if (NA > 1) t += tot[NA - 1][mt][nt][2 * h + e] * alpha1;
           v[e] = t + bsum;
         }
         if (scale != nullptr) {
           v[0] *= scale[col];
           if (col + 1 < q_out) v[1] *= scale[col + 1];
+        }
+        if (right) {   // rounded to the output dtype, as the Pallas cast
+          float* ep = et + rl * ESTRIDE + (col - n0);
+          ep[0] = round_to<T>(v[0]);
+          ep[1] = round_to<T>(v[1]);
+          continue;
         }
         T* o = out + (size_t)row * q_out + col;
         if (pairs) {
@@ -176,30 +206,61 @@ nibble_mma_fwd_kernel(const T* __restrict__ x,
         }
       }
     }
+  if (!right) return;
+  // H_B along each row's B-blocks (q_out % B == 0, so a block's columns
+  // hold whole B-blocks), then the store times c_hb
+  for (int hh = 1; hh < B; hh <<= 1) {
+    __syncthreads();
+    for (int o = threadIdx.x; o < C::BM * (BN / 2); o += THREADS) {
+      const int r = o / (BN / 2), j = o - r * (BN / 2);
+      const int i = ((j & ~(hh - 1)) << 1) | (j & (hh - 1));
+      float* p = et + r * ESTRIDE + i;
+      const float a = p[0], b = p[hh];
+      p[0] = a + b;
+      p[hh] = a - b;
+    }
+  }
+  __syncthreads();
+  const float c_hb = round_to<T>(__ldg(hb));
+  for (int o = threadIdx.x; o < C::BM * BN; o += THREADS) {
+    const int r = o / BN, c = o - r * BN;
+    if (m0 + r >= m || n0 + c >= q_out) continue;
+    store1(out + (size_t)(m0 + r) * q_out + n0 + c,
+           c_hb * et[r * ESTRIDE + c]);
+  }
 }
 
-template <typename T, int NSETS>
+template <typename T, int NSETS, bool COMB = false>
 int launch(const void* x, const void* w0, const void* w1, const void* scale,
            void* out, int m, int q_out, int Gp, float alpha0, float alpha1,
-           float beta_total, cudaStream_t stream) {
-  using C = tc::TileCfg<T, NSETS, sizeof(T) == 4>;
+           float beta_total, cudaStream_t stream, const void* hb = nullptr,
+           int B = 0, float ratio = 0.f) {
+  using C = tc::TileCfg<T, NSETS, sizeof(T) == 4, COMB ? 3 : NSETS>;
   static bool smem_set = false;   // once per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nibble_mma_fwd_kernel<T, NSETS>,
+        nibble_mma_fwd_kernel<T, NSETS, COMB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((m + C::BM - 1) / C::BM, (q_out + tc::BN - 1) / tc::BN);
-  nibble_mma_fwd_kernel<T, NSETS><<<grid, tc::THREADS, C::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(w0),
-      static_cast<const uint32_t*>(w1), static_cast<const float*>(scale),
-      static_cast<T*>(out), m, q_out, Gp, alpha0, alpha1, beta_total);
+  nibble_mma_fwd_kernel<T, NSETS, COMB>
+      <<<grid, tc::THREADS, C::SMEM, stream>>>(
+          static_cast<const T*>(x), static_cast<const uint32_t*>(w0),
+          static_cast<const uint32_t*>(w1), static_cast<const float*>(scale),
+          static_cast<T*>(out), m, q_out, Gp, alpha0, alpha1, beta_total,
+          static_cast<const float*>(hb), B, ratio);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+extern "C" int qfa_fused_decode_matmul_tc_ex(
+    const void* x, const void* w0, const void* w1, const void* scale,
+    const void* hb, void* out, int m, int q_out, int Gp, int n_sets,
+    float alpha0, float alpha1, float beta_total, float ratio, int x_is_bf16,
+    int right_b, int combine, void* stream);
 
 // Plain C entry point, loaded with ctypes; the arguments of
 // qfa_fused_decode_matmul (fused_decode_matmul.cu). x and out share one
@@ -214,19 +275,48 @@ extern "C" int qfa_fused_decode_matmul_tc(const void* x, const void* w0,
                                           int n_sets, float alpha0,
                                           float alpha1, float beta_total,
                                           int x_is_bf16, void* stream) {
+  return qfa_fused_decode_matmul_tc_ex(x, w0, w1, scale, nullptr, out, m,
+                                       q_out, Gp, n_sets, alpha0, alpha1,
+                                       beta_total, 0.f, x_is_bf16, 0, 0,
+                                       stream);
+}
+
+// The same with the right epilogue and the combined decode (the arguments
+// of qfa_fused_decode_matmul_ex in fused_decode_matmul.cu): hb null or
+// right_hb (B x B f32, H_B times its entry [0][0]) with right_b = B a
+// power of 2 in 8..128 dividing q_out; combine (two plane sets) with
+// ratio = f32(alpha1 / alpha0).
+extern "C" int qfa_fused_decode_matmul_tc_ex(
+    const void* x, const void* w0, const void* w1, const void* scale,
+    const void* hb, void* out, int m, int q_out, int Gp, int n_sets,
+    float alpha0, float alpha1, float beta_total, float ratio, int x_is_bf16,
+    int right_b, int combine, void* stream) {
   if (m < 1 || q_out < 1 || Gp < 4 || Gp % 4 || n_sets < 1 || n_sets > 2 ||
-      (n_sets == 2 && w1 == nullptr))
+      (n_sets == 2 && w1 == nullptr) || (combine && n_sets != 2) ||
+      (hb != nullptr && (right_b < 8 || right_b > 128 ||
+                         (right_b & (right_b - 1)) || q_out % right_b)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (combine)
+    return x_is_bf16
+               ? launch<__nv_bfloat16, 2, true>(x, w0, w1, scale, out, m,
+                                                q_out, Gp, alpha0, alpha1,
+                                                beta_total, s, hb, right_b,
+                                                ratio)
+               : launch<float, 2, true>(x, w0, w1, scale, out, m, q_out, Gp,
+                                        alpha0, alpha1, beta_total, s, hb,
+                                        right_b, ratio);
   if (n_sets == 1 && x_is_bf16)
     return launch<__nv_bfloat16, 1>(x, w0, w1, scale, out, m, q_out, Gp,
-                                    alpha0, alpha1, beta_total, s);
+                                    alpha0, alpha1, beta_total, s, hb,
+                                    right_b);
   if (n_sets == 1)
     return launch<float, 1>(x, w0, w1, scale, out, m, q_out, Gp, alpha0,
-                            alpha1, beta_total, s);
+                            alpha1, beta_total, s, hb, right_b);
   if (x_is_bf16)
     return launch<__nv_bfloat16, 2>(x, w0, w1, scale, out, m, q_out, Gp,
-                                    alpha0, alpha1, beta_total, s);
+                                    alpha0, alpha1, beta_total, s, hb,
+                                    right_b);
   return launch<float, 2>(x, w0, w1, scale, out, m, q_out, Gp, alpha0,
-                          alpha1, beta_total, s);
+                          alpha1, beta_total, s, hb, right_b);
 }

@@ -58,11 +58,15 @@ constexpr int TSTRIDE = BK + 8;    // smem bf16 a row of a bf16 tile (272 B)
 constexpr int CH = BK / 8;         // 8-value chunks of an A row
 
 // Shared-memory layout and tile sizes of one instantiation. T is the A
-// operand's storage type; SPLIT says it is staged as three bf16 terms.
-template <typename T, int NSETS, bool SPLIT>
+// operand's storage type; SPLIT says it is staged as three bf16 terms; ND
+// is the decoded planes of a slab (NSETS, or 3 for K2's combined decode:
+// the three bf16 terms of the pre-added plane, 32 rows a block with f32
+// x to stay within shared memory).
+template <typename T, int NSETS, bool SPLIT, int ND = NSETS>
 struct TileCfg {
   static constexpr int TERMS = SPLIT ? 3 : 1;
-  static constexpr int BM = (NSETS == 1 && !SPLIT) ? 128 : 64;
+  static constexpr int BM = (NSETS == 1 && !SPLIT) ? 128
+                            : (ND == 3 && SPLIT) ? 32 : 64;
   static constexpr int MT = BM / 32;                   // m16 tiles a warp
   static constexpr int RAW = sizeof(T) == 2 ? BK + 8 : BK + 4;  // elements
   static constexpr int RQ = BM * CH / THREADS;         // rows a thread sums
@@ -73,12 +77,12 @@ struct TileCfg {
   // three stages of the raw A slab and the words where they fit, else two
   static constexpr int STAGE_B = RAW_B + NSETS * WORD_B;
   static constexpr int FIXED_B =
-      (SPLIT ? 3 * TERM_B : 0) + NSETS * DEC_B + BM * 4;
+      (SPLIT ? 3 * TERM_B : 0) + ND * DEC_B + BM * 4;
   static constexpr int STAGES = 3 * STAGE_B + FIXED_B <= 232448 ? 3 : 2;
   static constexpr int OFF_TERMS = STAGES * RAW_B;
   static constexpr int OFF_WORDS = OFF_TERMS + (SPLIT ? 3 * TERM_B : 0);
   static constexpr int OFF_DEC = OFF_WORDS + STAGES * NSETS * WORD_B;
-  static constexpr int OFF_RS = OFF_DEC + NSETS * DEC_B;
+  static constexpr int OFF_RS = OFF_DEC + ND * DEC_B;
   static constexpr int SMEM = OFF_RS + BM * 4;
   static_assert(SMEM <= 232448, "one block's shared memory on sm_90");
   static_assert(SPLIT || sizeof(T) == 2, "a one-term operand is bf16");
@@ -146,6 +150,16 @@ template <> __device__ __forceinline__ float zero_val<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero_val<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
+}
+
+// v rounded to T's precision, as an f32
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
@@ -246,6 +260,39 @@ __device__ __forceinline__ void decode_slab(const uint32_t* words,
   }
 }
 
+// The combined decode of one slab (K2's QFA_COMBINE_PLANES): the two
+// sets' words -> dec [3][WROWS][TSTRIDE], the three exact bf16 terms of
+// v = nib_0 + ratio * nib_1 (f32, a product and a sum each rounded, no
+// FMA), in decode_slab's k order.
+__device__ __forceinline__ void decode_slab_comb(const uint32_t* words,
+                                                 __nv_bfloat16* dec,
+                                                 float ratio) {
+  for (int u = threadIdx.x; u < WROWS * 8; u += THREADS) {
+    const int r = u >> 3, cp = (u & 7) * 2;   // words cp, cp + 1 of row r
+    const uint32_t* w0 = words + r * WSTRIDE + cp;
+    const uint32_t* w1 = words + (WROWS + r) * WSTRIDE + cp;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        v[e] = __fadd_rn(
+            static_cast<float>((w0[e] >> (4 * i)) & 0xFu),
+            __fmul_rn(ratio, static_cast<float>((w1[e] >> (4 * i)) & 0xFu)));
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
+      const float ra = v[0] - __low2float(h), rb = v[1] - __high2float(h);
+      const __nv_bfloat162 mi = __floats2bfloat162_rn(ra, rb);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(ra - __low2float(mi),
+                                                      rb - __high2float(mi));
+      const __nv_bfloat162 t3[3] = {h, mi, lo};
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dec + (t * WROWS + r) * TSTRIDE + 16 * i + cp) = t3[t];
+    }
+  }
+}
+
 // The staging pass over one A slab raw [BM][RAW] (the slab's k = 0..127):
 // thread (r, j) adds chunk j (8 values) of each of its rows r = tid/CH +
 // q*(THREADS/CH) to part[q]. With SPLIT it first scales the values (K3:
@@ -297,9 +344,10 @@ __device__ __forceinline__ void stage_a(const T* raw, __nv_bfloat16* terms,
 // A (rows wm*MT*16 + mt*16.., every term) times B of set s (columns wn*32 +
 // nt*8..), starting from zero. A is [TERMS][BM][TSTRIDE] bf16, k along a
 // row. B is dec of the slab: [n][k] rows (K2) or, with BT, [k][n] rows
-// (K3, read with ldmatrix .trans).
-template <class C, int NSETS, bool BT>
-__device__ __forceinline__ void mma_slab(float acc[NSETS][C::MT][4][4],
+// (K3, read with ldmatrix .trans). With ONE every set's products go into
+// acc[0] (the combined decode's three terms of one plane).
+template <class C, int NSETS, bool BT, bool ONE = false>
+__device__ __forceinline__ void mma_slab(float acc[][C::MT][4][4],
                                          const __nv_bfloat16* A,
                                          const __nv_bfloat16* B) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -342,10 +390,11 @@ __device__ __forceinline__ void mma_slab(float acc[NSETS][C::MT][4][4],
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int t = 0; t < C::TERMS; ++t) {
-            if (ks == 0 && t == 0)
-              mma_first(acc[s][mt][nt], a[t][mt], b[nt]);
+            float* d = acc[ONE ? 0 : s][mt][nt];
+            if (ks == 0 && t == 0 && (s == 0 || !ONE))
+              mma_first(d, a[t][mt], b[nt]);
             else
-              mma_acc(acc[s][mt][nt], a[t][mt], b[nt]);
+              mma_acc(d, a[t][mt], b[nt]);
           }
     }
   }

@@ -24,9 +24,50 @@
 //                                          * nib_s[n, g, i]
 //                + beta_total * rowsum(x_perm[r])) * scale[n]
 //
-// (no scale when none is given), cast to x's dtype. With P subwords a word
+// (no scale when none is given), cast to x's dtype; then, with right_hb
+// (the Pallas bodies' right_b epilogue), each block of B output channels
+// times H_B (below). With P subwords a word
 // and NQ = 8 / P fields a subword, nibble i of word g lies in subword
 // j = i div NQ at field q = i mod NQ and meets lane(g, i) = q*(P*Gp) + P*g + j.
+//
+// The right epilogue (right_hb, B x B f32 = H_B * c, B a power of 2 in
+// 8..128 dividing q_out; JAX's right_b_factor, ``dequant_pallas.py``
+// :265-275): out[r, block b] = round(c_T * (t[r, block b] @ H_B)), t the
+// output above rounded to T, c_T = right_hb[0][0] rounded to T (JAX rounds
+// right_hb to the output dtype; 1/sqrt(M) is not exact in bf16 at M = 128
+// or 2048), the sum in f32. The trap is the width: a block holds BN = 32
+// or 64 channels, B is 128 on Llama-2-7B. Design: H_B = H_R (x) H_LB
+// (Sylvester, LB = min(B, BN), R = B / LB), so
+//   - each block multiplies its own tile's rounded values by H_LB along
+//     the channels: a warp holds 32 consecutive (row, channel) items, so
+//     log2(min(LB, 32)) butterfly stages run across its lanes by
+//     shuffles (exact +-1 factors, f32 sums), and at LB = 64 one more
+//     through shared memory;
+//   - a B-block of R > 1 tiles is taken by a cluster of R blocks (a
+//     cluster launch, cudaLaunchKernelEx), rank r the r-th tile: the walk
+//     is over B-blocks, cluster c taking every (gridDim.x / R)-th. Each
+//     rank pushes its values into its slot of every rank's shared memory
+//     (distributed shared memory stores), one cluster barrier, then
+//     output channel (rank, ch) sums the R slots at ch locally with the
+//     signs (-1)^popcount(rank & r). The slots alternate with the tile's
+//     parity, so one barrier a tile keeps pushes and reads apart.
+// So the product stays inside the launch, at the cost of one cluster
+// barrier and R remote stores a value a tile, and the grid stays as wide
+// as without it (a 128-channel tile would have cut the o projection's 128
+// tiles to 32 blocks on 132 SMs). Pushes and one barrier, not remote
+// reads between two barriers, and shuffles, not a butterfly in shared
+// memory: each rank waits at a barrier for the slowest of the cluster, so
+// the barriers set most of the cost (PERF.md). It differs from JAX's dense
+// dot only in the f32 order of the sum (then one rounding). K6's split
+// runs it in its reduce kernel (ksplit_decode_matmul.cu); K2
+// (nibble_mma.cuh's 128-wide tile) in its own epilogue.
+//
+// The combined decode (CombCodes, QFA_COMBINE_PLANES): two plane sets as
+// one pre-added fractional plane v = nib_0 + (alpha_1/alpha_0) * nib_1
+// in f32, each A register split into its three exact bf16 terms (the
+// split3 of f32 x), each term its own MMA, so the products are the exact
+// f32 products of the Pallas body's Precision.HIGHEST dot (with f32 x:
+// 3 x 3 MMAs a k-step).
 //
 // What bounds it on the card: device-memory bytes. A call reads
 // n_sets*q_out*Gp*4 plane bytes, and x and the output are small next to
@@ -105,6 +146,8 @@
 //     this folds away at compile time.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include "nibble_mma.cuh"
 
 namespace {
@@ -131,6 +174,17 @@ struct gathers {
 template <class C>
 struct gathers<C, decltype(void(C::GATHER))> {
   static constexpr bool value = C::GATHER;
+};
+
+// The bf16 terms a codes policy gives an A register (C::ATERMS: 3 for the
+// combined decode's fractional plane, else 1).
+template <class C, class = void>
+struct aterms {
+  static constexpr int value = 1;
+};
+template <class C>
+struct aterms<C, decltype(void(C::ATERMS))> {
+  static constexpr int value = C::ATERMS;
 };
 
 // A row map's shared memory: the expert table and the unit's rows. The
@@ -180,6 +234,9 @@ struct Shape {
   static constexpr int ROWS = 8 * NT;
   static constexpr int RED_STRIDE = BN + 4;    // f32 a row of the reduce
   static constexpr int RED_B = WK * ROWS * (RED_STRIDE + 1) * 4;
+  static constexpr int XCH_STRIDE = BN + 1;    // f32 a row of the exchange
+  static constexpr int XCH_ROWS = ROWS * XCH_STRIDE;   // f32 a slot
+
 };
 
 // Bytes of one field run of a lane's 4 groups (4*P values); the pad after
@@ -360,12 +417,109 @@ struct NibbleCodes {
   }
 };
 
+// The combined residual decode (QFA_COMBINE_PLANES, _make_kernel's
+// combined branch): two sets of K1's words, one pass, A the pre-added
+// plane v = nib_0 + ratio * nib_1 (ratio = f32(alpha_1 / alpha_0); a
+// product and a sum, each rounded to f32, never fused into an FMA, as the
+// Pallas body's f32 VPU ops). v is fractional, so a bf16 A would lose the
+// bits that the Pallas body's Precision.HIGHEST f32 dot keeps: each A
+// register is split into its three exact bf16 terms (split3, ATERMS = 3,
+// each its own MMA), and with f32 x each of x's three terms meets each of
+// them (9 MMAs a k-step; every product exact in f32). JAX casts bf16 x to
+// f32 here; bf16 x is one exact term, so its products are the same. The
+// sums are times alpha_0 (the pass's alpha) and beta rides the row sums
+// as in K1.
+template <int P_>
+struct CombCodes {
+  static constexpr int NSETS = 1, P = P_, NW = 4, ATERMS = 3;
+  static constexpr bool ROWSUMS = true, PARITY = false, PAIR_ROWS = false;
+  __host__ __device__ static constexpr bool fused(int) { return false; }
+  __host__ __device__ static constexpr int mtiles(int) { return MT; }
+  struct Planes {
+    const uint32_t* w0;
+    const uint32_t* w1;
+    float ratio;
+  };
+  struct Walk {                       // nothing beyond the counters
+    __device__ Walk(const Planes&, int, int) {}
+    __device__ void next(bool) {}
+  };
+  // the ratio rides the items' context word
+  __device__ static uint32_t ctx(const Walk&, int, const Planes& pl) {
+    return __float_as_uint(pl.ratio);
+  }
+  template <int MTW>
+  __device__ static void load(uint4 (&w)[MTW][NW], const Planes& pl, int n0,
+                              int g, int c, const Walk&, int q_out, int Gp,
+                              bool ok) {
+    const typename NibbleCodes<2, P_>::Planes p2{pl.w0, pl.w1};
+    const typename NibbleCodes<2, P_>::Walk w2(p2, 0, 0);
+    NibbleCodes<2, P_>::load(w, p2, n0, g, c, w2, q_out, Gp, ok);
+  }
+  struct Pass {
+    float ratio;
+  };
+  __device__ static Pass pass(const uint4 (&)[NW], int, uint32_t cx) {
+    return {__uint_as_float(cx)};
+  }
+  // the three bf16 terms of each A register of k-step ks
+  __device__ static void a_frag3(const uint4 (&w)[NW], const Pass& d, int,
+                                 int ks, uint32_t a[3][4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 u0 = w[h], u1 = w[2 + h];
+      const uint32_t w0[4] = {u0.x, u0.y, u0.z, u0.w};
+      const uint32_t w1[4] = {u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t n0 = a_reg<P>(w0, 2 * ks + e);
+        const uint32_t n1 = a_reg<P>(w1, 2 * ks + e);
+        const float va =
+            __fadd_rn(__uint_as_float(n0 << 16),
+                      __fmul_rn(d.ratio, __uint_as_float(n1 << 16)));
+        const float vb = __fadd_rn(
+            __uint_as_float(n0 & 0xFFFF0000u),
+            __fmul_rn(d.ratio, __uint_as_float(n1 & 0xFFFF0000u)));
+        uint32_t t3[3];
+        split3(va, vb, t3);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) a[t][h + 2 * e] = t3[t];
+      }
+    }
+  }
+};
+
+// The A registers of k-step ks of pass st as ATERMS bf16 terms.
+template <class C>
+__device__ __forceinline__ void a_terms(const uint4 (&w)[C::NW],
+                                        const typename C::Pass& pd, int st,
+                                        int ks,
+                                        uint32_t a[aterms<C>::value][4]) {
+  if constexpr (aterms<C>::value == 1)
+    C::a_frag(w, pd, st, ks, a[0]);
+  else
+    C::a_frag3(w, pd, st, ks, a);
+}
+
+// The right epilogue's exchange: each CTA of a cluster of R (R = B / BN
+// when a B-block spans R tiles, the tiles of one B-block in consecutive
+// ranks) holds its tile's rounded values in shared memory, already
+// multiplied by H_{min(B, BN)} along its channels (the local factor of
+// H_B = H_R (x) H_BN, Sylvester). Output channel (rank, c) of a B-block
+// is then c_hb * sum_r (-1)^popcount(rank & r) * local_r[c], R reads of
+// the cluster's shared memory a value.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 template <typename T, class C, int NT, int WN, bool KS = false>
 __global__ void __launch_bounds__(THREADS)
 mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
                  const float* __restrict__ scale, T* __restrict__ out, int m,
                  int q_out, int Gp, int SG, float alpha0, float alpha1,
-                 float beta_total, int nch, float* __restrict__ ws) {
+                 float beta_total, int nch, float* __restrict__ ws,
+                 const float* __restrict__ hb, int B) {
   using S = Shape<NT, WN, C::mtiles(NT)>;
   constexpr int P = C::P, NSETS = C::NSETS, NW = C::NW;
   constexpr int MTW = S::MTS;                    // m16 tiles a warp
@@ -373,6 +527,7 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   constexpr int NQ = 8 / P;
   constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
   constexpr bool GATHER = gathers<C>::value;
+  constexpr int AT = aterms<C>::value;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -400,9 +555,17 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
   // the block's tiles of BN channels: tb, tb + tstep, ... (split-K: the
   // nch blocks of a tile walker share tb and tstep)
   const int ntiles = (q_out + S::BN - 1) / S::BN;
-  const int tb = KS ? blockIdx.x / nch : blockIdx.x;
-  const int tstep = KS ? gridDim.x / nch : gridDim.x;
-  int ntile = (ntiles - tb + tstep - 1) / tstep;
+  // the right epilogue: its B-block spans R = B / BN tiles, which a
+  // cluster of R blocks takes together (rank r the r-th tile); the walk
+  // is then over B-blocks (ntiles / R of them), block b's cluster
+  // b / R taking every (gridDim.x / R)-th
+  const bool right = hb != nullptr;
+  const int R = right && B > S::BN ? B / S::BN : 1;
+  const int lgR = 31 - __clz(R);
+  const int rank = blockIdx.x & (R - 1);
+  const int tb = KS ? blockIdx.x / nch : blockIdx.x >> lgR;
+  const int tstep = KS ? gridDim.x / nch : gridDim.x >> lgR;
+  int ntile = ((ntiles >> lgR) - tb + tstep - 1) / tstep;
   // one stage holds the whole row (chunk): x stays in shared memory for
   // every tile of the block (of a row map's chunk)
   const bool resident = nstage == 1;
@@ -411,6 +574,9 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       smem + (size_t)(resident ? 1 : 2) * mcap * RSB);
   float* rs = red + S::WK * S::ROWS * S::RED_STRIDE;
   GatherSmem* gs = reinterpret_cast<GatherSmem*>(
+      smem + (size_t)(resident ? 1 : 2) * mcap * RSB + S::RED_B);
+  // the right epilogue's exchange (no row map takes it)
+  float* xch = reinterpret_cast<float*>(
       smem + (size_t)(resident ? 1 : 2) * mcap * RSB + S::RED_B);
   // a row map: the units of the block and the walks of the units computed
   // (uw) and of the words loaded ahead (lw)
@@ -516,7 +682,8 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       cx = C::ctx(walk, gb + c, lpl);
       C::load(wv, lpl, n0, g, gb + c, walk, q_out, Gp, ok);
     } else {
-      const int n0 = (tb + pk * tstep) * S::BN + wn * S::WCH;
+      const int n0 = (((tb + pk * tstep) << lgR) + rank) * S::BN +
+                     wn * S::WCH;
       cx = C::ctx(walk, gb + c, planes);
       C::load(wv, planes, n0, g, gb + c, walk, q_out, Gp, ok);
     }
@@ -662,18 +829,20 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
               for (int f = 0; f < FS; ++f)
   #pragma unroll
                 for (int mt = 0; mt < MTW; ++mt) {
-                  uint32_t a[4];
-                  C::a_frag(wbuf[0][mt], pd[f][mt], s0 + f, ks, a);
+                  uint32_t a[AT][4];
+                  a_terms<C>(wbuf[0][mt], pd[f][mt], s0 + f, ks, a);
   #pragma unroll
                   for (int nt = 0; nt < NT; ++nt)
   #pragma unroll
-                    for (int q = 0; q < TERMS; ++q) {
-                      const uint32_t bb[2] = {b[nt][0][q], b[nt][1][q]};
-                      if (ks == 0 && q == 0)
-                        tc::mma_first(acc[f][mt][nt], a, bb);
-                      else
-                        tc::mma_acc(acc[f][mt][nt], a, bb);
-                    }
+                    for (int ta = 0; ta < AT; ++ta)
+  #pragma unroll
+                      for (int q = 0; q < TERMS; ++q) {
+                        const uint32_t bb[2] = {b[nt][0][q], b[nt][1][q]};
+                        if (ks == 0 && q == 0 && ta == 0)
+                          tc::mma_first(acc[f][mt][nt], a[ta], bb);
+                        else
+                          tc::mma_acc(acc[f][mt][nt], a[ta], bb);
+                      }
                 }
               if (s0 == 0 && sums) {
                 const uint32_t a[4] = {ONES, ONES, ONES, ONES};
@@ -769,24 +938,114 @@ mma_small_kernel(const T* __restrict__ x, const typename C::Planes planes,
       }
     }
     __syncthreads();
-    const int tile = GATHER ? uw.tile : tb + k * tstep, nb = tile * S::BN;
-    for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
-      const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
-      if (n >= q_out) continue;
-      float v = 0.f, r = 0.f;
+    const int tile = GATHER ? uw.tile : ((tb + k * tstep) << lgR) + rank;
+    const int nb = tile * S::BN;
+    if (KS || GATHER || !right) {
+      for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
+        const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
+        if (n >= q_out) continue;
+        float v = 0.f, r = 0.f;
 #pragma unroll
-      for (int q = 0; q < S::WK; ++q) {
-        v += red[(q * S::ROWS + row) * S::RED_STRIDE + ch];
-        if (C::ROWSUMS) r += rs[q * S::ROWS + row];
+        for (int q = 0; q < S::WK; ++q) {
+          v += red[(q * S::ROWS + row) * S::RED_STRIDE + ch];
+          if (C::ROWSUMS) r += rs[q * S::ROWS + row];
+        }
+        if (C::ROWSUMS) v += beta_total * r;
+        const size_t off = (size_t)xrow(row) * q_out + n;
+        if (KS) {      // the chunk's partial; a second kernel adds them
+          ws[(size_t)chunk * m * q_out + off] = v;
+          continue;
+        }
+        if (scale != nullptr) v *= __ldg(scale + n);
+        tc::store1(out + off, v);
       }
-      if (C::ROWSUMS) v += beta_total * r;
-      const size_t off = (size_t)xrow(row) * q_out + n;
-      if (KS) {      // the chunk's partial; a second kernel adds them
-        ws[(size_t)chunk * m * q_out + off] = v;
-        continue;
+    } else {
+      // the right epilogue. A warp's 32 lanes hold 32 consecutive
+      // (row, channel) items, lane bit h being channel bit h for h < BN
+      // (BN is 16, 32 or 64): the value rounded to T as the Pallas cast,
+      // then H_{min(LB, 32)} by butterflies across the lanes (exact +-1
+      // factors, f32 sums), at LB = 64 one more stage through shared
+      // memory; a B-block of R > 1 tiles then meets in the cluster. The
+      // walk covers whole warps (items past the rows are zeros), so
+      // every lane takes part in the shuffles.
+      const int LB = B < S::BN ? B : S::BN;
+      const int par = (k & 1) * R;               // the tile's slot parity
+      const float c_hb = tc::round_to<T>(__ldg(hb));
+      const int items = mr * S::BN;
+      for (int o = threadIdx.x; o < ((items + 31) & ~31); o += THREADS) {
+        const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
+        const bool live = o < items && n < q_out;
+        float v = 0.f;
+        if (live) {
+          float r = 0.f;
+#pragma unroll
+          for (int q = 0; q < S::WK; ++q) {
+            v += red[(q * S::ROWS + row) * S::RED_STRIDE + ch];
+            if (C::ROWSUMS) r += rs[q * S::ROWS + row];
+          }
+          if (C::ROWSUMS) v += beta_total * r;
+          if (scale != nullptr) v *= __ldg(scale + n);
+          v = tc::round_to<T>(v);
+        }
+        for (int h = 1; h < LB && h < 32; h <<= 1) {
+          const float other = __shfl_xor_sync(FULL, v, h);
+          v = lane & h ? other - v : v + other;
+        }
+        if (o >= items) {
+          // a lane past the rows: shuffles only
+        } else if (LB == 64) {
+          xch[row * S::XCH_STRIDE + ch] = v;
+        } else if (R > 1) {
+          // push the tile's values to every rank of the cluster: slot
+          // (parity, this rank) of each
+          cooperative_groups::cluster_group cl =
+              cooperative_groups::this_cluster();
+          float* slot = xch + (size_t)(1 + par + rank) * S::XCH_ROWS;
+          for (int r2 = 0; r2 < R; ++r2)
+            cl.map_shared_rank(slot, r2)[row * S::XCH_STRIDE + ch] = v;
+        } else if (live) {
+          tc::store1(out + (size_t)xrow(row) * q_out + n, c_hb * v);
+        }
       }
-      if (scale != nullptr) v *= __ldg(scale + n);
-      tc::store1(out + off, v);
+      if (LB == 64) {
+        // the stage across the two warps of a row, then as above
+        __syncthreads();
+        cooperative_groups::cluster_group cl =
+            cooperative_groups::this_cluster();
+        for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
+          const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
+          const float* p = xch + row * S::XCH_STRIDE;
+          const float v = ch & 32 ? p[ch ^ 32] - p[ch] : p[ch] + p[ch ^ 32];
+          if (R > 1) {
+            float* slot = xch + (size_t)(1 + par + rank) * S::XCH_ROWS;
+            for (int r2 = 0; r2 < R; ++r2)
+              cl.map_shared_rank(slot, r2)[row * S::XCH_STRIDE + ch] = v;
+          } else if (n < q_out) {
+            tc::store1(out + (size_t)xrow(row) * q_out + n, c_hb * v);
+          }
+        }
+      }
+      if (R > 1) {
+        // one barrier a tile: every rank's pushes have landed. The slots
+        // alternate with the tile's parity, so a rank's next pushes (tile
+        // k + 1) never meet this tile's reads, and those of tile k + 2
+        // wait for the barrier of k + 1, which each rank reaches after
+        // its reads of tile k; a rank leaves after its last barrier,
+        // when every push into its memory is done.
+        cluster_sync();
+        for (int o = threadIdx.x; o < mr * S::BN; o += THREADS) {
+          const int row = o / S::BN, ch = o - row * S::BN, n = nb + ch;
+          if (n >= q_out) continue;
+          const float* slot = xch + (size_t)(1 + par) * S::XCH_ROWS +
+                              row * S::XCH_STRIDE + ch;
+          float u = 0.f;
+          for (int r2 = 0; r2 < R; ++r2) {
+            const float v = slot[(size_t)r2 * S::XCH_ROWS];
+            u = __popc(rank & r2) & 1 ? u - v : u + v;
+          }
+          tc::store1(out + (size_t)xrow(row) * q_out + n, c_hb * u);
+        }
+      }
     }
     if constexpr (GATHER) uw.next(gs, ntiles);
   }
@@ -808,14 +1067,18 @@ int stage_groups(int Gp, int mr) {
 }
 
 // Shared memory of a launch: x's stage buffers, the reduce and a row
-// map's table.
+// map's table or the right epilogue's exchange: a slot for the 64-wide
+// butterfly stage and, for a cluster of R > 1, 2R slots (a tile's R
+// ranks, in two parities).
 template <typename T, class C, int NT, int WN>
-int smem_bytes(int Gp, int mr) {
+int smem_bytes(int Gp, int mr, int right_b = 0) {
   const int SG = stage_groups<T, C::P, NT, WN>(Gp, mr);
   const int nstage = (Gp + SG - 1) / SG;
-  return (nstage > 1 ? 2 : 1) * mr * row_bytes<T, C::P>(SG) +
-         Shape<NT, WN, C::mtiles(NT)>::RED_B +
-         (gathers<C>::value ? (int)sizeof(GatherSmem) : 0);
+  using S = Shape<NT, WN, C::mtiles(NT)>;
+  const int R = right_b > S::BN ? right_b / S::BN : 1;
+  return (nstage > 1 ? 2 : 1) * mr * row_bytes<T, C::P>(SG) + S::RED_B +
+         (gathers<C>::value ? (int)sizeof(GatherSmem) : 0) +
+         (right_b ? (1 + (R > 1 ? 2 * R : 0)) * S::XCH_ROWS * 4 : 0);
 }
 
 // The card's SMs (0 when the query fails), once.
@@ -833,6 +1096,8 @@ inline int sm_count() {
 
 // What a launch is given besides x, the planes and the output; split-K
 // adds its chunks and the f32 workspace (chunks, m, q_out).
+// The right epilogue adds right_hb (B x B f32; the kernel reads its
+// entry [0][0]) and B.
 struct Args {
   const void* scale;
   void* out;
@@ -840,6 +1105,8 @@ struct Args {
   float alpha0, alpha1, beta_total;
   int chunks;
   void* ws;
+  const float* hb;
+  int B;
 };
 
 // The blocks of an instantiation the card holds at once at smem bytes of
@@ -871,6 +1138,39 @@ int resident(int smem, int* blocks) {
   return 0;
 }
 
+// The clusters of R blocks an instantiation the card holds at once at smem
+// bytes of shared memory, into *clusters; returns a CUDA error (0 on
+// success). Kept for the last (smem, R) asked.
+template <typename T, class C, int NT, int WN>
+int resident_clusters(int smem, int R, int* clusters) {
+  auto kernel = mma_small_kernel<T, C, NT, WN, false>;
+  int blocks = 0;
+  const int err = resident<T, C, NT, WN, false>(smem, &blocks);
+  if (err != 0) return err;
+  static int last_smem = -1, last_r = -1, count = 0;
+  if (smem != last_smem || R != last_r) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = R;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(R);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (count < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    last_smem = smem;
+    last_r = R;
+  }
+  *clusters = count;
+  return 0;
+}
+
 // The chunks of ROWS rows that m rows routed among E experts can make at
 // most: each expert present has one with fewer than ROWS rows.
 __host__ __device__ constexpr int gather_chunks(int m, int E, int ROWS) {
@@ -889,23 +1189,59 @@ int launch(const void* x, const typename C::Planes& planes, const Args& a,
   if constexpr (GATHER) nch = gather_chunks(a.m, planes.E, S::ROWS);
   const int Gk = a.Gp / (KS ? nch : 1);      // groups a block stages
   const int SG = stage_groups<T, C::P, NT, WN>(Gk, mr);
-  const int smem = smem_bytes<T, C, NT, WN>(Gk, mr);
+  // the right epilogue runs here unless a second kernel (split-K's
+  // reduce) takes it; a B-block of R > 1 tiles runs as a cluster of R
+  const bool right = a.hb != nullptr && !KS && !GATHER;
+  const int R = right && a.B > S::BN ? a.B / S::BN : 1;
+  const int smem = smem_bytes<T, C, NT, WN>(Gk, mr, right ? a.B : 0);
   int resident_blocks = 0;
-  const int err = resident<T, C, NT, WN, KS>(smem, &resident_blocks);
+  int err = resident<T, C, NT, WN, KS>(smem, &resident_blocks);
   if (err != 0) return err;
+  if (R > 1) {
+    int clusters = 0;
+    if constexpr (!KS) {
+      err = resident_clusters<T, C, NT, WN>(smem, R, &clusters);
+      if (err != 0) return err;
+    }
+    resident_blocks = clusters * R;
+  }
   // as many blocks as the card holds at once (at most one a unit of
   // work: a tile, or a tile's chunk), each walking every gridDim.x-th
   // unit (a row map: a run of consecutive units); split-K rounds the grid
-  // to whole multiples of the chunks
+  // to whole multiples of the chunks, a cluster launch to whole clusters
+  // (the tiles are a multiple of R: B divides q_out)
   const int ntiles = (a.q_out + S::BN - 1) / S::BN;
   int blocks = ntiles * nch < resident_blocks ? ntiles * nch
                                               : resident_blocks;
   if (KS) blocks = blocks < nch ? nch : blocks / nch * nch;
+  if (R > 1) blocks = blocks / R * R;
   const dim3 grid(blocks, GATHER ? 1 : (a.m + MAX_ROWS - 1) / MAX_ROWS);
-  mma_small_kernel<T, C, NT, WN, KS><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), planes, static_cast<const float*>(a.scale),
-      static_cast<T*>(a.out), a.m, a.q_out, a.Gp, SG, a.alpha0, a.alpha1,
-      a.beta_total, nch, static_cast<float*>(a.ws));
+  const float* hb = right ? a.hb : nullptr;
+  if (R == 1) {
+    mma_small_kernel<T, C, NT, WN, KS><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(x), planes, static_cast<const float*>(a.scale),
+        static_cast<T*>(a.out), a.m, a.q_out, a.Gp, SG, a.alpha0, a.alpha1,
+        a.beta_total, nch, static_cast<float*>(a.ws), hb, a.B);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, mma_small_kernel<T, C, NT, WN, KS>, static_cast<const T*>(x),
+      planes, static_cast<const float*>(a.scale), static_cast<T*>(a.out),
+      a.m, a.q_out, a.Gp, SG, a.alpha0, a.alpha1, a.beta_total, nch,
+      static_cast<float*>(a.ws), hb, a.B);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -925,12 +1261,14 @@ int launch_nt(const void* x, const typename C::Planes& planes, const Args& a,
   } else {
     const int mr = a.m < MAX_ROWS ? a.m : MAX_ROWS;
     const bool wide = (a.q_out + 2 * WCH - 1) / (2 * WCH) >= 2 * sm_count();
+    const int right = a.hb != nullptr ? a.B : 0;
     if (a.m <= 8) return launch<T, C, 1, 1>(x, planes, a, s);
     // (and when one channel warp's slab stages of f32 x would not fit)
-    if (a.m <= 16 && (wide || smem_bytes<T, C, 2, 1>(a.Gp, mr) > SMEM_MAX))
+    if (a.m <= 16 &&
+        (wide || smem_bytes<T, C, 2, 1>(a.Gp, mr, right) > SMEM_MAX))
       return launch<T, C, 2, 2>(x, planes, a, s);
     if (a.m <= 16) return launch<T, C, 2, 1>(x, planes, a, s);
-    if (wide || smem_bytes<T, C, 4, 1>(a.Gp, mr) > SMEM_MAX)
+    if (wide || smem_bytes<T, C, 4, 1>(a.Gp, mr, right) > SMEM_MAX)
       return launch<T, C, 4, 2>(x, planes, a, s);
     return launch<T, C, 4, 1>(x, planes, a, s);
   }
@@ -956,8 +1294,8 @@ int split_pays(const Args& a, bool* split) {
   *split = true;
   if (a.m > 8) return 0;
   int rb = 0;
-  const int err = resident<T, C, 1, 1>(smem_bytes<T, C, 1, 1>(a.Gp, a.m),
-                                       &rb);
+  const int err = resident<T, C, 1, 1>(
+      smem_bytes<T, C, 1, 1>(a.Gp, a.m, a.hb != nullptr ? a.B : 0), &rb);
   if (err != 0) return err;
   const int ntiles = (a.q_out + WCH - 1) / WCH, tail = ntiles % rb;
   *split = ntiles > rb && tail > 0 && 2 * tail <= rb;
@@ -982,22 +1320,39 @@ int launch_ks(const void* x, const typename C::Planes& planes, const Args& a,
   return launch_ks_wn<T, C, 4>(wn, x, planes, a, s);
 }
 
-// The launch for n_sets plane sets and x's dtype; returns
+// Whether right_hb and B are a right epilogue the kernels take: none
+// (hb null), or B a power of 2 in 8..128 dividing q_out.
+inline bool right_ok(const void* hb, int B, int q_out) {
+  return hb == nullptr ||
+         (B >= 8 && B <= 128 && (B & (B - 1)) == 0 && q_out % B == 0);
+}
+
+// The launch for n_sets plane sets and x's dtype, with the right epilogue
+// (hb, B) and the combined decode (combine, ratio) when asked; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
 // the kernel does not take (the Python wrappers check them first).
 template <int P>
 int dispatch(const void* x, const void* w0, const void* w1,
              const void* scale, void* out, int m, int q_out, int Gp,
              int n_sets, float alpha0, float alpha1, float beta_total,
-             int x_is_bf16, void* stream) {
+             int x_is_bf16, void* stream, const void* hb = nullptr,
+             int B = 0, int combine = 0, float ratio = 0.f) {
   if (m < 1 || q_out < 1 || Gp < 4 || Gp % 4 || n_sets < 1 || n_sets > 2 ||
-      (n_sets == 2 && w1 == nullptr))
+      (n_sets == 2 && w1 == nullptr) || !right_ok(hb, B, q_out) ||
+      (combine && n_sets != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{scale, out, m, q_out, Gp, alpha0, alpha1, beta_total};
+  Args a{scale, out, m, q_out, Gp, alpha0, alpha1, beta_total};
+  a.hb = static_cast<const float*>(hb);
+  a.B = B;
   const typename NibbleCodes<1, P>::Planes p1{
       static_cast<const uint32_t*>(w0), static_cast<const uint32_t*>(w1)};
   const typename NibbleCodes<2, P>::Planes p2{p1.w0, p1.w1};
+  if (combine) {
+    const typename CombCodes<P>::Planes pc{p1.w0, p1.w1, ratio};
+    return x_is_bf16 ? launch_nt<__nv_bfloat16, CombCodes<P>>(x, pc, a, s)
+                     : launch_nt<float, CombCodes<P>>(x, pc, a, s);
+  }
   if (n_sets == 1 && x_is_bf16)
     return launch_nt<__nv_bfloat16, NibbleCodes<1, P>>(x, p1, a, s);
   if (n_sets == 1) return launch_nt<float, NibbleCodes<1, P>>(x, p1, a, s);

@@ -20,18 +20,34 @@
 // Plain C entry point, loaded with ctypes. x and out share one dtype
 // (x_is_bf16 ? bfloat16 : float32); scale may be null; m is the number of
 // rows of x to compute (x's row stride is 8*Gp); Wp is w2's width; beta
-// is 2.25*(1+rs); gx_bf16 selects the bf16 group sum; the planes are
-// 16-byte aligned. Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue for shapes the kernel does not take.
+// is 2.25*(1+rs); gx_bf16 selects the bf16 group sum; hb (null, or
+// right_hb: B x B f32, H_B times its entry [0][0]) with right_b = B runs
+// the right epilogue; the planes are 16-byte aligned. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for shapes the kernel does not take.
+extern "C" int qfa_paired_decode_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* w2,
+    const void* scale, const void* hb, void* out, int m, int q_out, int Gp,
+    int Wp, float rs, float beta, int gx_bf16, int x_is_bf16, int right_b,
+    void* stream) {
+  if (m < 1 || q_out < 1 || Gp < 8 || Gp % 8 || Wp < 4 || Wp % 4 ||
+      Gp % Wp || Gp / Wp > 16 || (gx_bf16 && !x_is_bf16) ||
+      !sm::right_ok(hb, right_b, q_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return sm::dispatch_ucode<false>(x, w0, w1, w2, scale, out, m, q_out, Gp,
+                                   Wp, rs, beta, gx_bf16, x_is_bf16, stream,
+                                   hb, right_b);
+}
+
+// The same without the right epilogue (the tools' and older sources'
+// arguments).
 extern "C" int qfa_paired_decode_matmul(const void* x, const void* w0,
                                         const void* w1, const void* w2,
                                         const void* scale, void* out, int m,
                                         int q_out, int Gp, int Wp, float rs,
                                         float beta, int gx_bf16,
                                         int x_is_bf16, void* stream) {
-  if (m < 1 || q_out < 1 || Gp < 8 || Gp % 8 || Wp < 4 || Wp % 4 ||
-      Gp % Wp || Gp / Wp > 16 || (gx_bf16 && !x_is_bf16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return sm::dispatch_ucode<false>(x, w0, w1, w2, scale, out, m, q_out, Gp,
-                                   Wp, rs, beta, gx_bf16, x_is_bf16, stream);
+  return qfa_paired_decode_matmul_ex(x, w0, w1, w2, scale, nullptr, out, m,
+                                     q_out, Gp, Wp, rs, beta, gx_bf16,
+                                     x_is_bf16, 0, stream);
 }

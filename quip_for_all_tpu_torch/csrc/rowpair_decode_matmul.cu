@@ -45,23 +45,52 @@
 // (x_is_bf16 ? bfloat16 : float32); scale may be null; m is the number of
 // rows of x to compute (x's row stride is 8*Gp); PL is w2's width; rs is
 // pb's residual scale (u3 ignores it); beta is 2.25 (u3) or 2.25*(1+rs)
-// (pb), which the codes carry; gx_bf16 selects the bf16 group sum. Each
-// returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for shapes or a beta the kernel does not take.
+// (pb), which the codes carry; gx_bf16 selects the bf16 group sum; hb
+// (null, or right_hb: B x B f32, H_B times its entry [0][0]) with right_b
+// = B runs the right epilogue. Each returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for shapes or a beta
+// the kernel does not take.
+extern "C" int qfa_rowpair_u3_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* w2,
+    const void* scale, const void* hb, void* out, int m, int q_out, int Gp,
+    int PL, float rs, float beta, int gx_bf16, int x_is_bf16, int right_b,
+    void* stream) {
+  (void)rs;
+  // the kernel's shape rules (ops/rowpair_matmul.py checks them first): a
+  // lane's 4 groups share one half of w1 and one parity field
+  if (m < 1 || q_out < 2 || q_out % 2 || Gp < 8 || Gp % 8 || PL < 4 ||
+      PL % 4 || Gp % PL || Gp / PL > 16 || (gx_bf16 && !x_is_bf16) ||
+      !sm::right_ok(hb, right_b, q_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return sm::dispatch_u3(x, w0, w1, w2, scale, out, m, q_out, Gp, PL, beta,
+                         gx_bf16, x_is_bf16, stream, hb, right_b);
+}
+
+extern "C" int qfa_rowpair_pb_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* w2,
+    const void* scale, const void* hb, void* out, int m, int q_out, int Gp,
+    int PL, float rs, float beta, int gx_bf16, int x_is_bf16, int right_b,
+    void* stream) {
+  if (m < 1 || q_out < 2 || q_out % 2 || Gp < 4 || Gp % 4 || PL < 4 ||
+      PL % 4 || (Gp + PL - 1) / PL > 8 || (gx_bf16 && !x_is_bf16) ||
+      !sm::right_ok(hb, right_b, q_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return sm::dispatch_ucode<true>(x, w0, w1, w2, scale, out, m, q_out, Gp,
+                                  PL, rs, beta, gx_bf16, x_is_bf16, stream, hb,
+                                  right_b);
+}
+
+// The same two without the right epilogue (the tools' and older sources'
+// arguments).
 extern "C" int qfa_rowpair_u3_matmul(const void* x, const void* w0,
                                      const void* w1, const void* w2,
                                      const void* scale, void* out, int m,
                                      int q_out, int Gp, int PL, float rs,
                                      float beta, int gx_bf16, int x_is_bf16,
                                      void* stream) {
-  (void)rs;
-  // the kernel's shape rules (ops/rowpair_matmul.py checks them first): a
-  // lane's 4 groups share one half of w1 and one parity field
-  if (m < 1 || q_out < 2 || q_out % 2 || Gp < 8 || Gp % 8 || PL < 4 ||
-      PL % 4 || Gp % PL || Gp / PL > 16 || (gx_bf16 && !x_is_bf16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return sm::dispatch_u3(x, w0, w1, w2, scale, out, m, q_out, Gp, PL, beta,
-                         gx_bf16, x_is_bf16, stream);
+  return qfa_rowpair_u3_matmul_ex(x, w0, w1, w2, scale, nullptr, out, m,
+                                  q_out, Gp, PL, rs, beta, gx_bf16, x_is_bf16,
+                                  0, stream);
 }
 
 extern "C" int qfa_rowpair_pb_matmul(const void* x, const void* w0,
@@ -70,9 +99,7 @@ extern "C" int qfa_rowpair_pb_matmul(const void* x, const void* w0,
                                      int q_out, int Gp, int PL, float rs,
                                      float beta, int gx_bf16, int x_is_bf16,
                                      void* stream) {
-  if (m < 1 || q_out < 2 || q_out % 2 || Gp < 4 || Gp % 4 || PL < 4 ||
-      PL % 4 || (Gp + PL - 1) / PL > 8 || (gx_bf16 && !x_is_bf16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return sm::dispatch_ucode<true>(x, w0, w1, w2, scale, out, m, q_out, Gp,
-                                  PL, rs, beta, gx_bf16, x_is_bf16, stream);
+  return qfa_rowpair_pb_matmul_ex(x, w0, w1, w2, scale, nullptr, out, m,
+                                  q_out, Gp, PL, rs, beta, gx_bf16, x_is_bf16,
+                                  0, stream);
 }

@@ -34,3 +34,21 @@ extern "C" int qfa_sw_decode_matmul(const void* x, const void* w0,
                            alpha0, alpha1, beta_total, x_is_bf16, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The same with the right epilogue and the combined decode (the arguments
+// of qfa_fused_decode_matmul_ex, then split).
+extern "C" int qfa_sw_decode_matmul_ex(
+    const void* x, const void* w0, const void* w1, const void* scale,
+    const void* hb, void* out, int m, int q_out, int Gp, int n_sets,
+    float alpha0, float alpha1, float beta_total, float ratio, int x_is_bf16,
+    int right_b, int combine, int split, void* stream) {
+  if (split == 2)
+    return sm::dispatch<2>(x, w0, w1, scale, out, m, q_out, Gp, n_sets,
+                           alpha0, alpha1, beta_total, x_is_bf16, stream, hb,
+                           right_b, combine, ratio);
+  if (split == 4)
+    return sm::dispatch<4>(x, w0, w1, scale, out, m, q_out, Gp, n_sets,
+                           alpha0, alpha1, beta_total, x_is_bf16, stream, hb,
+                           right_b, combine, ratio);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

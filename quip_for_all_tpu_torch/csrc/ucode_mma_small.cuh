@@ -13,7 +13,9 @@
 //   out[r, n] = (d0 - 0.5*P0) + rs*(d1 - 0.5*P1) - 2.25*(1+rs)*rowsum(x)
 //   d0/d1 = sum_{g,i} x*u0 / x*u1,  P0/P1 = sum_g gx*p0 / gx*p1
 //
-// then times scale[n] (when given) and a cast to x's dtype. The codes:
+// then times scale[n] (when given), a cast to x's dtype and, with right_hb,
+// the right epilogue (each block of B output channels times H_B, the
+// skeleton's, nibble_mma_small.cuh). The codes:
 //   paired  w0 (q_out, Gp)  lo4 = (w0 >> 4i) & 0xF,
 //           w1 (q_out, Gh)  hi2 = (w1[n, g mod Gh] >> (16h + 2i)) & 3,
 //                           h = g div Gh (Gh = Gp/2),
@@ -376,11 +378,14 @@ inline bool beta_is(float beta, float want) {
 inline int dispatch_u3(const void* x, const void* w0, const void* w1,
                        const void* w2, const void* scale, void* out, int m,
                        int q_out, int Gp, int PL, float beta, int gx_bf16,
-                       int x_is_bf16, void* stream) {
+                       int x_is_bf16, void* stream, const void* hb = nullptr,
+                       int B = 0) {
   if (!beta_is(beta, 2.25f)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the sums are 4x the result
-  const Args a{scale, out, m, q_out, Gp, 0.25f, 0.f, 0.f};
+  // the sums are 4x the result; the right epilogue (hb, B) when asked
+  Args a{scale, out, m, q_out, Gp, 0.25f, 0.f, 0.f};
+  a.hb = static_cast<const float*>(hb);
+  a.B = B;
   const UcodePlanes pl{static_cast<const uint32_t*>(w0),
                        static_cast<const uint32_t*>(w1),
                        static_cast<const uint32_t*>(w2), PL, Gp / 2};
@@ -397,12 +402,15 @@ template <bool PB>
 int dispatch_ucode(const void* x, const void* w0, const void* w1,
                    const void* w2, const void* scale, void* out, int m,
                    int q_out, int Gp, int PL, float rs, float beta,
-                   int gx_bf16, int x_is_bf16, void* stream) {
+                   int gx_bf16, int x_is_bf16, void* stream,
+                   const void* hb = nullptr, int B = 0) {
   if (!beta_is(beta, 2.25f * (1.f + rs)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the sums are 4x the result
-  const Args a{scale, out, m, q_out, Gp, 0.25f, 0.25f * rs, 0.f};
+  // the sums are 4x the result; the right epilogue (hb, B) when asked
+  Args a{scale, out, m, q_out, Gp, 0.25f, 0.25f * rs, 0.f};
+  a.hb = static_cast<const float*>(hb);
+  a.B = B;
   const UcodePlanes pl{static_cast<const uint32_t*>(w0),
                        static_cast<const uint32_t*>(w1),
                        static_cast<const uint32_t*>(w2), PL,

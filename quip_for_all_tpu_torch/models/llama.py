@@ -390,3 +390,33 @@ def set_ksplit(model: LlamaModel, ksplit: int) -> LlamaModel:
                             StackedQuantLinear)):
             mod.ksplit = int(ksplit)
     return model
+
+
+def set_right_in_kernel(model: LlamaModel, on: bool) -> LlamaModel:
+    """Run the right transform's B-side factor in the decode kernels'
+    epilogue (on) or after them (off, the default): the port's switch for
+    the JAX package's QFA_RIGHT_IN_KERNEL, on every QuantLinear and
+    FusedQuantLinear (``nn/qlinear.py``). It takes effect on the fused
+    route where ``right_b_factor`` and ``can_fuse_right`` admit the layer's
+    right transform; stacked MoE experts take none (the MoE kernels have
+    no such epilogue in the JAX package). A CUDA graph captured before the
+    change is captured again (``runtime/graphs.py``). Returns ``model``,
+    changed in place."""
+    for mod in model.modules():
+        if isinstance(mod, (QuantLinear, FusedQuantLinear)):
+            mod.right_in_kernel = bool(on)
+    return model
+
+
+def set_combine_planes(model: LlamaModel, n: int) -> LlamaModel:
+    """The combined residual decode at Pallas blocks of at most ``n`` rows
+    (0, the default, turns it off): the port's switch for the JAX
+    package's QFA_COMBINE_PLANES, on every QuantLinear and
+    FusedQuantLinear. It takes effect where ``combine_applies``
+    (``ops/fused_matmul.py``) says: two plane sets (E8P12RVQ4B,
+    E8P12RVQ3B) in the nibble or sw layouts, outside split-K. Returns
+    ``model``, changed in place."""
+    for mod in model.modules():
+        if isinstance(mod, (QuantLinear, FusedQuantLinear)):
+            mod.combine = int(n)
+    return model

@@ -9,6 +9,17 @@ kernel's grouped layout (``matmul_hadUt_grouped``) and the per-channel scale
 rides the kernel epilogue. There is no fallback around the kernel: only the
 shape rules (q_out % 128, m < crossover, power-of-2 part >= 8) choose the
 dense route, as in the JAX package, and a failed build or launch raises.
+
+Two per-layer switches ride the fused route (``models/llama.py``
+``set_right_in_kernel`` / ``set_combine_planes`` set them model-wide; the
+JAX package's QFA_RIGHT_IN_KERNEL and QFA_COMBINE_PLANES, both off by
+default there and here): ``right_in_kernel`` runs the right transform's
+B-side factor in the kernel epilogue and ``finish_right`` the rest, where
+``right_b_factor`` and ``can_fuse_right`` admit the shape (else the whole
+``matmul_hadU`` runs after the kernel, as there); ``combine`` is the row
+bound of the combined residual decode. ``switch_epoch`` counts changes of
+any switch, so ``runtime/graphs.py`` recaptures a graph captured before
+one.
 The eval forward is differentiable in x (and SU/SV when they require grad):
 a LoRA step takes gradients through the frozen base, through K3 on the
 fused route (``ops/fused_matmul.py`` ``FusedQuantMatmul``) and through the
@@ -25,29 +36,53 @@ import torch
 from torch import nn
 
 from ..ops.dequant import decode_weights
-from ..ops.fused_matmul import fused_quant_matmul_pre, supports
+from ..ops.fused_matmul import (can_fuse_right, fused_quant_matmul_pre,
+                                supports)
 from ..ops.qtensor import QuantizedTensor
 from ..ops.quant_matmul import FUSED_MAX_M, quant_matmul
-from ..transforms.incoherence import (HadSpec, hadamard_transform,
-                                      matmul_hadU, matmul_hadUt,
-                                      matmul_hadUt_grouped)
+from ..transforms.incoherence import (HadSpec, finish_right,
+                                      hadamard_transform, matmul_hadU,
+                                      matmul_hadUt, matmul_hadUt_grouped,
+                                      right_b_factor, right_hb_tensor)
+
+_SWITCHES = {"epoch": 0}
+
+
+def switch_epoch() -> int:
+    """How many times a layer's ksplit, right_in_kernel or combine switch
+    has changed in this process."""
+    return _SWITCHES["epoch"]
 
 
 def _grouped_prologue_matmul(x, spec, qt, scale, compute_dtype,
                              scale_vec=None, impl="auto",
-                             max_m=FUSED_MAX_M, ksplit=0):
+                             max_m=FUSED_MAX_M, ksplit=0, right_spec=None,
+                             combine=0):
     """The fused grouped-layout route (x in the lane order of the planes'
-    subword split), or None when a shape rule sends the call to the plain
-    transform + quant_matmul route."""
+    subword split) as (out, right_done), or None when a shape rule sends
+    the call to the plain transform + quant_matmul route. With
+    ``right_spec`` (the switch on) the right transform's B-side factor
+    runs in the kernel epilogue where ``right_b_factor`` and
+    ``can_fuse_right`` admit it (right_done: the caller finishes with
+    ``finish_right``), as ``_grouped_prologue_matmul`` in the JAX
+    package."""
     if x.shape[0] >= max_m or not supports(qt):
         return None
     xg = matmul_hadUt_grouped(x, spec, qt.group_cols, scale=scale,
                               split=qt.split)
     if xg is None:
         return None
-    return fused_quant_matmul_pre(xg.to(compute_dtype), qt,
-                                  scale_vec=scale_vec,
-                                  plain=impl == "plain", ksplit=ksplit)
+    right_hb = None
+    if right_spec is not None:
+        rb = right_b_factor(right_spec)
+        if rb is not None and can_fuse_right(qt, rb[1]):
+            right_hb = right_hb_tensor(right_spec.padN // right_spec.K,
+                                       xg.device)
+    out = fused_quant_matmul_pre(xg.to(compute_dtype), qt,
+                                 scale_vec=scale_vec, plain=impl == "plain",
+                                 ksplit=ksplit, right_hb=right_hb,
+                                 combine=combine)
+    return out, right_hb is not None
 
 
 def same_tensor(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
@@ -64,9 +99,12 @@ class _PlaneHolder(nn.Module):
     them) and rebuilds the container on access."""
 
     def _set_qweight(self, qt: Optional[QuantizedTensor]):
-        # split-K chunks asked of the fused route (0 = off; the model-wide
-        # switch is models/llama.py set_ksplit)
-        self.ksplit = 0
+        # the fused route's switches (models/llama.py set_ksplit,
+        # set_right_in_kernel, set_combine_planes): split-K chunks (0 =
+        # off), the right epilogue, the combined decode's row bound (0 =
+        # off)
+        self._switches = {"ksplit": 0, "right_in_kernel": False,
+                          "combine": 0}
         # planes of any layout; pb's w0 and bfp's planes are 3-D buffers
         self.plane_keys = sorted(qt.planes) if qt is not None else []
         for k in self.plane_keys:
@@ -75,6 +113,19 @@ class _PlaneHolder(nn.Module):
             self.codebook_id = qt.codebook_id
             self.opt_resid_scale = qt.opt_resid_scale
             self.layout = qt.layout
+
+    def _switch(self, name, value):
+        if self._switches[name] != value:
+            self._switches[name] = value
+            _SWITCHES["epoch"] += 1
+
+    ksplit = property(lambda self: self._switches["ksplit"],
+                      lambda self, v: self._switch("ksplit", int(v)))
+    right_in_kernel = property(
+        lambda self: self._switches["right_in_kernel"],
+        lambda self, v: self._switch("right_in_kernel", bool(v)))
+    combine = property(lambda self: self._switches["combine"],
+                       lambda self, v: self._switch("combine", int(v)))
 
     @property
     def qweight(self) -> QuantizedTensor:
@@ -162,21 +213,26 @@ def apply(p: QuantLinear, x: torch.Tensor, *, training: bool = False,
         return _epilogue(p, (x @ W.to(x_dtype))[:, : p.out_features],
                          batch_shape)
     sv = p.Wscale if p.per_channel else None
-    out = None
+    res = None
     if matmul_impl != "dequant":
-        out = _grouped_prologue_matmul(x, p.left_spec, p.qweight,
-                                       p.wscale_float, compute_dtype,
-                                       scale_vec=sv, impl=matmul_impl,
-                                       max_m=max_m, ksplit=p.ksplit)
+        res = _grouped_prologue_matmul(
+            x, p.left_spec, p.qweight, p.wscale_float, compute_dtype,
+            scale_vec=sv, impl=matmul_impl, max_m=max_m, ksplit=p.ksplit,
+            right_spec=p.right_spec if p.right_in_kernel else None,
+            combine=p.combine)
+    out, right_done = res if res is not None else (None, False)
     pc_fused = out is not None and sv is not None
     if out is None:
         x = matmul_hadUt(x, p.left_spec, scale=p.wscale_float)
         out = quant_matmul(x.to(compute_dtype), p.qweight, impl=matmul_impl,
-                           max_m=max_m, ksplit=p.ksplit)
+                           max_m=max_m, ksplit=p.ksplit, combine=p.combine)
     out = out.to(x_dtype)
     if p.per_channel and not pc_fused:
         out = out * p.Wscale.to(x_dtype)
-    out = matmul_hadU(out, p.right_spec)[:, : p.out_features]
+    if right_done:
+        out = finish_right(out, p.right_spec)[:, : p.out_features]
+    else:
+        out = matmul_hadU(out, p.right_spec)[:, : p.out_features]
     return _epilogue(p, out, batch_shape)
 
 
@@ -295,18 +351,24 @@ def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
     x_dtype = x.dtype
     if f.SU is not None:
         x = x * f.SU.to(x_dtype)
-    big = None
+    res = None
     sv = f.pre_vec if f.right_uniform else None
+    # the right epilogue takes uniform groups (one right spec for all
+    # segments), as in the JAX package
+    rspec = (f.segments[0].right_spec
+             if f.right_uniform and f.right_in_kernel else None)
     if matmul_impl != "dequant":
-        big = _grouped_prologue_matmul(x, f.left_spec, f.qweight, None,
+        res = _grouped_prologue_matmul(x, f.left_spec, f.qweight, None,
                                        compute_dtype, scale_vec=sv,
                                        impl=matmul_impl, max_m=max_m,
-                                       ksplit=f.ksplit)
+                                       ksplit=f.ksplit, right_spec=rspec,
+                                       combine=f.combine)
+    big, right_done = res if res is not None else (None, False)
     pre_fused = big is not None and sv is not None
     if big is None:
         x = matmul_hadUt(x, f.left_spec)     # unscaled; wscale per segment
         big = quant_matmul(x.to(compute_dtype), f.qweight, impl=matmul_impl,
-                           max_m=max_m, ksplit=f.ksplit)
+                           max_m=max_m, ksplit=f.ksplit, combine=f.combine)
     big = big.to(x_dtype)
     if f.right_uniform:
         # batched epilogue: one scale, one batched kron transform and one
@@ -314,13 +376,17 @@ def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
         seg0 = f.segments[0]
         q_out, nseg = seg0.q_out, len(f.segments)
         spec = seg0.right_spec
-        had_scale = 1.0 / math.sqrt(spec.padN // spec.K)
-        Y = big if pre_fused else big * f.pre_vec.to(x_dtype)
-        Y = Y.reshape(-1, nseg, spec.K, spec.padN // spec.K)
-        Y = hadamard_transform(Y, had_scale)
-        if f.right_hadK_stack is not None:
-            Y = torch.einsum("mskp,sjk->msjp", Y,
-                             f.right_hadK_stack.to(Y.dtype))
+        if right_done:
+            Y = finish_right(big.reshape(-1, nseg, q_out), spec,
+                             hadK_stack=f.right_hadK_stack)
+        else:
+            had_scale = 1.0 / math.sqrt(spec.padN // spec.K)
+            Y = big if pre_fused else big * f.pre_vec.to(x_dtype)
+            Y = Y.reshape(-1, nseg, spec.K, spec.padN // spec.K)
+            Y = hadamard_transform(Y, had_scale)
+            if f.right_hadK_stack is not None:
+                Y = torch.einsum("mskp,sjk->msjp", Y,
+                                 f.right_hadK_stack.to(Y.dtype))
         Y = Y.reshape(-1, nseg * q_out)
         if f.SV_all is not None:
             Y = Y * f.SV_all.to(Y.dtype)

@@ -184,7 +184,8 @@ def unstack_qlinear(sq: StackedQuantLinear, e: int) -> List[QuantLinear]:
             had_right=None if sq.had_right is None else sq.had_right[e, s],
             Wscale=sq.pre_vec[e, lo:hi], per_channel=True,
             wscale_float=1.0))
-        outs[-1].ksplit = sq.ksplit
+        # a fresh view takes the stack's split-K: no layer's switch changes
+        outs[-1]._switches["ksplit"] = sq.ksplit
     return outs
 
 

@@ -59,9 +59,10 @@ int16 / int8 subwords, (q_out, P*Gp) with P = 2 / 4, low subword first
 (``split``). Subword j of group g sits at column P*g + j and holds nibbles
 i = (8/P)*j + q at bits 4q.
 
-Only E8P12 and E8P12RVQ4B codes convert to and from planes in this port;
-the other codebooks' affine rows are here because the fused kernel already
-takes their 1 or 2 plane sets.
+Every codebook converts to and from planes (``from_raw_idxs``,
+``to_raw_idxs``): E8P12 and E8P12RVQ4B in every layout their codes take,
+D4, HI and E8P12RVQ3B in the nibble words and the layouts that keep their
+bytes (bfp, sw2, sw4): the u-code layouts hold E8P12 codewords only.
 """
 from __future__ import annotations
 
@@ -73,6 +74,8 @@ import numpy as np
 import torch
 
 from ..codebooks import e8p12
+from ..codebooks.d4 import d4_grid
+from ..codebooks.e8p12_rvq3 import e81b_grid
 from ..utils.device import resolve_device
 
 LAYOUTS = ("nibble", "u3", "pb", "paired", "bfp", "sw2", "sw4")
@@ -541,15 +544,79 @@ def relayout(qt: QuantizedTensor, layout: str) -> QuantizedTensor:
 
 # ------------------------------------------------- raw idx <-> runtime
 
+def _nibble_words_from_vals(vals: np.ndarray) -> np.ndarray:
+    """(..., G, 8) half-integer values in [-4, 3.5] -> int32 biased-nibble
+    words (nib = 2*v + 8, decode weight = 0.5*nib - 4)."""
+    t = np.rint(vals * 2).astype(np.int64) + 8
+    if t.min() < 0 or t.max() > 15:
+        raise ValueError("values outside the biased-nibble range")
+    word = np.zeros(vals.shape[:-1], dtype=np.int64)
+    for i in range(8):
+        word |= t[..., i] << (4 * i)
+    return word.astype(np.uint32).view(np.int32)
+
+
+def _nibble_vals_from_words(words: np.ndarray) -> np.ndarray:
+    w = words.view(np.uint32).astype(np.int64)
+    return np.stack([(((w >> (4 * i)) & 0xF) - 8) * 0.5 for i in range(8)],
+                    axis=-1)
+
+
+def _rows_by_key(grid: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """The grid row of every (..., k) half-integer value row (exact)."""
+    def key(v):
+        q = np.rint(np.asarray(v, np.float64) * 4).astype(np.int64) + 64
+        k = np.zeros(q.shape[:-1], dtype=np.int64)
+        for i in range(q.shape[-1]):
+            k = k * 129 + q[..., i]
+        return k
+    gk = key(grid)
+    order = np.argsort(gk)
+    keys = key(vals)
+    pos = np.searchsorted(gk[order], keys)
+    pos = np.minimum(pos, len(order) - 1)
+    if not np.array_equal(gk[order][pos], keys):
+        raise ValueError("a plane word holds no codeword")
+    return order[pos]
+
+
+def _affine_words(cb_id: str, idxs: np.ndarray, q_out: int, q_in: int
+                  ) -> Dict[str, np.ndarray]:
+    """The nibble word planes (unpadded) of D4, HI and E8P12RVQ3B codes
+    (``from_raw_idxs`` in the JAX package, ``qtensor.py:744-765``)."""
+    if cb_id == "E8P12RVQ3B":
+        u = np.ascontiguousarray(idxs).view(np.uint32).astype(np.int64)
+        return {"w0": _e8p_words_from_idx((u >> 8).astype(np.uint16)),
+                "w1": _nibble_words_from_vals(e81b_grid()[u & 0xFF])}
+    if cb_id == "D4":
+        vals = d4_grid()[idxs.astype(np.int64)]        # (q_out, q_in/4, 4)
+        return {"w0": _nibble_words_from_vals(
+            vals.reshape(q_out, q_in // 8, 8))}
+    # HI: one code a weight, the code itself the nibble
+    codes = idxs.astype(np.int64).reshape(q_out, q_in // 8, 8)
+    word = np.zeros((q_out, q_in // 8), dtype=np.int64)
+    for i in range(8):
+        word |= (codes[..., i] & 0xF) << (4 * i)
+    return {"w0": word.astype(np.uint32).view(np.int32)}
+
+
+@lru_cache(maxsize=None)
+def affine_word_table(cb_id: str) -> np.ndarray:
+    """The 16-bit nibble half-word of every D4 code (256,: 4 weights), or
+    the int32 nibble word of every E8P12RVQ3B residual code (256,)."""
+    if cb_id == "D4":
+        return (_nibble_words_from_vals(
+            np.concatenate([d4_grid(), np.full((256, 4), -4.0)], axis=1))
+            .view(np.uint32) & 0xFFFF).astype(np.int32)
+    return _nibble_words_from_vals(e81b_grid())
+
+
 def from_raw_idxs(cb, idxs: np.ndarray, q_out: int, q_in: int,
                   device="cuda", layout: Optional[str] = None
                   ) -> QuantizedTensor:
     """Raw int32 code indices (q_out, q_in/codesz) -> runtime planes in
     ``layout`` (``resolve_layout``) on ``device`` (the card unless the
     caller asks for the CPU)."""
-    if cb.id not in ("E8P12", "E8P12RVQ4B"):
-        raise NotImplementedError(
-            f"{cb.id} planes are not ported yet (ROADMAP.md slice 2)")
     device = resolve_device(device)
     layout = resolve_layout(cb.id, layout, q_out)
     G = q_in // 8
@@ -557,6 +624,11 @@ def from_raw_idxs(cb, idxs: np.ndarray, q_out: int, q_in: int,
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if cb.id in ("D4", "HI", "E8P12RVQ3B"):
+        planes = {k: dev(_pad_cols(v))
+                  for k, v in _affine_words(cb.id, idxs, q_out, q_in).items()}
+        return relayout(QuantizedTensor(planes, cb.id, q_out, q_in, ors),
+                        layout)
     if cb.id == "E8P12":
         idx16 = idxs.astype(np.int64).astype(np.uint16)
         if layout == "u3":
@@ -595,14 +667,33 @@ def to_raw_idxs(qt: QuantizedTensor) -> np.ndarray:
     if qt.codebook_id == "E8P12RVQ4B":
         return ((codes("w0") << 16) | codes("w1")).astype(
             np.uint32).view(np.int32)
-    raise NotImplementedError(qt.codebook_id)
+
+    def words(key):
+        return qt.planes[key].cpu().numpy()[:, :ncols]
+    if qt.codebook_id == "E8P12RVQ3B":
+        resid = _rows_by_key(e81b_grid(), _nibble_vals_from_words(words("w1")))
+        return ((codes("w0") << 8) | resid).astype(np.uint32).view(np.int32)
+    if qt.codebook_id == "D4":
+        vals = _nibble_vals_from_words(words("w0")).reshape(
+            qt.q_out, qt.q_in // 4, 4)
+        return _rows_by_key(d4_grid(), vals).astype(np.int32)
+    if qt.codebook_id == "HI":
+        w = words("w0").view(np.uint32).astype(np.int64)
+        out = np.empty((qt.q_out, qt.q_in), dtype=np.int32)
+        for i in range(8):
+            out[:, i::8] = ((w >> (4 * i)) & 0xF).astype(np.int32)
+        return out
+    raise ValueError(qt.codebook_id)
 
 
 def to_checkpoint_idxs(qt: QuantizedTensor) -> np.ndarray:
     """Runtime planes -> reference checkpoint Qidxs array (numpy)."""
+    from ..codebooks import get_codebook
     raw = to_raw_idxs(qt)
     if qt.codebook_id == "E8P12":
         return raw.astype(np.int64).astype(np.uint16).view(np.int16)
+    if qt.codebook_id in ("D4", "HI", "E8P12RVQ3B"):
+        return get_codebook(qt.codebook_id).pack_idxs(raw)
     return raw
 
 
@@ -617,7 +708,8 @@ def from_checkpoint_idxs(cb, packed: np.ndarray, q_out: int, q_in: int,
 __all__ = ["QuantizedTensor", "LAYOUTS", "ROWPAIR_LAYOUTS", "UCODE_LAYOUTS",
            "SPLIT", "decode_affine", "resolve_layout", "from_raw_idxs",
            "to_raw_idxs", "from_checkpoint_idxs", "to_checkpoint_idxs",
-           "e8p_word_table", "e8p_uv_table", "u3_parity_lanes",
+           "e8p_word_table", "e8p_uv_table", "affine_word_table",
+           "u3_parity_lanes",
            "pb_parity_lanes", "paired_wp", "u3_planes_from_up",
            "pb_planes_from_uv", "paired_planes_from_uv", "u3_up_from_planes",
            "pb_uv_from_planes", "paired_uv_from_planes", "u3_to_nibble",

@@ -27,9 +27,11 @@ IMPLS = ("auto", "fused", "dequant", "plain")
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
-                 max_m: int = FUSED_MAX_M, ksplit: int = 0) -> torch.Tensor:
+                 max_m: int = FUSED_MAX_M, ksplit: int = 0,
+                 combine: int = 0) -> torch.Tensor:
     """x: (m, q_in) -> (m, q_out); ``ksplit`` asks the fused route for
-    split-K (``fused_quant_matmul_pre``)."""
+    split-K and ``combine`` for the combined residual decode
+    (``fused_quant_matmul_pre``)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if x.shape[-1] != qt.q_in:
@@ -42,6 +44,6 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
             raise ValueError(f"fused route needs q_out % 128 == 0, got "
                              f"q_out={qt.q_out}")
         return fused_quant_matmul(x, qt, plain=impl == "plain",
-                                  ksplit=ksplit)
+                                  ksplit=ksplit, combine=combine)
     W = decode_weights(qt, dtype=x.dtype)
     return torch.matmul(x, W.T)

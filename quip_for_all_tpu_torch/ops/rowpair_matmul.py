@@ -15,7 +15,9 @@ x_perm[:, i*Gp + g] = x[:, 8g + i] (pad lanes zero):
        d0 = sum_i x_i . u0_i,  d1 = sum_i x_i . u1_i
 
 with gx[:, g] = sum_{i=0..7} x_perm[:, i*Gp + g] (the group sums), then
-times scale_vec per output channel and a cast to x's dtype (``_epilogue``).
+times scale_vec per output channel and a cast to x's dtype, and with
+``right_hb`` the right epilogue (``ops/layout_matmul.py``
+``right_epilogue``; ``_epilogue`` ``:459-472`` there).
 
 The group sum's rounding follows the Pallas body: a block of at most 8 rows
 of x runs in f32, a larger bf16 block keeps x in bf16 and sums gx in bf16,
@@ -35,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .layout_matmul import check_right, right_epilogue
 from .qtensor import (paired_uv_from_planes, pb_uv_from_planes,
                       u3_up_from_planes)
 
@@ -78,7 +81,9 @@ def _lanes(u: torch.Tensor) -> torch.Tensor:
 def rowpair_matmul_ref(x_perm: torch.Tensor, layout: str,
                        planes: Dict[str, torch.Tensor], rs: float = -1.0,
                        scale_vec: Optional[torch.Tensor] = None,
-                       rows: Optional[int] = None) -> torch.Tensor:
+                       rows: Optional[int] = None,
+                       right_hb: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Plain twin of the three kernels: (rows, q_out) in x_perm's dtype, in
     the Pallas bodies' order of f32 operations. x_perm may carry pad rows
     past ``rows`` (they set the group sum's rounding, never the result)."""
@@ -103,10 +108,10 @@ def rowpair_matmul_ref(x_perm: torch.Tensor, layout: str,
         raise ValueError(f"no u-code kernel for layout {layout!r}")
     if scale_vec is not None:
         out = out * scale_vec.to(torch.float32)
-    return out.to(x_perm.dtype)
+    return right_epilogue(out.to(x_perm.dtype), right_hb)
 
 
-def _check(x_perm, layout, planes, scale_vec, rows):
+def _check(x_perm, layout, planes, scale_vec, rows, right_hb):
     if x_perm.dim() != 2 or not x_perm.is_contiguous():
         raise ValueError("x_perm must be a contiguous 2-D tensor")
     if not 1 <= rows <= x_perm.shape[0]:
@@ -145,9 +150,11 @@ def _check(x_perm, layout, planes, scale_vec, rows):
             or scale_vec.device != x_perm.device):
         raise ValueError("scale_vec must be a contiguous f32 (q_out,) "
                          "tensor on x_perm's device")
+    check_right(right_hb, q_out, x_perm.device)
 
 
-def _launch(fn_name, x_perm, layout, planes, rs, scale_vec, rows):
+def _launch(fn_name, x_perm, layout, planes, rs, scale_vec, rows,
+            right_hb=None):
     from ._build import load
     for t in (x_perm, *planes.values()):
         if t.data_ptr() % 16:
@@ -156,8 +163,8 @@ def _launch(fn_name, x_perm, layout, planes, rs, scale_vec, rows):
     fn = getattr(load(kernel), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
     w0, w1, w2 = planes["w0"], planes["w1"], planes["w2"]
     q_out = w2.shape[0] * (1 if layout == "paired" else 2)
@@ -167,34 +174,40 @@ def _launch(fn_name, x_perm, layout, planes, rs, scale_vec, rows):
     stream = torch.cuda.current_stream(x_perm.device).cuda_stream
     err = fn(x_perm.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
              scale_vec.data_ptr() if scale_vec is not None else None,
+             right_hb.data_ptr() if right_hb is not None else None,
              out.data_ptr(), rows, q_out, Gp, PL, float(rs), beta,
              int(group_sum_in_bf16(x_perm)),
-             int(x_perm.dtype == torch.bfloat16), stream)
+             int(x_perm.dtype == torch.bfloat16),
+             0 if right_hb is None else right_hb.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"{kernel} ({layout}) launch failed: cudaError "
                            f"{err}")
     return out
 
 
-def _rowpair(layout, x_perm, planes, rs, scale_vec, rows):
+def _rowpair(layout, x_perm, planes, rs, scale_vec, rows, right_hb):
     rows = x_perm.shape[0] if rows is None else rows
-    _check(x_perm, layout, planes, scale_vec, rows)
+    _check(x_perm, layout, planes, scale_vec, rows, right_hb)
     if x_perm.device.type == "cpu":
         return rowpair_matmul_ref(x_perm, layout, planes, rs, scale_vec,
-                                  rows)
+                                  rows, right_hb)
     if x_perm.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x_perm.device}")
-    entry = ("qfa_paired_decode_matmul" if layout == "paired"
-             else f"qfa_rowpair_{layout}_matmul")
-    return _launch(entry, x_perm, layout, planes, rs, scale_vec, rows)
+    entry = ("qfa_paired_decode_matmul_ex" if layout == "paired"
+             else f"qfa_rowpair_{layout}_matmul_ex")
+    return _launch(entry, x_perm, layout, planes, rs, scale_vec, rows,
+                   right_hb)
 
 
 def rowpair_u3_matmul(x_perm: torch.Tensor, planes: Dict[str, torch.Tensor],
                       scale_vec: Optional[torch.Tensor] = None,
-                      rows: Optional[int] = None) -> torch.Tensor:
+                      rows: Optional[int] = None,
+                      right_hb: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The u3 kernel (K9): (rows, q_out) from the first ``rows`` rows of
-    x_perm (default all; the rest may be padding that is never read)."""
-    out = _rowpair("u3", x_perm, planes, -1.0, scale_vec, rows)
+    x_perm (default all; the rest may be padding that is never read);
+    ``right_hb`` runs the right epilogue in the kernel."""
+    out = _rowpair("u3", x_perm, planes, -1.0, scale_vec, rows, right_hb)
     if x_perm.device.type == "cuda":
         rowpair_u3_matmul.launches += 1
     return out
@@ -202,10 +215,12 @@ def rowpair_u3_matmul(x_perm: torch.Tensor, planes: Dict[str, torch.Tensor],
 
 def rowpair_pb_matmul(x_perm: torch.Tensor, planes: Dict[str, torch.Tensor],
                       rs: float, scale_vec: Optional[torch.Tensor] = None,
-                      rows: Optional[int] = None) -> torch.Tensor:
+                      rows: Optional[int] = None,
+                      right_hb: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The pb kernel (K8), as ``rowpair_u3_matmul`` with the residual scale
     ``rs``."""
-    out = _rowpair("pb", x_perm, planes, rs, scale_vec, rows)
+    out = _rowpair("pb", x_perm, planes, rs, scale_vec, rows, right_hb)
     if x_perm.device.type == "cuda":
         rowpair_pb_matmul.launches += 1
     return out
@@ -214,10 +229,12 @@ def rowpair_pb_matmul(x_perm: torch.Tensor, planes: Dict[str, torch.Tensor],
 def paired_decode_matmul(x_perm: torch.Tensor,
                          planes: Dict[str, torch.Tensor], rs: float,
                          scale_vec: Optional[torch.Tensor] = None,
-                         rows: Optional[int] = None) -> torch.Tensor:
+                         rows: Optional[int] = None,
+                         right_hb: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """The paired kernel (K7), as ``rowpair_pb_matmul`` on the paired
     planes w0 (q_out, Gp), w1 (q_out, Gp/2), w2 (q_out, Wp)."""
-    out = _rowpair("paired", x_perm, planes, rs, scale_vec, rows)
+    out = _rowpair("paired", x_perm, planes, rs, scale_vec, rows, right_hb)
     if x_perm.device.type == "cuda":
         paired_decode_matmul.launches += 1
     return out

@@ -24,7 +24,10 @@ counting wrapper in ``ops/``; on a card, ``chip_smoke.py`` and
 profiler trace sees.
 
 A capture or a replay that fails raises; nothing falls back to the eager
-loop on a card.
+loop on a card. A graph replays the kernels its capture launched, with
+the switches of that moment (split-K, the right epilogue, the combined
+decode: ``nn/qlinear.py`` ``switch_epoch``); a key whose graph was
+captured before a switch changed is captured again at its next run.
 """
 from __future__ import annotations
 
@@ -80,6 +83,8 @@ class StepRunner:
             raise ValueError("CUDA graphs need a CUDA device")
         self.state = list(state)
         self.graphs: Dict[Hashable, tuple] = {}
+        # the layer switches' epoch at each key's capture
+        self.epochs: Dict[Hashable, int] = {}
         self.pool = torch.cuda.graph_pool_handle() if self.graphed else None
         self.captures = self.warmups = self.replays = self.eager_steps = 0
         self.runs_by_key: Dict[Hashable, int] = {}
@@ -93,8 +98,11 @@ class StepRunner:
                 body()
             self.eager_steps += n
             return
-        if key not in self.graphs:
+        from ..nn.qlinear import switch_epoch
+        epoch = switch_epoch()
+        if key not in self.graphs or self.epochs[key] != epoch:
             self.graphs[key] = self._capture(body)
+            self.epochs[key] = epoch
         graph, delta = self.graphs[key]
         for _ in range(n):
             graph.replay()

@@ -58,14 +58,16 @@ CUTS = {
     "base": [],
     "nodecode": [(r"    decode_slab<NSETS>\([^;]*\);\n", "")],
     "norowsum": [(r"    if \(!SPLIT\) stage_a<C>\([^;]*\);\n", "")],
-    "nomma": [(r"    mma_slab<C, NSETS, (?:true|false)>\(\s*acc,[^;]*\);\n"
-               r"    flush<C, NSETS>\(tot, acc\);\n", "")],
+    "nomma": [(r"    mma_slab<C, (?:NSETS|ND), (?:true|false)(?:, COMB)?>"
+               r"\(\s*acc,[^;]*\);\n    flush<C, (?:NSETS|NA)>\(tot, acc\);\n",
+               "")],
     "noload": [(r"    if \(next < slabs\)\n      load\(",
                 "    if (false)\n      load(")],
-    "noflush": [(r"(mma_slab<C, NSETS, (?:true|false)>\(\s*acc,[^;]*?dec)"
-                 r"\);\n    flush<C, NSETS>\(tot, acc\);\n  \}\n",
+    "noflush": [(r"(mma_slab<C, (?:NSETS|ND), (?:true|false)(?:, COMB)?>"
+                 r"\(\s*acc,[^;]*?dec)\);\n    flush<C, (NSETS|NA)>"
+                 r"\(tot, acc\);\n  \}\n",
                  r"\1, s == 0);\n  }\n"
-                 r"  if (slabs > 0) flush<C, NSETS>(tot, acc);\n")],
+                 r"  if (slabs > 0) flush<C, \2>(tot, acc);\n")],
     "stages2": [],
 }
 # changes to the shared header (noflush: the first product of a slab
@@ -73,8 +75,8 @@ CUTS = {
 HEADER_CUTS = {
     "noflush": [(r"const __nv_bfloat16\* B\) \{",
                  "const __nv_bfloat16* B, bool fresh) {"),
-                (r"if \(ks == 0 && t == 0\)",
-                 "if (ks == 0 && t == 0 && fresh)")],
+                (r"if \(ks == 0 && t == 0",
+                 "if (ks == 0 && t == 0 && fresh")],
     "stages2": [(r"\? 3 : 2;", "? 2 : 2;")],
 }
 CORRECT = ("base", "noflush", "stages2")

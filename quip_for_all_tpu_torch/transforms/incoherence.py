@@ -166,6 +166,57 @@ def full_U(spec: HadSpec) -> np.ndarray:
     return np.kron(hadK, H) / math.sqrt(spec.padN // spec.K)
 
 
+def right_b_factor(spec: HadSpec) -> Optional[Tuple[np.ndarray, int]]:
+    """(H_B * had_scale, B): the low Sylvester kron factor of the RIGHT
+    transform (B = 2^min(e, 7) of M = padN / K = 2^e), for the kernels'
+    epilogue, which multiplies each block of B output channels by it
+    (``right_b_factor`` in the JAX package). Tile-local, because B divides
+    every tile and every fused segment's q_out. None when the transform
+    does not factor that way: M < 8 or not a power of 2 (or a
+    block-diagonal transform, which this port does not have yet).
+    ``finish_right`` applies the remaining cross-tile factors."""
+    if getattr(spec, "shards", 1) > 1:
+        return None
+    M = spec.padN // spec.K
+    if M < 8 or (M & (M - 1)) != 0:
+        return None
+    eb = min(M.bit_length() - 1, 7)
+    return sylvester(eb) / math.sqrt(M), 1 << eb
+
+
+@lru_cache(maxsize=64)
+def right_hb_tensor(spec_M: int, device: torch.device) -> torch.Tensor:
+    """``right_b_factor``'s H_B * had_scale for M = ``spec_M`` as an f32
+    (B, B) tensor on ``device``, made once (a decode step that a CUDA
+    graph captures makes no copies)."""
+    rb = right_b_factor(HadSpec(None, 1, spec_M))
+    return torch.as_tensor(rb[0], dtype=torch.float32, device=device)
+
+
+def finish_right(Y: torch.Tensor, spec: HadSpec,
+                 hadK_stack: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Complete a right transform whose B-side factor ran in the kernel
+    epilogue (``right_b_factor``): the high Sylvester factor H_A (if any)
+    and the hadK leading factor, or a stacked per-segment hadK for fused
+    groups. Y: (..., [nseg,] padN), already multiplied by H_B per block."""
+    M = spec.padN // spec.K
+    e = M.bit_length() - 1
+    eb = min(e, 7)
+    ea = e - eb
+    A, B = 1 << ea, 1 << eb
+    lead = Y.shape[:-1]
+    Y = Y.reshape(*lead, spec.K, A, B)
+    if ea > 0:
+        Y = torch.einsum("...kab,ca->...kcb", Y,
+                         _sylvester_t(ea, Y.device, Y.dtype))
+    if hadK_stack is not None:
+        # (..., s, K, A, B) x (s, K', K): per-segment leading factor
+        Y = torch.einsum("...skab,sjk->...sjab", Y, hadK_stack.to(Y.dtype))
+    elif spec.K > 1:
+        Y = torch.einsum("...kab,jk->...jab", Y, _as(spec.hadK, Y))
+    return Y.reshape(*lead, spec.padN)
+
+
 @lru_cache(maxsize=256)
 def _grouped_hb(eb: int, had_scale: float, split: int, device: torch.device,
                 dtype: torch.dtype) -> torch.Tensor:

@@ -1,21 +1,22 @@
 """Load reference-schema quantized checkpoints (llama family and Mixtral,
-E8P12 and E8P12RVQ4B) — counterpart of ``load_quantized`` /
-``_build_qlinear`` in ``quip_for_all_tpu/utils/checkpoint.py``. Mixtral's
-router gate loads dense (or quantized, when the checkpoint quantized it)
-and its experts as per-expert quantized linears; ``fuse_for_inference``
-stacks them. ``layout`` picks the runtime layout of every quantized linear
+every codebook: E8P12, E8P12RVQ4B, E8P12RVQ3B, D4 and HI) — counterpart of
+``load_quantized`` / ``_build_qlinear`` in
+``quip_for_all_tpu/utils/checkpoint.py``. Mixtral's router gate loads
+dense (or quantized, when the checkpoint quantized it) and its experts as
+per-expert quantized linears; ``fuse_for_inference`` stacks them.
+``layout`` picks the runtime layout of every quantized linear
 (``ops/qtensor.py`` ``resolve_layout``: "u3" for E8P12, "pb" and "paired"
-for E8P12RVQ4B, "bfp", "sw2" and "sw4" for both), where the JAX package
-reads QFA_E8P_U3 / QFA_RVQ_PB / QFA_RVQ_PAIRED / QFA_BFP /
+for E8P12RVQ4B, "bfp", "sw2" and "sw4" for every codebook), where the JAX
+package reads QFA_E8P_U3 / QFA_RVQ_PB / QFA_RVQ_PAIRED / QFA_BFP /
 QFA_SPLIT_DECODE.
 
 The schema: safetensors with HF state-dict names; each quantized linear
 stores Qidxs (packed codes), SU, SV, Wscale (unnormalized), optional bias,
 had_left/had_right (only with use_rand) and a scalar ``weight`` shim; the
 quantization config sits in config.json or quantization_config.json.
-Files are read with the port's own safetensors reader. Other codebooks,
-families and tensor-parallel checkpoints raise NotImplementedError naming
-their roadmap slice. Saving waits for the quantization slice.
+Files are read with the port's own safetensors reader. Other families and
+tensor-parallel checkpoints raise NotImplementedError naming their
+roadmap slice. Saving waits for the quantization slice.
 """
 from __future__ import annotations
 
@@ -138,7 +139,7 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
     if int(qcfg.get("tp_shards", 1)) > 1:
         raise NotImplementedError("tensor-parallel checkpoints (ROADMAP.md "
                                   "queue 1, slice 8)")
-    _codebook(qcfg)                         # refuses unported codebooks
+    _codebook(qcfg)                         # refuses an unknown codebook
     tensors = open_all_tensors(save_dir)
     if any(".ln1.weight" in k for k in tensors):
         tensors = {k.replace(".ln1.", ".input_layernorm.").replace(

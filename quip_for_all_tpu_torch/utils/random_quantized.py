@@ -5,11 +5,12 @@ device from a seeded ``torch.Generator`` — the port's counterpart of
 checks without downloadable checkpoints. Shapes and compute paths equal a
 really-quantized model's; only the code values are random.
 
-Codebooks E8P12 and E8P12RVQ4B, in the runtime layout ``layout`` (None or
-"nibble"; "u3" for E8P12; "pb" and "paired" for E8P12RVQ4B; "bfp", "sw2"
-and "sw4" for both: ``ops/qtensor.py``). The row-pair u3/pb layouts take
-llama only: the MoE kernel decodes nibble experts, and Mixtral's paired,
-bfp and sw experts re-lay to nibble when they stack.
+Every codebook (E8P12, E8P12RVQ4B, E8P12RVQ3B, D4, HI), in the runtime
+layout ``layout`` (None or "nibble"; "u3" for E8P12; "pb" and "paired" for
+E8P12RVQ4B; "bfp", "sw2" and "sw4" for all: ``ops/qtensor.py``). The
+row-pair u3/pb layouts take llama only: the MoE kernel decodes nibble
+experts, and Mixtral's paired, bfp and sw experts re-lay to nibble when
+they stack.
 
 A Mixtral model comes back with each layer's experts already stacked
 (``experts_stacked``): a layer's per-expert planes are stacked and dropped
@@ -38,10 +39,10 @@ from ..models.config import ModelConfig
 from ..models.llama import DenseLinear, LlamaModel
 from ..nn.qlinear import QuantLinear
 from ..nn.qmoe import stack_experts
-from ..ops.qtensor import (ROWPAIR_LAYOUTS, QuantizedTensor, e8p_uv_table,
-                           e8p_word_table, paired_planes_from_uv,
-                           pb_planes_from_uv, relayout, resolve_layout,
-                           u3_planes_from_up)
+from ..ops.qtensor import (ROWPAIR_LAYOUTS, QuantizedTensor, affine_word_table,
+                           e8p_uv_table, e8p_word_table,
+                           paired_planes_from_uv, pb_planes_from_uv, relayout,
+                           resolve_layout, u3_planes_from_up)
 from ..transforms.incoherence import HadSpec, get_hadK
 from .device import resolve_device
 
@@ -60,6 +61,32 @@ def random_e8p_planes(q_out: int, q_in: int, generator: torch.Generator,
     table = torch.as_tensor(e8p_word_table(), device=device)
     codes = _random_codes(q_out, G, generator, device)
     return F.pad(table[codes], (0, Gp - G))
+
+
+def _random_affine_planes(cb_id: str, q_out: int, q_in: int,
+                          generator: torch.Generator, device
+                          ) -> Dict[str, torch.Tensor]:
+    """The nibble word planes of uniform random D4, HI or E8P12RVQ3B codes
+    (each code a table lookup on the device), pad columns zero."""
+    G = q_in // 8
+    Gp = -(-G // 128) * 128
+    if cb_id == "HI":           # every nibble is a code
+        w = torch.randint(-2 ** 31, 2 ** 31 - 1, (q_out, G),
+                          generator=generator, device=device,
+                          dtype=torch.int64).to(torch.int32)
+        return {"w0": F.pad(w, (0, Gp - G))}
+    if cb_id == "D4":           # two 4-weight codes a word
+        t = torch.as_tensor(affine_word_table("D4"), device=device)
+        c = torch.randint(0, 256, (q_out, G, 2), generator=generator,
+                          device=device)
+        w = (t[c[..., 0]].to(torch.int64) | (t[c[..., 1]].to(torch.int64)
+                                            << 16))
+        return {"w0": F.pad(torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(
+            torch.int32), (0, Gp - G))}
+    t = torch.as_tensor(affine_word_table("E8P12RVQ3B"), device=device)
+    c = torch.randint(0, 256, (q_out, G), generator=generator, device=device)
+    return {"w0": random_e8p_planes(q_out, q_in, generator, device),
+            "w1": F.pad(t[c], (0, Gp - G))}
 
 
 def _random_uv(q_out: int, G: int, generator: torch.Generator, device):
@@ -86,6 +113,10 @@ def random_qtensor(codebook: str, layout: str, q_out: int, q_in: int,
         u1, p1 = _random_uv(q_out, G, generator, device)
         pack = pb_planes_from_uv if layout == "pb" else paired_planes_from_uv
         planes = pack(u0, p0, u1, p1, q_out, G)
+    elif cb.id in ("D4", "HI", "E8P12RVQ3B"):
+        planes = _random_affine_planes(cb.id, q_out, q_in, generator, device)
+        return relayout(QuantizedTensor(planes, cb.id, q_out, q_in, ors),
+                        layout)
     else:
         # nibble words, re-laid as bfp / sw on the device
         planes = {f"w{s}": random_e8p_planes(q_out, q_in, generator, device)
@@ -104,9 +135,7 @@ def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
     transform and SU, as the quantizer's shared group transforms
     guarantee, so ``fuse_for_inference`` fuses them and the experts
     stack."""
-    if codebook not in ("E8P12", "E8P12RVQ4B"):
-        raise NotImplementedError(
-            f"random {codebook} models wait for ROADMAP.md slice 2")
+    get_codebook(codebook)                  # refuses an unknown codebook
     if cfg.arch not in ("llama", "mixtral"):
         raise NotImplementedError(f"arch {cfg.arch!r}")
     if cfg.arch == "mixtral" and resolve_layout(codebook, layout, 2) in \

@@ -32,6 +32,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "test_torch_k3_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_microbench_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_serving_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_right_cuda.py")
 
 
 def _imports(path):

@@ -153,6 +153,26 @@ def test_safetensors_reader_widens_bf16_exactly(tmp_path):
     assert np.array_equal(got["b"], np.arange(4, dtype=np.int32))
 
 
-def test_unported_checkpoints_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        load_quantized(os.path.join(GOLDEN, "d4"), device="cpu")
+def test_unported_checkpoints_raise(tmp_path):
+    """Every codebook loads now (tests/test_torch_codebooks.py); a
+    tensor-parallel checkpoint still raises, naming its roadmap slice."""
+    import json
+    import shutil
+    d = tmp_path / "d4_tp"
+    shutil.copytree(os.path.join(GOLDEN, "d4"), d)
+    with open(d / "config.json") as f:
+        cfg = json.load(f)
+    qcfg = cfg.get("quantization_config")
+    if qcfg is None:
+        with open(d / "quantization_config.json") as f:
+            qcfg = json.load(f)
+    qcfg["tp_shards"] = 2
+    if "quantization_config" in cfg:
+        cfg["quantization_config"] = qcfg
+        with open(d / "config.json", "w") as f:
+            json.dump(cfg, f)
+    else:
+        with open(d / "quantization_config.json", "w") as f:
+            json.dump(qcfg, f)
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        load_quantized(str(d), device="cpu")

@@ -104,5 +104,9 @@ def test_bit31_word_decodes_nibble7_unsigned():
 def test_unported_layouts_and_codebooks_raise():
     with pytest.raises(ValueError, match="not in"):
         tqt.QuantizedTensor({}, "E8P12", 128, 128, layout="u4")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        get_codebook("D4")
+    with pytest.raises(ValueError, match="Invalid codebook"):
+        get_codebook("E8P12RVQ5B")
+    # every codebook is ported; the u-code layouts take E8P12 codewords only
+    assert get_codebook("D4").id == "D4"
+    with pytest.raises(ValueError, match="takes"):
+        tqt.resolve_layout("D4", "u3", 128)

@@ -223,18 +223,18 @@ def test_ucode_entries_refuse_a_beta_the_codes_do_not_carry(cuda, layout):
     x = torch.randn((8, 8 * Gp), generator=g, device=cuda).to(torch.bfloat16)
     entry = ("qfa_paired_decode_matmul" if layout == "paired"
              else "qfa_rowpair_pb_matmul")
-    out = rm._launch(entry, x, layout, planes, rs, None, 1)
+    out = rm._launch(entry + "_ex", x, layout, planes, rs, None, 1)
     torch.cuda.synchronize()
     _close(out, rm.rowpair_matmul_ref(x, layout, planes, rs, rows=1),
            torch.bfloat16)
     fn = getattr(load(rm.PAIRED_KERNEL if layout == "paired" else rm.KERNEL),
-                 entry)
+                 entry + "_ex")
     beta = 2.25 * (1 + rs)
     for bad in (beta + 0.01 * max(1.0, abs(beta)), beta - 0.01, 2.25 * rs):
         err = fn(x.data_ptr(), planes["w0"].data_ptr(),
                  planes["w1"].data_ptr(), planes["w2"].data_ptr(), None,
-                 out.data_ptr(), 1, 192, Gp, PL, float(rs), bad, 0, 1,
-                 torch.cuda.current_stream().cuda_stream)
+                 None, out.data_ptr(), 1, 192, Gp, PL, float(rs), bad, 0, 1,
+                 0, torch.cuda.current_stream().cuda_stream)
         assert err == 1, (bad, err)
 
 
@@ -245,14 +245,15 @@ def test_u3_entry_refuses_a_beta_the_codes_do_not_carry(cuda):
     planes, Gp = _planes("u3", 192, 4096, cuda, seed=9)
     PL = planes["w2"].shape[-1]
     x = torch.randn((8, 8 * Gp), device=cuda).to(torch.bfloat16)
-    out = rm._launch("qfa_rowpair_u3_matmul", x, "u3", planes, -1.0, None, 1)
+    out = rm._launch("qfa_rowpair_u3_matmul_ex", x, "u3", planes, -1.0, None,
+                     1)
     torch.cuda.synchronize()
     _close(out, rm.rowpair_matmul_ref(x, "u3", planes, rows=1),
            torch.bfloat16)
-    fn = load(rm.KERNEL).qfa_rowpair_u3_matmul
+    fn = load(rm.KERNEL).qfa_rowpair_u3_matmul_ex
     for bad in (2.26, 2.24, 0.0):
         err = fn(x.data_ptr(), planes["w0"].data_ptr(),
                  planes["w1"].data_ptr(), planes["w2"].data_ptr(), None,
-                 out.data_ptr(), 1, 192, Gp, PL, -1.0, bad, 0, 1,
+                 None, out.data_ptr(), 1, 192, Gp, PL, -1.0, bad, 0, 1, 0,
                  torch.cuda.current_stream().cuda_stream)
         assert err == 1, (bad, err)
