@@ -134,9 +134,24 @@ line):
      (iv) within 9, path (c) again with both switches on (combine 8), 32
      tokens, held to its plain twin; (v) within 4, the golden d4, hi and
      e8p12rvq3b fixtures, also with the epilogue on.
+ 18. the other model families through ``models/registry.py``: (i)
+     GPT-NeoX-20B (the published EleutherAI/gpt-neox-20b widths, all 44
+     layers; E8P12 nibble, random codes from seed 0, quantized head: 177
+     K1 a forward, no dense-route linear): K1 launches and dense-route
+     linears per forward against the widths rule, a 32-token prompt and
+     32 greedy tokens through graphed ``generate`` bitwise equal to the
+     eager step loop, the kernel-vs-plain check in bf16 and f32, one
+     graphed step's and the 32-token prefill's device time, K1 per token
+     beside its bound at GPT-NeoX-20B's five shapes (timed as in phase
+     2), and ``ServingEngine`` at 4 slots, 4 requests (prompts 16-128,
+     16 new) in f32, its prefill chunks on K2, held to f32 ``generate``;
+     (ii) GPT-2, OPT, Falcon, Phi, GPT-J, QWen (fused) and Baichuan (fused)
+     at their published widths (``FAMILY_HF``), 2 layers each: the
+     routes against the widths rule, graphed ``generate`` of 8 tokens
+     against the eager loop and f32 logits against the plain route.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
-a, b, e, d), 17 (iii), 12, 6 (with c), 9 (with 17 iv), 14; each logs its
-start and its seconds. The last
+a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14; each logs
+its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
@@ -278,6 +293,67 @@ INT8_TOL = 0.1
 # (b): requests to the serving engine, drawn from seed 0: how many, prompt
 # lengths and max_new_tokens (uniform in each range)
 SERVE_N, SERVE_PROMPT, SERVE_NEW = 16, (16, 512), (32, 128)
+# phase 18 (i): GPT-NeoX-20B at full width and all 44 layers: the fields of
+# the published EleutherAI/gpt-neox-20b config.json that
+# ModelConfig.from_hf_config reads, written here (nothing is downloaded)
+NEOX_20B_HF = {"model_type": "gpt_neox", "vocab_size": 50432,
+               "hidden_size": 6144, "intermediate_size": 24576,
+               "num_hidden_layers": 44, "num_attention_heads": 64,
+               "max_position_embeddings": 2048, "rotary_pct": 0.25,
+               "rotary_emb_base": 10000, "layer_norm_eps": 1e-05,
+               "use_parallel_residual": True, "tie_word_embeddings": False}
+# its K1 linears (name, q_out, q_in, scale vector, rows m timed) and their
+# calls per token (the head once)
+NEOX_SHAPES = [("neox_qkv", 18432, 6144, False, (1, 32)),
+               ("neox_dense", 6144, 6144, False, (1, 32)),
+               ("neox_h_to_4h", 24576, 6144, False, (1, 32)),
+               ("neox_4h_to_h", 6144, 24576, False, (1, 32)),
+               ("neox_head", 50432, 6144, False, (1, 32))]
+NEOX_CALLS = {name: 44 for name, *_ in NEOX_SHAPES[:4]}
+NEOX_CALLS["neox_head"] = 1
+# (ii): the published config.json fields of the other seven families, by
+# model id; only the depth is cut, to FAMILY_LAYERS
+FAMILY_HF = {
+    "gpt2-xl": {"model_type": "gpt2", "vocab_size": 50257, "n_embd": 1600,
+                "n_layer": 48, "n_head": 25, "n_inner": None,
+                "n_positions": 1024, "layer_norm_epsilon": 1e-05},
+    "facebook/opt-6.7b": {"model_type": "opt", "vocab_size": 50272,
+                          "hidden_size": 4096, "ffn_dim": 16384,
+                          "num_hidden_layers": 32, "num_attention_heads": 32,
+                          "max_position_embeddings": 2048,
+                          "do_layer_norm_before": True,
+                          "word_embed_proj_dim": 4096},
+    "tiiuae/falcon-7b": {"model_type": "falcon", "vocab_size": 65024,
+                         "hidden_size": 4544, "num_hidden_layers": 32,
+                         "num_attention_heads": 71, "multi_query": True,
+                         "parallel_attn": True,
+                         "new_decoder_architecture": False,
+                         "layer_norm_epsilon": 1e-05},
+    "microsoft/phi-2": {"model_type": "phi", "vocab_size": 51200,
+                        "hidden_size": 2560, "intermediate_size": 10240,
+                        "num_hidden_layers": 32, "num_attention_heads": 32,
+                        "num_key_value_heads": None,
+                        "max_position_embeddings": 2048,
+                        "partial_rotary_factor": 0.4, "layer_norm_eps": 1e-05,
+                        "rope_theta": 10000.0, "tie_word_embeddings": False},
+    "EleutherAI/gpt-j-6b": {"model_type": "gptj", "vocab_size": 50400,
+                            "n_embd": 4096, "n_layer": 28, "n_head": 16,
+                            "n_inner": None, "rotary_dim": 64,
+                            "n_positions": 2048, "layer_norm_epsilon": 1e-05,
+                            "tie_word_embeddings": False},
+    "Qwen/Qwen-7B": {"model_type": "qwen", "vocab_size": 151936,
+                     "hidden_size": 4096, "intermediate_size": 22016,
+                     "num_hidden_layers": 32, "num_attention_heads": 32,
+                     "kv_channels": 128, "seq_length": 8192,
+                     "layer_norm_epsilon": 1e-06, "rotary_emb_base": 10000,
+                     "tie_word_embeddings": False},
+    "baichuan-inc/Baichuan2-7B-Base": {
+        "model_type": "baichuan", "vocab_size": 125696, "hidden_size": 4096,
+        "intermediate_size": 11008, "num_hidden_layers": 32,
+        "num_attention_heads": 32, "model_max_length": 4096,
+        "rms_norm_eps": 1e-06, "tie_word_embeddings": False},
+}
+FAMILY_LAYERS = 2
 
 
 def log(*a):
@@ -340,14 +416,32 @@ def phase_kernels():
     """fused_decode_matmul (K1) vs its plain twin at the main paths' shapes:
     m = 1, 8, 16 and 32 with one plane set and m = 1 and 32 with two."""
     import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, max_err = k1_rows(SHAPES, gen)
+    for m, n_sets in [(m, 1) for m in SHAPES[0][4]] + [
+            (m, 2) for m in K1_2SETS_M]:
+        per = {key: call_sum(rows, LLAMA_CALLS, key, m=m, sets=n_sets)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        log(f"kernel fused_decode_matmul K1 per Llama-2-7B "
+            f"{'token' if m <= 8 else 'prefill'} at m={m} ({n_sets} "
+            f"set(s), bf16, 129 calls): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in per.items()))
+    return rows, max_err
+
+
+def k1_rows(shapes, gen, two_sets=K1_2SETS_M):
+    """K1 against its plain twin at each (name, q_out, q_in, scale vector,
+    rows m) of ``shapes``, one plane set at every m and two at the m in
+    ``two_sets``: the max error, and a timed row per case (kernel, twin,
+    library product, bound)."""
+    import torch
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
     from quip_for_all_tpu_torch.ops.dequant import decode_weights
     from quip_for_all_tpu_torch.ops.qtensor import QuantizedTensor
     from quip_for_all_tpu_torch.utils.random_quantized import \
         random_e8p_planes
-    gen = torch.Generator(device="cuda").manual_seed(1)
     rows, max_err = [], 0.0
-    for name, q_out, q_in, with_scale, ms in SHAPES:
+    for name, q_out, q_in, with_scale, ms in shapes:
         G = q_in // 8
         w = [random_e8p_planes(q_out, q_in, gen, "cuda") for _ in range(2)]
         Gp = w[0].shape[1]
@@ -359,7 +453,7 @@ def phase_kernels():
         W = decode_weights(QuantizedTensor({"w0": w[0]}, "E8P12", q_out,
                                            q_in), dtype=torch.bfloat16)
         Ws = tm.cold_copies([W])
-        cases = [(m, 1) for m in ms] + [(m, 2) for m in ms if m in K1_2SETS_M]
+        cases = [(m, 1) for m in ms] + [(m, 2) for m in ms if m in two_sets]
         for m, n_sets in cases:
             affine = K1_AFFINE[:n_sets]
             cp = cps[n_sets]
@@ -408,14 +502,6 @@ def phase_kernels():
                 f"shape, 4x the plane bytes a set)")
         del cps, Ws, W, w
         torch.cuda.empty_cache()
-    for m, n_sets in [(m, 1) for m in SHAPES[0][4]] + [
-            (m, 2) for m in K1_2SETS_M]:
-        per = {key: call_sum(rows, LLAMA_CALLS, key, m=m, sets=n_sets)
-               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        log(f"kernel fused_decode_matmul K1 per Llama-2-7B "
-            f"{'token' if m <= 8 else 'prefill'} at m={m} ({n_sets} "
-            f"set(s), bf16, 129 calls): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in per.items()))
     return rows, max_err
 
 
@@ -1365,6 +1451,222 @@ def phase_mixtral():
             "serving": st, "serving_warm": warm}
 
 
+def widths_rule(model):
+    """(K1 launches, dense-route linears) per forward pass as the fused
+    route's shape rule predicts them: each quantized linear, fused or not,
+    launches K1 at m <= 32 where ``supports`` holds (q_out % 128 == 0 and
+    q_in % 8 == 0), and takes the dense decode + matmul elsewhere."""
+    from quip_for_all_tpu_torch.nn.qlinear import (FusedQuantLinear,
+                                                   QuantLinear)
+    from quip_for_all_tpu_torch.ops.fused_matmul import supports
+    k1 = dense = 0
+    for mod in model.modules():
+        if isinstance(mod, (QuantLinear, FusedQuantLinear)) and \
+                mod.plane_keys:
+            k1 += supports(mod.qweight)
+            dense += not supports(mod.qweight)
+    return k1, dense
+
+
+@contextlib.contextmanager
+def dense_route_calls():
+    """Counts the quantized linears that take the dense route (each decodes
+    its weights once) while active; yields a one-element list."""
+    from quip_for_all_tpu_torch.ops import quant_matmul as qm
+    orig, n = qm.decode_weights, [0]
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+    qm.decode_weights = counted
+    try:
+        yield n
+    finally:
+        qm.decode_weights = orig
+
+
+def family_routes(tag, cfg, model, prompt, cache_len):
+    """K1 launches and dense-route linears per forward of two eager
+    forwards (the prompt's prefill, one decode step), held to the shape
+    rule's prediction; returns (K1, dense) per forward."""
+    import torch
+    from quip_for_all_tpu_torch.runtime import generate as G
+    k1, dense = widths_rule(model)
+    reset_launches()
+    with dense_route_calls() as n:
+        G._generate(cfg, model, prompt, 2, cache_len=cache_len,
+                    dtype=torch.bfloat16, graphs=False)
+    got = read_launches()["fused_decode_matmul"]
+    log(f"{tag}: per forward {got / 2:g} K1 launches and {n[0] / 2:g} "
+        f"dense-route linears; the widths rule predicts {k1} and {dense}")
+    if (got, n[0]) != (2 * k1, 2 * dense):
+        raise AssertionError(f"{tag}: routes ({got}, {n[0]}) over two "
+                             f"forwards, predicted ({2 * k1}, {2 * dense})")
+    return k1, dense
+
+
+def graphed_vs_eager(tag, cfg, model, prompt, new, cache_len, k1):
+    """Graphed ``generate`` of ``new`` tokens beside the eager step loop:
+    ids and logits bitwise equal, exact K1 launches; returns the graphed
+    run's launches, host ms/token over the call and its runner."""
+    import torch
+    out = {}
+    for kind, graphs in (("graphed", None), ("eager", False)):
+        run = timed_generate(cfg, model, prompt, cache_len, graphs=graphs)
+        reset_launches()
+        (ids, logits), t = run(new)
+        launches = read_launches()
+        check_launches(f"{tag} {kind}", launches, {
+            "fused_decode_matmul": k1 * forwards(run.runner)})
+        out[kind] = (ids, torch.stack(logits), t, run.runner, launches)
+    (ids_g, lg_g, t_g, r_g, launches), (ids_e, lg_e, t_e, *_) = (
+        out["graphed"], out["eager"])
+    same = torch.equal(ids_g, ids_e) and torch.equal(lg_g, lg_e)
+    finite = bool(torch.isfinite(lg_g).all())
+    log(f"{tag}: generate, prompt {prompt.shape[1]} + {new} greedy tokens, "
+        f"cache_len {cache_len}, host clock over the call: graphed "
+        f"{t_g / new * 1e3:.2f} ms/token ({graph_note(r_g)}), eager step "
+        f"loop {t_e / new * 1e3:.2f} ms/token; graphed ids and logits "
+        f"bitwise equal to the eager loop's: {same}; logits finite: {finite}")
+    if not (same and finite and lg_g.shape == (new, 1, cfg.vocab_size)):
+        raise AssertionError(f"{tag}: graphed run differs from the eager "
+                             "loop, or its logits are not finite")
+    return launches, t_g / new * 1e3, r_g
+
+
+def phase_neox20b():
+    """(i) GPT-NeoX-20B E8P12 nibble at full width and all 44 layers
+    (random codes, seed 0, quantized head; phase 18)."""
+    import gc
+    import numpy as np
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig.from_hf_config(NEOX_20B_HF)
+    L = cfg.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
+                                      quantize_head=True, device="cuda")
+    torch.cuda.synchronize()
+    log(f"neox20b: built GPT-NeoX-20B E8P12 ({L} layers, hidden "
+        f"{cfg.hidden_size}, rotary dims 24 of {cfg.head_dim}; random codes, "
+        f"seed 0, quantized head) in {time.time() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    S, NEW, CACHE = 32, 32, 2048
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device="cuda")
+    k1, dense = family_routes("neox20b", cfg, model, prompt, CACHE)
+    if (k1, dense) != (4 * L + 1, 0):
+        raise AssertionError(f"neox20b: {k1} K1 linears and {dense} dense "
+                             f"ones, expected {4 * L + 1} and 0")
+    launches, ms_tok, _ = graphed_vs_eager("neox20b", cfg, model, prompt,
+                                           NEW, CACHE, k1)
+    for dt, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+        check_plain(cfg, model, prompt, dt, tol, CACHE, tag="neox20b",
+                    per_step={"fused_decode_matmul": k1})
+    dev_ms, eager_ms = decode_step_device_ms(cfg, model, prompt, CACHE)
+    pre_ms, pre_eager = prefill_device_ms(cfg, model, prompt, CACHE)
+    rows, err = k1_rows(NEOX_SHAPES, torch.Generator(
+        device="cuda").manual_seed(2), two_sets=())
+    per = {key: call_sum(rows, NEOX_CALLS, key, m=1, sets=1)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    pre = {key: call_sum(rows, NEOX_CALLS, key, m=32, sets=1)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"neox20b: one decode step (position {S}): device time {dev_ms:.2f} "
+        f"ms (CUDA-graph replay), eager {eager_ms:.2f} ms -> device idle "
+        f"{1 - dev_ms / eager_ms:.0%}; K1 per token (m = 1, {k1} calls) "
+        f"{per['ms']:.3f} ms, bound {per['bound_ms']:.3f} ms "
+        f"({per['bound_ms'] / per['ms']:.0%} of it), library "
+        f"{per['library_ms']:.3f} ms; the step outside K1 "
+        f"{dev_ms - per['ms']:.2f} ms; the {S}-token prefill: device time "
+        f"{pre_ms:.2f} ms (eager {pre_eager:.2f}), K1 at m = 32 "
+        f"{pre['ms']:.3f} ms (bound {pre['bound_ms']:.3f})")
+
+    # serving: 4 requests at 4 slots in f32 (a prefill chunk of 4 x 128
+    # rows runs K2, a decode step of 4 rows K1), each request's ids held to
+    # f32 generate of its prompt alone
+    f32 = {"compute_dtype": torch.float32}
+    reqs = [(p, 16) for p, _ in serving_requests(cfg, 4, 0, (16, 128),
+                                                 (16, 16))]
+    outs, st, eng = serve("neox20b serving f32", cfg, model, reqs,
+                          max_batch=4, cache_len=CACHE, prefill_chunk=128,
+                          decode_chunk=8, dtype=torch.float32, linear_kw=f32)
+    check_serving_launches("neox20b serving f32", st,
+                           {"fused_decode_matmul_tc": k1},
+                           {"fused_decode_matmul": k1})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = 0
+    for (p, m), got in zip(reqs, outs):
+        want = qt.generate(cfg, model, torch.as_tensor(p)[None].cuda(), m,
+                           cache_len=CACHE, dtype=torch.float32,
+                           linear_kw=f32)[0].cpu().numpy()
+        same += int(np.array_equal(got, want))
+    log(f"neox20b serving f32: {same}/4 requests' ids equal f32 generate of "
+        "the prompt alone")
+    if same != 4:
+        raise AssertionError("neox20b: f32 serving differs from generate")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches["fused_decode_matmul"], "k1_per_token": k1,
+            "ms_tok": ms_tok, "dev_ms": dev_ms, "eager_ms": eager_ms,
+            "prefill_device_ms": pre_ms, "kernel_ms_token": per["ms"],
+            "kernel_bound_ms_token": per["bound_ms"],
+            "kernel_library_ms_token": per["library_ms"],
+            "kernel_max_err": err, "serving": st}
+
+
+def phase_families():
+    """(ii) GPT-2, OPT, Falcon, Phi, GPT-J, QWen and Baichuan at their
+    published widths, FAMILY_LAYERS layers each (random E8P12 codes, seed
+    0, quantized head where untied and V % 128 == 0; QWen and Baichuan
+    fused): K1 launches and dense-route linears per forward against the
+    widths rule, graphed ``generate`` of 8 tokens against the eager loop,
+    and f32 logits against the plain route."""
+    import dataclasses
+    import gc
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.models.config import ModelConfig
+    out = {}
+    for source, hf in FAMILY_HF.items():
+        cfg = dataclasses.replace(ModelConfig.from_hf_config(hf),
+                                  num_hidden_layers=FAMILY_LAYERS)
+        tag = f"{cfg.arch} ({source})"
+        t = time.time()
+        model = qt.fuse_for_inference(cfg, qt.random_quantized_model(
+            cfg, seed=0, dtype=torch.bfloat16, quantize_head=True,
+            device="cuda"))
+        torch.cuda.synchronize()
+        depth = hf.get("num_hidden_layers", hf.get("n_layer"))
+        log(f"{tag}: built at hidden {cfg.hidden_size}, intermediate "
+            f"{cfg.intermediate_size}, {cfg.num_attention_heads} heads "
+            f"({cfg.num_key_value_heads} kv), vocab {cfg.vocab_size}, "
+            f"{FAMILY_LAYERS} of {depth} layers in {time.time() - t:.1f} s")
+        prompt = torch.randint(0, cfg.vocab_size, (1, 16), device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(0))
+        k1, dense = family_routes(tag, cfg, model, prompt, 512)
+        launches, ms_tok, _ = graphed_vs_eager(tag, cfg, model, prompt, 8,
+                                               512, k1)
+        check_plain(cfg, model, prompt, torch.float32, 1e-3, 512, n=8,
+                    tag=tag, per_step={"fused_decode_matmul": k1})
+        out[source] = {"arch": cfg.arch, "k1_per_forward": k1,
+                       "dense_per_forward": dense,
+                       "launches": launches["fused_decode_matmul"],
+                       "ms_tok": ms_tok}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_rowpair_kernels():
     """The row-pair kernels against their plain twins at Llama-2-7B's
     shapes, timed as phase 2 times fused_decode_matmul, and beside
@@ -1883,9 +2185,10 @@ def decode_step_device_ms(cfg, model, prompt, cache_len, n=20):
     beside the same step run eagerly n times: what one step of
     ``generate``'s graphed loop spends on the device, alone."""
     import torch
-    from quip_for_all_tpu_torch.models import llama as M
+    from quip_for_all_tpu_torch.models.registry import get_arch
     from quip_for_all_tpu_torch.runtime.generate import (attn_bucket,
                                                          init_kv_caches)
+    M = get_arch(cfg)
     S = prompt.shape[1]
     caches = init_kv_caches(cfg, 1, cache_len, torch.bfloat16, "cuda")
     M.model_apply(cfg, model, prompt, kv_caches=caches, cache_position=0,
@@ -1907,9 +2210,10 @@ def prefill_device_ms(cfg, model, prompt, cache_len, n=10):
     graph and replayed n times between CUDA events, beside the same
     prefill run eagerly n times."""
     import torch
-    from quip_for_all_tpu_torch.models import llama as M
+    from quip_for_all_tpu_torch.models.registry import get_arch
     from quip_for_all_tpu_torch.runtime.generate import (attn_bucket,
                                                          init_kv_caches)
+    M = get_arch(cfg)
     S = prompt.shape[1]
     caches = init_kv_caches(cfg, 1, cache_len, torch.bfloat16, "cuda")
     w = attn_bucket(S, cache_len)
@@ -2970,6 +3274,28 @@ def serving_path_launches(entries, graphed, serving, mix):
         mixtral_8x7b_serving=mix["serving"]["launches"]["moe_decode_matmul"])
 
 
+def family_path_launches(entries, neox, fams):
+    """The other families' launches beside K1's and K2's entries: K1 in
+    GPT-NeoX-20B's graphed generate and in each family's at published
+    widths, K2 in GPT-NeoX-20B's serving prefill; GPT-NeoX-20B's K1 per
+    token at m = 1 beside its bound."""
+    by = {e["name"]: e for e in entries}
+    k1 = by["fused_decode_matmul"]
+    k1.setdefault("launches_by_path", {}).update(
+        gpt_neox_20b_graphed_generate=neox["launches"],
+        gpt_neox_20b_serving=neox["serving"]["launches"][
+            "fused_decode_matmul"],
+        **{f"{v['arch']}_{src.split('/')[-1]}": v["launches"]
+           for src, v in fams.items()})
+    k1["gpt_neox_20b_per_token"] = {
+        "calls": neox["k1_per_token"], "ms": neox["kernel_ms_token"],
+        "bound_ms": neox["kernel_bound_ms_token"],
+        "library_ms": neox["kernel_library_ms_token"]}
+    by["fused_decode_matmul_tc"].setdefault("launches_by_path", {}).update(
+        gpt_neox_20b_serving_prefill=neox["serving"]["launches"][
+            "fused_decode_matmul_tc"])
+
+
 def call_sum(rows, calls, key, **match):
     """Sum of key over the rows of the named layers, each times its calls
     (e.g. per decode token)."""
@@ -3261,6 +3587,8 @@ def main() -> int:
         right_main = at("17 (iii)", phase_right_main, main)
         new_paths = at("12", phase_layout_paths, main)
         mix = at("6", phase_mixtral)
+        neox = at("18 (i)", phase_neox20b)
+        fams = at("18 (ii)", phase_families)
         paths = at("9", phase_rowpair_paths)
         train = at("14", phase_train)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
@@ -3271,9 +3599,12 @@ def main() -> int:
         entries += microbench_entries(mb_recs)
         right_entries(entries, right_rows)
         serving_path_launches(entries, graphed, serving, mix)
+        family_path_launches(entries, neox, fams)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
             "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
+        log("families: " + json.dumps({"gpt_neox_20b": neox,
+                                        "published_widths": fams}))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

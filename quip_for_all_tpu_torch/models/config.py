@@ -1,9 +1,9 @@
 """Model configs for the supported decoder families.
 
 A copy of ``quip_for_all_tpu/models/config.py`` (numpy-free, framework-free)
-so that the PyTorch port imports nothing of the JAX package. The port's
-forward currently covers the llama family only (``models/llama.py``); the
-other families parse here and are refused by the loader.
+so that the PyTorch port imports nothing of the JAX package. Every family
+parsed here runs in the port, each through its module in ``models/``
+(``models/registry.py`` ``get_arch``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Llama-family decoder in PyTorch — counterpart of the llama parts of
-``quip_for_all_tpu/models/llama.py``.
+"""Llama-family decoder (llama, Mixtral and Baichuan, whose fused qkv is
+``W_pack``) in PyTorch — counterpart of ``quip_for_all_tpu/models/llama.py``.
 
 The model is an ``nn.Module`` whose tree mirrors the JAX param dict:
 ``embed_tokens``, ``layers[i]`` (an ``nn.ModuleDict`` with
@@ -30,6 +30,10 @@ from ..nn.qmoe import (StackedQuantLinear, moe_sparse_apply, stack_experts,
                        unstack_qlinear)
 from .common import attn_bucket, kv_len, sdpa_cache_layout, write_kv
 from .config import ModelConfig
+
+
+# the configs this module runs (the others: models/registry.py)
+LLAMA_ARCHS = ("llama", "mixtral", "baichuan")
 
 
 # --------------------------------------------------------------- modules
@@ -181,6 +185,9 @@ def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "qkv_proj" in attn_p:   # fused single-launch qkv (inference)
         q, k, v = attn_p["qkv_proj"](x, **linear_kw)
+    elif "W_pack" in attn_p:   # baichuan fused qkv (rows [q; k; v])
+        qkv = linear_apply(attn_p["W_pack"], x, **linear_kw)
+        q, k, v = torch.split(qkv, [H * hd, KV * hd, KV * hd], dim=-1)
     else:
         q = linear_apply(attn_p["q_proj"], x, **linear_kw)
         k = linear_apply(attn_p["k_proj"], x, **linear_kw)
@@ -287,9 +294,9 @@ def model_apply(cfg: ModelConfig, model: LlamaModel,
     starts (``models/common.py``); attn_window (static) promises every
     query position is < attn_window. Nothing here reads a tensor back to
     the host, so a decode step can be captured in a CUDA graph."""
-    if cfg.arch not in ("llama", "mixtral"):
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md slice 5)")
+    if cfg.arch not in LLAMA_ARCHS:
+        raise ValueError(f"arch {cfg.arch!r} runs through its own module "
+                         "(models/registry.py get_arch)")
     B, S = input_ids.shape
     dev = input_ids.device
     x = F.embedding(input_ids, model.embed_tokens.weight).to(dtype)
@@ -345,10 +352,12 @@ def _sharable(ps) -> bool:
 def fuse_for_inference(cfg: ModelConfig, model: LlamaModel) -> LlamaModel:
     """Fuse qkv and gate/up QuantLinears that share left transforms into
     single-launch FusedQuantLinears, and stack Mixtral's experts (the
-    stacked copy replaces the per-expert list in the new model). Returns a
-    new model sharing every other submodule with ``model``."""
-    if cfg.arch not in ("llama", "mixtral"):
-        raise NotImplementedError(f"fusion for arch {cfg.arch!r}")
+    stacked copy replaces the per-expert list in the new model); Baichuan's
+    W_pack is one launch already and stays. Returns a new model sharing
+    every other submodule with ``model``."""
+    if cfg.arch not in LLAMA_ARCHS:
+        raise ValueError(f"arch {cfg.arch!r} fuses through its own module "
+                         "(models/registry.py get_arch)")
     layers = []
     for src in model.layers:
         attn = dict(src["self_attn"].items())

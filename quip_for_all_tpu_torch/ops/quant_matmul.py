@@ -7,8 +7,10 @@ counterpart of ``quip_for_all_tpu/ops/quant_matmul.py``.
                product the JAX package leaves to XLA outside any kernel.
   - "auto":    "fused" when m < max_m and the shape rule allows, else
                "dequant".
-  - "plain":   the kernel's plain twin on any device; used only to hold
-               the kernel against it.
+  - "plain":   the kernel's plain twin on any device, where the shape
+               rule allows the kernel (elsewhere "dequant", the route
+               "auto" takes there too); used only to hold the kernel
+               against it.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     if impl == "auto":
         impl = ("fused" if x.shape[0] < max_m and supports(qt)
                 else "dequant")
+    elif impl == "plain" and not supports(qt):
+        impl = "dequant"
     if impl in ("fused", "plain"):
         if not supports(qt):
             raise ValueError(f"fused route needs q_out % 128 == 0, got "

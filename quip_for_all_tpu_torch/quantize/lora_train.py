@@ -43,12 +43,22 @@ PEFT_ADAPTER_CONFIG = "adapter_config.json"
 _PEFT_PREFIX = "base_model.model.model."
 
 
+def _lora_families(cfg: ModelConfig) -> None:
+    """LoRA runs on llama and Mixtral; the other families wait for the
+    training slice."""
+    if cfg.arch not in ("llama", "mixtral"):
+        raise NotImplementedError(
+            f"LoRA on arch {cfg.arch!r} is not ported yet (ROADMAP.md queue "
+            "1 item 7)")
+
+
 def causal_lm_loss(cfg: ModelConfig, model: M.LlamaModel,
                    ids: torch.Tensor,
                    linear_kw: Optional[dict] = None) -> torch.Tensor:
     """Next-token cross entropy over a (B, S) batch (labels = ids shifted),
     the logits in f32; ``linear_kw`` goes to every linear (e.g.
     ``compute_dtype`` or ``matmul_impl``)."""
+    _lora_families(cfg)
     logits, _ = M.model_apply(cfg, model, ids[:, :-1],
                               linear_kw=linear_kw or {})
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
@@ -79,6 +89,7 @@ def train_lora(cfg: ModelConfig, model: M.LlamaModel,
     ``valid_tokens`` the validation loss after each epoch keeps the best
     epoch and stops early after ``early_stop`` epochs without a gain (the
     JAX package's loop)."""
+    _lora_families(cfg)
     dev = _model_device(model, device)
     add_lora(model, rank=rank, alpha=alpha, targets=targets, seed=seed)
     flat = collect_lora_trainable(model.layers, "layers")

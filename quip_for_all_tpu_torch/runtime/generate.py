@@ -27,9 +27,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models import llama as M
 from ..models.common import QuantKVCache, attn_bucket
 from ..models.config import ModelConfig
+from ..models.registry import get_arch, model_device
 from ..utils.device import resolve_device
 from .graphs import HostFetch, StepRunner
 
@@ -106,7 +106,7 @@ class _Decoder:
     """One generate call's decode state: the caches, the step's static
     buffers and its ``StepRunner`` (a graph per attention bucket)."""
 
-    def __init__(self, cfg: ModelConfig, params: M.LlamaModel, B: int,
+    def __init__(self, cfg: ModelConfig, params, B: int,
                  max_new_tokens: int, generator, temperature: float,
                  top_k: int, cache_len: int, dtype, dev: torch.device,
                  linear_kw: Optional[dict], kv_quantized: bool,
@@ -114,6 +114,7 @@ class _Decoder:
         if temperature != 0.0 and generator is None:
             raise ValueError("sampling needs an explicit torch.Generator")
         self.cfg, self.params, self.B, self.dev = cfg, params, B, dev
+        self.model_apply = get_arch(cfg).model_apply
         self.kw = dict(dtype=dtype, linear_kw=linear_kw)
         self.generator, self.temperature, self.top_k = (generator,
                                                         temperature, top_k)
@@ -142,7 +143,7 @@ class _Decoder:
                 cache_len: int) -> torch.Tensor:
         B, S = prompt_ids.shape
         positions = torch.arange(S, device=self.dev)[None, :].repeat(B, 1)
-        logits, _ = M.model_apply(
+        logits, _ = self.model_apply(
             self.cfg, self.params, prompt_ids, positions=positions,
             kv_caches=self.caches, cache_position=0,
             attn_window=attn_bucket(S, cache_len), **self.kw)
@@ -159,7 +160,7 @@ class _Decoder:
 
     def _step(self, window: int) -> None:
         B = self.B
-        logits, _ = M.model_apply(
+        logits, _ = self.model_apply(
             self.cfg, self.params, self.tok[:, None],
             positions=self.pos.view(1, 1).expand(B, 1),
             kv_caches=self.caches, cache_position=self.pos,
@@ -196,10 +197,9 @@ class _Decoder:
 
 def _start(cfg, params, prompt_ids, max_new_tokens, cache_len, device):
     dev = resolve_device(device)
-    emb = params.embed_tokens.weight
-    if emb.device.type != dev.type:
-        raise ValueError(f"model lives on {emb.device}, generate asked for "
-                         f"{dev}")
+    have = model_device(params)
+    if have.type != dev.type:
+        raise ValueError(f"model lives on {have}, generate asked for {dev}")
     prompt_ids = torch.as_tensor(prompt_ids).to(dev)
     B, S = prompt_ids.shape
     if S + max_new_tokens > cache_len:
@@ -234,7 +234,7 @@ def _generate(cfg, params, prompt_ids, max_new_tokens, *, generator=None,
 
 
 @torch.no_grad()
-def generate(cfg: ModelConfig, params: M.LlamaModel,
+def generate(cfg: ModelConfig, params,
              prompt_ids: torch.Tensor, max_new_tokens: int,
              generator: Optional[torch.Generator] = None,
              temperature: float = 0.0, top_k: int = 0,
@@ -243,11 +243,13 @@ def generate(cfg: ModelConfig, params: M.LlamaModel,
              return_logits: bool = False, kv_quantized: bool = False):
     """prompt_ids (B, S) -> (B, S + max_new_tokens) generated ids.
 
-    ``params`` is the model (built on ``device``); ``kv_quantized`` keeps
-    the KV cache in int8 (``QuantKVCache``). ``return_logits`` also returns
-    the f32 last-position logits of the prefill and of every decode step,
-    [(B, V)] * max_new_tokens (kept for tests and checks). On a card the
-    decode steps replay one CUDA graph per attention bucket."""
+    ``params`` is the model of any family (built on ``device``; it runs
+    through ``models/registry.py`` ``get_arch(cfg)``); ``kv_quantized``
+    keeps the KV cache in int8 (``QuantKVCache``). ``return_logits`` also
+    returns the f32 last-position logits of the prefill and of every
+    decode step, [(B, V)] * max_new_tokens (kept for tests and checks).
+    On a card the decode steps replay one CUDA graph per attention
+    bucket."""
     out, logits, _ = _generate(
         cfg, params, prompt_ids, max_new_tokens, generator=generator,
         temperature=temperature, top_k=top_k, cache_len=cache_len,
@@ -257,7 +259,7 @@ def generate(cfg: ModelConfig, params: M.LlamaModel,
 
 
 @torch.no_grad()
-def generate_stream(cfg: ModelConfig, params: M.LlamaModel,
+def generate_stream(cfg: ModelConfig, params,
                     prompt_ids: torch.Tensor, max_new_tokens: int, *,
                     chunk: int = 8,
                     generator: Optional[torch.Generator] = None,
@@ -289,10 +291,12 @@ def decode_step_fn(cfg: ModelConfig, cache_len: int = 2048,
                    dtype=torch.bfloat16, linear_kw: Optional[dict] = None):
     """A single-token decode step (for timing the hot path alone):
     (params, caches, tok (B,), pos host int) -> (logits (B, V), caches).
-    The attention bucket is picked on the host from ``pos``
-    (``models/llama.py`` ``runtime_window``), as the JAX step's runtime
-    switch picks it. ``linear_kw`` forwards to the quantized linears."""
+    Llama-family models pick the attention bucket on the host from
+    ``pos`` (``models/llama.py`` ``runtime_window``), as the JAX step's
+    runtime switch picks it; the other families read the whole cache, as
+    theirs do. ``linear_kw`` forwards to the quantized linears."""
     del cache_len      # the caches carry their length
+    model_apply = get_arch(cfg).model_apply
 
     @torch.no_grad()
     def step(params, caches, tok, pos: int):
@@ -301,7 +305,7 @@ def decode_step_fn(cfg: ModelConfig, cache_len: int = 2048,
         B = tok.shape[0]
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=tok.device)
-        logits, caches = M.model_apply(
+        logits, caches = model_apply(
             cfg, params, tok[:, None], positions=positions,
             kv_caches=caches, cache_position=pos, dtype=dtype,
             linear_kw=linear_kw)
@@ -310,7 +314,7 @@ def decode_step_fn(cfg: ModelConfig, cache_len: int = 2048,
 
 
 @torch.no_grad()
-def perplexity(cfg: ModelConfig, params: M.LlamaModel,
+def perplexity(cfg: ModelConfig, params,
                token_windows: np.ndarray, batch_size: int = 1,
                dtype=torch.float32, sp_mesh=None, device="cuda",
                linear_kw: Optional[dict] = None) -> float:
@@ -324,9 +328,10 @@ def perplexity(cfg: ModelConfig, params: M.LlamaModel,
             "sequence-parallel perplexity (sp_mesh=) is not ported yet "
             "(ROADMAP.md queue 1 item 8)")
     dev = resolve_device(device)
-    if params.embed_tokens.weight.device.type != dev.type:
-        raise ValueError(f"model lives on {params.embed_tokens.weight.device}"
-                         f", perplexity asked for {dev}")
+    if model_device(params).type != dev.type:
+        raise ValueError(f"model lives on {model_device(params)}, "
+                         f"perplexity asked for {dev}")
+    model_apply = get_arch(cfg).model_apply
     windows = np.asarray(token_windows)
     losses = []
     for i in range(0, windows.shape[0], batch_size):
@@ -334,8 +339,8 @@ def perplexity(cfg: ModelConfig, params: M.LlamaModel,
         if b.shape[0] < batch_size:
             break
         batch = torch.as_tensor(b, dtype=torch.int64, device=dev)
-        logits, _ = M.model_apply(cfg, params, batch, dtype=dtype,
-                                  linear_kw=linear_kw)
+        logits, _ = model_apply(cfg, params, batch, dtype=dtype,
+                                linear_kw=linear_kw)
         logp = torch.log_softmax(logits[:, :-1, :].to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, batch[:, 1:, None])[..., 0]
         losses.append(float(-ll.mean()))

@@ -40,8 +40,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models import llama as M
 from ..models.config import ModelConfig
+from ..models.registry import get_arch, model_device
 from ..utils.device import resolve_device
 from .generate import (attn_bucket, gumbel_noise, init_kv_caches,
                        pick_token, sample_token)
@@ -80,7 +80,7 @@ class _Chunk:
 
 
 class ServingEngine:
-    def __init__(self, cfg: ModelConfig, params: M.LlamaModel,
+    def __init__(self, cfg: ModelConfig, params,
                  max_batch: int = 8, cache_len: int = 2048,
                  dtype=torch.bfloat16, temperature: float = 0.0,
                  top_k: int = 0, prefill_chunk: int = 128,
@@ -92,17 +92,18 @@ class ServingEngine:
         """``on_token(rid, token, done)`` — optional streaming callback,
         invoked in emission order for every generated token (including the
         first, sampled at admission) with ``done=True`` on a request's
-        final token. ``linear_kw`` forwards to the quantized linears."""
+        final token. ``linear_kw`` forwards to the quantized linears.
+        ``params`` is the model of any family (``models/registry.py``)."""
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-sharded serving (mesh=) is not ported yet "
                 "(ROADMAP.md queue 1 item 8)")
         dev = resolve_device(device)
-        if params.embed_tokens.weight.device.type != dev.type:
-            raise ValueError(f"model lives on "
-                             f"{params.embed_tokens.weight.device}, the "
+        if model_device(params).type != dev.type:
+            raise ValueError(f"model lives on {model_device(params)}, the "
                              f"engine asked for {dev}")
         self.cfg, self.params, self.dev = cfg, params, dev
+        self.model_apply = get_arch(cfg).model_apply
         self.on_token = on_token
         self.B, self.S = max_batch, cache_len
         self.kw = dict(dtype=dtype, linear_kw=linear_kw)
@@ -185,7 +186,7 @@ class ServingEngine:
         outputs are discarded)."""
         B, C = self.B, self.C
         positions = self._ppos[:, None] + torch.arange(C, device=self.dev)
-        logits, _ = M.model_apply(
+        logits, _ = self.model_apply(
             self.cfg, self.params, self._ptoks, positions=positions,
             kv_caches=self.caches, cache_position=self._ppos,
             attn_window=window, **self.kw)
@@ -195,7 +196,7 @@ class ServingEngine:
     def _decode_body(self, window: int) -> None:
         """One decode step of every slot; inactive slots keep their token
         and position (their surplus writes land in their own rows)."""
-        logits, _ = M.model_apply(
+        logits, _ = self.model_apply(
             self.cfg, self.params, self._tok[:, None],
             positions=self._pos[:, None], kv_caches=self.caches,
             cache_position=self._pos, attn_window=window, **self.kw)

@@ -1,9 +1,15 @@
-"""Load reference-schema quantized checkpoints (llama family and Mixtral,
-every codebook: E8P12, E8P12RVQ4B, E8P12RVQ3B, D4 and HI) — counterpart of
+"""Load reference-schema quantized checkpoints of every family the JAX
+package loads (llama, with Yi's ln1/ln2 norm names; Mixtral; Baichuan, its
+qkv one ``W_pack``; GPT-2, GPT-NeoX, OPT, Falcon, Phi, GPT-J and QWen,
+under the tensor names of ``_load_gpt2`` ... ``_load_qwen`` there) in
+every codebook (E8P12, E8P12RVQ4B, E8P12RVQ3B, D4 and HI) — counterpart of
 ``load_quantized`` / ``_build_qlinear`` in
 ``quip_for_all_tpu/utils/checkpoint.py``. Mixtral's router gate loads
 dense (or quantized, when the checkpoint quantized it) and its experts as
-per-expert quantized linears; ``fuse_for_inference`` stacks them.
+per-expert quantized linears; ``fuse_for_inference`` stacks them. The
+families other than llama, Mixtral and Baichuan load through their
+skeletons (``models/tree.py``): each leaf's name is its path under
+``model.`` (the head ``lm_head`` without it), as the JAX saver writes it.
 ``layout`` picks the runtime layout of every quantized linear
 (``ops/qtensor.py`` ``resolve_layout``: "u3" for E8P12, "pb" and "paired"
 for E8P12RVQ4B, "bfp", "sw2" and "sw4" for every codebook), where the JAX
@@ -14,9 +20,9 @@ The schema: safetensors with HF state-dict names; each quantized linear
 stores Qidxs (packed codes), SU, SV, Wscale (unnormalized), optional bias,
 had_left/had_right (only with use_rand) and a scalar ``weight`` shim; the
 quantization config sits in config.json or quantization_config.json.
-Files are read with the port's own safetensors reader. Other families and
-tensor-parallel checkpoints raise NotImplementedError naming their
-roadmap slice. Saving waits for the quantization slice.
+Files are read with the port's own safetensors reader. Tensor-parallel
+checkpoints raise NotImplementedError (ROADMAP.md queue 1 item 8).
+Saving waits for the quantization slice (item 6).
 """
 from __future__ import annotations
 
@@ -29,7 +35,10 @@ import torch
 
 from ..codebooks import get_codebook
 from ..models.config import ModelConfig
-from ..models.llama import LlamaModel
+from ..models.llama import LLAMA_ARCHS, LlamaModel
+from ..models.registry import get_arch
+from ..models.tree import (FamilyModel, LinearSpec, NormSpec, TableSpec,
+                           map_skeleton)
 from ..nn.qlinear import QuantLinear
 from ..ops.qtensor import from_checkpoint_idxs
 from ..transforms.incoherence import get_hadK
@@ -124,21 +133,18 @@ def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
 
 
 def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
-                   layout=None) -> Tuple[ModelConfig, LlamaModel, dict]:
+                   layout=None) -> Tuple[ModelConfig, Any, dict]:
     """Local checkpoint directory -> (model config, model, quant config),
-    every quantized linear in the runtime ``layout``."""
+    every quantized linear in the runtime ``layout``: a ``LlamaModel`` for
+    llama, Mixtral and Baichuan, else the family's ``FamilyModel``."""
     dev = resolve_device(device)
     if not os.path.isdir(save_dir):
         raise FileNotFoundError(f"{save_dir!r} is not a local directory")
     cfg = ModelConfig.from_pretrained_dir(save_dir)
     qcfg = load_quant_config(save_dir)
-    if cfg.arch not in ("llama", "mixtral"):
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
-            "slice 5)")
     if int(qcfg.get("tp_shards", 1)) > 1:
         raise NotImplementedError("tensor-parallel checkpoints (ROADMAP.md "
-                                  "queue 1, slice 8)")
+                                  "queue 1 item 8)")
     _codebook(qcfg)                         # refuses an unknown codebook
     tensors = open_all_tensors(save_dir)
     if any(".ln1.weight" in k for k in tensors):
@@ -157,6 +163,8 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
     def w(name):
         return {"weight": _t(tensors[name], dev, dtype)}
 
+    if cfg.arch not in LLAMA_ARCHS:
+        return cfg, _load_family(cfg, tensors, dense, dtype, dev), qcfg
     tree: Dict[str, Any] = {
         "embed_tokens": w("model.embed_tokens.weight"),
         "norm": w("model.norm.weight"),
@@ -171,7 +179,10 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
             "post_attention_layernorm":
                 w(f"{p}.post_attention_layernorm.weight"),
             "self_attn": {x: dense(f"{p}.self_attn.{x}")
-                          for x in ("q_proj", "k_proj", "v_proj", "o_proj")},
+                          for x in (("W_pack", "o_proj")
+                                    if cfg.arch == "baichuan" else
+                                    ("q_proj", "k_proj", "v_proj",
+                                     "o_proj"))},
         }
         if cfg.arch == "mixtral":
             moe = f"{p}.block_sparse_moe"
@@ -186,3 +197,28 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
                           for x in ("gate_proj", "up_proj", "down_proj")}
         tree["layers"].append(blk)
     return cfg, LlamaModel.from_tree(tree), qcfg
+
+
+def _load_family(cfg: ModelConfig, tensors: Dict[str, np.ndarray], dense,
+                 dtype, dev) -> FamilyModel:
+    """A family's tree from its skeleton: linears through ``dense``
+    (quantized where the checkpoint has Qidxs), norms with their bias
+    where they have one, tables. A head the checkpoint lacks is left out
+    (QWen's tied head, as the JAX loader decides by the tensors)."""
+    def leaf(path, spec):
+        name = ".".join(str(k) for k in path)
+        if path[0] != "lm_head":
+            name = "model." + name
+        if isinstance(spec, LinearSpec):
+            if (path[0] == "lm_head" and name + ".weight" not in tensors
+                    and name + ".Qidxs" not in tensors):
+                return None
+            return dense(name)
+        if isinstance(spec, NormSpec):
+            return {"weight": _t(tensors[name + ".weight"], dev, dtype),
+                    "bias": (_t(tensors[name + ".bias"], dev, dtype)
+                             if spec.bias else None)}
+        assert isinstance(spec, TableSpec)
+        return {"weight": _t(tensors[name + ".weight"], dev, dtype)}
+    skel = get_arch(cfg).param_skeleton(cfg)
+    return FamilyModel.from_tree(cfg, map_skeleton(skel, leaf))

@@ -1,10 +1,13 @@
 """Carry a JAX param tree across into the port's modules, without importing
 JAX: attributes are read by name and arrays through ``np.asarray``.
 
-The tree is the JAX package's unfused llama or Mixtral param dict (nested
+The tree is the JAX package's unfused param dict of any family (nested
 dicts and lists — Mixtral's ``block_sparse_moe`` holds a dense ``gate``
 dict and an ``experts`` list of {w1, w2, w3}; ``QuantLinearParams`` /
-``QuantizedTensor`` leaves recognised by their fields). Planes cross in
+``QuantizedTensor`` leaves recognised by their fields): llama, Mixtral and
+Baichuan become a ``LlamaModel``, the other families (GPT-2, GPT-NeoX,
+OPT, Falcon, Phi, GPT-J, QWen) a ``FamilyModel`` (``models/tree.py``),
+chosen by the config. Planes cross in
 their runtime layout as they are (any of ``ops/qtensor.py``'s layouts:
 pb's and bfp's 3-D planes and sw's int16/int8 subwords included), with the
 tensor's ``opt_resid_scale``. LoRA nodes ({"lora_base", "lora_A",
@@ -17,12 +20,14 @@ bfloat16.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ..models.llama import LlamaModel
+from ..models.config import ModelConfig
+from ..models.llama import LLAMA_ARCHS, LlamaModel
+from ..models.tree import FamilyModel
 from ..nn.qlinear import QuantLinear
 from ..ops.qtensor import QuantizedTensor
 from .device import resolve_device
@@ -48,7 +53,8 @@ def qlinear_from_jax(p, device="cuda") -> QuantLinear:
     device = resolve_device(device)
     if getattr(p, "shards_left", 1) != 1 or getattr(p, "shards_right",
                                                      1) != 1:
-        raise NotImplementedError("sharded transforms (ROADMAP.md slice 8)")
+        raise NotImplementedError("sharded transforms (ROADMAP.md queue 1 "
+                                  "item 8)")
 
     def opt(a):
         return None if a is None else to_torch(a, device)
@@ -78,8 +84,13 @@ def _walk(node, device, memo):
     return memo[id(node)][1]
 
 
-def from_jax_params(tree: Any, device="cuda") -> LlamaModel:
-    """JAX llama/Mixtral param tree -> the port's ``LlamaModel`` on
-    ``device``."""
+def from_jax_params(tree: Any, device="cuda",
+                    cfg: Optional[ModelConfig] = None):
+    """JAX param tree -> the port's model on ``device``: a ``LlamaModel``
+    for a llama, Mixtral or Baichuan ``cfg`` (and without one), else the
+    family's ``FamilyModel``."""
     dev = resolve_device(device)
-    return LlamaModel.from_tree(_walk(tree, dev, {}))
+    port = _walk(tree, dev, {})
+    if cfg is None or cfg.arch in LLAMA_ARCHS:
+        return LlamaModel.from_tree(port)
+    return FamilyModel.from_tree(cfg, port)

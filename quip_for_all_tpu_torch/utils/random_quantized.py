@@ -1,9 +1,21 @@
-"""A llama-family or Mixtral model with random codes, built on the
-device from a seeded ``torch.Generator`` — the port's counterpart of
+"""A model of any family with random codes, built on the device from a
+seeded ``torch.Generator`` — the port's counterpart of
 ``random_quantized_model`` / ``_fast_random_llama`` in
-``quip_for_all_tpu/utils/random_quantized.py``, for benchmarks and chip
-checks without downloadable checkpoints. Shapes and compute paths equal a
-really-quantized model's; only the code values are random.
+``quip_for_all_tpu/utils/random_quantized.py`` (which builds llama and
+Mixtral only), for benchmarks and chip checks without downloadable
+checkpoints. Shapes and compute paths equal a really-quantized model's;
+only the code values are random.
+
+Families: llama, Mixtral and Baichuan (``W_pack`` in place of q/k/v); and
+GPT-2, GPT-NeoX, OPT, Falcon, Phi, GPT-J and QWen, built from their
+skeletons (``models/tree.py``): every linear of the quantizer's sublayer
+groups (``quantize/quantizer.py``) quantized, the members of a group
+sharing the left transform and SU (as the quantizer's shared group
+transforms guarantee), a random bias where the family's JAX
+``init_*_params`` has one, LayerNorms of ones and zeros, tables dense. An
+untied head (GPT-NeoX's ``embed_out``, Phi's, GPT-J's and QWen's
+``lm_head``) is quantized under the JAX rule (``quantize_head`` and the
+vocabulary a multiple of 128), else dense.
 
 Every codebook (E8P12, E8P12RVQ4B, E8P12RVQ3B, D4, HI), in the runtime
 layout ``layout`` (None or "nibble"; "u3" for E8P12; "pb" and "paired" for
@@ -36,9 +48,13 @@ import torch.nn.functional as F
 
 from ..codebooks import get_codebook
 from ..models.config import ModelConfig
-from ..models.llama import DenseLinear, LlamaModel
+from ..models.llama import LLAMA_ARCHS, DenseLinear, LlamaModel
+from ..models.registry import get_arch
+from ..models.tree import (FamilyModel, NormSpec, TableSpec, get_path,
+                           map_skeleton, set_path)
 from ..nn.qlinear import QuantLinear
 from ..nn.qmoe import stack_experts
+from ..quantize.quantizer import sublayer_groups
 from ..ops.qtensor import (ROWPAIR_LAYOUTS, QuantizedTensor, affine_word_table,
                            e8p_uv_table, e8p_word_table,
                            paired_planes_from_uv, pb_planes_from_uv, relayout,
@@ -129,15 +145,14 @@ def random_qtensor(codebook: str, layout: str, q_out: int, q_in: int,
 def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
                            seed: int = 0, dtype=torch.bfloat16,
                            quantize_head: bool = False, device="cuda",
-                           layout=None) -> LlamaModel:
+                           layout=None):
     """Every block linear quantized (embeddings and the MoE router gate
     stay dense); q/k/v, gate/up and each expert's w1/w3 share their left
     transform and SU, as the quantizer's shared group transforms
     guarantee, so ``fuse_for_inference`` fuses them and the experts
-    stack."""
+    stack. A ``LlamaModel`` for llama, Mixtral and Baichuan, else the
+    family's ``FamilyModel`` (the module docstring)."""
     get_codebook(codebook)                  # refuses an unknown codebook
-    if cfg.arch not in ("llama", "mixtral"):
-        raise NotImplementedError(f"arch {cfg.arch!r}")
     if cfg.arch == "mixtral" and resolve_layout(codebook, layout, 2) in \
             ROWPAIR_LAYOUTS:
         raise NotImplementedError(
@@ -159,19 +174,23 @@ def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
         return s if s.hadK is None else HadSpec(s.hadK.to(dtype), s.K,
                                                 s.padN)
 
-    def qlin(in_f, out_f, lspec: HadSpec, SU) -> QuantLinear:
+    def qlin(in_f, out_f, lspec: HadSpec, SU, bias=None) -> QuantLinear:
         rspec = spec(out_f)
         qt = random_qtensor(codebook, layout, rspec.padN, lspec.padN, gen,
                             dev)
         return QuantLinear(
             qt, in_features=in_f, out_features=out_f, q_in=lspec.padN,
             q_out=rspec.padN, K_left=lspec.K, K_right=rspec.K, SU=SU,
-            SV=signs(out_f), had_left=lspec.hadK, had_right=rspec.hadK,
-            wscale_float=float(1.0 / (in_f ** 0.5)))
+            SV=signs(out_f), bias=bias, had_left=lspec.hadK,
+            had_right=rspec.hadK, wscale_float=float(1.0 / (in_f ** 0.5)))
 
     def dense(out_f, in_f):
         return torch.randn((out_f, in_f), generator=gen,
                            device=dev).mul_(0.02).to(dtype)
+
+    if cfg.arch not in LLAMA_ARCHS:
+        return _random_family(cfg, qlin, spec, signs, dense, head_q, gen,
+                              dtype, dev)
 
     def moe():
         experts = []
@@ -197,13 +216,15 @@ def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
                                                      device=dev)},
             "post_attention_layernorm": {"weight": torch.ones(
                 D, dtype=dtype, device=dev)},
-            "self_attn": {
+            "self_attn": ({
+                "W_pack": qlin(D, (H + 2 * KV) * hd, qkv_spec, qkv_su),
+            } if cfg.arch == "baichuan" else {
                 "q_proj": qlin(D, H * hd, qkv_spec, qkv_su),
                 "k_proj": qlin(D, KV * hd, qkv_spec, qkv_su),
                 "v_proj": qlin(D, KV * hd, qkv_spec, qkv_su),
-                "o_proj": qlin(H * hd, D, o_spec, signs(H * hd)),
-            },
+            }),
         }
+        blk["self_attn"]["o_proj"] = qlin(H * hd, D, o_spec, signs(H * hd))
         if cfg.arch == "mixtral":
             blk["block_sparse_moe"] = moe()
         else:
@@ -224,3 +245,37 @@ def random_quantized_model(cfg: ModelConfig, codebook: str = "E8P12",
         else:
             tree["lm_head"] = DenseLinear(dense(V, D))
     return LlamaModel.from_tree(tree)
+
+
+def _random_family(cfg: ModelConfig, qlin, spec, signs, dense, head_q,
+                   gen: torch.Generator, dtype, dev) -> FamilyModel:
+    """A family of ``models/tree.py`` from its skeleton: per layer, per
+    sublayer group in the quantizer's order, one left transform and SU
+    drawn, then each member's planes, right transform, SV and bias."""
+    def bias(n):
+        return torch.randn(n, generator=gen, device=dev).mul_(0.02).to(dtype)
+
+    def leaf(path, s):
+        if isinstance(s, TableSpec):
+            return {"weight": dense(s.rows, s.cols)}
+        if isinstance(s, NormSpec):
+            return {"weight": torch.ones(s.n, dtype=dtype, device=dev),
+                    "bias": (torch.zeros(s.n, dtype=dtype, device=dev)
+                             if s.bias else None)}
+        return s                 # a LinearSpec: filled in below
+    tree = map_skeleton(get_arch(cfg).param_skeleton(cfg), leaf)
+    for blk in tree["layers"]:
+        for g in sublayer_groups(cfg):
+            in_f = get_path(blk, g["layers"][0]).in_f
+            lspec, su = spec(in_f), signs(in_f)
+            for path in g["layers"]:
+                s = get_path(blk, path)
+                set_path(blk, path, qlin(in_f, s.out_f, lspec, su,
+                                         bias(s.out_f) if s.bias else None))
+    key = "embed_out" if cfg.arch == "gpt_neox" else "lm_head"
+    if key in tree:
+        s = tree[key]
+        b = bias(s.out_f) if s.bias else None
+        tree[key] = (qlin(s.in_f, s.out_f, spec(s.in_f), signs(s.in_f), b)
+                     if head_q else DenseLinear(dense(s.out_f, s.in_f), b))
+    return FamilyModel.from_tree(cfg, tree)

@@ -58,7 +58,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "tools/microbench_tn.py", "tools/microbench_bfp.py",
                 # the serving path
                 "runtime/graphs.py", "runtime/serving.py", "cli/generate.py",
-                "cli/eval_ppl.py"):
+                "cli/eval_ppl.py",
+                # the registry and the other families
+                "models/registry.py", "models/tree.py", "models/gpt2.py",
+                "models/gpt_neox.py", "models/opt.py", "models/falcon.py",
+                "models/phi.py", "models/gptj.py", "models/qwen.py",
+                "quantize/quantizer.py"):
         assert os.path.join("quip_for_all_tpu_torch", mod) in scanned, mod
     bad = []
     for path in _port_sources():
@@ -93,7 +98,8 @@ def test_port_keeps_its_own_assets():
                                    "microbench_tn", "microbench_bfp",
                                    "generate_stream", "perplexity",
                                    "serving", "caches_int8", "cli_generate",
-                                   "cli_eval_ppl"])
+                                   "cli_eval_ppl", "random_family",
+                                   "generate_family"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -105,6 +111,15 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             qt.random_quantized_model(cfg)
         elif entry == "random_u3":
             qt.random_quantized_model(cfg, layout="u3")
+        elif entry == "random_family":
+            qt.random_quantized_model(qt.tiny_config(
+                arch="gpt_neox", num_key_value_heads=4))
+        elif entry == "generate_family":
+            gcfg = qt.tiny_config(arch="gpt2", num_key_value_heads=4,
+                                  tie_word_embeddings=True)
+            model = qt.random_quantized_model(gcfg, device="cpu")
+            qt.generate(gcfg, model, torch.zeros((1, 3), dtype=torch.long),
+                        2)
         elif entry == "random_mixtral":
             qt.random_quantized_model(qt.tiny_config(
                 arch="mixtral", num_local_experts=4))

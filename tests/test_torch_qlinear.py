@@ -155,7 +155,7 @@ def test_safetensors_reader_widens_bf16_exactly(tmp_path):
 
 def test_unported_checkpoints_raise(tmp_path):
     """Every codebook loads now (tests/test_torch_codebooks.py); a
-    tensor-parallel checkpoint still raises, naming its roadmap slice."""
+    tensor-parallel checkpoint still raises, naming its roadmap item."""
     import json
     import shutil
     d = tmp_path / "d4_tp"
@@ -174,5 +174,5 @@ def test_unported_checkpoints_raise(tmp_path):
     else:
         with open(d / "quantization_config.json", "w") as f:
             json.dump(qcfg, f)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         load_quantized(str(d), device="cpu")
