@@ -149,9 +149,27 @@ line):
      at their published widths (``FAMILY_HF``), 2 layers each: the
      routes against the widths rule, graphed ``generate`` of 8 tokens
      against the eager loop and f32 logits against the plain route.
+ 19. quantization on the card (``QuipQuantizer``): (i) the dense
+     Llama-2-7B-width model of ``init_llama_params`` (seed 0, QUANT_LAYERS
+     layers: depth the only cut) quantized to E8P12 with 10 tune
+     iterations and the head, from 32 x 512 synthetic calibration tokens,
+     each linear's seconds and proxy loss printed; ``save_quantized``,
+     ``load_quantized`` on the card, ``fuse_for_inference``; the f32 logits'
+     relative error against the float model's on a calibration window;
+     the widths rule (9 K1 a forward), graphed ``generate`` of 32 tokens
+     bitwise the eager loop's with exact K1 launches, and f32 logits of 8
+     steps against the plain route; (ii) a 512 x 1024 layer on the card
+     against the CPU (proxy loss within 2%, codes' agreement, TF32 off in
+     the call); (iii) one full-width layer with no tune iterations, the
+     block and end-to-end finetune for 2 epochs (finite losses, none above
+     its initial one); (iv) ``cli.quantize --model-path random:tiny
+     --device cuda`` and its save run on the card; (v) one LDLQ step at
+     4096 rows: the rounding (addmm + max beside matmul + sub + max,
+     CUDA-graph replays, beside its bound) and 64 steps by the host clock
+     and by kernel (``torch.profiler``).
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
-a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14; each logs
-its start and its seconds. The last
+a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 19; each
+logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
@@ -354,6 +372,11 @@ FAMILY_HF = {
         "rms_norm_eps": 1e-06, "tie_word_embeddings": False},
 }
 FAMILY_LAYERS = 2
+# phase 19: Llama-2-7B widths quantized on the card (depth the only cut)
+# from QUANT_ROWS x QUANT_SEQ synthetic calibration tokens (16384 Hessian
+# rows, more than the widest input, 11008)
+QUANT_LAYERS = 2
+QUANT_ROWS, QUANT_SEQ = 32, 512
 
 
 def log(*a):
@@ -3528,6 +3551,288 @@ def microbench_entries(recs):
     return out
 
 
+def phase_quantize():
+    """Phase 19, quantization on the card: (i) Llama-2-7B widths at
+    QUANT_LAYERS layers, quantized from a dense model and decoded through
+    K1 after save and load; (v) one LDLQ step's cost; (ii) one layer on
+    the card against the CPU; (iii) the block and end-to-end finetune at
+    full width; (iv) the CLI."""
+    import dataclasses
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.data.calibration import synthetic_tokens
+    cfg = dataclasses.replace(qt.llama2_7b_config(),
+                              num_hidden_layers=QUANT_LAYERS)
+    L = QUANT_LAYERS
+    out_dir = os.path.join(REPO, "build", "quantized_7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = qt.init_llama_params(cfg, seed=0, device="cuda")
+    calib = synthetic_tokens(QUANT_ROWS, QUANT_SEQ, cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    log(f"quant (i): dense Llama-2-7B widths ({L} layers, f32) and "
+        f"{QUANT_ROWS} x {QUANT_SEQ} synthetic calibration tokens made in "
+        f"{time.time() - t:.1f} s")
+    window = torch.as_tensor(calib[:1], device="cuda")
+    f32 = {"compute_dtype": torch.float32}
+    with torch.no_grad():
+        float_logits = qt.get_arch(cfg).model_apply(cfg, model, window)[0]
+    q = qt.QuipQuantizer(codebook="E8P12", quip_tune_iters=10,
+                         quantize_lm_head=True, nsamples=QUANT_ROWS,
+                         model_seqlen=QUANT_SEQ, batch_size=4)
+    torch.cuda.synchronize()
+    t = time.time()
+    model = q.quantize_model(cfg, model, calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t
+    for st in q.layer_stats_:
+        log(f"quant (i): {st['linear']}: {st['seconds']:.2f} s, proxy loss "
+            f"{st['proxy_loss']:.5f}")
+    per_layer = [sum(st["seconds"] for st in q.layer_stats_
+                     if st["linear"].startswith(f"layers.{i}."))
+                 for i in range(L)]
+    head_s = sum(st["seconds"] for st in q.layer_stats_
+                 if st["linear"] == "lm_head")
+    log(f"quant (i): quantize_model {t_quant:.1f} s: per layer's linears "
+        + ", ".join(f"{s_:.1f}" for s_ in per_layer)
+        + f" s, head {head_s:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t = time.time()
+    qt.save_quantized(cfg, model, q.to_dict(), out_dir)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2, model, _ = qt.load_quantized(out_dir, device="cuda")
+    model = qt.fuse_for_inference(cfg2, model)
+    torch.cuda.synchronize()
+    log(f"quant (i): save_quantized, load_quantized on the card and "
+        f"fuse_for_inference in {time.time() - t:.1f} s")
+    if cfg2 != cfg:
+        raise AssertionError("quant (i): the saved config reads back "
+                             "otherwise")
+    with torch.no_grad():
+        q_logits = qt.get_arch(cfg).model_apply(cfg, model, window,
+                                                linear_kw=f32)[0]
+    rel = float(torch.linalg.norm(q_logits - float_logits)
+                / torch.linalg.norm(float_logits))
+    top1 = float((q_logits.argmax(-1) == float_logits.argmax(-1)
+                  ).float().mean())
+    log(f"quant (i): f32 logits of the quantized model on a calibration "
+        f"window of {QUANT_SEQ} tokens against the float model's: relative "
+        f"error {rel:.4f} (Frobenius), top-1 agreement {top1:.3f}")
+    if not (math.isfinite(rel) and rel < 1.0):
+        raise AssertionError(f"quant (i): logits relative error {rel}")
+    del float_logits, q_logits
+    k1, dense = widths_rule(model)
+    if (k1, dense) != (4 * L + 1, 0):
+        raise AssertionError(f"quant (i): {k1} K1 linears and {dense} dense "
+                             f"ones, expected {4 * L + 1} and 0")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 32), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(0))
+    launches, ms_tok, _ = graphed_vs_eager("quant (i)", cfg, model, prompt,
+                                           32, 2048, k1)
+    check_plain(cfg, model, prompt, torch.float32, 1e-3, 2048, n=8,
+                tag="quant (i)", per_step={"fused_decode_matmul": k1})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"layers": L, "seconds": t_quant, "per_layer_s": per_layer,
+           "head_s": head_s, "linears": q.layer_stats_,
+           "logits_rel_err": rel, "top1": top1,
+           "launches": launches["fused_decode_matmul"],
+           "k1_per_token": k1, "ms_tok": ms_tok}
+    out["step"] = quant_step_profile()
+    out["cross_device"] = quant_cross_device()
+    out["finetune"] = quant_finetune()
+    out["cli"] = quant_cli()
+    return out
+
+
+def quant_step_profile():
+    """(v) What one LDLQ step of a 4096-row linear (q, k, v or o; E8P12)
+    costs on the card: the rounding alone (scores over the 65536-word
+    grid and their argmax) by CUDA-graph replays, with the norms in the
+    product's epilogue (``torch.addmm``, the card's route) beside the CPU
+    route's two passes (``matmul``, then the subtraction), against its
+    bound (the f32 scores written once and read once at 3.35 TB/s); then
+    64 sweep steps (4096 x 512) by the host clock and under
+    ``torch.profiler``, by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from quip_for_all_tpu_torch.codebooks import base, get_codebook
+    from quip_for_all_tpu_torch.quantize import ldlq
+    cb = get_codebook("E8P12")
+    g, gn = base.grid_tensors(cb.grid, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    X2 = 2.0 * torch.randn(4096, 8, device="cuda", generator=gen)
+    with ldlq.full_f32():
+        fused = tm.graph_us(lambda _: torch.max(torch.addmm(
+            -gn, X2, g.T), dim=1), 4, reps=5)
+        two = tm.graph_us(lambda _: torch.max(torch.matmul(
+            X2, g.T).sub_(gn), dim=1), 4, reps=5)
+        bound = 2 * 4096 * 65536 * 4 / tm.HBM_BYTES_PER_S * 1e6
+        W = torch.randn(4096, 512, device="cuda", generator=gen)
+        A = torch.randn(2048, 512, device="cuda", generator=gen)
+        H = A.T @ A / 2048 + 0.01 * torch.eye(512, device="cuda")
+        L = torch.linalg.cholesky(H.double()).float()
+        ldlq.ldlq(W, H, L, cb, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ldlq.ldlq(W, H, L, cb, 0)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3 / 64
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ldlq.ldlq(W, H, L, cb, 0)
+            torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        # the kernels themselves (an aten op's entry repeats its kernels'
+        # time)
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 64, ev.count / 64, ev.key))
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    log(f"quant (v): the rounding of one LDLQ step at 4096 rows: addmm + max "
+        f"{fused / 1e3:.3f} ms, matmul + sub + max {two / 1e3:.3f} ms "
+        f"(CUDA-graph replays), bound {bound / 1e3:.3f} ms (scores written "
+        f"and read once); a sweep step {host_ms:.3f} ms by the host clock, "
+        f"{dev_ms:.3f} ms of device time (profiler) -> device idle "
+        f"{1 - dev_ms / host_ms:.0%}; by kernel per step: " + "; ".join(
+            f"{k[:60]} x{c:g} {us:.1f} us" for us, c, k in rows[:6]))
+    return {"rounding_addmm_ms": fused / 1e3, "rounding_two_pass_ms":
+            two / 1e3, "rounding_bound_ms": bound / 1e3,
+            "step_host_ms": host_ms, "step_device_ms": dev_ms}
+
+
+def quant_cross_device():
+    """(ii) One 512 x 1024 layer quantized on the card and on the CPU from
+    the same seed: the codes' agreement and both proxy losses (within 2%),
+    TF32 off inside the call."""
+    import numpy as np
+    import torch
+    from quip_for_all_tpu_torch.codebooks import get_codebook
+    from quip_for_all_tpu_torch.quantize import quip
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((4096, 1024)).astype(np.float32)
+    X *= rng.uniform(0.2, 2.0, 1024).astype(np.float32)
+    H = (X.T @ X / X.shape[0]).astype(np.float32)
+    W = (rng.standard_normal((512, 1024)) / 32.0).astype(np.float32)
+    cb = get_codebook("E8P12")
+    seen = set()
+    orig = type(cb).quantize
+
+    def spy(self, x, chunk=None):
+        seen.add((torch.backends.cuda.matmul.allow_tf32,
+                  torch.get_float32_matmul_precision()))
+        return orig(self, x, chunk)
+    type(cb).quantize = spy
+    res = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            t = time.time()
+            attrs, W_hat = quip.quantize_layer(
+                W, H, cb, quip.QuantConfig(quip_tune_iters=2),
+                np.random.default_rng(3), device=dev)
+            res[dev] = (attrs, quip.proxy_loss(
+                torch.from_numpy(W), W_hat.cpu(), torch.from_numpy(H)),
+                time.time() - t)
+    finally:
+        type(cb).quantize = orig
+    (ga, gp, gt), (ca, cp, ct) = res["cuda"], res["cpu"]
+    agree = float(np.mean(ga.Qidxs_raw == ca.Qidxs_raw))
+    log(f"quant (ii): 512 x 1024 E8P12 layer, 2 tune iterations: card "
+        f"{gt:.2f} s, proxy loss {gp:.6f}; CPU {ct:.2f} s, proxy loss "
+        f"{cp:.6f}; codes agree {agree:.4f}; matmul settings inside the "
+        f"calls {sorted(seen)}")
+    if seen != {(False, "highest")} or abs(gp - cp) > 0.02 * cp:
+        raise AssertionError("quant (ii): TF32 on inside the call, or the "
+                             "card's proxy loss off the CPU's by > 2%")
+    return {"codes_agree": agree, "proxy_card": gp, "proxy_cpu": cp}
+
+
+def quant_finetune():
+    """(iii) One Llama-2-7B-width layer quantized with no tune iterations,
+    then the block finetune between its groups and the end-to-end one,
+    both on the card, 2 epochs over small sets: finite losses, none worse
+    than its initial one."""
+    import dataclasses
+    import gc
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.data.calibration import synthetic_tokens
+    cfg = dataclasses.replace(qt.llama2_7b_config(), num_hidden_layers=1)
+    model = qt.init_llama_params(cfg, seed=1, device="cuda")
+    q = qt.QuipQuantizer(codebook="E8P12", quip_tune_iters=0, nsamples=8,
+                         batch_size=2, ft_epochs=2, ft_train_size=4,
+                         ft_valid_size=2)
+    calib = synthetic_tokens(14, 256, cfg.vocab_size, seed=1)
+    t = time.time()
+    q.quantize_model(cfg, model, calib)
+    torch.cuda.synchronize()
+    stats = q.ft_block_stats_ + [q.e2e_ft_stats_]
+    log(f"quant (iii): 1 full-width layer, block finetune after 3 of 4 "
+        f"groups and the end-to-end finetune, 2 epochs, in "
+        f"{time.time() - t:.1f} s: validation losses (initial -> best) "
+        + "; ".join(f"{s_['initial']:.6g} -> {s_['best']:.6g}"
+                    for s_ in stats))
+    ok = len(stats) == 4 and all(
+        math.isfinite(s_["initial"]) and math.isfinite(s_["best"])
+        and s_["best"] <= s_["initial"] for s_ in stats)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"quant (iii): finetune losses {stats}")
+    return stats
+
+
+def quant_cli():
+    """(iv) ``cli.quantize --model-path random:tiny --device cuda``, its
+    save loaded on the card and run."""
+    import shutil
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.cli import quantize
+    d = os.path.join(REPO, "build", "quantized_tiny_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    t = time.time()
+    quantize.main(["--model-path", "random:tiny", "--save-dir", d,
+                   "--nsamples", "16", "--seqlen", "64",
+                   "--quip-tune-iters", "2", "--device", "cuda"])
+    cfg, model, qcfg = qt.load_quantized(d, device="cuda")
+    ids = qt.generate(cfg, qt.fuse_for_inference(cfg, model),
+                      torch.arange(8, device="cuda")[None], 8,
+                      cache_len=64, dtype=torch.float32)
+    log(f"quant (iv): cli.quantize --model-path random:tiny --device cuda "
+        f"wrote {sorted(os.listdir(d))} in {time.time() - t:.1f} s; "
+        f"loaded on the card ({qcfg['codebook']}), 8 greedy tokens "
+        f"{ids[0, 8:].tolist()}")
+    if ids.shape != (1, 16):
+        raise AssertionError("quant (iv): generate after the CLI failed")
+    return {"seconds": time.time() - t}
+
+
+def quant_path_launches(entries, quant):
+    """K1's launches in phase 19's graphed generate of the model quantized
+    on the card."""
+    by = {e["name"]: e for e in entries}
+    by["fused_decode_matmul"].setdefault("launches_by_path", {}).update(
+        {f"llama2_7b_quantized_{quant['layers']}_layers": quant["launches"]})
+
+
 def at(phase, fn, *args):
     """Run one phase, logging when it starts and how long it took, so the
     script's time against its limit can be read phase by phase."""
@@ -3591,6 +3896,7 @@ def main() -> int:
         fams = at("18 (ii)", phase_families)
         paths = at("9", phase_rowpair_paths)
         train = at("14", phase_train)
+        quant = at("19", phase_quantize)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
@@ -3600,11 +3906,13 @@ def main() -> int:
         right_entries(entries, right_rows)
         serving_path_launches(entries, graphed, serving, mix)
         family_path_launches(entries, neox, fams)
+        quant_path_launches(entries, quant)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
             "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
         log("families: " + json.dumps({"gpt_neox_20b": neox,
                                         "published_widths": fams}))
+        log("quantization: " + json.dumps(quant))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

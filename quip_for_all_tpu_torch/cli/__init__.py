@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (``finetune_lora``)."""
+"""Command-line entry points of the port (quantize, generate, eval_ppl,
+finetune_lora)."""

@@ -1,8 +1,8 @@
 """D4 2-bit codebook: the deep-hole-centered D4 lattice, 256 half-integer
 4-vectors with even component sum and norm^2 <= 9 — counterpart of
-``quip_for_all_tpu/codebooks/d4.py`` minus ``quantize`` (the quantization
-slice). The enumeration order is the on-disk code space, so the map from
-index to codeword is the JAX package's (and its reference's) own:
+``quip_for_all_tpu/codebooks/d4.py``. The enumeration order is the on-disk
+code space, so the map from index to codeword is the JAX package's (and its
+reference's) own:
 
   index i = i3 << 5 | i8, i8 in [0, 32) picks the magnitudes
     0          -> [.5 .5 .5 .5]
@@ -29,6 +29,8 @@ from fractions import Fraction
 from functools import lru_cache
 
 import numpy as np
+
+from .base import Codebook
 
 D4_CODESZ = 4
 
@@ -78,11 +80,13 @@ def d4_grid() -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
-class D4:
+class D4(Codebook):
     id: str = "D4"
     codesz: int = D4_CODESZ
     packsz: Fraction = Fraction(1)
     opt_resid_scale: float = -1.0
+    opt_scale: float = 1.21
+    idx_dtype: np.dtype = dataclasses.field(default=np.dtype(np.uint8))
 
     def grid(self) -> np.ndarray:
         return d4_grid()

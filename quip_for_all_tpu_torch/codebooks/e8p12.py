@@ -1,4 +1,4 @@
-"""E8P12 2-bit lattice codebook grids (numpy), as loading needs them.
+"""E8P12 2-bit lattice codebook: grids (numpy) and the record.
 
 Counterpart of ``quip_for_all_tpu/codebooks/e8p12.py``: the same direct
 (combinatorial) construction of the 256 abs patterns, the packed abs grid
@@ -11,14 +11,18 @@ and the full 2^16-entry decode table. An index c in [0, 2^16) decodes as:
     w[i]    = sign_{bit 7-shuffle[i]}(signs) * abs[abs_idx, shuffle[i]]
               + (parity ? -0.25 : +0.25)
 
-Nearest-codeword rounding (quantization) is not ported yet.
+Rounding is ``codebooks/base.py`` ``nearest_codeword`` over the full grid.
 """
 from __future__ import annotations
 
+import dataclasses
+from fractions import Fraction
 from functools import lru_cache
 from itertools import product
 
 import numpy as np
+
+from .base import Codebook
 
 E8P_CODESZ = 8
 _SHUFFLE = np.array([0, 2, 1, 3, 4, 6, 5, 7])
@@ -113,3 +117,23 @@ def full_grid() -> np.ndarray:
         out[:, i] = np.where(bit == 1, -v, v)
     out += np.where(parity == 1, -0.25, 0.25)[:, None].astype(np.float32)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class E8P12(Codebook):
+    id: str = "E8P12"
+    codesz: int = E8P_CODESZ
+    packsz: Fraction = Fraction(1)
+    opt_resid_scale: float = -1.0
+    opt_scale: float = 1.03
+    idx_dtype: np.dtype = dataclasses.field(default=np.dtype(np.int16))
+
+    def grid(self) -> np.ndarray:
+        return full_grid()
+
+    def pack_idxs(self, idxs: np.ndarray) -> np.ndarray:
+        """Raw 0..65535 -> the int16 bit pattern checkpoints store."""
+        return idxs.astype(np.uint16).view(np.int16)
+
+    def unpack_idxs(self, packed: np.ndarray) -> np.ndarray:
+        return packed.view(np.uint16).astype(np.int32)

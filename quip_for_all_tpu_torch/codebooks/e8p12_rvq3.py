@@ -1,6 +1,6 @@
 """E8P RVQ 3-bit codebook: a 2-bit E8P main stage and a 1-bit E8 residual
-stage ("E81B") — counterpart of ``quip_for_all_tpu/codebooks/e8p12_rvq3.py``
-minus ``quantize`` (the quantization slice), in numpy and torch.
+stage ("E81B") — counterpart of ``quip_for_all_tpu/codebooks/e8p12_rvq3.py``,
+in numpy and torch.
 
 The residual grid has 256 entries: the E8 lattice points of norm^2 <= 2
 (the zero vector, every +-e_i +- e_j with i < j, every +-1/2 vector with
@@ -17,10 +17,12 @@ import dataclasses
 from fractions import Fraction
 from functools import lru_cache
 from itertools import combinations, product
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .base import Codebook, grid_tensors, nearest_codeword
 from .e8p12 import E8P_CODESZ, full_grid
 
 _NIBBLE_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
@@ -56,17 +58,31 @@ def e81b_grid_packed() -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
-class E8P12RVQ3B:
+class E8P12RVQ3B(Codebook):
     id: str = "E8P12RVQ3B"
     codesz: int = E8P_CODESZ
     packsz: Fraction = Fraction(4, 3)
     opt_resid_scale: float = 1 / 2.04
+    opt_scale: float = 0.98
+    idx_dtype: np.dtype = dataclasses.field(default=np.dtype(np.int32))
 
     def grid(self) -> np.ndarray:
         return full_grid()
 
     def resid_grid(self) -> np.ndarray:
         return e81b_grid()
+
+    def quantize(self, X: torch.Tensor, chunk: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(values, codes): the main code << 8 plus the residual's code
+        over the E81B grid at ``opt_resid_scale``."""
+        g, gn = grid_tensors(full_grid, X.device, X.dtype)
+        main_vals, main_idx = nearest_codeword(X, g, gn, chunk)
+        rg, rgn = grid_tensors(e81b_grid, X.device, X.dtype)
+        resid = (X - main_vals) / self.opt_resid_scale
+        r_vals, r_idx = nearest_codeword(resid, rg, rgn, chunk)
+        vals = main_vals + r_vals * self.opt_resid_scale
+        return vals, (main_idx << 8) + r_idx
 
     def decode(self, idxs: torch.Tensor, dtype=torch.float32
                ) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """HI 4-bit codebook: the scalar half-integer grid {-7.5, ..., 7.5}, one
-weight a code — counterpart of ``quip_for_all_tpu/codebooks/hi.py`` minus
-``quantize``. Checkpoints pack eight 4-bit codes into one int32 in the
-order 0, 2, 4, 6, 1, 3, 5, 7 of the 8 columns (packsz 8); the runtime
-planes hold the code itself as the nibble (weight = nib - 7.5).
+weight a code — counterpart of ``quip_for_all_tpu/codebooks/hi.py``.
+Checkpoints pack eight 4-bit codes into one int32 in the order 0, 2, 4, 6,
+1, 3, 5, 7 of the 8 columns (packsz 8); the runtime planes hold the code
+itself as the nibble (weight = nib - 7.5).
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from fractions import Fraction
 from functools import lru_cache
 
 import numpy as np
+
+from .base import Codebook
 
 _NIBBLE_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
@@ -22,11 +24,13 @@ def hi_grid() -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
-class HI4B1C:
+class HI4B1C(Codebook):
     id: str = "HI"
     codesz: int = 1
     packsz: Fraction = Fraction(8)
     opt_resid_scale: float = -1.0
+    opt_scale: float = 2.97
+    idx_dtype: np.dtype = dataclasses.field(default=np.dtype(np.int32))
 
     def grid(self) -> np.ndarray:
         return hi_grid()

@@ -1,7 +1,8 @@
-"""Token sources for LoRA fine-tuning — the ``synthetic`` and ``file:``
-parts of ``quip_for_all_tpu/data/calibration.py``, in numpy only, with the
-same seeded draws (bit-identical windows). The HF-dataset sources
-(wikitext2, c4, ptb, redpajama) are queued (ROADMAP.md slice 6).
+"""Token sources for calibration and LoRA fine-tuning — the ``synthetic``
+and ``file:`` parts of ``quip_for_all_tpu/data/calibration.py``, in numpy
+only, with the same seeded draws (bit-identical windows). The HF-dataset
+sources (wikitext2, c4, ptb, redpajama) need a download and are not
+ported.
 """
 from __future__ import annotations
 

@@ -32,7 +32,10 @@ def split_fused_qkv(cfg: ModelConfig, qkv: torch.Tensor):
 
 
 def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
-              cache_position, attn_mask, linear_kw, attn_window=None):
+              cache_position, attn_mask, linear_kw, attn_window=None,
+              captures=None):
+    if captures is not None:
+        captures["qkv"] = x
     qkv = linear_apply(attn_p["query_key_value"], x, **linear_kw)
     q, k, v = split_fused_qkv(cfg, qkv)
     q, k = apply_rope(q, k, cos, sin)
@@ -41,21 +44,30 @@ def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
     # cache is never repeated)
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype,
                             attn_window=attn_window)
+    if captures is not None:
+        captures["o"] = ctx
     return linear_apply(attn_p["dense"], ctx, **linear_kw), new_cache
 
 
 def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
                 kv_cache=None, cache_position=None, attn_mask=None,
-                linear_kw: Optional[dict] = None, attn_window=None):
+                linear_kw: Optional[dict] = None, attn_window=None,
+                capture: bool = False):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures): the
+    inputs of the qkv, o, fc1 and fc2 groups."""
     linear_kw = linear_kw or {}
+    caps = {} if capture else None
 
     def mlp(h):
         m = gelu(linear_apply(blk["mlp"]["dense_h_to_4h"], h, **linear_kw))
+        if capture:
+            caps.update(fc1=h, fc2=m)
         return linear_apply(blk["mlp"]["dense_4h_to_h"], m, **linear_kw)
 
     def attn(h):
         return attention(cfg, blk["self_attention"], h, cos, sin, kv_cache,
-                         cache_position, attn_mask, linear_kw, attn_window)
+                         cache_position, attn_mask, linear_kw, attn_window,
+                         caps)
 
     eps = cfg.rms_norm_eps
     if cfg.parallel_dual_ln:
@@ -71,6 +83,8 @@ def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
         a, new_cache = attn(layer_norm(blk["input_layernorm"], x, eps))
         x = x + a
         x = x + mlp(layer_norm(blk["post_attention_layernorm"], x, eps))
+    if capture:
+        return x, new_cache, caps
     return x, new_cache
 
 
@@ -112,3 +126,11 @@ def param_skeleton(cfg: ModelConfig) -> dict:
         "layers": [block() for _ in range(cfg.num_hidden_layers)],
         "ln_f": ln,
     }
+
+
+def init_falcon_params(cfg: ModelConfig, seed: int = 0,
+                       dtype=torch.float32, device="cuda"):
+    """The JAX package's ``init_falcon_params`` as a ``FamilyModel``
+    (``models/tree.py`` ``init_params``)."""
+    from .tree import init_params
+    return init_params(cfg, seed, dtype, device)

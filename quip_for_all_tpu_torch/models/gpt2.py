@@ -37,9 +37,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def attention(cfg: ModelConfig, attn_p, x, kv_cache, cache_position,
-              attn_mask, linear_kw, attn_window=None):
+              attn_mask, linear_kw, attn_window=None, captures=None):
     B, S, D = x.shape
     H, hd = cfg.num_attention_heads, cfg.head_dim
+    if captures is not None:
+        captures["qkv"] = x
     qkv = linear_apply(attn_p["c_attn"], x, **linear_kw)     # (B,S,3D)
     q, k, v = torch.chunk(qkv, 3, dim=-1)
     q = q.reshape(B, S, H, hd)
@@ -48,20 +50,29 @@ def attention(cfg: ModelConfig, attn_p, x, kv_cache, cache_position,
     k, v, new_cache = update_kv_cache(kv_cache, k, v, cache_position)
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype,
                             attn_window=attn_window)
+    if captures is not None:
+        captures["o"] = ctx
     return linear_apply(attn_p["c_proj"], ctx, **linear_kw), new_cache
 
 
 def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
                 kv_cache=None, cache_position=None, attn_mask=None,
-                linear_kw: Optional[dict] = None, attn_window=None):
+                linear_kw: Optional[dict] = None, attn_window=None,
+                capture: bool = False):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures): the
+    inputs of the qkv, o, fc1 and fc2 groups."""
     linear_kw = linear_kw or {}
+    caps = {} if capture else None
     h = layer_norm(blk["ln_1"], x, cfg.rms_norm_eps)
     a, new_cache = attention(cfg, blk["attn"], h, kv_cache, cache_position,
-                             attn_mask, linear_kw, attn_window)
+                             attn_mask, linear_kw, attn_window, caps)
     x = x + a
     h = layer_norm(blk["ln_2"], x, cfg.rms_norm_eps)
     m = gelu(linear_apply(blk["mlp"]["c_fc"], h, **linear_kw))
     x = x + linear_apply(blk["mlp"]["c_proj"], m, **linear_kw)
+    if capture:
+        caps.update(fc1=h, fc2=m)
+        return x, new_cache, caps
     return x, new_cache
 
 
@@ -90,3 +101,11 @@ def param_skeleton(cfg: ModelConfig) -> dict:
             for _ in range(cfg.num_hidden_layers)],
         "ln_f": ln,
     }
+
+
+def init_gpt2_params(cfg: ModelConfig, seed: int = 0,
+                     dtype=torch.float32, device="cuda"):
+    """The JAX package's ``init_gpt2_params`` as a ``FamilyModel``
+    (``models/tree.py`` ``init_params``)."""
+    from .tree import init_params
+    return init_params(cfg, seed, dtype, device)

@@ -43,9 +43,12 @@ def _apply_partial_rope(q, k, cos, sin, rot: int):
 
 
 def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
-              cache_position, attn_mask, linear_kw, attn_window=None):
+              cache_position, attn_mask, linear_kw, attn_window=None,
+              captures=None):
     B, S, D = x.shape
     H, hd = cfg.num_attention_heads, cfg.head_dim
+    if captures is not None:
+        captures["qkv"] = x
     qkv = linear_apply(attn_p["query_key_value"], x, **linear_kw)
     qkv = qkv.reshape(B, S, H, 3, hd)          # HF interleaved layout
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
@@ -53,20 +56,28 @@ def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
     k, v, new_cache = update_kv_cache(kv_cache, k, v, cache_position)
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype,
                             attn_window=attn_window)
+    if captures is not None:
+        captures["o"] = ctx
     return linear_apply(attn_p["dense"], ctx, **linear_kw), new_cache
 
 
 def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
                 kv_cache=None, cache_position=None, attn_mask=None,
-                linear_kw: Optional[dict] = None, attn_window=None):
+                linear_kw: Optional[dict] = None, attn_window=None,
+                capture: bool = False):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures): the
+    inputs of the qkv, o, fc1 and fc2 groups."""
     linear_kw = linear_kw or {}
+    caps = {} if capture else None
     h = layer_norm(blk["input_layernorm"], x, cfg.rms_norm_eps)
     a, new_cache = attention(cfg, blk["attention"], h, cos, sin, kv_cache,
                              cache_position, attn_mask, linear_kw,
-                             attn_window)
+                             attn_window, caps)
 
     def mlp(h):
         m = gelu(linear_apply(blk["mlp"]["dense_h_to_4h"], h, **linear_kw))
+        if capture:
+            caps.update(fc1=h, fc2=m)
         return linear_apply(blk["mlp"]["dense_4h_to_h"], m, **linear_kw)
 
     if cfg.use_parallel_residual:
@@ -78,6 +89,8 @@ def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
         h2 = layer_norm(blk["post_attention_layernorm"], x,
                         cfg.rms_norm_eps)
         x = x + mlp(h2)
+    if capture:
+        return x, new_cache, caps
     return x, new_cache
 
 
@@ -106,3 +119,11 @@ def param_skeleton(cfg: ModelConfig) -> dict:
         "final_layer_norm": ln,
         "embed_out": LinearSpec(V, D, False),
     }
+
+
+def init_gpt_neox_params(cfg: ModelConfig, seed: int = 0,
+                         dtype=torch.float32, device="cuda"):
+    """The JAX package's ``init_gpt_neox_params`` as a ``FamilyModel``
+    (``models/tree.py`` ``init_params``)."""
+    from .tree import init_params
+    return init_params(cfg, seed, dtype, device)

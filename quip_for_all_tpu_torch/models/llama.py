@@ -11,7 +11,13 @@ The model is an ``nn.Module`` whose tree mirrors the JAX param dict:
 ``LoraLinear`` (``nn/lora.py``: one of the others plus its adapters, which
 ``fuse_for_inference`` leaves unfused). Forward functions keep the JAX
 names and argument order so a reader can follow both side by side; without
-caches ``model_apply`` is differentiable (a LoRA step).
+caches ``model_apply`` is differentiable (a LoRA step, a finetune).
+
+Activation capture: ``block_apply(..., capture=True)`` also returns the
+input of every linear sub-layer group under the JAX package's keys (qkv,
+o, gateup, down; Mixtral's moe_input, moe_routing and expert{e}_down),
+which the quantizer accumulates into Hessians. ``init_llama_params`` makes
+the dense float model from the JAX package's numpy draws.
 """
 from __future__ import annotations
 
@@ -180,9 +186,12 @@ def runtime_window(cache_position, S: int, T: int) -> Optional[int]:
 def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
               cos, sin, kv_cache: Optional[tuple],
               cache_position, attn_mask: torch.Tensor,
-              linear_kw: dict, attn_window: Optional[int] = None):
+              linear_kw: dict, attn_window: Optional[int] = None,
+              captures: Optional[dict] = None):
     B, S, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if captures is not None:
+        captures["qkv"] = x
     if "qkv_proj" in attn_p:   # fused single-launch qkv (inference)
         q, k, v = attn_p["qkv_proj"](x, **linear_kw)
     elif "W_pack" in attn_p:   # baichuan fused qkv (rows [q; k; v])
@@ -207,29 +216,39 @@ def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
     else:
         new_cache, attn_window = None, None
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype, attn_window)
+    if captures is not None:
+        captures["o"] = ctx
     return linear_apply(attn_p["o_proj"], ctx, **linear_kw), new_cache
 
 
-def mlp_apply(mlp_p: nn.ModuleDict, x: torch.Tensor, linear_kw: dict
-              ) -> torch.Tensor:
+def mlp_apply(mlp_p: nn.ModuleDict, x: torch.Tensor, linear_kw: dict,
+              captures: Optional[dict] = None) -> torch.Tensor:
+    if captures is not None:
+        captures["gateup"] = x
     if "gateup_proj" in mlp_p:   # fused single-launch gate/up (inference)
         g, u = mlp_p["gateup_proj"](x, **linear_kw)
     else:
         g = linear_apply(mlp_p["gate_proj"], x, **linear_kw)
         u = linear_apply(mlp_p["up_proj"], x, **linear_kw)
-    return linear_apply(mlp_p["down_proj"], F.silu(g) * u, **linear_kw)
+    h = F.silu(g) * u
+    if captures is not None:
+        captures["down"] = h
+    return linear_apply(mlp_p["down_proj"], h, **linear_kw)
 
 
 def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
-              linear_kw: dict) -> torch.Tensor:
+              linear_kw: dict, captures: Optional[dict] = None
+              ) -> torch.Tensor:
     """Mixtral top-k MoE. Two formulations (``nn/qmoe.py``):
       - stacked sparse (decode, B*S < 32 tokens): the expert-indexed
         kernel reads only the selected experts' planes;
       - per-expert dense masked loop (prefill, or experts not stacked):
         every expert on every token, each through the fused kernel.
-    """
+    A capture (``captures``) takes the unstacked experts' loop."""
     B, S, D = x.shape
     router_logits = linear_apply(moe_p["gate"], x, **linear_kw)  # (B,S,E)
+    if "experts_stacked" in moe_p and captures is not None:
+        raise ValueError("capture runs on unstacked experts")
     if "experts_stacked" in moe_p:
         st = moe_p["experts_stacked"]
         if B * S < 32:
@@ -249,12 +268,18 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
     topw = torch.softmax(topv, dim=-1)                          # (B,S,K)
     routing = torch.sum(F.one_hot(topi, E).to(torch.float32)
                         * topw[..., None], dim=2)              # (B,S,E)
+    if captures is not None:
+        captures["moe_routing"] = routing
+        captures["moe_input"] = x
     out = torch.zeros_like(x)
     for e in range(E):
         ep = experts[e]
         w = routing[..., e][..., None].to(x.dtype)
         h = (F.silu(linear_apply(ep["w1"], x, **linear_kw))
              * linear_apply(ep["w3"], x, **linear_kw))
+        if captures is not None:
+            captures[f"expert{e}_down"] = h * (routing[..., e][..., None]
+                                               > 0)
         out = out + w * linear_apply(ep["w2"], h, **linear_kw)
     return out
 
@@ -262,18 +287,22 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
 def block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
                 cos, sin, kv_cache=None, cache_position=None, attn_mask=None,
                 linear_kw: Optional[dict] = None,
-                attn_window: Optional[int] = None):
+                attn_window: Optional[int] = None, capture: bool = False):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures)."""
     linear_kw = linear_kw or {}
+    captures: Optional[dict] = {} if capture else None
     h = rms_norm(blk["input_layernorm"].weight, x, cfg.rms_norm_eps)
     attn_out, new_cache = attention(cfg, blk["self_attn"], h, cos, sin,
                                     kv_cache, cache_position, attn_mask,
-                                    linear_kw, attn_window)
+                                    linear_kw, attn_window, captures)
     x = x + attn_out
     h = rms_norm(blk["post_attention_layernorm"].weight, x, cfg.rms_norm_eps)
     if cfg.arch == "mixtral":
-        y = moe_apply(cfg, blk["block_sparse_moe"], h, linear_kw)
+        y = moe_apply(cfg, blk["block_sparse_moe"], h, linear_kw, captures)
     else:
-        y = mlp_apply(blk["mlp"], h, linear_kw)
+        y = mlp_apply(blk["mlp"], h, linear_kw, captures)
+    if capture:
+        return x + y, new_cache, captures
     return x + y, new_cache
 
 
@@ -429,3 +458,61 @@ def set_combine_planes(model: LlamaModel, n: int) -> LlamaModel:
         if isinstance(mod, (QuantLinear, FusedQuantLinear)):
             mod.combine = int(n)
     return model
+
+
+# --------------------------------------------------------------- init
+
+def init_llama_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
+                      device="cuda") -> LlamaModel:
+    """The dense float model (HF layout) of the JAX package's
+    ``init_llama_params``: the same numpy draws in the same order, so for
+    one seed the weights are its own bit for bit, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    from ..utils.device import resolve_device
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+
+    def t(a):
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    def lin(out_f, in_f, bias=False):
+        w = (rng.standard_normal((out_f, in_f)) / np.sqrt(in_f)
+             ).astype(np.float32)
+        return DenseLinear(t(w), t(np.zeros(out_f, np.float32))
+                           if bias else None)
+
+    def ones():
+        return Weight(t(np.ones(D, np.float32)))
+
+    def block():
+        if cfg.arch == "baichuan":
+            attn = {"W_pack": lin((H + 2 * KV) * hd, D),
+                    "o_proj": lin(D, H * hd)}
+        else:
+            attn = {"q_proj": lin(H * hd, D, cfg.attention_bias),
+                    "k_proj": lin(KV * hd, D, cfg.attention_bias),
+                    "v_proj": lin(KV * hd, D, cfg.attention_bias),
+                    "o_proj": lin(D, H * hd)}
+        mods = {"input_layernorm": ones(), "post_attention_layernorm": ones(),
+                "self_attn": nn.ModuleDict(attn)}
+        if cfg.arch == "mixtral":
+            gate = lin(cfg.num_local_experts, D)
+            experts = [nn.ModuleDict({"w1": lin(I, D), "w3": lin(I, D),
+                                      "w2": lin(D, I)})
+                       for _ in range(cfg.num_local_experts)]
+            mods["block_sparse_moe"] = nn.ModuleDict(
+                {"gate": gate, "experts": nn.ModuleList(experts)})
+        else:
+            mods["mlp"] = nn.ModuleDict({"gate_proj": lin(I, D),
+                                         "up_proj": lin(I, D),
+                                         "down_proj": lin(D, I)})
+        return nn.ModuleDict(mods)
+
+    embed = t((rng.standard_normal((cfg.vocab_size, D)) * 0.02
+               ).astype(np.float32))
+    layers = [block() for _ in range(cfg.num_hidden_layers)]
+    head = None if cfg.tie_word_embeddings else lin(cfg.vocab_size, D)
+    return LlamaModel(embed, layers, t(np.ones(D, np.float32)), head)

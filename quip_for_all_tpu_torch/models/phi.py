@@ -19,9 +19,12 @@ from .tree import LinearSpec, NormSpec, TableSpec
 
 
 def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
-              cache_position, attn_mask, linear_kw, attn_window=None):
+              cache_position, attn_mask, linear_kw, attn_window=None,
+              captures=None):
     B, S, D = x.shape
     H, hd = cfg.num_attention_heads, cfg.head_dim
+    if captures is not None:
+        captures["qkv"] = x
     q = linear_apply(attn_p["q_proj"], x, **linear_kw).reshape(B, S, H, hd)
     k = linear_apply(attn_p["k_proj"], x, **linear_kw).reshape(B, S, H, hd)
     v = linear_apply(attn_p["v_proj"], x, **linear_kw).reshape(B, S, H, hd)
@@ -29,20 +32,29 @@ def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
     k, v, new_cache = update_kv_cache(kv_cache, k, v, cache_position)
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype,
                             attn_window=attn_window)
+    if captures is not None:
+        captures["o"] = ctx
     return linear_apply(attn_p["dense"], ctx, **linear_kw), new_cache
 
 
 def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
                 kv_cache=None, cache_position=None, attn_mask=None,
-                linear_kw: Optional[dict] = None, attn_window=None):
+                linear_kw: Optional[dict] = None, attn_window=None,
+                capture: bool = False):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures): the
+    inputs of the qkv, o, fc1 and fc2 groups."""
     linear_kw = linear_kw or {}
+    caps = {} if capture else None
     h = layer_norm(blk["input_layernorm"], x, cfg.rms_norm_eps)
     a, new_cache = attention(cfg, blk["self_attn"], h, cos, sin, kv_cache,
                              cache_position, attn_mask, linear_kw,
-                             attn_window)
+                             attn_window, caps)
     m = gelu(linear_apply(blk["mlp"]["fc1"], h, **linear_kw))
-    m = linear_apply(blk["mlp"]["fc2"], m, **linear_kw)
-    return x + a + m, new_cache                # parallel residual
+    y = linear_apply(blk["mlp"]["fc2"], m, **linear_kw)
+    if capture:
+        caps.update(fc1=h, fc2=m)
+        return x + a + y, new_cache, caps
+    return x + a + y, new_cache                # parallel residual
 
 
 def model_apply(cfg: ModelConfig, params, input_ids, positions=None,
@@ -71,3 +83,11 @@ def param_skeleton(cfg: ModelConfig) -> dict:
         "final_layernorm": ln,
         "lm_head": LinearSpec(cfg.vocab_size, D, True),
     }
+
+
+def init_phi_params(cfg: ModelConfig, seed: int = 0,
+                    dtype=torch.float32, device="cuda"):
+    """The JAX package's ``init_phi_params`` as a ``FamilyModel``
+    (``models/tree.py`` ``init_params``)."""
+    from .tree import init_params
+    return init_params(cfg, seed, dtype, device)

@@ -25,27 +25,39 @@ def _attn_alias(attn_p) -> dict:
     return {"W_pack": attn_p["c_attn"], "o_proj": attn_p["c_proj"]}
 
 
-def mlp_apply(mlp_p, x: torch.Tensor, linear_kw: dict) -> torch.Tensor:
+def mlp_apply(mlp_p, x: torch.Tensor, linear_kw: dict,
+              captures: Optional[dict] = None) -> torch.Tensor:
+    if captures is not None:
+        captures["fc1"] = x
     if "w12_proj" in mlp_p:      # fused single-launch w1/w2 (inference)
         a1, a2 = mlp_p["w12_proj"](x, **linear_kw)
     else:
         a1 = linear_apply(mlp_p["w1"], x, **linear_kw)     # up
         a2 = linear_apply(mlp_p["w2"], x, **linear_kw)     # gate
-    return linear_apply(mlp_p["c_proj"], a1 * F.silu(a2), **linear_kw)
+    h = a1 * F.silu(a2)
+    if captures is not None:
+        captures["fc2"] = h
+    return linear_apply(mlp_p["c_proj"], h, **linear_kw)
 
 
 def block_apply(cfg: ModelConfig, blk, x: torch.Tensor, cos, sin,
                 kv_cache=None, cache_position=None, attn_mask=None,
                 linear_kw: Optional[dict] = None,
-                attn_window: Optional[int] = None):
+                attn_window: Optional[int] = None, capture: bool = False):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures): the
+    inputs of the qkv, o, fc1 and fc2 groups."""
     linear_kw = linear_kw or {}
+    caps = {} if capture else None
     h = rms_norm(blk["ln_1"].weight, x, cfg.rms_norm_eps)
     attn_out, new_cache = attention(cfg, _attn_alias(blk["attn"]), h, cos,
                                     sin, kv_cache, cache_position,
-                                    attn_mask, linear_kw, attn_window)
+                                    attn_mask, linear_kw, attn_window, caps)
     x = x + attn_out
     h = rms_norm(blk["ln_2"].weight, x, cfg.rms_norm_eps)
-    return x + mlp_apply(blk["mlp"], h, linear_kw), new_cache
+    x = x + mlp_apply(blk["mlp"], h, linear_kw, caps)
+    if capture:
+        return x, new_cache, caps
+    return x, new_cache
 
 
 def model_apply(cfg: ModelConfig, params, input_ids, positions=None,
@@ -97,3 +109,11 @@ def param_skeleton(cfg: ModelConfig) -> dict:
     if not cfg.tie_word_embeddings:
         tree["lm_head"] = LinearSpec(cfg.vocab_size, D, False)
     return tree
+
+
+def init_qwen_params(cfg: ModelConfig, seed: int = 0,
+                     dtype=torch.float32, device="cuda"):
+    """The JAX package's ``init_qwen_params`` as a ``FamilyModel``
+    (``models/tree.py`` ``init_params``)."""
+    from .tree import init_params
+    return init_params(cfg, seed, dtype, device)

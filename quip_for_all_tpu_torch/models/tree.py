@@ -10,13 +10,15 @@ instead of an array. ``random_quantized_model``, the checkpoint loader and
 (``model["layers"][i]["attn"]["c_attn"]``), with linear leaves
 ``QuantLinear``, ``FusedQuantLinear`` (QWen's fused w1/w2),
 ``DenseLinear`` or ``LoraLinear``, norms ``Norm`` and embedding tables
-``Weight``.
+``Weight``. ``init_params`` walks it to make the dense float model of the
+JAX package's ``init_<family>_params``, draw for draw.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -116,3 +118,47 @@ class FamilyModel(nn.ModuleDict):
             return nn.ModuleDict({k: build(v, spec[k])
                                   for k, v in node.items() if v is not None})
         return cls(build(tree, skel))
+
+
+# the tables the JAX inits draw at 0.01 (learned positions) instead of 0.02,
+# and the linears they draw as a 0.02 table (GPT-NeoX's untied head)
+_TABLE_SCALE = {"wpe": 0.01, "embed_positions": 0.01}
+_LINEAR_AS_TABLE = ("embed_out",)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
+                device="cuda") -> "FamilyModel":
+    """The dense float model of the family's JAX ``init_<family>_params``
+    on ``device`` (the card unless the caller asks for the CPU): the
+    skeleton's leaves in its order, each linear a (out, in) normal draw
+    over sqrt(in) with a zero bias where it has one, each table a normal
+    draw times 0.02 (0.01 for learned positions), norms ones (and zero
+    biases), from one numpy ``default_rng(seed)``; the skeletons keep the
+    JAX inits' order, so the weights are theirs bit for bit."""
+    from ..utils.device import resolve_device
+    from .registry import get_arch
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    def leaf(path, spec):
+        if isinstance(spec, LinearSpec):
+            shape = (spec.out_f, spec.in_f)
+            if path[-1] in _LINEAR_AS_TABLE:
+                w = rng.standard_normal(shape) * 0.02
+            else:
+                w = rng.standard_normal(shape) / np.sqrt(spec.in_f)
+            return {"weight": t(w.astype(np.float32)),
+                    "bias": t(np.zeros(spec.out_f, np.float32))
+                    if spec.bias else None}
+        if isinstance(spec, NormSpec):
+            return {"weight": t(np.ones(spec.n, np.float32)),
+                    "bias": t(np.zeros(spec.n, np.float32))
+                    if spec.bias else None}
+        w = rng.standard_normal((spec.rows, spec.cols)) * _TABLE_SCALE.get(
+            path[-1], 0.02)
+        return {"weight": t(w.astype(np.float32))}
+    skel = get_arch(cfg).param_skeleton(cfg)
+    return FamilyModel.from_tree(cfg, map_skeleton(skel, leaf))

@@ -209,8 +209,9 @@ def _as_i32(v: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------- encode helpers (numpy)
 
-def _e8p_words_from_idx(idx16: np.ndarray) -> np.ndarray:
-    """(..., G) uint16 E8P codes -> int32 affine-nibble word plane."""
+def _e8p_words_of(idx16: np.ndarray) -> np.ndarray:
+    """(..., G) uint16 E8P codes -> int32 affine-nibble word plane, from
+    the codes' decoded values."""
     vals = e8p12.full_grid()[idx16.astype(np.int64)]      # (..., G, 8)
     # weight = 0.5*nib - 2.75 exactly, so nib = 2*weight + 5.5 in {0..11}
     nib = np.rint(vals * 2 + 5.5).astype(np.int64)
@@ -224,7 +225,13 @@ def _e8p_words_from_idx(idx16: np.ndarray) -> np.ndarray:
 @lru_cache(maxsize=None)
 def e8p_word_table() -> np.ndarray:
     """(65536,) int32: the runtime word of every E8P12 code."""
-    return _e8p_words_from_idx(np.arange(1 << 16, dtype=np.uint16))
+    return _e8p_words_of(np.arange(1 << 16, dtype=np.uint16))
+
+
+def _e8p_words_from_idx(idx16: np.ndarray) -> np.ndarray:
+    """(..., G) uint16 E8P codes -> int32 word plane (a lookup in
+    ``e8p_word_table``)."""
+    return e8p_word_table()[idx16.astype(np.int64)]
 
 
 def _e8p_uv_from_idx(idx16: np.ndarray):
@@ -245,34 +252,29 @@ def e8p_uv_table():
     return u.astype(np.uint8), p.astype(np.uint8)
 
 
-def _vals_key(vals: np.ndarray) -> np.ndarray:
-    """Encode an (..., 8) half-integer-grid row as a unique int64 key."""
-    q = np.rint(vals * 4).astype(np.int64) + 64           # positive
-    key = np.zeros(vals.shape[:-1], dtype=np.int64)
-    for i in range(8):
-        key = key * 129 + q[..., i]
-    return key
-
-
 @lru_cache(maxsize=None)
-def _e8p_inverse_keys():
-    """Sorted integer keys of the full E8P grid for word->idx recovery."""
-    keys = _vals_key(e8p12.full_grid().astype(np.float64))
-    order = np.argsort(keys)
-    return keys[order], order.astype(np.int64)
+def _e8p_word_order():
+    """The E8P12 words sorted (as uint32) and the codes in that order."""
+    words = e8p_word_table().view(np.uint32).astype(np.int64)
+    order = np.argsort(words)
+    return words[order], order.astype(np.int64)
 
 
-def _e8p_idx_from_words(words: np.ndarray) -> np.ndarray:
-    """int32 word plane -> uint16 E8P codes (exact inverse)."""
-    w = words.view(np.uint32).astype(np.int64)
-    vals = np.stack([((w >> (4 * i)) & 0xF).astype(np.float64)
-                     for i in range(8)], axis=-1) * 0.5 - 2.75
-    keys = _vals_key(vals)
-    skeys, order = _e8p_inverse_keys()
-    pos = np.clip(np.searchsorted(skeys, keys), 0, len(skeys) - 1)
-    if not np.array_equal(skeys[pos], keys):
+@lru_cache(maxsize=8)
+def _e8p_word_order_on(device: torch.device):
+    sw, order = _e8p_word_order()
+    return torch.from_numpy(sw).to(device), torch.from_numpy(order).to(device)
+
+
+def _e8p_idx_from_words(words: torch.Tensor) -> np.ndarray:
+    """int32 word plane (a tensor, searched on its own device) -> int64
+    E8P codes on the host (exact inverse: every code has its own word)."""
+    sw, order = _e8p_word_order_on(words.device)
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    pos = torch.searchsorted(sw, w).clamp_(max=len(sw) - 1)
+    if not torch.equal(sw[pos], w):
         raise ValueError("non-codeword in E8P plane")
-    return order[pos].astype(np.uint16)
+    return order[pos].cpu().numpy()
 
 
 # ------------------------------------------------- row-pair packers (torch)
@@ -660,8 +662,7 @@ def to_raw_idxs(qt: QuantizedTensor) -> np.ndarray:
     ncols = qt.q_in // 8
 
     def codes(key):
-        w = qt.planes[key].cpu().numpy()[:, :ncols]
-        return _e8p_idx_from_words(w).astype(np.int64)
+        return _e8p_idx_from_words(qt.planes[key][:, :ncols])
     if qt.codebook_id == "E8P12":
         return codes("w0").astype(np.uint32).view(np.int32)
     if qt.codebook_id == "E8P12RVQ4B":

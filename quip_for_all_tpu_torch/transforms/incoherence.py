@@ -57,6 +57,17 @@ def _sylvester_t(e: int, device: torch.device, dtype: torch.dtype
     return torch.as_tensor(sylvester(e), dtype=dtype, device=device)
 
 
+def random_orthogonal_np(n: int, rng: np.random.Generator) -> np.ndarray:
+    """Haar-random orthogonal matrix from a numpy ``Generator``: the JAX
+    package's ``random_orthogonal`` draw for draw (one (n, n) Gaussian,
+    ``np.linalg.qr``, the sign fix), so the factor is bitwise its own for
+    the same generator state. f32 numpy, on the host like the QR."""
+    A = rng.standard_normal((n, n))
+    Q, R = np.linalg.qr(A)
+    Q = Q * np.sign(np.diag(R))[None, :]
+    return Q.astype(np.float32)
+
+
 def random_orthogonal(n: int, generator: torch.Generator,
                       device="cpu") -> torch.Tensor:
     """Haar-random orthogonal matrix (QR of a Gaussian with sign fix), f32.
@@ -82,11 +93,21 @@ class HadSpec:
 
 def get_hadK(n: int, use_rand: bool = True,
              generator: Optional[torch.Generator] = None,
-             device="cpu") -> HadSpec:
+             device="cpu", rng: Optional[np.random.Generator] = None,
+             shards: int = 1) -> HadSpec:
+    """The factor for dimension n. With ``use_rand`` the K x K factor is
+    drawn from ``rng`` (a numpy ``Generator``: the quantizer's path, the
+    JAX package's draws and QR, f32 numpy) or else from ``generator`` (a
+    torch one: ``random_quantized_model``'s path, a tensor on ``device``)."""
+    if shards > 1:
+        raise NotImplementedError("block-diagonal tensor-parallel "
+                                  "transforms (ROADMAP.md queue 1 item 8)")
     exp, base = decompose_pow2(n)
     if base == 1:
         return HadSpec(None, 1, n)
     if use_rand:
+        if rng is not None:
+            return HadSpec(random_orthogonal_np(base, rng), base, n)
         if generator is None:
             raise ValueError("use_rand=True needs an explicit generator")
         return HadSpec(random_orthogonal(base, generator, device), base, n)

@@ -66,7 +66,11 @@ def save_file(tensors: Mapping[str, np.ndarray], path: str) -> None:
     header: Dict[str, object] = {}
     blobs, off = [], 0
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
+        # np.ascontiguousarray would make a 0-d array (a scalar Wscale,
+        # the HF weight shim) 1-d
+        arr = np.asarray(tensors[name])
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")
         if arr.dtype not in names:
             raise ValueError(f"{name}: unsupported dtype {arr.dtype}")
         raw = arr.astype(arr.dtype.newbyteorder("<")).tobytes()

@@ -33,6 +33,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "test_torch_microbench_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_serving_cuda.py")
     yield os.path.join(REPO, "tests", "test_torch_right_cuda.py")
+    yield os.path.join(REPO, "tests", "test_torch_quantize_cuda.py")
 
 
 def _imports(path):
@@ -63,7 +64,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "models/registry.py", "models/tree.py", "models/gpt2.py",
                 "models/gpt_neox.py", "models/opt.py", "models/falcon.py",
                 "models/phi.py", "models/gptj.py", "models/qwen.py",
-                "quantize/quantizer.py"):
+                "quantize/quantizer.py",
+                # quantization
+                "codebooks/base.py", "quantize/hessian.py",
+                "quantize/ldlq.py", "quantize/quip.py",
+                "quantize/finetune.py", "utils/hf_import.py",
+                "cli/quantize.py"):
         assert os.path.join("quip_for_all_tpu_torch", mod) in scanned, mod
     bad = []
     for path in _port_sources():
@@ -99,7 +105,12 @@ def test_port_keeps_its_own_assets():
                                    "generate_stream", "perplexity",
                                    "serving", "caches_int8", "cli_generate",
                                    "cli_eval_ppl", "random_family",
-                                   "generate_family"])
+                                   "generate_family", "init_llama",
+                                   "init_family", "quantize_layer",
+                                   "pack_to_qlinear", "quantize_model",
+                                   "quantize_model_to_card",
+                                   "load_hf_model", "cli_quantize",
+                                   "cli_quantize_hf"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without device=, every entry point raises on a machine with
     no CUDA — never a silent fall back to the CPU."""
@@ -177,6 +188,47 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
                                                  "e8p12"),
                     "--dataset" if entry == "cli_eval_ppl" else "--prompt",
                     "synthetic" if entry == "cli_eval_ppl" else "hi"])
+        elif entry == "init_llama":
+            qt.init_llama_params(cfg)
+        elif entry == "init_family":
+            from quip_for_all_tpu_torch.models import opt
+            opt.init_opt_params(qt.tiny_config(arch="opt",
+                                               num_key_value_heads=4))
+        elif entry in ("quantize_layer", "pack_to_qlinear"):
+            from quip_for_all_tpu_torch.codebooks import get_codebook
+            from quip_for_all_tpu_torch.quantize import quip
+            eye = np.eye(16, dtype=np.float32)
+            args = (eye, eye, get_codebook("D4"), quip.QuantConfig(),
+                    np.random.default_rng(0))
+            if entry == "quantize_layer":
+                quip.quantize_layer(*args)
+            else:
+                attrs, _ = quip.quantize_layer(*args, device="cpu")
+                quip.pack_to_qlinear(attrs, get_codebook("D4"))
+        elif entry == "quantize_model":
+            # the user's path: a dense model made on the default device
+            qt.QuipQuantizer(codebook="E8P12").quantize_model(
+                cfg, qt.init_llama_params(cfg),
+                np.zeros((4, 8), dtype=np.int32))
+        elif entry == "quantize_model_to_card":
+            # a model on the CPU sent to the card: refused, not kept there
+            qt.QuipQuantizer(codebook="E8P12").quantize_model(
+                cfg, qt.init_llama_params(cfg, device="cpu"),
+                np.zeros((4, 8), dtype=np.int32), device="cuda")
+        elif entry == "load_hf_model":
+            qt.save_hf_model(cfg, qt.init_llama_params(cfg, device="cpu"),
+                             str(tmp_path))
+            qt.load_hf_model(str(tmp_path))
+        elif entry in ("cli_quantize", "cli_quantize_hf"):
+            from quip_for_all_tpu_torch.cli import quantize
+            path = "random:tiny"
+            if entry == "cli_quantize_hf":
+                path = str(tmp_path / "hf")
+                qt.save_hf_model(cfg, qt.init_llama_params(
+                    cfg, device="cpu"), path)
+            quantize.main(["--model-path", path, "--save-dir",
+                           str(tmp_path / "out"), "--nsamples", "4",
+                           "--seqlen", "8"])
         elif entry == "cli_finetune_lora":
             from quip_for_all_tpu_torch.cli import finetune_lora
             finetune_lora.main(["--model-path", os.path.join(
