@@ -60,8 +60,8 @@ line):
      1, 8) and per prefill (m = 32, 64);
   8. the golden fixtures in the byte-cut layouts: e8p12 as u3, e8p12rvq4b
      as nibble and as pb;
-  9. the byte-cut paths at full width, all 32 layers, random codes from
-     seed 0: (a) Llama-2-7B E8P12 in u3 and (b) E8P12RVQ4B in pb through
+  9. the byte-cut paths at full width, 16 layers (PATH9_LAYERS, since
+     phase 20 came), random codes from seed 0: (a) Llama-2-7B E8P12 in u3 and (b) E8P12RVQ4B in pb through
      the row-pair kernels, (c) E8P12RVQ4B in nibble through
      fused_decode_matmul with 2 plane sets; each a 32-token prompt and 32
      greedy tokens twice, exact launch counts, one graphed step, the
@@ -167,9 +167,26 @@ line):
      4096 rows: the rounding (addmm + max beside matmul + sub + max,
      CUDA-graph replays, beside its bound) and 64 steps by the host clock
      and by kernel (``torch.profiler``).
+ 20. LoRA on the families at full width, as phase 14 does it: (i)
+     Mixtral-8x7B E8P12 (all 32 layers, experts stacked, attention
+     unfused, quantized head; rank-8 adapters on q/k/v/o) at batch 1 x 512
+     (511 rows: K2 forward, K3 backward, the dense expert loop over the
+     stacked experts' views), (ii) GPT-NeoX-20B E8P12 (all 44 layers,
+     adapters on every block linear) at 2 x 512: each with every adapter
+     gradient against the plain route in f32 and bf16 (Mixtral's on its
+     first 4 layers), exact K2/K3 launches per step, the step timed with
+     K2/K3 event times and its peak memory, 8 AdamW steps of
+     ``train_lora`` whose loss falls at every step, and 16 greedy tokens
+     with the trained adapters, graphed bitwise the eager loop with exact
+     launches and in f32 equal to the plain route's; (iii)
+     ``cli.finetune_lora --device cuda --targets ...`` on a 2-layer
+     GPT-NeoX checkpoint at 20B widths written by ``save_quantized``, its
+     adapters loaded back with ``load_lora`` and ``import_peft`` giving
+     the trained model's logits. Phases 13 and 16 time K3 and K2 at (i)'s
+     and (ii)'s shapes and rows too.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
-a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 19; each
-logs its start and its seconds. The last
+a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19;
+each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
@@ -269,6 +286,10 @@ SHAPES = [("qkv", 12288, 4096, True, (1, 8, 16, 32)),
 K1_2SETS_M = (1, 32)
 K1_AFFINE = ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))
 LAYERS = 32
+# phase 9's byte-cut paths run Llama-2-7B at this depth (the only cut):
+# the script's time grew by phase 20, and their kernels are held at full
+# width per call in phases 7 and 10
+PATH9_LAYERS = 16
 # the kernel each runtime layout's linears launch
 LAYOUT_KERNEL = {"u3": "rowpair_u3_decode_matmul",
                  "pb": "rowpair_pb_decode_matmul",
@@ -303,6 +324,46 @@ K2_CALLS = {"qkvo": 4 * LAYERS, "gateup": 2 * LAYERS, "down": LAYERS,
             "head": 1}
 K2_M = (64, 1022)
 DENSE_M = (1022, 2044)
+# phase 20: LoRA on the families at full width. (i) Mixtral-8x7B, all 32
+# layers, experts stacked, attention unfused, quantized head, adapters on
+# q/k/v/o (the default targets), batch LORA_MIX_B x LORA_MIX_S (511 rows:
+# K2 forward, K3 backward; the MoE block takes the dense expert loop over
+# the stacked experts' views); its gradient check against the plain route
+# runs on the first LORA_MIX_GRAD_LAYERS layers (depth the only cut: the
+# plain route's activations of 32 layers in f32 do not fit beside the
+# codes). (ii) GPT-NeoX-20B, all 44 layers, adapters on every block linear
+# (NEOX_TARGETS), batch LORA_NEOX_B x LORA_NEOX_S (1022 rows). (iii) the
+# finetune CLI on a GPT-NeoX checkpoint at 20B widths and LORA_CLI_LAYERS
+# layers that the phase saves itself.
+LORA_MIX_B, LORA_MIX_S, LORA_MIX_GRAD_LAYERS = 1, 512, 4
+LORA_NEOX_B, LORA_NEOX_S = 2, 512
+LORA_CLI_LAYERS = 2
+NEOX_TARGETS = ("query_key_value", "dense", "dense_h_to_4h", "dense_4h_to_h")
+# K2 and K3 at the shapes phase 20 gives them, one plane set, at its rows:
+# (name, q_out, q_in, m). Mixtral's w1 and w3 run as separate views of
+# the stacked w13 (the second starts at row 14336 of the expert's planes).
+LORA_SHAPES = [("mix_q_o", 4096, 4096, 511), ("mix_k_v", 1024, 4096, 511),
+               ("mix_w1_w3", 14336, 4096, 511), ("mix_w2", 4096, 14336, 511),
+               ("mix_head", 32000, 4096, 511),
+               ("neox_qkv", 18432, 6144, 1022),
+               ("neox_dense", 6144, 6144, 1022),
+               ("neox_h_to_4h", 24576, 6144, 1022),
+               ("neox_4h_to_h", 6144, 24576, 1022),
+               ("neox_head", 50432, 6144, 1022)]
+# their calls per training forward (K2: every quantized linear) and per
+# step (K3: less the linears whose input needs no gradient, those that
+# read layer 0's norm of the embedding: Mixtral's q/k/v, and GPT-NeoX's
+# qkv and h_to_4h under its parallel residual)
+LORA_K2_CALLS = {
+    "mixtral": {"mix_q_o": 2 * LAYERS, "mix_k_v": 2 * LAYERS,
+                "mix_w1_w3": 2 * 8 * LAYERS, "mix_w2": 8 * LAYERS,
+                "mix_head": 1},
+    "neox": {"neox_qkv": 44, "neox_dense": 44, "neox_h_to_4h": 44,
+             "neox_4h_to_h": 44, "neox_head": 1}}
+LORA_K3_CALLS = {
+    "mixtral": dict(LORA_K2_CALLS["mixtral"], mix_q_o=2 * LAYERS - 1,
+                    mix_k_v=2 * (LAYERS - 1)),
+    "neox": dict(LORA_K2_CALLS["neox"], neox_qkv=43, neox_h_to_4h=43)}
 # (a): the int8 KV cache's logits against the bf16 cache's, a share of
 # max|logit| (int8 codes round at 1/254 of a row's max, bf16 at 2^-9 of
 # each value; both then go through 32 random layers, hence the bf16
@@ -425,12 +486,22 @@ def log_int_to_float(sources):
     if not os.path.isfile(cu):
         log("sass: cuobjdump not found; converts not counted")
         return
-    for name in sources:
-        r = subprocess.run([cu, "-sass", _build._target(name)],
-                           capture_output=True, text=True, timeout=120)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def sass(name):
+        return subprocess.run([cu, "-sass", _build._target(name)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    # one cuobjdump per library, all started together
+    t = time.time()
+    with ThreadPoolExecutor(len(sources)) as ex:
+        texts = list(ex.map(sass, sources))
+    log(f"sass: {len(sources)} libraries disassembled in "
+        f"{time.time() - t:.1f} s")
+    for name, text in zip(sources, texts):
         ops = [m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
-            r.stdout)]
+            text)]
         log(f"sass {name}: {ops.count('I2F')} I2F and {ops.count('I2FP')} "
             f"I2FP of {len(ops)} instructions (all kernel instantiations)")
 
@@ -1821,17 +1892,21 @@ def phase_rowpair_kernels():
 
 
 def phase_rowpair_paths():
-    """Llama-2-7B at full width and all 32 layers in the byte-cut layouts:
-    (a) E8P12 u3 and (b) E8P12RVQ4B pb through the row-pair kernels, (c)
-    E8P12RVQ4B nibble through fused_decode_matmul with 2 plane sets. Each
-    path runs with the launch counts set to 0 just before and read just
-    after. Returns {path: launches, step times}."""
+    """Llama-2-7B at full width and PATH9_LAYERS layers in the byte-cut
+    layouts: (a) E8P12 u3 and (b) E8P12RVQ4B pb through the row-pair
+    kernels, (c) E8P12RVQ4B nibble through fused_decode_matmul with 2
+    plane sets. Each path runs with the launch counts set to 0 just before
+    and read just after. Returns {path: launches, step times}."""
+    import dataclasses
     import gc
     import torch
     import quip_for_all_tpu_torch as qt
-    cfg = qt.llama2_7b_config()
+    cfg = dataclasses.replace(qt.llama2_7b_config(),
+                              num_hidden_layers=PATH9_LAYERS)
     S, NEW, CACHE = 32, 32, 2048
-    per_step = 4 * LAYERS + 1
+    per_step = 4 * PATH9_LAYERS + 1
+    log(f"phase 9: the byte-cut paths run {PATH9_LAYERS} of Llama-2-7B's "
+        f"{LAYERS} layers (depth the only cut, for the script's time)")
     out = {}
     for tag, codebook, layout, kname in (
             ("a_u3", "E8P12", "u3", "rowpair_u3_decode_matmul"),
@@ -1846,7 +1921,8 @@ def phase_rowpair_paths():
         model = qt.fuse_for_inference(cfg, model)
         torch.cuda.synchronize()
         log(f"{tag}: built Llama-2-7B {codebook} [{layout or 'nibble'}] "
-            f"(random codes, seed 0, fused, quantized head) in "
+            f"({PATH9_LAYERS} layers; random codes, seed 0, fused, quantized "
+            f"head) in "
             f"{time.time() - t:.1f} s; "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
             f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
@@ -2264,8 +2340,10 @@ def log_prefill(tag, cfg, model, prompt, cache_len, kname):
 def shared_routing(model, k, logits, replay):
     """While active, every MoE block's router logits (its dense gate's
     output) are appended to ``logits`` call by call, or, with ``replay``,
-    replaced by those recorded, so that a second generate run takes the
-    first run's top-k experts and weights. Yields a one-element list that
+    replaced by those recorded, so that a second run (a generate, or a
+    training step) takes the first run's top-k experts and weights; a
+    replayed value is the recorded one bit for bit, and its gradient goes
+    to the run's own router logits. Yields a one-element list that
     counts, on replay, the token-layer choices whose top-k set the run's
     own logits would have changed."""
     import torch
@@ -2278,13 +2356,13 @@ def shared_routing(model, k, logits, replay):
         if id(lin) not in gates:
             return y
         if not replay:
-            logits.append(y)
+            logits.append(y.detach())
             return y
         r = next(recorded)
         own, rec = (torch.topk(t.float(), k, dim=-1).indices.sort(
             dim=-1).values for t in (y, r))
         flips[0] = flips[0] + (own != rec).any(dim=-1).sum()
-        return r
+        return r + (y - y.detach())
     M.linear_apply = linear_apply
     try:
         yield flips
@@ -2307,7 +2385,8 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
     CUDA graph cannot hold). On an MoE model the kernel run takes the plain run's routing
     (``shared_routing``): the runs then differ by the linears' rounding and
     not by a top-k choice that a near-tie of router logits flips, and the
-    MoE kernel runs on every decode step of the kernel run."""
+    MoE kernel runs on every decode step of the kernel run. Returns how
+    many of the n greedy tokens the runs share before they fork."""
     import torch
     from quip_for_all_tpu_torch.runtime import generate as G
     S = prompt.shape[1]
@@ -2363,6 +2442,7 @@ def check_plain(cfg, model, prompt, dtype, tol, cache_len, n=16,
     if not ((d1 if d1 is not None else d0) <= tol and gap <= tol):
         raise AssertionError(f"{tag} {label}: kernel path differs from the "
                              "plain twin beyond tolerance")
+    return same
 
 
 def phase_k3_kernels():
@@ -2381,10 +2461,10 @@ def phase_k3_kernels():
     from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows, max_err = [], 0.0
-    for name, q_out, q_in in K3_SHAPES:
+    for name, q_out, q_in, ms, sets in kernel_cases(K3_SHAPES, K3_M):
         G = q_in // 8
         qt2 = random_qtensor("E8P12RVQ4B", None, q_out, q_in, gen, "cuda")
-        for n_sets in (1, 2):
+        for n_sets in sets:
             qt = qt2 if n_sets == 2 else QuantizedTensor(
                 {"w0": qt2.planes["w0"]}, "E8P12", q_out, q_in)
             planes, affine, Gp = qt.plane_list(), qt.decode_affine, \
@@ -2396,7 +2476,7 @@ def phase_k3_kernels():
                 esz = 2 if dtype == torch.bfloat16 else 4
                 W = decode_weights(qt, dtype=dtype)
                 Wc = tm.cold_copies([W])
-                for m in K3_M:
+                for m in ms:
                     g = torch.randn((m, q_out), generator=gen,
                                     device="cuda").to(dtype)
                     got = fm.fused_decode_matmul_bwd(g, planes, affine,
@@ -2451,6 +2531,7 @@ def phase_k3_kernels():
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         log(f"kernel k3 per LoRA step's 222 calls at m={m} (bf16, 1 set): "
             + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
+    log_lora_sums("k3", rows, LORA_K3_CALLS, "step")
     k3_relayout_cost(gen)
     return rows, max_err
 
@@ -2473,10 +2554,10 @@ def phase_k2_kernels():
     from quip_for_all_tpu_torch.utils.random_quantized import random_qtensor
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows, dense, max_err = [], [], 0.0
-    for name, q_out, q_in in K3_SHAPES:
+    for name, q_out, q_in, ms_, sets in kernel_cases(K3_SHAPES, K2_M):
         G = q_in // 8
         qt2 = random_qtensor("E8P12RVQ4B", None, q_out, q_in, gen, "cuda")
-        for n_sets in (1, 2):
+        for n_sets in sets:
             qt = qt2 if n_sets == 2 else QuantizedTensor(
                 {"w0": qt2.planes["w0"]}, "E8P12", q_out, q_in)
             planes, affine, Gp = qt.plane_list(), qt.decode_affine, \
@@ -2488,8 +2569,8 @@ def phase_k2_kernels():
                 esz = 2 if dtype == torch.bfloat16 else 4
                 W = decode_weights(qt, dtype=dtype)
                 Wc = tm.cold_copies([W])
-                ms = K2_M + ((DENSE_M[-1],) if n_sets == 1
-                             and dtype == torch.bfloat16 else ())
+                ms = ms_ + ((DENSE_M[-1],) if n_sets == 1 and name in
+                            K2_CALLS and dtype == torch.bfloat16 else ())
                 for m in ms:
                     x = torch.zeros((m, 8, Gp), device="cuda")
                     x[:, :, :G] = torch.randn((m, 8, G), generator=gen,
@@ -2535,8 +2616,8 @@ def phase_k2_kernels():
                         f" {nbytes / 1e6:.2f} MB) | "
                         f"{row['bound_ms'] / k_ms:.0%} of bound | library "
                         f"{lib_ms * 1e3:.1f} us (x @ W.T, W dense {dt})")
-                    if m in DENSE_M and n_sets == 1 and \
-                            dtype == torch.bfloat16:
+                    if m in DENSE_M and n_sets == 1 and name in \
+                            K2_CALLS and dtype == torch.bfloat16:
                         d_ms = 1e-3 * tm.graph_us(lambda i: torch.matmul(
                             x_nat, decode_weights(QuantizedTensor(
                                 {"w0": cp[i % len(cp)][0]}, "E8P12", q_out,
@@ -2558,6 +2639,7 @@ def phase_k2_kernels():
             log(f"kernel k2 per training forward's 225 calls at m={m} ({dt},"
                 f" 1 set): " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in per.items()))
+    log_lora_sums("k2", rows, LORA_K2_CALLS, "forward")
     for m in DENSE_M:
         d = call_sum(dense, K2_CALLS, "ms", m=m)
         k = call_sum(dense, K2_CALLS, "k2_ms", m=m)
@@ -2566,6 +2648,29 @@ def phase_k2_kernels():
             f"{d / k:.2f}x (FUSED_MAX_M 1025 sends {m} rows to "
             f"{'K2' if m < 1025 else 'the dense route'})")
     return rows, max_err
+
+
+def kernel_cases(shapes, ms):
+    """Phases 13 and 16's cases: (name, q_out, q_in, rows, plane sets) of
+    Llama-2-7B's training shapes at ``ms`` with 1 and 2 plane sets, then
+    phase 20's shapes (``LORA_SHAPES``) at their own rows with one."""
+    return ([(n, qo, qi, ms, (1, 2)) for n, qo, qi in shapes]
+            + [(n, qo, qi, (m,), (1,)) for n, qo, qi, m in LORA_SHAPES])
+
+
+def lora_sums(rows, calls):
+    """A model's per-forward (K2) or per-step (K3) sums of the per-call
+    numbers at phase 20's shapes (bf16, 1 plane set), each shape times
+    its calls."""
+    return {key: call_sum(rows, calls, key, dtype="bfloat16", sets=1)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
+
+def log_lora_sums(kernel, rows, calls, per):
+    for model, c in calls.items():
+        log(f"kernel {kernel} per phase 20 {model} training {per}'s "
+            f"{sum(c.values())} calls (bf16, 1 set): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in lora_sums(rows, c).items()))
 
 
 def k3_relayout_cost(gen):
@@ -2663,7 +2768,7 @@ def adapter_grads(cfg, model, ids, kw):
         (t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
 
-def epoch_losses(run) -> list:
+def epoch_losses(tag, run) -> list:
     """Call ``run`` (a ``train_lora`` without validation) and return the
     loss of each epoch from its "lora epoch N train loss X" log records,
     with the time it took."""
@@ -2686,22 +2791,152 @@ def epoch_losses(run) -> list:
     finally:
         logger.removeHandler(h)
         logger.setLevel(level)
-    log(f"train: train_lora ran in {time.time() - t:.1f} s")
+    log(f"{tag}: train_lora ran in {time.time() - t:.1f} s")
     return [float(m.group(1)) for m in (
         re.match(r"lora epoch \d+ train loss ([\d.]+)$", r)
         for r in records) if m]
 
 
+def offset_lora_b(model, seed=0):
+    """Every adapter's B off zero (seeded, x 1e-3), so that A takes
+    gradients in the comparisons; returns the adapters by name."""
+    import torch
+    from quip_for_all_tpu_torch.nn.lora import collect_lora_trainable
+    flat = collect_lora_trainable(model.layers, "layers")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for k, p in flat.items():
+            if k.endswith("lora_B"):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 1e-3)
+    return flat
+
+
+def lora_grad_check(tag, cfg, model, ids, per_fwd, per_bwd):
+    """Every adapter gradient of one step, kernels against the plain route,
+    with the launch counts of the kernel run's forward and backward: in
+    f32 the worst max|diff|/max|grad| within 1e-3, in bf16 the cosine of
+    the flattened gradients at least 0.99. On an MoE model the kernel run
+    takes the plain run's router logits (``shared_routing``, as
+    ``check_plain`` does): a top-2 choice that a near-tie flips between
+    the two routes' roundings would otherwise send tokens to other
+    experts."""
+    import torch
+    moe = cfg.arch == "mixtral"
+    grads = {}
+    for dt in (torch.float32, torch.bfloat16):
+        router = []
+        for impl in ("plain", "auto"):
+            ctx = (shared_routing(model, cfg.num_experts_per_tok, router,
+                                  replay=impl == "auto")
+                   if moe else contextlib.nullcontext([0]))
+            reset_launches()
+            with ctx as flips:
+                loss, grads[impl], _ = adapter_grads(
+                    cfg, model, ids, {"compute_dtype": dt,
+                                      "matmul_impl": impl})
+            launches = read_launches()
+            if moe and impl == "auto":
+                n = ids.shape[0] * (ids.shape[1] - 1) * len(model.layers)
+                log(f"{tag} [{dt}]: the kernel run took the plain run's "
+                    f"routing ({flips[0]} of {n} token-layer top-2 choices "
+                    "would have differed)")
+            check_launches(f"{tag} [{impl}, {dt}] one step", launches,
+                           {} if impl == "plain" else
+                           {"fused_decode_matmul_tc": per_fwd,
+                            "fused_decode_matmul_bwd": per_bwd})
+            log(f"{tag} [{impl}, {dt}]: loss {loss:.6g}")
+        keys = sorted(grads["auto"])
+        if dt == torch.float32:
+            worst = max((float((grads["auto"][k] - grads["plain"][k]).abs()
+                               .max() / grads["plain"][k].abs().max()), k)
+                        for k in keys)
+            log(f"{tag} [f32]: adapter gradients, kernels vs plain route: "
+                f"worst max|diff|/max|grad| {worst[0]:.3g} ({worst[1]}; tol "
+                f"1e-3) over {len(keys)} tensors")
+            if not worst[0] <= 1e-3:
+                raise AssertionError(f"{tag} f32 gradients differ: {worst}")
+        else:
+            a = torch.cat([grads["auto"][k].flatten().float() for k in keys])
+            b = torch.cat([grads["plain"][k].flatten().float() for k in keys])
+            cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
+            per = min(float(torch.nn.functional.cosine_similarity(
+                grads["auto"][k].flatten().float(),
+                grads["plain"][k].flatten().float(), dim=0)) for k in keys)
+            log(f"{tag} [bf16]: adapter gradients, kernels vs plain route: "
+                f"cosine of the flattened gradients {cos:.6f} (tol >= 0.99);"
+                f" lowest per tensor {per:.4f}")
+            if not cos >= 0.99:
+                raise AssertionError(f"{tag} bf16 gradient cosine {cos}")
+
+
+def lora_timed_step(tag, cfg, model, ids, per_fwd, per_bwd):
+    """The step timed (bf16 compute, the default) after one warm-up step,
+    with its exact launches; then one step with a CUDA event pair around
+    every K2 and K3 launch. Returns its numbers."""
+    import torch
+    adapter_grads(cfg, model, ids, {})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, _, (fwd_ms, bwd_ms) = adapter_grads(cfg, model, ids, {})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches(f"{tag} step (bf16)", launches,
+                   {"fused_decode_matmul_tc": per_fwd,
+                    "fused_decode_matmul_bwd": per_bwd})
+    names = ("fused_decode_matmul_tc", "fused_decode_matmul_bwd")
+    with kernel_events(names) as pairs:
+        adapter_grads(cfg, model, ids, {})
+    torch.cuda.synchronize()
+    ev = {n: sum(a.elapsed_time(b) for a, b in pairs[n]) for n in names}
+    B, S = ids.shape
+    rows = B * (S - 1)
+    step_ms = fwd_ms + bwd_ms
+    log(f"{tag} step (batch {B} x {S}, {rows} rows, bf16): forward "
+        f"{fwd_ms:.1f} ms + backward {bwd_ms:.1f} ms = {step_ms:.1f} ms "
+        f"({rows / step_ms * 1e3:.1f} rows/s); K2 {ev[names[0]]:.1f} ms over "
+        f"{len(pairs[names[0]])} launches, K3 {ev[names[1]]:.1f} ms over "
+        f"{len(pairs[names[1]])} launches (CUDA events); peak {peak:.2f} GiB")
+    return {"launches": launches["fused_decode_matmul_bwd"],
+            "k2_launches": launches["fused_decode_matmul_tc"],
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k2_ms": ev[names[0]],
+            "k3_ms": ev[names[1]], "peak_gib": peak,
+            "rows_per_s": rows / step_ms * 1e3}
+
+
+def lora_adamw(tag, cfg, model, flat, toks, targets, lr=1e-4):
+    """8 AdamW steps at ``lr`` (the CLI's by default) on the one batch
+    ``toks`` (8 epochs of one step), B back at zero (a fresh start); the
+    losses are read from train_lora's per-epoch log lines, and no step may
+    rise."""
+    import numpy as np
+    import torch
+    from quip_for_all_tpu_torch.quantize.lora_train import train_lora
+    with torch.no_grad():
+        for k, p in flat.items():
+            if k.endswith("lora_B"):
+                p.zero_()
+    hist = epoch_losses(tag, lambda: train_lora(
+        cfg, model, toks, rank=8, alpha=16.0, targets=targets, lr=lr,
+        epochs=8, batch_size=toks.shape[0]))
+    rises = sum(b > a for a, b in zip(hist, hist[1:]))
+    log(f"{tag}: train_lora, 8 AdamW steps (lr {lr:g}) on one batch: losses "
+        + ", ".join(f"{v:.5f}" for v in hist)
+        + f" ({rises} step-to-step rises)")
+    if not (len(hist) == 8 and np.all(np.isfinite(hist)) and rises == 0
+            and hist[-1] < hist[0]):
+        raise AssertionError(f"{tag}: loss did not fall at every step: "
+                             f"{hist}")
+    return hist
+
+
 def phase_train():
     """LoRA fine-tuning of Llama-2-7B E8P12 at full width (phase 14)."""
     import gc
-    import numpy as np
     import torch
     import quip_for_all_tpu_torch as qt
     from quip_for_all_tpu_torch.data.calibration import synthetic_tokens
-    from quip_for_all_tpu_torch.nn.lora import (add_lora,
-                                                collect_lora_trainable)
-    from quip_for_all_tpu_torch.quantize.lora_train import train_lora
+    from quip_for_all_tpu_torch.nn.lora import DEFAULT_TARGETS, add_lora
     from quip_for_all_tpu_torch.runtime import generate as G
     cfg = qt.llama2_7b_config()
     per_fwd = 7 * LAYERS + 1                    # every quantized linear
@@ -2711,14 +2946,7 @@ def phase_train():
     model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
                                       quantize_head=True, device="cuda")
     add_lora(model, rank=8, alpha=16.0)
-    flat = collect_lora_trainable(model.layers, "layers")
-    # B off zero (seeded), so that A takes gradients in the comparisons
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    with torch.no_grad():
-        for k, p in flat.items():
-            if k.endswith("lora_B"):
-                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
-                        * 1e-3)
+    flat = offset_lora_b(model)
     torch.cuda.synchronize()
     log(f"train: built Llama-2-7B E8P12 (random codes, seed 0, unfused, "
         f"quantized head) with rank-8 adapters on {len(flat) // 2} linears "
@@ -2726,92 +2954,9 @@ def phase_train():
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
     toks = synthetic_tokens(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0)
     ids = torch.as_tensor(toks, device="cuda")
-    rows_per_step = TRAIN_B * (TRAIN_S - 1)
-
-    # every adapter gradient, kernels against the plain route, with the
-    # launch counts of the kernel run's forward and backward
-    grads = {}
-    for dt in (torch.float32, torch.bfloat16):
-        for impl in ("plain", "auto"):
-            reset_launches()
-            loss, grads[impl], _ = adapter_grads(
-                cfg, model, ids, {"compute_dtype": dt, "matmul_impl": impl})
-            launches = read_launches()
-            check_launches(f"train [{impl}, {dt}] one step", launches,
-                           {} if impl == "plain" else
-                           {"fused_decode_matmul_tc": per_fwd,
-                            "fused_decode_matmul_bwd": per_bwd})
-            log(f"train [{impl}, {dt}]: loss {loss:.6g}")
-        keys = sorted(grads["auto"])
-        if dt == torch.float32:
-            worst = max((float((grads["auto"][k] - grads["plain"][k]).abs()
-                               .max() / grads["plain"][k].abs().max()), k)
-                        for k in keys)
-            log(f"train [f32]: adapter gradients, kernels vs plain route: "
-                f"worst max|diff|/max|grad| {worst[0]:.3g} ({worst[1]}; tol "
-                f"1e-3) over {len(keys)} tensors")
-            if not worst[0] <= 1e-3:
-                raise AssertionError(f"train f32 gradients differ: {worst}")
-        else:
-            a = torch.cat([grads["auto"][k].flatten().float() for k in keys])
-            b = torch.cat([grads["plain"][k].flatten().float() for k in keys])
-            cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
-            per = min(float(torch.nn.functional.cosine_similarity(
-                grads["auto"][k].flatten().float(),
-                grads["plain"][k].flatten().float(), dim=0)) for k in keys)
-            log(f"train [bf16]: adapter gradients, kernels vs plain route: "
-                f"cosine of the flattened gradients {cos:.6f} (tol >= 0.99);"
-                f" lowest per tensor {per:.4f}")
-            if not cos >= 0.99:
-                raise AssertionError(f"train bf16 gradient cosine {cos}")
-    del grads
-
-    # the step timed (bf16 compute, the default), after one warm-up step;
-    # then one step with a CUDA event pair around every K2 and K3 launch
-    adapter_grads(cfg, model, ids, {})
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    _, _, (fwd_ms, bwd_ms) = adapter_grads(cfg, model, ids, {})
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_launches("train step (bf16)", launches,
-                   {"fused_decode_matmul_tc": per_fwd,
-                    "fused_decode_matmul_bwd": per_bwd})
-    names = ("fused_decode_matmul_tc", "fused_decode_matmul_bwd")
-    with kernel_events(names) as pairs:
-        adapter_grads(cfg, model, ids, {})
-    torch.cuda.synchronize()
-    ev = {n: sum(a.elapsed_time(b) for a, b in pairs[n]) for n in names}
-    step_ms = fwd_ms + bwd_ms
-    log(f"train step (batch {TRAIN_B} x {TRAIN_S}, {rows_per_step} rows, "
-        f"bf16): forward {fwd_ms:.1f} ms + backward {bwd_ms:.1f} ms = "
-        f"{step_ms:.1f} ms ({rows_per_step / step_ms * 1e3:.1f} rows/s); "
-        f"K2 {ev[names[0]]:.1f} ms over {len(pairs[names[0]])} launches, K3 "
-        f"{ev[names[1]]:.1f} ms over {len(pairs[names[1]])} launches (CUDA "
-        f"events); peak {peak:.2f} GiB")
-    train = {"launches": launches["fused_decode_matmul_bwd"],
-             "k2_launches": launches["fused_decode_matmul_tc"],
-             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k2_ms": ev[names[0]],
-             "k3_ms": ev[names[1]], "peak_gib": peak}
-
-    # 8 AdamW steps at the CLI's lr on the one batch (8 epochs of one
-    # step), B back at zero (a fresh start); the losses are read from
-    # train_lora's per-epoch log lines, and no step may rise
-    with torch.no_grad():
-        for k, p in flat.items():
-            if k.endswith("lora_B"):
-                p.zero_()
-    hist = epoch_losses(lambda: train_lora(
-        cfg, model, toks, rank=8, alpha=16.0, lr=1e-4, epochs=8,
-        batch_size=TRAIN_B))
-    rises = sum(b > a for a, b in zip(hist, hist[1:]))
-    log(f"train: train_lora, 8 AdamW steps (lr 1e-4) on one batch: losses "
-        + ", ".join(f"{v:.5f}" for v in hist)
-        + f" ({rises} step-to-step rises)")
-    if not (len(hist) == 8 and np.all(np.isfinite(hist)) and rises == 0
-            and hist[-1] < hist[0]):
-        raise AssertionError(f"train: loss did not fall at every step: "
-                             f"{hist}")
+    lora_grad_check("train", cfg, model, ids, per_fwd, per_bwd)
+    train = lora_timed_step("train", cfg, model, ids, per_fwd, per_bwd)
+    lora_adamw("train", cfg, model, flat, toks, DEFAULT_TARGETS)
 
     # the CLI default batch 4 x 512: 2044 rows, the dense route
     big = torch.as_tensor(synthetic_tokens(4, TRAIN_S, cfg.vocab_size,
@@ -2855,6 +3000,202 @@ def phase_train():
     gc.collect()
     torch.cuda.empty_cache()
     return train
+
+
+def lora_family_model(tag, cfg, targets, note):
+    """A random E8P12 model of ``cfg`` on the card (seed 0, bf16, quantized
+    head) with rank-8 adapters on ``targets``, B off zero."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.nn.lora import add_lora
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
+                                      quantize_head=True, device="cuda")
+    add_lora(model, rank=8, alpha=16.0, targets=targets)
+    flat = offset_lora_b(model)
+    torch.cuda.synchronize()
+    log(f"{tag}: built {note} (random codes, seed 0, quantized head) with "
+        f"rank-8 adapters on {len(flat) // 2} linears (targets "
+        f"{' '.join(targets)})"
+        f" in {time.time() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    return model, flat
+
+
+def lora_generate(tag, cfg, model, prompt, n, expect):
+    """Greedy ``generate`` of n tokens with the trained adapters: graphed
+    (bf16) bitwise the eager step loop with the exact launches
+    ``expect(forwards)`` gives, then f32 tokens of the kernels against the
+    plain route (``check_plain``, which on Mixtral gives the kernel run the
+    plain run's routing), all n equal."""
+    import torch
+    out = {}
+    for kind, graphs in (("graphed", None), ("eager", False)):
+        run = timed_generate(cfg, model, prompt, 64, graphs=graphs)
+        reset_launches()
+        (ids, logits), t = run(n)
+        check_launches(f"{tag}: generate with adapters ({kind}, bf16)",
+                       read_launches(), expect(forwards(run.runner)))
+        out[kind] = (ids, torch.stack(logits), t)
+    (ids_g, lg_g, t_g), (ids_e, lg_e, t_e) = out["graphed"], out["eager"]
+    same = torch.equal(ids_g, ids_e) and torch.equal(lg_g, lg_e)
+    log(f"{tag}: generate {n} greedy tokens with the trained adapters: "
+        f"graphed {t_g / n * 1e3:.2f} ms/token, eager {t_e / n * 1e3:.2f} "
+        f"ms/token (host clock over the call); graphed ids and logits "
+        f"bitwise the eager loop's: {same}; bf16 tokens "
+        f"{ids_g[0, prompt.shape[1]:].tolist()}")
+    if not (same and torch.isfinite(lg_g).all()):
+        raise AssertionError(f"{tag}: graphed generate with adapters "
+                             "differs from the eager loop")
+    equal = check_plain(cfg, model, prompt, torch.float32, 1e-3, 64, n=n,
+                        tag=f"{tag} generate")
+    if equal != n:
+        raise AssertionError(f"{tag}: f32 kernel tokens fork from the plain "
+                             f"route's after {equal} of {n}")
+    return {"graphed_ms_tok": t_g / n * 1e3, "eager_ms_tok": t_e / n * 1e3}
+
+
+def phase_lora_families():
+    """Phase 20: LoRA on the families at full width, (i) Mixtral-8x7B and
+    (ii) GPT-NeoX-20B through K2 and K3, then (iii) the finetune CLI on a
+    GPT-NeoX checkpoint."""
+    import dataclasses
+    import gc
+    import torch
+    from quip_for_all_tpu_torch.data.calibration import synthetic_tokens
+    from quip_for_all_tpu_torch.models.config import (ModelConfig,
+                                                      mixtral_8x7b_config)
+    from quip_for_all_tpu_torch.models.llama import LlamaModel
+    from quip_for_all_tpu_torch.nn.lora import DEFAULT_TARGETS
+    out = {}
+
+    # (i) Mixtral-8x7B: 4 attention linears and 3 of each of the 8 experts
+    # per layer, and the head (the router stays dense)
+    cfg = mixtral_8x7b_config()
+    L, E = cfg.num_hidden_layers, cfg.num_local_experts
+    per_layer = 4 + 3 * E
+    model, flat = lora_family_model(
+        "lora (i)", cfg, DEFAULT_TARGETS,
+        f"Mixtral-8x7B E8P12 ({L} layers, experts stacked, attention "
+        "unfused)")
+    toks = synthetic_tokens(LORA_MIX_B, LORA_MIX_S, cfg.vocab_size, seed=0)
+    ids = torch.as_tensor(toks, device="cuda")
+    g = LORA_MIX_GRAD_LAYERS
+    shallow = LlamaModel(model.embed_tokens.weight, list(model.layers[:g]),
+                         model.norm.weight, model.lm_head)
+    log(f"lora (i): the gradient check runs on the first {g} of {L} layers "
+        f"(depth cut: the plain route's f32 activations of {L} layers do "
+        "not fit beside the codes); the timed step and train_lora run all "
+        f"{L}")
+    lora_grad_check("lora (i)", dataclasses.replace(cfg, num_hidden_layers=g),
+                    shallow, ids, g * per_layer + 1, g * per_layer + 1 - 3)
+    del shallow
+    per_fwd = L * per_layer + 1
+    step = lora_timed_step("lora (i)", cfg, model, ids, per_fwd, per_fwd - 3)
+    hist = lora_adamw("lora (i)", cfg, model, flat, toks, DEFAULT_TARGETS)
+    # the 32-token prompt runs the dense expert loop at 32 rows (K1 for
+    # every quantized linear); each decode step the sparse route: K1 for
+    # q/k/v/o and the head, K4 for w13 and w2
+    gen = lora_generate(
+        "lora (i)", cfg, model, torch.as_tensor(toks[:, :32], device="cuda"),
+        16, lambda f: {"fused_decode_matmul": per_fwd + (f - 1) * (4 * L + 1),
+                       "moe_decode_matmul": (f - 1) * 2 * L})
+    out["mixtral_8x7b"] = dict(step, losses=hist, **gen)
+    del model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) GPT-NeoX-20B: 4 linears per layer and the head
+    cfg = ModelConfig.from_hf_config(NEOX_20B_HF)
+    L = cfg.num_hidden_layers
+    model, flat = lora_family_model(
+        "lora (ii)", cfg, NEOX_TARGETS,
+        f"GPT-NeoX-20B E8P12 ({L} layers)")
+    toks = synthetic_tokens(LORA_NEOX_B, LORA_NEOX_S, cfg.vocab_size, seed=0)
+    ids = torch.as_tensor(toks, device="cuda")
+    per_fwd = 4 * L + 1
+    lora_grad_check("lora (ii)", cfg, model, ids, per_fwd, per_fwd - 2)
+    step = lora_timed_step("lora (ii)", cfg, model, ids, per_fwd,
+                           per_fwd - 2)
+    # lr 5e-5: at the CLI's 1e-4 the loss of this model falls faster than
+    # Llama-2-7B's and its 8th step overshoots (5.42 -> 6.51 on an H100,
+    # PERF.md section 6); half the lr keeps 8 steps on the descent
+    hist = lora_adamw("lora (ii)", cfg, model, flat, toks, NEOX_TARGETS,
+                      lr=5e-5)
+    gen = lora_generate(
+        "lora (ii)", cfg, model, torch.as_tensor(toks[:1, :32],
+                                                 device="cuda"),
+        16, lambda f: {"fused_decode_matmul": per_fwd * f})
+    out["gpt_neox_20b"] = dict(step, losses=hist, **gen)
+    del model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = lora_cli(cfg)
+    return out
+
+
+def lora_cli(cfg):
+    """(iii) ``cli.finetune_lora --device cuda --targets ...`` on a
+    GPT-NeoX checkpoint at ``cfg``'s widths and LORA_CLI_LAYERS layers
+    that ``save_quantized`` writes here; the written adapters loaded with
+    ``load_lora`` and with ``import_peft`` onto ``load_quantized``'s model
+    give the trained model's logits (f32 compute), bit for bit."""
+    import dataclasses
+    import shutil
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.cli import finetune_lora
+    from quip_for_all_tpu_torch.quantize import lora_train
+    cfg = dataclasses.replace(cfg, num_hidden_layers=LORA_CLI_LAYERS)
+    ckpt = os.path.join(REPO, "build", "lora_neox_ckpt")
+    out = os.path.join(REPO, "build", "lora_neox_adapters")
+    for d in (ckpt, out):
+        shutil.rmtree(d, ignore_errors=True)
+    t = time.time()
+    qt.save_quantized(cfg, qt.random_quantized_model(
+        cfg, seed=0, quantize_head=True, device="cuda"), {
+            "quant_method": "QUiP", "codebook": "E8P12", "use_rand": True,
+            "per_channel": False, "opt_resid_scale": -1, "tp_shards": 1},
+        ckpt)
+    trained = []
+    orig = lora_train.train_lora
+
+    def keep(*a, **k):
+        trained.append(orig(*a, **k))
+        return trained[-1]
+    lora_train.train_lora = keep
+    try:
+        finetune_lora.main([
+            "--model-path", ckpt, "--save-dir", out, "--dataset",
+            "synthetic", "--nsamples", "4", "--valid-samples", "0",
+            "--seqlen", "128", "--batch-size", "2", "--epochs", "1",
+            "--lr", "1e-3", "--device", "cuda", "--targets", *NEOX_TARGETS])
+    finally:
+        lora_train.train_lora = orig
+    files = sorted(os.listdir(out))
+    x = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    f32 = {"compute_dtype": torch.float32}
+    apply = qt.get_arch(cfg).model_apply
+    with torch.no_grad():
+        want = apply(cfg, trained[0], x, linear_kw=f32)[0]
+        got = {}
+        for how, fn in (("load_lora", lora_train.load_lora),
+                        ("import_peft", lora_train.import_peft)):
+            base = qt.load_quantized(ckpt, device="cuda")[1]
+            got[how] = apply(cfg, fn(base, out, device="cuda"), x,
+                             linear_kw=f32)[0]
+    same = {how: bool(torch.equal(v, want)) for how, v in got.items()}
+    log(f"lora (iii): cli.finetune_lora --device cuda --targets "
+        f"{' '.join(NEOX_TARGETS)} on a GPT-NeoX checkpoint ({LORA_CLI_LAYERS}"
+        f" layers at 20B widths, written by save_quantized) in "
+        f"{time.time() - t:.1f} s wrote {files}; f32 logits of the loaded "
+        f"adapters equal the trained model's: {same}")
+    if not all(same.values()) or len(files) != 4:
+        raise AssertionError("lora (iii): the CLI's adapters load back "
+                             "otherwise")
+    return {"seconds": time.time() - t, "files": files}
 
 
 # phase 17: (kernel name, codebook, layout, split-K chunks asked) of every
@@ -3205,14 +3546,15 @@ def phase_right_main(main):
 
 
 def right_combine_path(tag, cfg, model, prompt, dev_off):
-    """(iv) a full-width E8P12RVQ4B nibble model with both switches on
+    """(iv) a full-width E8P12RVQ4B nibble model (phase 9's depth) with
+    both switches on
     (right epilogue, combine 8): 32 greedy tokens graphed, exact K1
     launches, held to its plain twin in bf16 and f32, one graphed step's
     device time; both switched off again."""
     import torch
     import quip_for_all_tpu_torch as qt
     S, NEW, CACHE = prompt.shape[1], 32, 2048
-    per_step = 4 * LAYERS + 1
+    per_step = 4 * cfg.num_hidden_layers + 1
     qt.set_right_in_kernel(model, True)
     qt.set_combine_planes(model, 8)
     try:
@@ -3236,6 +3578,20 @@ def right_combine_path(tag, cfg, model, prompt, dev_off):
         f"device time {dev_on:.3f} ms (both off: {dev_off:.3f} ms)")
     return {"ms_tok": t1 / NEW * 1e3, "dev_ms_on": dev_on,
             "dev_ms_off": dev_off}
+
+
+def lora_entry(e, rows, calls, lora, what):
+    """Phase 20's numbers beside a K2 or K3 entry: its launches in each
+    model's counted step and, per training ``what`` of each model, the
+    sums of the per-call numbers at that model's shapes."""
+    e.setdefault("launches_by_path", {}).update({
+        f"{m}_lora_step": lora[m]["launches" if what == "step"
+                                  else "k2_launches"]
+        for m in ("mixtral_8x7b", "gpt_neox_20b")})
+    for m, c in (("mixtral_8x7b", calls["mixtral"]),
+                 ("gpt_neox_20b", calls["neox"])):
+        e[f"{m}_per_lora_{what}"] = dict(lora_sums(rows, c),
+                                         calls=sum(c.values()))
 
 
 def k3_entry(rows, err, train):
@@ -3374,7 +3730,8 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
     fused["launches_by_path"] = {
         "llama2_7b": llama_launches,
         "mixtral_8x7b": mix["launches"]["fused_decode_matmul"],
-        "llama2_7b_rvq4b_nibble": paths["c_rvq4b_nibble"]["launches"]}
+        f"llama2_7b_{PATH9_LAYERS}_layers_rvq4b_nibble":
+            paths["c_rvq4b_nibble"]["launches"]}
     moe = entry(KERNELS[1], moe_rows, moe_calls, {"R": 2},
                 mix["launches"]["moe_decode_matmul"], moe_err)
     moe.update(moe_sums(moe_rows))
@@ -3391,16 +3748,22 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
         f" + "
         f"{moe['bound_ms']:.3f} ms")
     entries = [fused, moe]
+    # phase 9's paths run PATH9_LAYERS layers: their share of a step
+    path_calls = {k: PATH9_LAYERS if v == LAYERS else v
+                  for k, v in LLAMA_CALLS.items()}
     for (layout, _, kname), path in zip(ROWPAIR, ("a_u3", "b_pb")):
         e = entry(next(k for k in KERNELS if k["name"] == kname), rp_rows,
                   LLAMA_CALLS, {"kernel": kname, "m": 1, "dtype": "bfloat16"},
                   paths[path]["launches"], rp_err[kname])
         e.update(small_m_sums(rp_rows, {"kernel": kname,
                                         "dtype": "bfloat16"}))
-        log(f"{path}: per decode token the {layout} kernel takes "
-            f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
-            f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
-            f"{e['bound_ms']:.3f} ms")
+        k_ms = call_sum(rp_rows, path_calls, "ms", kernel=kname, m=1,
+                        dtype="bfloat16")
+        log(f"{path}: per decode token of its {PATH9_LAYERS} layers the "
+            f"{layout} kernel takes {k_ms:.3f} ms of "
+            f"{paths[path]['dev_ms']:.3f} ms graphed device time "
+            f"({k_ms / paths[path]['dev_ms']:.0%}); Llama-2-7B's 32 layers: "
+            f"{e['ms']:.3f} ms, bound {e['bound_ms']:.3f} ms")
         entries.append(e)
     return entries
 
@@ -3896,12 +4259,15 @@ def main() -> int:
         fams = at("18 (ii)", phase_families)
         paths = at("9", phase_rowpair_paths)
         train = at("14", phase_train)
+        lora = at("20", phase_lora_families)
         quant = at("19", phase_quantize)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
         entries.append(k3_entry(k3_rows, k3_err, train))
         entries.append(k2_entry(k2_rows, k2_err, train))
+        lora_entry(entries[-2], k3_rows, LORA_K3_CALLS, lora, "step")
+        lora_entry(entries[-1], k2_rows, LORA_K2_CALLS, lora, "forward")
         entries += microbench_entries(mb_recs)
         right_entries(entries, right_rows)
         serving_path_launches(entries, graphed, serving, mix)
@@ -3913,6 +4279,7 @@ def main() -> int:
         log("families: " + json.dumps({"gpt_neox_20b": neox,
                                         "published_widths": fams}))
         log("quantization: " + json.dumps(quant))
+        log("lora on the families: " + json.dumps(lora))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

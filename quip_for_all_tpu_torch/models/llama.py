@@ -240,10 +240,12 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
               linear_kw: dict, captures: Optional[dict] = None
               ) -> torch.Tensor:
     """Mixtral top-k MoE. Two formulations (``nn/qmoe.py``):
-      - stacked sparse (decode, B*S < 32 tokens): the expert-indexed
-        kernel reads only the selected experts' planes;
-      - per-expert dense masked loop (prefill, or experts not stacked):
-        every expert on every token, each through the fused kernel.
+      - stacked sparse (decode, B*S < 32 tokens outside the training
+        forward): the expert-indexed kernel reads only the selected
+        experts' planes;
+      - per-expert dense masked loop (prefill, the training forward
+        ``linear_kw["training"]``, or experts not stacked): every expert on
+        every token, each through the fused kernel.
     A capture (``captures``) takes the unstacked experts' loop."""
     B, S, D = x.shape
     router_logits = linear_apply(moe_p["gate"], x, **linear_kw)  # (B,S,E)
@@ -251,7 +253,7 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
         raise ValueError("capture runs on unstacked experts")
     if "experts_stacked" in moe_p:
         st = moe_p["experts_stacked"]
-        if B * S < 32:
+        if B * S < 32 and not linear_kw.get("training"):
             return moe_sparse_apply(
                 cfg, moe_p, x, router_logits,
                 compute_dtype=linear_kw.get("compute_dtype", torch.bfloat16),

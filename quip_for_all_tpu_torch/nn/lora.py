@@ -70,11 +70,16 @@ def add_lora(model: nn.Module, rank: int = 8, alpha: float = 16.0,
              dtype=torch.float32) -> nn.Module:
     """Wrap the matching linears of ``model.layers`` in LoRA adapters, in
     place (A ~ N(0, 1/r), B = 0), and freeze everything but the adapters
-    (those already there stay as they are and train too). A is drawn
-    from ``np.random.default_rng(seed)`` walking the layers in the JAX
-    tree's order (each block's modules in their insertion order, which
-    ``LlamaModel.from_tree`` keeps), so one seed gives the JAX package's A.
-    Returns ``model``."""
+    (those already there stay as they are and train too). Any family's
+    model: a linear matches where its dotted path ends with one of
+    ``targets`` (``DEFAULT_TARGETS`` are llama's names; GPT-2's ``c_proj``
+    matches its attention's and its MLP's). Only a ``QuantLinear`` or a
+    dense linear is wrapped, as in the JAX package: stacked experts
+    (``experts_stacked``), fused segments and norms are passed by. A is
+    drawn from ``np.random.default_rng(seed)`` walking the layers in the
+    JAX tree's order (each block's modules in their insertion order, which
+    ``LlamaModel.from_tree`` and ``FamilyModel.from_tree`` keep), so one
+    seed gives the JAX package's A. Returns ``model``."""
     rng = np.random.default_rng(seed)
     model.requires_grad_(False)
 

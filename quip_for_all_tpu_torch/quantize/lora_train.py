@@ -10,6 +10,11 @@ route, as in the JAX package). Only ``lora_A`` / ``lora_B`` take gradients,
 updated by ``torch.optim.AdamW`` with optax.adamw's defaults (the same
 update: decoupled decay, bias-corrected moments).
 
+Every function here takes any family's model (a ``LlamaModel`` for llama,
+Mixtral and Baichuan, a ``FamilyModel`` for the others; ``models/
+registry.py``), with adapters on the linears whose names end with one of
+the ``targets`` (``nn/lora.py``).
+
 Adapters go to and come from standalone safetensors files in the JAX
 package's layout and in the standard PEFT layout, with the same file names
 and keys, so either package reads the other's files.
@@ -25,8 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models import llama as M
 from ..models.config import ModelConfig
+from ..models.registry import get_arch, model_device
 from ..nn.lora import (DEFAULT_TARGETS, add_lora, apply_lora_trainable,
                        collect_lora_trainable)
 from ..utils.device import resolve_device
@@ -39,57 +44,46 @@ ADAPTER_CONFIG = "lora_config.json"
 PEFT_ADAPTER_FILE = "adapter_model.safetensors"
 PEFT_ADAPTER_CONFIG = "adapter_config.json"
 # PEFT key layout for a causal LM: LoraModel wraps the HF model as
-# `base_model.model`, whose decoder stack lives under `model.layers`
+# `base_model.model`, whose decoder stack lives under `model.layers`; the
+# JAX package writes this prefix for every family, and so does the port
 _PEFT_PREFIX = "base_model.model.model."
 
 
-def _lora_families(cfg: ModelConfig) -> None:
-    """LoRA runs on llama and Mixtral; the other families wait for the
-    training slice."""
-    if cfg.arch not in ("llama", "mixtral"):
-        raise NotImplementedError(
-            f"LoRA on arch {cfg.arch!r} is not ported yet (ROADMAP.md queue "
-            "1 item 7)")
-
-
-def causal_lm_loss(cfg: ModelConfig, model: M.LlamaModel,
-                   ids: torch.Tensor,
+def causal_lm_loss(cfg: ModelConfig, model, ids: torch.Tensor,
                    linear_kw: Optional[dict] = None) -> torch.Tensor:
-    """Next-token cross entropy over a (B, S) batch (labels = ids shifted),
-    the logits in f32; ``linear_kw`` goes to every linear (e.g.
-    ``compute_dtype`` or ``matmul_impl``)."""
-    _lora_families(cfg)
-    logits, _ = M.model_apply(cfg, model, ids[:, :-1],
-                              linear_kw=linear_kw or {})
+    """Next-token cross entropy over a (B, S) batch (labels = ids shifted)
+    through any family's model (``get_arch(cfg).model_apply``), the logits
+    in f32; ``linear_kw`` goes to every linear (e.g. ``compute_dtype`` or
+    ``matmul_impl``)."""
+    logits, _ = get_arch(cfg).model_apply(cfg, model, ids[:, :-1],
+                                          linear_kw=linear_kw or {})
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, ids[:, 1:, None].to(torch.int64))[..., 0]
     return -ll.mean()
 
 
-def _model_device(model: M.LlamaModel, device) -> torch.device:
+def _model_device(model, device) -> torch.device:
     """``device`` resolved (the card unless the caller asks for the CPU),
     and the model must live there."""
     dev = resolve_device(device)
-    have = model.embed_tokens.weight.device
+    have = model_device(model)
     if have.type != dev.type:
         raise ValueError(f"model lives on {have}, asked for {dev}")
     return have
 
 
-def train_lora(cfg: ModelConfig, model: M.LlamaModel,
-               train_tokens: np.ndarray,
+def train_lora(cfg: ModelConfig, model, train_tokens: np.ndarray,
                valid_tokens: Optional[np.ndarray] = None,
                rank: int = 8, alpha: float = 16.0,
                targets=DEFAULT_TARGETS, lr: float = 1e-4,
                epochs: int = 3, batch_size: int = 4,
                weight_decay: float = 0.0, early_stop: int = 3,
-               seed: int = 0, device="cuda") -> M.LlamaModel:
+               seed: int = 0, device="cuda"):
     """Add LoRA adapters to ``model`` (in place) and train them; returns the
     model with the best adapters attached. Batches run in order; with
     ``valid_tokens`` the validation loss after each epoch keeps the best
     epoch and stops early after ``early_stop`` epochs without a gain (the
     JAX package's loop)."""
-    _lora_families(cfg)
     dev = _model_device(model, device)
     add_lora(model, rank=rank, alpha=alpha, targets=targets, seed=seed)
     flat = collect_lora_trainable(model.layers, "layers")
@@ -144,13 +138,13 @@ def train_lora(cfg: ModelConfig, model: M.LlamaModel,
 
 # ------------------------------------------------------------- adapter IO
 
-def _flat_numpy(model: M.LlamaModel) -> Dict[str, np.ndarray]:
+def _flat_numpy(model) -> Dict[str, np.ndarray]:
     return {k: v.detach().to("cpu", torch.float32).numpy()
             for k, v in collect_lora_trainable(model.layers,
                                                "layers").items()}
 
 
-def save_lora(model: M.LlamaModel, save_dir: str, rank: int, alpha: float,
+def save_lora(model, save_dir: str, rank: int, alpha: float,
               targets=DEFAULT_TARGETS) -> None:
     """Write the adapters (``lora_adapters.safetensors``, f32) and their
     config (``lora_config.json``)."""
@@ -161,7 +155,7 @@ def save_lora(model: M.LlamaModel, save_dir: str, rank: int, alpha: float,
                    "targets": list(targets)}, f, indent=2)
 
 
-def export_peft(model: M.LlamaModel, save_dir: str, rank: int,
+def export_peft(model, save_dir: str, rank: int,
                 alpha: float, targets=DEFAULT_TARGETS,
                 base_model_name_or_path: str = "") -> None:
     """Write the adapters in the standard PEFT layout
@@ -186,8 +180,8 @@ def export_peft(model: M.LlamaModel, save_dir: str, rank: int,
         }, f, indent=2)
 
 
-def _attach(model: M.LlamaModel, flat: Dict[str, np.ndarray], rank: int,
-            alpha: float, targets, what: str) -> M.LlamaModel:
+def _attach(model, flat: Dict[str, np.ndarray], rank: int,
+            alpha: float, targets, what: str):
     add_lora(model, rank=rank, alpha=alpha, targets=tuple(targets))
     have = collect_lora_trainable(model.layers, "layers")
     missing = set(have) - set(flat)
@@ -197,8 +191,7 @@ def _attach(model: M.LlamaModel, flat: Dict[str, np.ndarray], rank: int,
     return model
 
 
-def import_peft(model: M.LlamaModel, peft_dir: str, device="cuda"
-                ) -> M.LlamaModel:
+def import_peft(model, peft_dir: str, device="cuda"):
     """Attach adapters from a standard PEFT directory (``export_peft``'s,
     or any PEFT LoRA of the same base) to ``model``, in place."""
     _model_device(model, device)
@@ -219,8 +212,7 @@ def import_peft(model: M.LlamaModel, peft_dir: str, device="cuda"
                    acfg["target_modules"], "PEFT adapter")
 
 
-def load_lora(model: M.LlamaModel, save_dir: str, device="cuda"
-              ) -> M.LlamaModel:
+def load_lora(model, save_dir: str, device="cuda"):
     """Attach adapters saved by ``save_lora`` (either package's) to
     ``model``, in place."""
     _model_device(model, device)

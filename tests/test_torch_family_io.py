@@ -11,8 +11,8 @@ engine, fusion and random models:
 - QWen's ``fuse_for_inference`` (w1/w2 into one launch) held to the
   unfused model and to JAX's fused one;
 - the port's ``random_quantized_model`` for every family (shared group
-  transforms, biases where the family has them, the head rule), and LoRA
-  refusing the families it does not train yet.
+  transforms, biases where the family has them, the head rule); LoRA on
+  the families is held to JAX in ``tests/test_torch_lora_families*.py``.
 
 Tolerance of logits: 1e-4 of max|logit| plus one f32 ulp in f32 compute
 (``torch_family_cases.MODEL_TOL`` says why).
@@ -37,8 +37,6 @@ from quip_for_all_tpu_torch.models import registry as TR
 from quip_for_all_tpu_torch.models.config import ModelConfig
 from quip_for_all_tpu_torch.models.tree import FamilyModel
 from quip_for_all_tpu_torch.nn.qlinear import FusedQuantLinear, QuantLinear
-from quip_for_all_tpu_torch.quantize.lora_train import (causal_lm_loss,
-                                                        train_lora)
 from quip_for_all_tpu_torch.quantize.quantizer import sublayer_groups
 from quip_for_all_tpu_torch.runtime.serving import ServingEngine
 from quip_for_all_tpu_torch.utils.checkpoint import load_quantized
@@ -226,13 +224,3 @@ def test_random_model_head_rule():
         head = m["lm_head"]
         assert isinstance(head, QuantLinear) == quantized
         assert head.bias is not None and head.bias.shape == (vocab,)
-
-
-def test_lora_refuses_other_families():
-    cfg = ModelConfig(**dict(RANDOM, **FAMILIES["gpt2"]))
-    m = qt.random_quantized_model(cfg, seed=0, dtype=torch.float32,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        train_lora(cfg, m, np.zeros((4, 8), np.int64), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        causal_lm_loss(cfg, m, torch.zeros((1, 8), dtype=torch.int64))

@@ -67,8 +67,8 @@ F32 = {"compute_dtype": jnp.float32}
 T32 = {"compute_dtype": torch.float32}
 
 
-def configs(name):
-    kw = dict(BASE, **FAMILIES[name])
+def configs(name, base=BASE):
+    kw = dict(base, **FAMILIES[name])
     return JConfig(**kw), ModelConfig(**kw)
 
 
@@ -130,9 +130,10 @@ def quantized_tree(jcfg, seed=0, codebook="E8P12"):
     return params
 
 
-def case(name, seed=0):
-    """(JAX config, JAX tree, port config, port model) on the CPU."""
-    jcfg, tcfg = configs(name)
+def case(name, seed=0, base=BASE):
+    """(JAX config, JAX tree, port config, port model) on the CPU, at the
+    widths of ``base``."""
+    jcfg, tcfg = configs(name, base)
     jp = quantized_tree(jcfg, seed)
     return jcfg, jp, tcfg, from_jax_params(jp, "cpu", tcfg)
 
