@@ -42,7 +42,8 @@ line):
      slots (bucket 1024): device time by kernel and by model part;
      (d) the CLIs ``cli.generate`` and ``cli.eval_ppl`` on the golden
      checkpoint; each with exact launch counts;
-  6. the Mixtral path: Mixtral-8x7B E8P12 at all 32 layers (random codes,
+  6. the Mixtral path: Mixtral-8x7B E8P12 at full width, 16 layers
+     (MIXTRAL_LAYERS, since phase 21 came; random codes,
      seed 0, experts stacked, fused qkv, quantized head), the same
      prompt/greedy runs with 64 new tokens, exact launch counts of both
      kernels, a 16-token prompt through the sparse prefill, and the
@@ -78,10 +79,12 @@ line):
      64), and the I2F count of every built library's SASS (phase 1);
  11. the golden fixtures in the new layouts: e8p12 as bfp, sw2 and sw4,
      e8p12rvq4b as paired and bfp;
- 12. the new paths at full width, all 32 layers, right after phase 5 on
-     its model: (f) split-K = 4 on the main path's planes, (e) those
-     planes re-laid as sw4 and (d) as bfp, each first held to phase 5's
-     f32 logits, then (g) E8P12RVQ4B paired from seed 0; each as in phase
+ 12. the new paths at full width, 16 layers (PATH12_LAYERS, since phase
+     21 came), right after phase 5 on its model cut to its first 16
+     blocks: (f) split-K = 4 on the main path's planes, (e) those planes
+     re-laid as sw4 and (d) as bfp, each first held to the cut model's
+     f32 logits through K1, then (g) E8P12RVQ4B paired from seed 0; each
+     as in phase
      9 (the graphed 32-token prefill too), with the exact launch counts of
      its kernels;
  13. fused_decode_matmul_bwd (K3, the tensor-core backward of K1/K2)
@@ -184,8 +187,26 @@ line):
      adapters loaded back with ``load_lora`` and ``import_peft`` giving
      the trained model's logits. Phases 13 and 16 time K3 and K2 at (i)'s
      and (ii)'s shapes and rows too.
+ 21. tensor parallelism on the one card: Llama-2-7B E8P12 nibble at full
+     width and depth (random codes from seed 0, fused qkv and gate/up,
+     quantized head) with block-diagonal transforms of 2 shards on every
+     column-parallel linear's right side and every row-parallel one's
+     left (``tp_block_diagonal``, as a ``tp_shards = 2`` checkpoint has
+     them), first whole in this process (the one-rank references), then
+     as two ranks spawned on ``cuda:0`` over gloo, each holding its half
+     of the planes from ``parallel/sharding.py`` ``shard_params``: K1 at
+     m = 1 and 8 and K2 at m = 64 against their twin on each rank-local
+     shape; f32 logits of a 32-token prefill and 8 cached steps against
+     the one-rank model's (1e-4 of max|logit| plus one ulp); 32 greedy
+     bf16 tokens (their agreement and the first fork's logit gap
+     printed); ``ServingEngine(mesh=)`` on 4 requests at 4 slots in f32
+     (prompts 16-200, 16 new, prefill chunk 128: K2), each request's ids
+     equal to the one-rank engine's; exact K1/K2 launches a forward (129)
+     and the collectives a token; an eager step with and without its
+     collectives. Two ranks on one card measure correctness and
+     launches, not tensor-parallel speed.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
-a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19;
+a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19, 21;
 each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
@@ -290,6 +311,11 @@ LAYERS = 32
 # the script's time grew by phase 20, and their kernels are held at full
 # width per call in phases 7 and 10
 PATH9_LAYERS = 16
+# since phase 21 came, phase 12's paths and phase 6's Mixtral-8x7B run at
+# this depth too (the only cut; their kernels are held at full width in
+# phases 3 and 10)
+PATH12_LAYERS = 16
+MIXTRAL_LAYERS = 16
 # the kernel each runtime layout's linears launch
 LAYOUT_KERNEL = {"u3": "rowpair_u3_decode_matmul",
                  "pb": "rowpair_pb_decode_matmul",
@@ -1440,13 +1466,15 @@ def count_k1(count):
 
 
 def phase_mixtral():
-    """The Mixtral-8x7B path at all 32 layers and full width. Returns its
-    launch counts and its step times."""
+    """The Mixtral-8x7B path at full width and MIXTRAL_LAYERS layers.
+    Returns its launch counts and its step times."""
+    import dataclasses
     import torch
     import quip_for_all_tpu_torch as qt
     from quip_for_all_tpu_torch.models.config import mixtral_8x7b_config
     from quip_for_all_tpu_torch.runtime.serving import ServingEngine
-    cfg = mixtral_8x7b_config()
+    cfg = dataclasses.replace(mixtral_8x7b_config(),
+                              num_hidden_layers=MIXTRAL_LAYERS)
     L, E = cfg.num_hidden_layers, cfg.num_local_experts
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -2207,26 +2235,33 @@ def run_path(tag, cfg, model, prompt, expect, NEW=32, CACHE=2048):
 
 
 def phase_layout_paths(main):
-    """Llama-2-7B at full width and all 32 layers through the new kernels:
-    (f) the main path's E8P12 nibble planes (``main``, whose model this
-    phase takes and frees) with split-K = 4, (e) the same planes re-laid as
-    sw4 (a view) and (d) as bfp (copied one linear at a time), each held to
-    the main path's f32 logits (K1), then (g) E8P12RVQ4B in the paired
-    layout built from seed 0. Per forward pass:
-    (d) 129 K10, (e) 129 K11, (f) 97 K6 (qkv, o, gate/up, head) and 32 K1
-    (down's 11 lane blocks do not split 4 ways), (g) 129 K7; the 32-token
-    prefill has padded m 32, so split-K runs there too."""
+    """Llama-2-7B at full width and PATH12_LAYERS layers through the new
+    kernels: (f) the main path's E8P12 nibble planes (``main``, whose model
+    this phase takes, cuts to its first PATH12_LAYERS blocks and frees)
+    with split-K = 4, (e) the same planes re-laid as sw4 (a view) and (d)
+    as bfp (copied one linear at a time), each held to the cut model's f32
+    logits through K1, then (g) E8P12RVQ4B in the paired layout built from
+    seed 0. Per forward pass (L layers): (d) 4L + 1 K10, (e) 4L + 1 K11,
+    (f) 3L + 1 K6 (qkv, o, gate/up, head) and L K1 (down's 11 lane blocks
+    do not split 4 ways), (g) 4L + 1 K7; the 32-token prefill has padded m
+    32, so split-K runs there too."""
+    import dataclasses
     import gc
     import torch
+    from torch import nn
     import quip_for_all_tpu_torch as qt
     from quip_for_all_tpu_torch.ops import qtensor as Q
-    cfg, prompt, ref = main["cfg"], main["prompt"], main["ref"]
+    L = PATH12_LAYERS
+    cfg = dataclasses.replace(main["cfg"], num_hidden_layers=L)
+    prompt = main["prompt"]
     model = main.pop("model")
-    per_step = 4 * LAYERS + 1
+    model.layers = nn.ModuleList(list(model.layers)[:L])
+    _, ref = f32_logits(cfg, model, prompt)
+    per_step = 4 * L + 1
     out = {}
     for tag, expect, to, back in (
-            ("f_ksplit4", {"ksplit_decode_matmul": 3 * LAYERS + 1,
-                           "fused_decode_matmul": LAYERS},
+            ("f_ksplit4", {"ksplit_decode_matmul": 3 * L + 1,
+                           "fused_decode_matmul": L},
              lambda: qt.set_ksplit(model, 4), lambda: qt.set_ksplit(model, 0)),
             ("e_sw4", {"sw_decode_matmul": per_step},
              lambda: relayout_model(model, lambda q: Q.to_subword(q, 4)),
@@ -2241,9 +2276,9 @@ def phase_layout_paths(main):
             f"{time.time() - t:.1f} s")
         _, lg = f32_logits(cfg, model, prompt)
         rel = float((lg - ref).abs().max() / ref.abs().max())
-        log(f"{tag}: f32 logits of the prompt and 3 greedy steps against the "
-            f"main path's fused_decode_matmul run: max|diff|/max|logit| "
-            f"{rel:.3g} (tol 1e-4)")
+        log(f"{tag}: f32 logits of the prompt and 3 greedy steps against "
+            f"the same {L} layers' fused_decode_matmul run: "
+            f"max|diff|/max|logit| {rel:.3g} (tol 1e-4)")
         if not rel <= 1e-4:
             raise AssertionError(f"{tag}: f32 logits differ from K1's by "
                                  f"{rel}")
@@ -2264,8 +2299,9 @@ def phase_layout_paths(main):
                                       layout="paired")
     model = qt.fuse_for_inference(cfg, model)
     torch.cuda.synchronize()
-    log(f"g_paired: built Llama-2-7B E8P12RVQ4B [paired] (random codes, seed"
-        f" 0, fused, quantized head) in {time.time() - t:.1f} s; "
+    log(f"g_paired: built Llama-2-7B E8P12RVQ4B [paired] ({L} layers; "
+        f"random codes, seed 0, fused, quantized head) in "
+        f"{time.time() - t:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
         f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
     out["g_paired"] = run_path("g_paired", cfg, model, prompt,
@@ -3740,13 +3776,16 @@ def kernel_entries(rows, max_err, moe_rows, moe_err, llama_launches, mix,
     # Mixtral's decode step: its fused calls (GQA qkv, o, head) and its
     # MoE calls, against the graphed step's device time
     mix_fused = call_sum(rows, MIXTRAL_FUSED_CALLS, "ms", m=1, sets=1)
-    log(f"mixtral: per decode token the kernels take {mix_fused:.3f} ms "
-        f"(fused_decode_matmul) + {moe['ms']:.3f} ms (moe_decode_matmul) of"
-        f" {mix['dev_ms']:.3f} ms graphed device time "
-        f"({(mix_fused + moe['ms']) / mix['dev_ms']:.0%}); bound "
+    # phase 6 runs MIXTRAL_LAYERS of the 32 layers: the share of its step
+    cut = MIXTRAL_LAYERS / LAYERS
+    log(f"mixtral: per decode token of all 32 layers the kernels take "
+        f"{mix_fused:.3f} ms (fused_decode_matmul) + {moe['ms']:.3f} ms "
+        f"(moe_decode_matmul), bound "
         f"{call_sum(rows, MIXTRAL_FUSED_CALLS, 'bound_ms', m=1, sets=1):.3f}"
-        f" + "
-        f"{moe['bound_ms']:.3f} ms")
+        f" + {moe['bound_ms']:.3f} ms; scaled to phase 6's "
+        f"{MIXTRAL_LAYERS} layers, {(mix_fused + moe['ms']) * cut:.3f} ms of "
+        f"its {mix['dev_ms']:.3f} ms graphed device time "
+        f"({(mix_fused + moe['ms']) * cut / mix['dev_ms']:.0%})")
     entries = [fused, moe]
     # phase 9's paths run PATH9_LAYERS layers: their share of a step
     path_calls = {k: PATH9_LAYERS if v == LAYERS else v
@@ -3790,9 +3829,12 @@ def layout_entries(rows, max_err, paths):
         e.update(small_m_sums(rows, {"variant": label, "dtype": "bfloat16"},
                               calls))
         e["path_prefill_device_ms"] = paths[path]["prefill_device_ms"]
-        log(f"{path}: per decode token the {label} kernel takes "
-            f"{e['ms']:.3f} ms of {paths[path]['dev_ms']:.3f} ms graphed "
-            f"device time ({e['ms'] / paths[path]['dev_ms']:.0%}); bound "
+        # phase 12 runs PATH12_LAYERS layers: the kernel's share of a step
+        k_ms = e["ms"] * PATH12_LAYERS / LAYERS
+        log(f"{path}: per decode token of its {PATH12_LAYERS} layers the "
+            f"{label} kernel takes ~{k_ms:.3f} ms (all 32 layers: "
+            f"{e['ms']:.3f}) of {paths[path]['dev_ms']:.3f} ms graphed "
+            f"device time ({k_ms / paths[path]['dev_ms']:.0%}); bound "
             f"{e['bound_ms']:.3f} ms")
         out.append(e)
     return out
@@ -4196,6 +4238,403 @@ def quant_path_launches(entries, quant):
         {f"llama2_7b_quantized_{quant['layers']}_layers": quant["launches"]})
 
 
+# ------------------------------------------------------------ phase 21
+
+TP = 2
+TP_PROMPT = 32
+TP_STEPS = 8
+TP_GREEDY = 32
+TP_CACHE = 512
+# the rank-local shapes of Llama-2-7B at tp 2: (layer, module path in a
+# block, q_out, q_in); the head is the model's lm_head
+TP_SHAPES = [("qkv", ("self_attn", "qkv_proj"), 6144, 4096),
+             ("o", ("self_attn", "o_proj"), 4096, 2048),
+             ("gateup", ("mlp", "gateup_proj"), 11008, 4096),
+             ("down", ("mlp", "down_proj"), 4096, 5504),
+             ("head", None, 16000, 4096)]
+TP_K1_M = (1, 8)
+TP_K2 = ("down", 64)
+
+
+def tp_block_diagonal(model, tp):
+    """Give every column-parallel quantized linear of ``model`` a right
+    transform, and every row-parallel one a left transform, block-diagonal
+    over ``tp`` shards (``get_hadK(n, shards=tp)``, random sub-factors from
+    a fixed seed), as a checkpoint quantized with ``tp_shards = tp`` has
+    them; in place. The codes are random, so the model stays valid."""
+    import torch
+    from quip_for_all_tpu_torch.nn.qlinear import QuantLinear
+    from quip_for_all_tpu_torch.parallel.sharding import role_of
+    from quip_for_all_tpu_torch.transforms.incoherence import get_hadK
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for name, mod in model.named_modules():
+        role = role_of(name) if isinstance(mod, QuantLinear) else "rep"
+        if role == "rep":
+            continue
+        side = "right" if role == "col" else "left"
+        n = mod.q_out if role == "col" else mod.q_in
+        spec = get_hadK(n, use_rand=True, generator=gen, device="cuda",
+                        shards=tp)
+        had = None if spec.hadK is None else spec.hadK.to(mod.SV.dtype)
+        setattr(mod, f"had_{side}", had)
+        setattr(mod, f"K_{side}", spec.K)
+        setattr(mod, f"shards_{side}", tp)
+    return model
+
+
+def tp_model(cfg):
+    """Llama-2-7B E8P12 nibble, random codes from seed 0, the main path's
+    options (quantized head, fused qkv and gate/up), with the tp_shards
+    transforms of ``tp_block_diagonal``."""
+    import quip_for_all_tpu_torch as qt
+    model = qt.random_quantized_model(cfg, seed=0, quantize_head=True,
+                                      device="cuda")
+    return qt.fuse_for_inference(cfg, tp_block_diagonal(model, TP))
+
+
+def tp_inputs(cfg):
+    import numpy as np
+    rng = np.random.default_rng(21)
+    ids = rng.integers(0, cfg.vocab_size, (1, TP_PROMPT + TP_STEPS))
+    reqs = [(p, 16) for p, _ in serving_requests(cfg, 4, 21, (16, 200),
+                                                 (16, 16))]
+    return ids, reqs
+
+
+def tp_f32_logits(cfg, model, ids):
+    """f32 logits (f32 compute) of a prefill of the first TP_PROMPT ids
+    and TP_STEPS cached one-token steps on the rest: (S, V)."""
+    import torch
+    from quip_for_all_tpu_torch.models.registry import get_arch, rank_config
+    from quip_for_all_tpu_torch.runtime.generate import init_kv_caches
+    apply = get_arch(cfg).model_apply
+    kw = dict(dtype=torch.float32,
+              linear_kw={"compute_dtype": torch.float32})
+    ids = torch.as_tensor(ids).cuda()
+    caches = init_kv_caches(rank_config(cfg, model), 1, TP_CACHE,
+                            torch.float32, "cuda")
+    n0 = TP_PROMPT
+    with torch.no_grad():
+        out, _ = apply(cfg, model, ids[:, :n0],
+                       positions=torch.arange(n0, device="cuda")[None],
+                       kv_caches=caches, cache_position=0, **kw)
+        outs = [out[0]]
+        for t in range(n0, ids.shape[1]):
+            out, _ = apply(cfg, model, ids[:, t:t + 1],
+                           positions=torch.full((1, 1), t, device="cuda"),
+                           kv_caches=caches, cache_position=t, **kw)
+            outs.append(out[0])
+    return torch.cat(outs).cpu().numpy()
+
+
+def tp_greedy(cfg, model, ids):
+    """TP_GREEDY greedy bf16 tokens after the prompt, by ``generate`` (a
+    card's graphs for a whole model, the eager loop for a rank's), with
+    the host time a token after the prefill."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    prompt = torch.as_tensor(ids[:, :TP_PROMPT]).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = qt.generate(cfg, model, prompt, TP_GREEDY, cache_len=TP_CACHE)
+    torch.cuda.synchronize()
+    return out[0, TP_PROMPT:].cpu().numpy(), \
+        (time.perf_counter() - t0) * 1e3 / TP_GREEDY
+
+
+def tp_serve(cfg, model, reqs, mesh=None):
+    """The 4 requests through ``ServingEngine`` at 4 slots in f32 (a
+    prefill chunk of 4 x 128 rows runs K2, a decode step K1)."""
+    import torch
+    from quip_for_all_tpu_torch.runtime.serving import ServingEngine
+    eng = ServingEngine(cfg, model, max_batch=4, cache_len=TP_CACHE,
+                        prefill_chunk=128, decode_chunk=8,
+                        dtype=torch.float32, mesh=mesh,
+                        linear_kw={"compute_dtype": torch.float32})
+    rids = [eng.add_request(p, m) for p, m in reqs]
+    res = eng.run()
+    return [res[r] for r in rids], eng.prefill_chunks, eng.decode_steps
+
+
+def tp_step_ms(cfg, model, stub=False, n=8):
+    """Host ms of one eager bf16 decode step of a rank's model (``n``
+    steps after 2 warm-ups, synchronised), with its collectives, or with
+    ``stub`` each replaced by a local stand-in of the same shape (the
+    logits are then wrong and thrown away): the difference is what the
+    collectives cost a step."""
+    import torch
+    from quip_for_all_tpu_torch.models.registry import rank_config
+    from quip_for_all_tpu_torch.parallel import comm
+    from quip_for_all_tpu_torch.runtime.generate import (decode_step_fn,
+                                                         init_kv_caches)
+    saved = comm.all_reduce, comm.all_gather, comm.broadcast
+    if stub:
+        comm.all_reduce = lambda t, group: t
+        comm.all_gather = lambda t, group, world: torch.cat([t] * world, -1)
+        comm.broadcast = lambda t, src, group: t
+    try:
+        step = decode_step_fn(cfg)
+        caches = init_kv_caches(rank_config(cfg, model), 1, TP_CACHE,
+                                torch.bfloat16, "cuda")
+        tok = torch.zeros(1, dtype=torch.int64, device="cuda")
+        for pos in range(2):
+            step(model, caches, tok, pos)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for pos in range(2, 2 + n):
+            step(model, caches, tok, pos)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+    finally:
+        comm.all_reduce, comm.all_gather, comm.broadcast = saved
+
+
+def tp_fork(cfg, model, ids, ref, toks):
+    """Where a rank's greedy bf16 tokens leave the one-rank run's: the
+    first differing position, and there the one-rank model's gap between
+    its top logit and the logit of the rank's token (one bf16 forward
+    over the prompt and the rank's tokens), beside one bf16 step at that
+    magnitude. None when they agree throughout."""
+    import numpy as np
+    import torch
+    from quip_for_all_tpu_torch.models.registry import get_arch
+    diff = np.nonzero(toks != ref)[0]
+    if diff.size == 0:
+        return None
+    f = int(diff[0])
+    seq = np.concatenate([ids[0, :TP_PROMPT], toks[:f + 1]])[None]
+    with torch.no_grad():
+        logits, _ = get_arch(cfg).model_apply(
+            cfg, model, torch.as_tensor(seq).cuda(), dtype=torch.bfloat16)
+    row = logits[0, TP_PROMPT + f - 1].float().cpu().numpy()
+    top, mine = float(row.max()), float(row[toks[f]])
+    step = 2.0 ** (np.floor(np.log2(max(abs(top), 1e-30))) - 7)
+    return {"position": f, "gap": top - mine, "bf16_step": float(step)}
+
+
+def tp_kernel_checks(cfg, model):
+    """On a rank's model: K1 against its plain twin at m = 1 and 8 on each
+    rank-local shape (TP_SHAPES, block 0's planes and the head's), K2 at m
+    = 64 on TP_K2's; the existing tolerance (1e-5 of max plus one bf16
+    ulp). Returns {case: max error}."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    errs = {}
+    for name, path, q_out, q_in in TP_SHAPES:
+        lin = (model.lm_head if path is None
+               else model.layers[0][path[0]][path[1]]).local
+        qw = lin.qweight
+        if (qw.q_out, qw.q_in) != (q_out, q_in):
+            raise AssertionError(f"tp {name}: rank-local planes "
+                                 f"{qw.q_out}x{qw.q_in}, want "
+                                 f"{q_out}x{q_in}")
+        planes, affine = qw.plane_list(), qw.decode_affine
+        G, Gp = q_in // 8, qw.group_cols
+        scale = torch.rand(q_out, generator=gen, device="cuda") + 0.5
+        cases = [(m, fm.fused_decode_matmul) for m in TP_K1_M]
+        if name == TP_K2[0]:
+            cases.append((TP_K2[1], fm.fused_decode_matmul_tc))
+        for m, kern in cases:
+            mp = max(8, -(-m // 8) * 8)
+            x = torch.zeros((mp, 8, Gp), device="cuda")
+            x[:m, :, :G] = torch.randn((m, 8, G), generator=gen,
+                                       device="cuda")
+            x = x.reshape(mp, 8 * Gp).to(torch.bfloat16)
+            got = kern(x, planes, affine, scale, rows=m)
+            want = fm.fused_decode_matmul_ref(x[:m], planes, affine, scale)
+            torch.cuda.synchronize()
+            ok, err = tm.compare(got, want, bf16_step=True)[:2]
+            key = f"{'K1' if m <= 32 else 'K2'} {name} {q_out}x{Gp} m={m}"
+            errs[key] = err
+            if not ok:
+                raise AssertionError(f"tp {key}: kernel vs plain twin beyond "
+                                     f"tolerance (max |diff| {err})")
+    return errs
+
+
+def tp_rank(rank, world, init_file, out_dir):
+    """One rank of phase 21 (spawned): its model of Llama-2-7B from
+    ``shard_params``, the kernel checks at its shapes, then, with every
+    launch count and collective count set to 0 before each and read after,
+    the f32 logits, the greedy bf16 tokens and the f32 serving run; its
+    results into ``out_dir``."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    global tm
+    from quip_for_all_tpu_torch.tools import _timing as tm
+    from quip_for_all_tpu_torch.models.config import llama2_7b_config
+    from quip_for_all_tpu_torch.parallel import comm
+    from quip_for_all_tpu_torch.parallel.sharding import (make_mesh,
+                                                          shard_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(dp=1, tp=world)
+        cfg = llama2_7b_config()
+        t = time.time()
+        whole = tp_model(cfg)
+        model = shard_params(cfg, whole, mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = {"build_s": time.time() - t, "plane_bytes": sum(
+            b.numel() * b.element_size() for n, b in model.named_buffers()
+            if "planes_" in n)}
+        res["kernel_errs"] = tp_kernel_checks(cfg, model)
+        ids, reqs = tp_inputs(cfg)
+        for run, fn in (("f32", lambda: tp_f32_logits(cfg, model, ids)),
+                        ("greedy", lambda: tp_greedy(cfg, model, ids)),
+                        ("serving", lambda: tp_serve(cfg, model, reqs,
+                                                     mesh))):
+            reset_launches()
+            comm.reset_counts()
+            torch.cuda.synchronize()
+            t = time.time()
+            res[run] = fn()
+            torch.cuda.synchronize()
+            res[f"{run}_s"] = time.time() - t
+            res[f"{run}_launches"] = {k: v for k, v in
+                                      read_launches().items() if v}
+            res[f"{run}_collectives"] = comm.counts()
+        res["step_ms"] = tp_step_ms(cfg, model)
+        res["step_ms_stub"] = tp_step_ms(cfg, model, stub=True)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp():
+    """21: Llama-2-7B E8P12 nibble at full width and depth as two tensor-
+    parallel ranks on the one card (module docstring)."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from quip_for_all_tpu_torch.models.config import llama2_7b_config
+    cfg = llama2_7b_config()
+    ids, reqs = tp_inputs(cfg)
+    # the one-rank references, on the whole model
+    model = tp_model(cfg)
+    ref_f32 = tp_f32_logits(cfg, model, ids)
+    ref_greedy, ref_ms = tp_greedy(cfg, model, ids)
+    ref_serve = tp_serve(cfg, model, reqs)
+    whole_bytes = sum(b.numel() * b.element_size()
+                      for n, b in model.named_buffers() if "planes_" in n)
+    out = tempfile.mkdtemp(prefix="tp_")
+    t = time.time()
+    # a rank that fails makes spawn raise, and the phase with it
+    mp.spawn(tp_rank, args=(TP, os.path.join(out, "pg"), out), nprocs=TP,
+             join=True)
+    ranks_s = time.time() - t
+    rs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+          for r in range(TP)]
+    fork = tp_fork(cfg, model, ids, ref_greedy, rs[0]["greedy"][0])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = 1e-4 * np.abs(ref_f32).max() + np.spacing(
+        np.abs(ref_f32).astype(np.float32))
+    per_forward = LAYERS * 4 + 1
+    summary = {"ranks": TP, "ranks_wall_s": ranks_s,
+               "whole_plane_bytes": whole_bytes,
+               "one_rank_graphed_ms_token": ref_ms}
+    for r, res in enumerate(rs):
+        err = np.abs(res["f32"] - ref_f32)
+        if not np.all(err <= tol):
+            raise AssertionError(f"tp rank {r}: f32 logits off the one-rank "
+                                 f"model's by {err.max():.3g} (max|logit| "
+                                 f"{np.abs(ref_f32).max():.3g})")
+        toks, ms_tok = res["greedy"]
+        agree = int(np.sum(toks == ref_greedy))
+        outs, chunks, steps = res["serving"]
+        same = sum(int(np.array_equal(a, b)) for a, b in zip(outs,
+                                                              ref_serve[0]))
+        if same != len(reqs):
+            raise AssertionError(f"tp rank {r}: {same}/{len(reqs)} f32 "
+                                 "served requests equal the one-rank "
+                                 "engine's")
+        forwards = {"f32": 1 + TP_STEPS, "greedy": TP_GREEDY}
+        for run, n in forwards.items():
+            got = res[f"{run}_launches"]
+            if got != {"fused_decode_matmul": per_forward * n}:
+                raise AssertionError(f"tp rank {r} {run}: launches {got}, "
+                                     f"want {per_forward * n} K1")
+        want = {"fused_decode_matmul": per_forward * steps,
+                "fused_decode_matmul_tc": per_forward * chunks}
+        if res["serving_launches"] != want:
+            raise AssertionError(f"tp rank {r} serving: launches "
+                                 f"{res['serving_launches']}, want {want}")
+        col = res["greedy_collectives"]
+        summary[f"rank{r}"] = {
+            "plane_bytes": res["plane_bytes"], "build_s": res["build_s"],
+            "kernel_max_err": max(res["kernel_errs"].values()),
+            "f32_max_err": float(err.max()),
+            "f32_max_logit": float(np.abs(ref_f32).max()),
+            "greedy_bf16_agree": agree, "eager_ms_token": ms_tok,
+            "k1_a_token": res["greedy_launches"]["fused_decode_matmul"]
+            // TP_GREEDY,
+            "all_reduce_a_token": col["all_reduce"] / TP_GREEDY,
+            "all_gather_a_token": col["all_gather"] / TP_GREEDY,
+            "broadcast_a_token": col["broadcast"] / TP_GREEDY,
+            "serving_launches": res["serving_launches"],
+            "serving_collectives": res["serving_collectives"],
+            "serving_prefill_chunks": chunks, "serving_decode_steps": steps,
+            "f32_s": res["f32_s"], "greedy_s": res["greedy_s"],
+            "serving_s": res["serving_s"], "step_ms": res["step_ms"],
+            "step_ms_without_collectives": res["step_ms_stub"],
+            "greedy_fork": fork}
+        for key, e in res["kernel_errs"].items():
+            log(f"tp rank {r}: kernel {key}: max|k-plain| {e:.3g} (tol 1 "
+                "bf16 ulp + 1e-5 max)")
+        log(f"tp rank {r}: {res['plane_bytes'] / 2**30:.3f} GiB of planes "
+            f"(the whole model {whole_bytes / 2**30:.3f}); f32 logits of a "
+            f"{TP_PROMPT}-token prefill and {TP_STEPS} cached steps within "
+            f"{err.max():.3g} of the one-rank model's (max|logit| "
+            f"{np.abs(ref_f32).max():.3g}, tol 1e-4 of it + 1 ulp); "
+            f"{agree}/{TP_GREEDY} greedy bf16 tokens as the one-rank run's; "
+            f"eager {ms_tok:.1f} ms a token (the one-rank graphed generate "
+            f"{ref_ms:.1f}); a token: {summary[f'rank{r}']['k1_a_token']} "
+            f"K1, {col['all_reduce'] / TP_GREEDY:.1f} all_reduce, "
+            f"{col['all_gather'] / TP_GREEDY:.1f} all_gather, "
+            f"{col['broadcast'] / TP_GREEDY:.1f} broadcast; an eager decode "
+            f"step {res['step_ms']:.1f} ms, {res['step_ms_stub']:.1f} with "
+            f"its collectives stubbed out; f32 serving: {same}/{len(reqs)} "
+            f"requests equal the one-rank engine's, {chunks} prefill chunks "
+            f"({want['fused_decode_matmul_tc']} K2), {steps} decode steps "
+            f"({want['fused_decode_matmul']} K1)")
+    if fork is not None:
+        log(f"tp: the ranks' greedy bf16 tokens leave the one-rank run's "
+            f"at token {fork['position']}, where the one-rank model's top "
+            f"logit is {fork['gap']:.4g} above the rank's token's (one "
+            f"bf16 step there: {fork['bf16_step']:.4g})")
+    log(f"tp: two ranks on one card (gloo, both on cuda:0) measure the "
+        f"sharded path's correctness and launches, not tensor-parallel "
+        f"speed; card {smi_line()}; ranks' wall {ranks_s:.1f} s")
+    return summary
+
+
+def tp_path_launches(entries, tp):
+    """Phase 21's launches beside K1's and K2's entries: each rank's K1
+    a token and its serving run's K1 and K2, marked as two ranks on one
+    card."""
+    by = {e["name"]: e for e in entries}
+    r0 = tp["rank0"]
+    by["fused_decode_matmul"].setdefault("launches_by_path", {}).update(
+        tp2_one_card_rank0_greedy_a_token=r0["k1_a_token"],
+        tp2_one_card_rank0_serving=r0["serving_launches"][
+            "fused_decode_matmul"])
+    by["fused_decode_matmul_tc"].setdefault("launches_by_path", {}).update(
+        tp2_one_card_rank0_serving_prefill=r0["serving_launches"][
+            "fused_decode_matmul_tc"])
+
+
 def at(phase, fn, *args):
     """Run one phase, logging when it starts and how long it took, so the
     script's time against its limit can be read phase by phase."""
@@ -4261,6 +4700,7 @@ def main() -> int:
         train = at("14", phase_train)
         lora = at("20", phase_lora_families)
         quant = at("19", phase_quantize)
+        tp = at("21", phase_tp)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
@@ -4273,6 +4713,7 @@ def main() -> int:
         serving_path_launches(entries, graphed, serving, mix)
         family_path_launches(entries, neox, fams)
         quant_path_launches(entries, quant)
+        tp_path_launches(entries, tp)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
             "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
@@ -4280,6 +4721,7 @@ def main() -> int:
                                         "published_widths": fams}))
         log("quantization: " + json.dumps(quant))
         log("lora on the families: " + json.dumps(lora))
+        log("tensor parallelism: " + json.dumps(tp))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

@@ -39,7 +39,7 @@ def main(argv=None):
     if args.sp > 1:
         raise NotImplementedError(
             "--sp > 1 (sequence-parallel perplexity) is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+            "(ROADMAP.md queue 1 item 8b)")
 
     from ..data.calibration import get_calibration_tokens
     from ..runtime.generate import perplexity

@@ -8,8 +8,9 @@ plus ``--device`` (the card unless ``--device cpu``):
 ``random:<preset>`` for the dense model of ``init_llama_params`` (presets
 tiny, llama2_7b, llama2_70b, mixtral_8x7b). Datasets: ``synthetic`` or
 ``file:<path>`` (a tokenizer from ``transformers`` for the latter); the
-HF dataset names need a download and raise. ``--tp-shards`` and
-``--ft-pp`` above 1 raise NotImplementedError (ROADMAP.md queue 1 item 8).
+HF dataset names need a download and raise. ``--tp-shards`` draws the
+block-diagonal transforms of tensor parallelism; ``--ft-pp`` above 1
+raises NotImplementedError (ROADMAP.md queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ def main(argv=None):
     ap.add_argument("--ft-valid-size", type=int, default=128)
     ap.add_argument("--modules-to-not-convert", nargs="*", default=None)
     ap.add_argument("--tp-shards", type=int, default=1,
-                    help="not ported yet: above 1 it raises")
+                    help="block-diagonal transforms for this many "
+                    "tensor-parallel shards")
     ap.add_argument("--ft-pp", type=int, default=1,
                     help="not ported yet: above 1 it raises")
     ap.add_argument("--seed", type=int, default=0)

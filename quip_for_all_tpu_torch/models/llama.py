@@ -34,8 +34,10 @@ from ..nn.qlinear import (FusedQuantLinear, QuantLinear, fuse_qlinears,
                          same_tensor)
 from ..nn.qmoe import (StackedQuantLinear, moe_sparse_apply, stack_experts,
                        unstack_qlinear)
+from ..parallel.layers import ColParallel, RowParallel
 from .common import attn_bucket, kv_len, sdpa_cache_layout, write_kv
 from .config import ModelConfig
+from .registry import rank_config
 
 
 # the configs this module runs (the others: models/registry.py)
@@ -120,7 +122,7 @@ class LlamaModel(nn.Module):
 # --------------------------------------------------------------- primitives
 
 def linear_apply(lin: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
-    if isinstance(lin, QuantLinear):
+    if isinstance(lin, (QuantLinear, ColParallel, RowParallel)):
         return lin(x, **kw)
     if isinstance(lin, LoraLinear):
         return lora_apply(lin, x, **kw)
@@ -328,6 +330,7 @@ def model_apply(cfg: ModelConfig, model: LlamaModel,
     if cfg.arch not in LLAMA_ARCHS:
         raise ValueError(f"arch {cfg.arch!r} runs through its own module "
                          "(models/registry.py get_arch)")
+    cfg = rank_config(cfg, model)
     B, S = input_ids.shape
     dev = input_ids.device
     x = F.embedding(input_ids, model.embed_tokens.weight).to(dtype)
@@ -375,6 +378,7 @@ def _sharable(ps) -> bool:
         return False
     p0 = ps[0]
     return all(p.q_in == p0.q_in and p.K_left == p0.K_left
+               and p.shards_left == p0.shards_left
                and same_tensor(p.SU, p0.SU)
                and same_tensor(p.had_left, p0.had_left)
                for p in ps[1:])

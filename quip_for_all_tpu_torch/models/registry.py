@@ -56,6 +56,13 @@ def fuse_for_inference(cfg: ModelConfig, model):
     return model if fuse is None else fuse(cfg, model)
 
 
+def rank_config(cfg: ModelConfig, model) -> ModelConfig:
+    """The config a model's blocks run with: a tensor-parallel rank's
+    model (``parallel/sharding.py`` ``shard_params``) carries its own
+    (its heads and MLP width), any other model runs ``cfg``."""
+    return getattr(model, "tp_cfg", None) or cfg
+
+
 def model_device(model) -> torch.device:
     """The device of the model's weights (its first buffer)."""
     return next(iter(model.buffers())).device
@@ -183,6 +190,7 @@ def decoder_apply(cfg: ModelConfig, params, block_apply,
     graph."""
     from .common import kv_len
     from .llama import cache_mask, causal_mask
+    cfg = rank_config(cfg, params)
     B, S = input_ids.shape
     dev = input_ids.device
     if positions is None:

@@ -143,18 +143,22 @@ class QuantLinear(_PlaneHolder):
     ``wscale_float`` is mean(Wscale), fused into the left transform's
     scale; ``Wscale`` (per-channel only) is already normalized by it.
     ``W_cache`` (None until a caller sets it) holds ``calc_weight``'s dense
-    W for the training forward."""
+    W for the training forward. ``shards_left`` / ``shards_right`` > 1
+    make that side's transform block-diagonal (a tensor-parallel
+    checkpoint's, ``HadSpec.shards``)."""
 
     def __init__(self, qweight: Optional[QuantizedTensor], *,
                  in_features: int, out_features: int, q_in: int,
                  q_out: int, K_left: int = 1, K_right: int = 1,
                  SU=None, SV=None, bias=None, had_left=None, had_right=None,
                  Wscale=None, per_channel: bool = False,
-                 wscale_float: float = 1.0):
+                 wscale_float: float = 1.0, shards_left: int = 1,
+                 shards_right: int = 1):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.q_in, self.q_out = q_in, q_out
         self.K_left, self.K_right = K_left, K_right
+        self.shards_left, self.shards_right = shards_left, shards_right
         self.per_channel = per_channel
         self.wscale_float = float(wscale_float)
         self._set_qweight(qweight)
@@ -165,11 +169,13 @@ class QuantLinear(_PlaneHolder):
 
     @property
     def left_spec(self) -> HadSpec:
-        return HadSpec(self.had_left, self.K_left, self.q_in)
+        return HadSpec(self.had_left, self.K_left, self.q_in,
+                       self.shards_left)
 
     @property
     def right_spec(self) -> HadSpec:
-        return HadSpec(self.had_right, self.K_right, self.q_out)
+        return HadSpec(self.had_right, self.K_right, self.q_out,
+                       self.shards_right)
 
     def forward(self, x, *, training: bool = False,
                 compute_dtype=torch.bfloat16, matmul_impl: str = "auto",
@@ -212,23 +218,47 @@ def apply(p: QuantLinear, x: torch.Tensor, *, training: bool = False,
             x = torch.nn.functional.pad(x, (0, p.q_in - x.shape[-1]))
         return _epilogue(p, (x @ W.to(x_dtype))[:, : p.out_features],
                          batch_shape)
-    sv = p.Wscale if p.per_channel else None
+    out, right_done = left_product(
+        p, x, compute_dtype=compute_dtype, matmul_impl=matmul_impl,
+        max_m=max_m, right_in_kernel=p.right_in_kernel)
+    return right_side(p, out.to(x_dtype), right_done, batch_shape)
+
+
+def left_product(p: QuantLinear, x: torch.Tensor, *, compute_dtype,
+                 matmul_impl: str = "auto", max_m: int = FUSED_MAX_M,
+                 right_in_kernel: bool = False, scaled: bool = True):
+    """The eval forward up to the right transform, on x (m, q_in-wide)
+    after SU: the left transform (wscale fused), the codebook product and,
+    with ``scaled``, the per-channel scale. Returns (out (m, q_out) as the
+    product route gave it, right_done): right_done when the right
+    transform's B-side factor ran in the kernel epilogue. A tensor-parallel
+    row shard sums the unscaled products of its ranks
+    (``parallel/layers.py``)."""
+    sv = p.Wscale if p.per_channel and scaled else None
     res = None
     if matmul_impl != "dequant":
         res = _grouped_prologue_matmul(
             x, p.left_spec, p.qweight, p.wscale_float, compute_dtype,
             scale_vec=sv, impl=matmul_impl, max_m=max_m, ksplit=p.ksplit,
-            right_spec=p.right_spec if p.right_in_kernel else None,
+            right_spec=p.right_spec if right_in_kernel else None,
             combine=p.combine)
     out, right_done = res if res is not None else (None, False)
-    pc_fused = out is not None and sv is not None
     if out is None:
         x = matmul_hadUt(x, p.left_spec, scale=p.wscale_float)
         out = quant_matmul(x.to(compute_dtype), p.qweight, impl=matmul_impl,
                            max_m=max_m, ksplit=p.ksplit, combine=p.combine)
-    out = out.to(x_dtype)
-    if p.per_channel and not pc_fused:
-        out = out * p.Wscale.to(x_dtype)
+    elif sv is not None:
+        sv = None                     # the kernel epilogue applied it
+    if sv is not None:
+        out = out.to(x.dtype) * sv.to(x.dtype)
+    return out, right_done
+
+
+def right_side(p: QuantLinear, out: torch.Tensor, right_done: bool,
+               batch_shape) -> torch.Tensor:
+    """After ``left_product`` (and its per-channel scale): the right
+    transform (or its rest, ``finish_right``), the pad sliced off, SV,
+    the batch shape back and the bias."""
     if right_done:
         out = finish_right(out, p.right_spec)[:, : p.out_features]
     else:
@@ -257,10 +287,11 @@ class FusedQuantLinear(_PlaneHolder):
     def __init__(self, qweight: QuantizedTensor, segments: Sequence,
                  *, SU, had_left, K_left: int, q_in: int, in_features: int,
                  right_uniform: bool, right_hadK_stack=None, pre_vec=None,
-                 SV_all=None, bias_all=None):
+                 SV_all=None, bias_all=None, shards_left: int = 1):
         super().__init__()
         self.q_in, self.q_out = q_in, qweight.q_out
         self.K_left, self.in_features = K_left, in_features
+        self.shards_left = shards_left
         self.right_uniform = right_uniform
         self._set_qweight(qweight)
         self.segments = nn.ModuleList(segments)
@@ -272,7 +303,8 @@ class FusedQuantLinear(_PlaneHolder):
 
     @property
     def left_spec(self) -> HadSpec:
-        return HadSpec(self.had_left, self.K_left, self.q_in)
+        return HadSpec(self.had_left, self.K_left, self.q_in,
+                       self.shards_left)
 
     def forward(self, x, *, compute_dtype=torch.bfloat16,
                 matmul_impl: str = "auto", max_m: int = FUSED_MAX_M):
@@ -286,7 +318,8 @@ def _slim(p: QuantLinear) -> QuantLinear:
         None, in_features=p.in_features, out_features=p.out_features,
         q_in=p.q_in, q_out=p.q_out, K_left=p.K_left, K_right=p.K_right,
         SV=p.SV, bias=p.bias, had_right=p.had_right, Wscale=p.Wscale,
-        per_channel=p.per_channel, wscale_float=p.wscale_float)
+        per_channel=p.per_channel, wscale_float=p.wscale_float,
+        shards_left=p.shards_left, shards_right=p.shards_right)
 
 
 def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
@@ -294,6 +327,7 @@ def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
     p0 = ps[0]
     for p in ps[1:]:
         if (p.q_in != p0.q_in or p.K_left != p0.K_left
+                or p.shards_left != p0.shards_left
                 or p.codebook_id != p0.codebook_id
                 or p.layout != p0.layout):
             raise ValueError("fuse_qlinears: left sides differ")
@@ -308,9 +342,10 @@ def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
     q_out = sum(p.q_out for p in ps)
     qt = QuantizedTensor(planes, q0.codebook_id, q_out, p0.q_in,
                          q0.opt_resid_scale, q0.layout)
+    # one batched right side needs equal, whole-width right transforms
     uniform = all(
         p.q_out == p0.q_out and p.out_features == p.q_out
-        and p.K_right == p0.K_right
+        and p.K_right == p0.K_right and p.shards_right == 1
         and ((p.had_right is None) == (p0.had_right is None))
         for p in ps)
     hadK_stack = pre_vec = SV_all = bias_all = None
@@ -338,7 +373,7 @@ def fuse_qlinears(ps: Sequence[QuantLinear]) -> FusedQuantLinear:
         qt, [_slim(p) for p in ps], SU=p0.SU, had_left=p0.had_left,
         K_left=p0.K_left, q_in=p0.q_in, in_features=p0.in_features,
         right_uniform=uniform, right_hadK_stack=hadK_stack, pre_vec=pre_vec,
-        SV_all=SV_all, bias_all=bias_all)
+        SV_all=SV_all, bias_all=bias_all, shards_left=p0.shards_left)
 
 
 def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
@@ -351,12 +386,26 @@ def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
     x_dtype = x.dtype
     if f.SU is not None:
         x = x * f.SU.to(x_dtype)
+    big, right_done, pre_fused = fused_left(
+        f, x, compute_dtype=compute_dtype, matmul_impl=matmul_impl,
+        max_m=max_m, right_in_kernel=f.right_in_kernel)
+    return fused_right(f, big.to(x_dtype), right_done, pre_fused,
+                       batch_shape)
+
+
+def fused_left(f: FusedQuantLinear, x: torch.Tensor, *, compute_dtype,
+               matmul_impl: str = "auto", max_m: int = FUSED_MAX_M,
+               right_in_kernel: bool = False, scaled: bool = True):
+    """A fused group's forward up to the right side, on x after SU: the
+    left transform and one codebook product for every segment. Returns
+    (big (m, Σ q_out), right_done, pre_fused): pre_fused when the uniform
+    group's scales rode the kernel epilogue (``scaled`` allows it)."""
     res = None
-    sv = f.pre_vec if f.right_uniform else None
+    sv = f.pre_vec if f.right_uniform and scaled else None
     # the right epilogue takes uniform groups (one right spec for all
     # segments), as in the JAX package
     rspec = (f.segments[0].right_spec
-             if f.right_uniform and f.right_in_kernel else None)
+             if f.right_uniform and right_in_kernel else None)
     if matmul_impl != "dequant":
         res = _grouped_prologue_matmul(x, f.left_spec, f.qweight, None,
                                        compute_dtype, scale_vec=sv,
@@ -369,7 +418,15 @@ def fused_apply(f: FusedQuantLinear, x: torch.Tensor, *,
         x = matmul_hadUt(x, f.left_spec)     # unscaled; wscale per segment
         big = quant_matmul(x.to(compute_dtype), f.qweight, impl=matmul_impl,
                            max_m=max_m, ksplit=f.ksplit, combine=f.combine)
-    big = big.to(x_dtype)
+    return big, right_done, pre_fused
+
+
+def fused_right(f: FusedQuantLinear, big: torch.Tensor, right_done: bool,
+                pre_fused: bool, batch_shape) -> List[torch.Tensor]:
+    """A fused group's right side on ``fused_left``'s product: the scales
+    (unless ``pre_fused``), each segment's right transform, SV and bias;
+    the per-segment outputs (..., out_features_i)."""
+    x_dtype = big.dtype
     if f.right_uniform:
         # batched epilogue: one scale, one batched kron transform and one
         # (optional) stacked-hadK product for all segments together

@@ -93,6 +93,7 @@ def _stackable(groups: List[List[QuantLinear]]) -> bool:
                     or p.out_features != p.q_out
                     or p.in_features != p00.in_features
                     or p.K_left != p00.K_left or p.K_right != p00.K_right
+                    or p.shards_left != 1 or p.shards_right != 1
                     or p.codebook_id != p00.codebook_id
                     or p.layout != p00.layout
                     or (p.SU is None) != (p00.SU is None)

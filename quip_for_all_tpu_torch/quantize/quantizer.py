@@ -23,9 +23,12 @@ there, the numpy ``Generator`` (seeded with ``seed``) and the inter-block
 activations (fp16 with ``calib_act_fp16``) stay on the host, as in the JAX
 package. ``resume_dir`` keeps each finished block (the port's own files:
 ``torch.save`` of the block and the generator's state, so a resumed run
-equals an uninterrupted one bit for bit). Tensor-parallel transforms
-(``tp_shards``) and the pipelined end-to-end finetune (``ft_pp``) are
-ROADMAP.md queue 1 item 8.
+equals an uninterrupted one bit for bit). ``tp_shards`` > 1 draws
+block-diagonal transforms on the dimension tensor parallelism shards (a
+column-parallel linear's output, a row-parallel one's input:
+``parallel/sharding.py`` ``role_of``), in the JAX package's order of
+draws. The pipelined end-to-end finetune (``ft_pp``) is ROADMAP.md queue
+1 item 8b.
 """
 from __future__ import annotations
 
@@ -47,11 +50,12 @@ from ..utils.device import resolve_device
 from . import hessian
 from .ldlq import full_f32
 from .quip import QuantConfig, pack_to_qlinear, proxy_loss, quantize_layer
+from ..parallel.sharding import role_of
 from ..transforms.incoherence import get_hadK
 
 logger = logging.getLogger(__name__)
 
-ITEM8 = "ROADMAP.md queue 1 item 8"
+ITEM8 = "ROADMAP.md queue 1 item 8b, slice 18"
 
 
 def sublayer_groups(cfg: ModelConfig) -> List[Dict[str, Any]]:
@@ -204,10 +208,6 @@ class QuipQuantizer:
             self.opt_resid_scale if self.opt_resid_scale > 0 else None)
         if not (0 < self.sigma_reg < 1):
             raise ValueError("sigma_reg must be in (0, 1)")
-        if self.tp_shards > 1:
-            raise NotImplementedError(
-                f"tp_shards={self.tp_shards}: block-diagonal tensor-parallel "
-                f"transforms are not ported yet ({ITEM8})")
         if self.ft_pp > 1:
             raise NotImplementedError(
                 f"ft_pp={self.ft_pp}: the pipelined end-to-end finetune is "
@@ -446,10 +446,15 @@ class QuipQuantizer:
                     continue
                 H = hessian.finalize(hs[key])
                 shared_SU = shared_lspec = None
+                tp = self.tp_shards
                 if self.share_group_transforms and len(g["layers"]) > 1:
                     n_in = H.shape[0]
                     shared_SU = _signs(rng, n_in)
-                    shared_lspec = get_hadK(n_in, self.use_rand, rng=rng)
+                    l_shards = (tp if tp > 1
+                                and role_of(g["layers"][0]) == "row"
+                                and n_in % tp == 0 else 1)
+                    shared_lspec = get_hadK(n_in, self.use_rand, rng=rng,
+                                            shards=l_shards)
                 for path in g["layers"]:
                     if self._skip(path):
                         continue
@@ -467,9 +472,21 @@ class QuipQuantizer:
                         SU = shared_SU
                         su_is_merged = False  # applied at runtime, shared
                     W = lin.weight.to(torch.float32)
+                    lspec, rspec = shared_lspec, None
+                    if tp > 1:
+                        # the block-diagonal transform on the dimension TP
+                        # shards, drawn before quantize_layer's own draws
+                        role = role_of(path)
+                        if role == "col" and W.shape[0] % tp == 0:
+                            rspec = get_hadK(W.shape[0], self.use_rand,
+                                             rng=rng, shards=tp)
+                        elif (role == "row" and lspec is None
+                              and W.shape[1] % tp == 0):
+                            lspec = get_hadK(W.shape[1], self.use_rand,
+                                             rng=rng, shards=tp)
                     attrs, W_hat = quantize_layer(
                         W, H, self.cb, qcfg, rng, SU=SU, SV=SV,
-                        lspec=shared_lspec, su_is_merged=su_is_merged,
+                        lspec=lspec, rspec=rspec, su_is_merged=su_is_merged,
                         device=dev)
                     set_path(blk, path, pack_to_qlinear(
                         attrs, self.cb, bias=lin.bias,

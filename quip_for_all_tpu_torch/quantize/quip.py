@@ -239,7 +239,8 @@ def pack_to_qlinear(attrs: LayerQuantAttrs, cb,
         q_out=rspec.padN, K_left=lspec.K, K_right=rspec.K, SU=opt(SU),
         SV=opt(SV), bias=opt(bias), had_left=opt(lspec.hadK),
         had_right=opt(rspec.hadK), Wscale=Wscale, per_channel=per_channel,
-        wscale_float=wscale_float)
+        wscale_float=wscale_float, shards_left=lspec.shards,
+        shards_right=rspec.shards)
 
 
 def proxy_loss(W: torch.Tensor, W_hat: torch.Tensor, H: torch.Tensor

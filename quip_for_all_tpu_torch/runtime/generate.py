@@ -19,6 +19,12 @@ Sampling (temperature > 0) is Gumbel-max with the caller's
 eagerly into a static buffer before their replays, so the graphs draw
 nothing themselves (the JAX package's jax.random draws cannot be
 reproduced here). Greedy decoding draws nothing.
+
+A tensor-parallel rank's model (``parallel/sharding.py`` ``shard_params``)
+runs the same loop on every rank of its group: its KV caches hold the
+rank's kv heads, its steps run eagerly (``runtime/graphs.py``
+``graphs_for``) and each sampled token is broadcast from the group's
+rank 0, so the ranks never diverge.
 """
 from __future__ import annotations
 
@@ -29,9 +35,9 @@ import torch
 
 from ..models.common import QuantKVCache, attn_bucket
 from ..models.config import ModelConfig
-from ..models.registry import get_arch, model_device
+from ..models.registry import get_arch, model_device, rank_config
 from ..utils.device import resolve_device
-from .graphs import HostFetch, StepRunner
+from .graphs import HostFetch, StepRunner, graphs_for
 
 # decode steps whose sampling noise is drawn in one eager call
 NOISE_ROWS = 64
@@ -55,6 +61,17 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
                             device=dev))
         return torch.zeros(shape, dtype=dtype, device=dev)
     return [(slab(), slab()) for _ in range(cfg.num_hidden_layers)]
+
+
+def sync_tokens(params, tok: torch.Tensor) -> torch.Tensor:
+    """A sharded model's sampled tokens, broadcast from its tensor-
+    parallel group's rank 0 in place (``parallel/comm.py``); any other
+    model's as they are."""
+    mesh = getattr(params, "tp_mesh", None)
+    if mesh is not None:
+        from ..parallel import comm
+        comm.broadcast(tok, mesh.tp_root, mesh.tp_group)
+    return tok
 
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -118,8 +135,8 @@ class _Decoder:
         self.kw = dict(dtype=dtype, linear_kw=linear_kw)
         self.generator, self.temperature, self.top_k = (generator,
                                                         temperature, top_k)
-        self.caches = init_kv_caches(cfg, B, cache_len, dtype, dev,
-                                     quantized=kv_quantized)
+        self.caches = init_kv_caches(rank_config(cfg, params), B, cache_len,
+                                     dtype, dev, quantized=kv_quantized)
         i64 = dict(dtype=torch.int64, device=dev)
         self.tok = torch.zeros((B,), **i64)
         self.pos = torch.zeros((), **i64)
@@ -137,7 +154,8 @@ class _Decoder:
                 dtype=torch.float32, device=dev)
             self.nidx = torch.zeros((), **i64)
             state.append(self.nidx)
-        self.runner = StepRunner(dev, state, graphs=graphs)
+        self.runner = StepRunner(dev, state,
+                                 graphs=graphs_for(params, graphs))
 
     def prefill(self, prompt_ids: torch.Tensor,
                 cache_len: int) -> torch.Tensor:
@@ -148,8 +166,8 @@ class _Decoder:
             kv_caches=self.caches, cache_position=0,
             attn_window=attn_bucket(S, cache_len), **self.kw)
         last = logits[:, -1, :].to(torch.float32)
-        tok = sample_token(last, self.generator, self.temperature,
-                           self.top_k)
+        tok = sync_tokens(self.params, sample_token(
+            last, self.generator, self.temperature, self.top_k))
         if self.logits is not None:
             self.logits[0] = last
         self.out[0] = tok
@@ -173,7 +191,9 @@ class _Decoder:
         if self.noise is not None:
             noise = self.noise.index_select(0, self.nidx.view(1))[0]
             self.nidx.add_(1)
-        nxt = pick_token(last, self.temperature, self.top_k, noise)
+        nxt = sync_tokens(self.params,
+                          pick_token(last, self.temperature, self.top_k,
+                                     noise))
         self.out.index_copy_(0, at, nxt[None])
         self.tok.copy_(nxt)
         self.pos.add_(1)
@@ -326,7 +346,7 @@ def perplexity(cfg: ModelConfig, params,
     if sp_mesh is not None:
         raise NotImplementedError(
             "sequence-parallel perplexity (sp_mesh=) is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+            "(ROADMAP.md queue 1 item 8b)")
     dev = resolve_device(device)
     if model_device(params).type != dev.type:
         raise ValueError(f"model lives on {model_device(params)}, "

@@ -23,11 +23,14 @@ counting wrapper in ``ops/``; on a card, ``chip_smoke.py`` and
 ``tests/test_torch_serving_cuda.py`` hold the counts to the kernels a
 profiler trace sees.
 
-A capture or a replay that fails raises; nothing falls back to the eager
-loop on a card. A graph replays the kernels its capture launched, with
-the switches of that moment (split-K, the right epilogue, the combined
-decode: ``nn/qlinear.py`` ``switch_epoch``); a key whose graph was
-captured before a switch changed is captured again at its next run.
+A tensor-parallel rank's model (``parallel/sharding.py``) runs its steps
+eagerly: its collectives run over gloo, which a CUDA graph cannot capture
+(``graphs_for``). A capture or a replay that fails raises; nothing falls
+back to the eager loop on a card. A graph replays the kernels its capture
+launched, with the switches of that moment (split-K, the right epilogue,
+the combined decode: ``nn/qlinear.py`` ``switch_epoch``); a key whose
+graph was captured before a switch changed is captured again at its next
+run.
 """
 from __future__ import annotations
 
@@ -63,6 +66,18 @@ def _counts() -> Dict[str, int]:
 def _add_counts(delta: Dict[str, int], times: int) -> None:
     for k, f in kernel_wrappers().items():
         f.launches += delta[k] * times
+
+
+def graphs_for(params, graphs=None):
+    """The ``graphs`` choice for a model's step runner: a sharded model's
+    steps run eagerly (asking for graphs there raises), any other model's
+    as ``graphs`` says."""
+    if getattr(params, "tp_mesh", None) is None:
+        return graphs
+    if graphs:
+        raise ValueError("a sharded model's steps run collectives, which "
+                         "CUDA graphs cannot capture: they run eagerly")
+    return False
 
 
 class StepRunner:

@@ -31,6 +31,14 @@ Sampling (temperature > 0) uses two generators seeded from ``seed``: the
 first token of a request is drawn on the host from its prefill logits (as
 the JAX engine draws it), the decode steps' Gumbel noise on the device,
 one eager draw per chunk before its replays.
+
+Tensor-sharded serving (``mesh=``, ``parallel/sharding.py``): every rank of
+the tensor-parallel group builds the engine on the same requests; the
+model is sharded (``shard_params``) unless it is already this rank's, the
+KV caches hold the rank's kv heads, every sampled token (the first on the
+host, each decode step's on the device) is broadcast from the group's
+rank 0, so the ranks never diverge, and the step bodies run eagerly,
+since gloo's collectives cannot sit inside a CUDA graph.
 """
 from __future__ import annotations
 
@@ -41,11 +49,11 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.registry import get_arch, model_device
+from ..models.registry import get_arch, model_device, rank_config
 from ..utils.device import resolve_device
 from .generate import (attn_bucket, gumbel_noise, init_kv_caches,
-                       pick_token, sample_token)
-from .graphs import HostFetch, StepRunner
+                       pick_token, sample_token, sync_tokens)
+from .graphs import HostFetch, StepRunner, graphs_for
 
 
 def _upload(dst: torch.Tensor, a: np.ndarray) -> None:
@@ -93,11 +101,20 @@ class ServingEngine:
         invoked in emission order for every generated token (including the
         first, sampled at admission) with ``done=True`` on a request's
         final token. ``linear_kw`` forwards to the quantized linears.
-        ``params`` is the model of any family (``models/registry.py``)."""
+        ``params`` is the model of any family (``models/registry.py``);
+        with ``mesh`` (a ``parallel.sharding.Mesh``) the whole model, or
+        this rank's of that mesh."""
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-sharded serving (mesh=) is not ported yet "
-                "(ROADMAP.md queue 1 item 8)")
+            from ..parallel.sharding import Mesh, shard_params
+            if not isinstance(mesh, Mesh):
+                raise TypeError("mesh= takes a parallel.sharding.Mesh "
+                                "(make_mesh), not "
+                                f"{type(mesh).__name__}")
+            have = getattr(params, "tp_mesh", None)
+            if have is None:
+                params = shard_params(cfg, params, mesh)
+            elif have is not mesh:
+                raise ValueError("the model is sharded over another mesh")
         dev = resolve_device(device)
         if model_device(params).type != dev.type:
             raise ValueError(f"model lives on {model_device(params)}, the "
@@ -113,7 +130,8 @@ class ServingEngine:
         B, C, V = max_batch, self.C, cfg.vocab_size
         # + C scratch slots at the tail: idle rows park their pad chunks at
         # position S during admissions
-        self.caches = init_kv_caches(cfg, B, cache_len + C, dtype, dev,
+        self.caches = init_kv_caches(rank_config(cfg, params), B,
+                                     cache_len + C, dtype, dev,
                                      quantized=kv_quantized)
         self.pos = np.zeros(B, dtype=np.int64)           # next write pos
         self.last_tok = np.zeros(B, dtype=np.int64)
@@ -153,7 +171,8 @@ class ServingEngine:
         self._act_snap: Optional[np.ndarray] = None
         self._gen_host = torch.Generator().manual_seed(seed)
         self._gen_dev = torch.Generator(dev).manual_seed(seed + 1)
-        self.runner = StepRunner(dev, [self._tok, self._pos, self._j])
+        self.runner = StepRunner(dev, [self._tok, self._pos, self._j],
+                                 graphs=graphs_for(params))
         # forward passes run: prefill chunks and decode steps (warm-ups
         # before captures are in runner.warmups)
         self.prefill_chunks = self.decode_steps = 0
@@ -202,8 +221,9 @@ class ServingEngine:
             cache_position=self._pos, attn_window=window, **self.kw)
         noise = (None if self._noise is None else
                  self._noise.index_select(0, self._j.view(1))[0])
-        nxt = pick_token(logits[:, -1, :].to(torch.float32),
-                         self.temperature, self.top_k, noise)
+        nxt = sync_tokens(self.params,
+                          pick_token(logits[:, -1, :].to(torch.float32),
+                                     self.temperature, self.top_k, noise))
         nxt = torch.where(self._act, nxt, self._tok)
         self._toks.index_copy_(0, self._j.view(1), nxt[None])
         self._tok.copy_(nxt)
@@ -261,11 +281,14 @@ class ServingEngine:
             last = fetch.numpy()
             for slot in finals:
                 last_logits[slot] = last[slot]
-        for req in admits:
+        firsts = torch.stack([sample_token(
+            torch.from_numpy(last_logits[req.slot][None, :]),
+            self._gen_host, self.temperature, self.top_k)[0]
+            for req in admits])
+        if getattr(self.params, "tp_mesh", None) is not None:
+            firsts = sync_tokens(self.params, firsts.to(self.dev)).cpu()
+        for req, first in zip(admits, firsts.tolist()):
             slot = req.slot
-            first = int(sample_token(
-                torch.from_numpy(last_logits[slot][None, :]),
-                self._gen_host, self.temperature, self.top_k)[0])
             self.slot_req[slot] = req
             self.active[slot] = True
             self.pos[slot] = req.prompt.shape[0]

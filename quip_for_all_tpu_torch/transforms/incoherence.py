@@ -83,12 +83,19 @@ def random_orthogonal(n: int, generator: torch.Generator,
 @dataclass(frozen=True)
 class HadSpec:
     """The orthogonal factor for one dimension: hadK (K x K or None), K,
-    and the transform length padN (>= n; zero-pad when larger).
-    Block-diagonal tensor-parallel transforms (``shards``) are queued for
-    the parallelism slice."""
+    and the transform length padN (>= n; zero-pad when larger). With
+    ``shards`` > 1 the transform is block-diagonal, U = I_shards ⊗ U_sub
+    with U_sub acting on padN / shards (hadK and K then describe U_sub):
+    a tensor-parallel shard of that dimension applies its own block
+    (``parallel/sharding.py``)."""
     hadK: Optional[Array]
     K: int
     padN: int
+    shards: int = 1
+
+    def sub(self) -> "HadSpec":
+        """One diagonal block: the transform of length padN / shards."""
+        return HadSpec(self.hadK, self.K, self.padN // self.shards)
 
 
 def get_hadK(n: int, use_rand: bool = True,
@@ -98,10 +105,19 @@ def get_hadK(n: int, use_rand: bool = True,
     """The factor for dimension n. With ``use_rand`` the K x K factor is
     drawn from ``rng`` (a numpy ``Generator``: the quantizer's path, the
     JAX package's draws and QR, f32 numpy) or else from ``generator`` (a
-    torch one: ``random_quantized_model``'s path, a tensor on ``device``)."""
+    torch one: ``random_quantized_model``'s path, a tensor on ``device``).
+    With ``shards`` > 1 the block-diagonal transform of n (``HadSpec``),
+    its sub-factor drawn for n / shards from the same source, as the JAX
+    package draws it."""
     if shards > 1:
-        raise NotImplementedError("block-diagonal tensor-parallel "
-                                  "transforms (ROADMAP.md queue 1 item 8)")
+        if n % shards:
+            raise ValueError(f"{n} does not split into {shards} shards")
+        sub = get_hadK(n // shards, use_rand=use_rand, generator=generator,
+                       device=device, rng=rng)
+        if sub.padN != n // shards:
+            raise ValueError(f"a shard of {n} pads to {sub.padN}: no "
+                             "block-diagonal transform")
+        return HadSpec(sub.hadK, sub.K, n, shards)
     exp, base = decompose_pow2(n)
     if base == 1:
         return HadSpec(None, 1, n)
@@ -158,6 +174,12 @@ def matmul_hadU(X: torch.Tensor, spec: HadSpec, scale=None,
     n = X.shape[-1]
     if n != spec.padN:
         X = F.pad(X, (0, spec.padN - n))
+    if spec.shards > 1:
+        # block-diagonal: each shard's block on its own slice
+        L = spec.padN // spec.shards
+        Y = matmul_hadU(X.reshape(*X.shape[:-1], spec.shards, L),
+                        spec.sub(), scale=scale, transpose=transpose)
+        return Y.reshape(*X.shape[:-1], spec.padN)
     had_scale = 1.0 / math.sqrt(spec.padN // spec.K)
     if scale is not None:
         had_scale = had_scale * scale
@@ -180,6 +202,9 @@ def matmul_hadUt(X: torch.Tensor, spec: HadSpec, scale=None
 
 def full_U(spec: HadSpec) -> np.ndarray:
     """Materialize U (padN x padN) — for tests and small dims only."""
+    if spec.shards > 1:
+        return np.kron(np.eye(spec.shards, dtype=np.float32),
+                       full_U(spec.sub()))
     e = decompose_pow2(spec.padN // spec.K)[0]
     H = sylvester(e)
     hadK = (np.ones((1, 1), dtype=np.float32) if spec.hadK is None
@@ -193,10 +218,10 @@ def right_b_factor(spec: HadSpec) -> Optional[Tuple[np.ndarray, int]]:
     epilogue, which multiplies each block of B output channels by it
     (``right_b_factor`` in the JAX package). Tile-local, because B divides
     every tile and every fused segment's q_out. None when the transform
-    does not factor that way: M < 8 or not a power of 2 (or a
-    block-diagonal transform, which this port does not have yet).
-    ``finish_right`` applies the remaining cross-tile factors."""
-    if getattr(spec, "shards", 1) > 1:
+    does not factor that way: M < 8 or not a power of 2, or a
+    block-diagonal transform (as in the JAX package). ``finish_right``
+    applies the remaining cross-tile factors."""
+    if spec.shards > 1:
         return None
     M = spec.padN // spec.K
     if M < 8 or (M & (M - 1)) != 0:
@@ -266,11 +291,12 @@ def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
     (G = padN // 8; at P = 1 that is out[:, i*Gp + g] = (X @ U)[:, 8g + i]).
     The permutation is free: it is a row permutation of the constant H_B
     (popcount(x & y) is invariant under a permutation of bit positions).
-    Returns None when the power-of-2 part is < 8 (caller uses the plain
-    transform)."""
+    A block-diagonal spec (``shards`` = s) applies its block to each of
+    the s slices, the groups staying in order. Returns None when the
+    power-of-2 part is < 8 (caller uses the plain transform)."""
     n = X.shape[-1]
-    K = spec.K
-    M = spec.padN // K
+    s, K = spec.shards, spec.K
+    M = spec.padN // s // K
     if M < 8 or (M & (M - 1)) != 0 or spec.padN % 8 != 0:
         return None
     if n != spec.padN:
@@ -289,7 +315,7 @@ def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
     if scale is not None:
         had_scale = had_scale * float(scale)
     HBp = _grouped_hb(eb, had_scale, split, X.device, X.dtype)
-    Y = X.reshape(m, K, A, B)
+    Y = X.reshape(m * s, K, A, B)
     if ea > 0:
         Ha = _sylvester_t(ea, X.device, X.dtype)
         Y = torch.einsum("mkab,xa->mkxb", Y, Ha)
@@ -297,9 +323,10 @@ def matmul_hadUt_grouped(X: torch.Tensor, spec: HadSpec, Gp: int,
     if K > 1:
         # hadUt: contract with hadK (not transposed): out_j = sum_k Y_k H_kj
         Y = torch.einsum("mkxl,kj->mjxl", Y, _as(spec.hadK, X))
-    # lane l = (q, c, j): q out front, (K, A, c) group-major with j minor
+    # lane l = (q, c, j): q out front, (s, K, A, c) group-major with j
+    # minor
     P, nq = split, 8 // split
-    Y = Y.reshape(m, K, A, nq, (B // 8) * P)
+    Y = Y.reshape(m, s * K, A, nq, (B // 8) * P)
     Y = Y.permute(0, 3, 1, 2, 4).reshape(m, nq, G, P)
     if Gp != G:
         Y = F.pad(Y, (0, 0, 0, Gp - G))

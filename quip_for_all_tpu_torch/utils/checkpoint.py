@@ -21,8 +21,11 @@ stores Qidxs (packed codes), SU, SV, Wscale (unnormalized), optional bias,
 had_left/had_right (only with use_rand) and a scalar ``weight`` shim; the
 quantization config sits in config.json or quantization_config.json.
 Files are read and written with the port's own safetensors code.
-Tensor-parallel checkpoints raise NotImplementedError (ROADMAP.md queue 1
-item 8).
+A tensor-parallel checkpoint (``tp_shards`` > 1 in its quantization config)
+loads by the JAX package's role rule: ``shards_left = tp_shards`` on every
+row-parallel linear, ``shards_right = tp_shards`` on every column-parallel
+one (``parallel/sharding.py`` ``role_of``), the table factor recomputed
+for the shard when ``use_rand`` is false.
 
 ``save_quantized`` writes that schema from an unfused port model (the
 JAX package's ``save_quantized``: the same tensor names, values and
@@ -93,6 +96,11 @@ def _codebook(qcfg: dict):
 
 def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
                    device, layout=None) -> QuantLinear:
+    from ..parallel.sharding import role_of
+    tp = int(qcfg.get("tp_shards", 1))
+    role = role_of(name)
+    shards_left = tp if (tp > 1 and role == "row") else 1
+    shards_right = tp if (tp > 1 and role == "col") else 1
     cb = _codebook(qcfg)
     packed = tensors[name + ".Qidxs"]
     SU = tensors.get(name + ".SU")
@@ -111,17 +119,17 @@ def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
 
     use_rand = qcfg.get("use_rand", True)
 
-    def factor(had, n):
+    def factor(had, n, shards):
         if had is not None:
             return had.shape[0], had
         if not use_rand:
-            spec = get_hadK(n, use_rand=False)
+            spec = get_hadK(n, use_rand=False, shards=shards)
             if spec.K > 1:
                 return spec.K, spec.hadK
         return 1, None
 
-    K_left, had_left = factor(had_left, in_f)
-    K_right, had_right = factor(had_right, out_f)
+    K_left, had_left = factor(had_left, in_f, shards_left)
+    K_right, had_right = factor(had_right, out_f, shards_right)
     per_channel = bool(qcfg.get("per_channel", False)) and Wscale.ndim == 1
     wscale_float = float(np.mean(Wscale))
     Wn = (_t(Wscale / np.mean(Wscale), device) if per_channel else None)
@@ -137,7 +145,8 @@ def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
         SV=keep_signs(SV), bias=None if bias is None else _t(bias, device),
         had_left=None if had_left is None else _t(had_left, device),
         had_right=None if had_right is None else _t(had_right, device),
-        Wscale=Wn, per_channel=per_channel, wscale_float=wscale_float)
+        Wscale=Wn, per_channel=per_channel, wscale_float=wscale_float,
+        shards_left=shards_left, shards_right=shards_right)
 
 
 def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
@@ -150,9 +159,6 @@ def load_quantized(save_dir: str, dtype=torch.float32, device="cuda",
         raise FileNotFoundError(f"{save_dir!r} is not a local directory")
     cfg = ModelConfig.from_pretrained_dir(save_dir)
     qcfg = load_quant_config(save_dir)
-    if int(qcfg.get("tp_shards", 1)) > 1:
-        raise NotImplementedError("tensor-parallel checkpoints (ROADMAP.md "
-                                  "queue 1 item 8)")
     _codebook(qcfg)                         # refuses an unknown codebook
     tensors = open_all_tensors(save_dir)
     if any(".ln1.weight" in k for k in tensors):

@@ -49,12 +49,10 @@ def _qtensor(q, device) -> QuantizedTensor:
 
 
 def qlinear_from_jax(p, device="cuda") -> QuantLinear:
-    """One ``QuantLinearParams`` -> ``QuantLinear`` on ``device``."""
+    """One ``QuantLinearParams`` -> ``QuantLinear`` on ``device``, its
+    block-diagonal shard counts (``shards_left`` / ``shards_right``)
+    included."""
     device = resolve_device(device)
-    if getattr(p, "shards_left", 1) != 1 or getattr(p, "shards_right",
-                                                     1) != 1:
-        raise NotImplementedError("sharded transforms (ROADMAP.md queue 1 "
-                                  "item 8)")
 
     def opt(a):
         return None if a is None else to_torch(a, device)
@@ -65,7 +63,9 @@ def qlinear_from_jax(p, device="cuda") -> QuantLinear:
         SU=opt(p.SU), SV=opt(p.SV), bias=opt(p.bias),
         had_left=opt(p.had_left), had_right=opt(p.had_right),
         Wscale=opt(p.Wscale), per_channel=bool(p.per_channel),
-        wscale_float=float(np.asarray(p.wscale_float)))
+        wscale_float=float(np.asarray(p.wscale_float)),
+        shards_left=int(getattr(p, "shards_left", 1)),
+        shards_right=int(getattr(p, "shards_right", 1)))
 
 
 def _walk(node, device, memo):

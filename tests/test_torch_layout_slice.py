@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from quip_for_all_tpu.codebooks import get_codebook as jget_codebook
@@ -47,6 +48,17 @@ from quip_for_all_tpu_torch.utils.convert import (from_jax_params,
                                                   qlinear_from_jax)
 
 pytestmark = pytest.mark.fast
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small tensor ops: one torch thread a test worker, set before
+    the module's fixtures build their models, so that a parallel test run
+    does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 DIMS = dict(vocab_size=256, hidden_size=128, intermediate_size=384,
@@ -142,11 +154,18 @@ def models(request):
             tcfg, port)
 
 
+def _japply(cfg, params, ids, **kw):
+    """JAX's ``model_apply`` logits as one jitted forward: a few seconds
+    of compile, where the eager forward compiles the interpret-mode
+    kernels op by op (~4x longer on these models)."""
+    fwd = jax.jit(lambda p, i: JM.model_apply(cfg, p, i, **kw)[0])
+    return fwd(params, jnp.asarray(ids))
+
+
 def _logits_close(jcfg, jparams, ids, S, logits):
     """The JAX side's per-step logits from one causal forward over the
     generated ids (a decode step's logits are its prefix's last ones)."""
-    jl, _ = JM.model_apply(jcfg, jparams, jnp.asarray(ids[:, :-1]),
-                           dtype=jnp.float32)
+    jl = _japply(jcfg, jparams, ids[:, :-1], dtype=jnp.float32)
     jl = np.asarray(jl)[0, S - 1:]
     tl = torch.stack(logits, dim=1)[0].numpy()
     assert tl.shape == jl.shape and np.all(np.isfinite(tl))

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from quip_for_all_tpu.data.calibration import synthetic_tokens
@@ -36,11 +37,30 @@ from quip_for_all_tpu_torch.utils.convert import from_jax_params
 
 pytestmark = pytest.mark.fast
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small tensor ops: one torch thread a test worker, set before
+    the module's fixtures build their models, so that a parallel test run
+    does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 DIMS = dict(arch="mixtral", vocab_size=256, hidden_size=128,
             intermediate_size=384, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2,
             max_position_embeddings=128, num_local_experts=4,
             num_experts_per_tok=2)
+
+
+def _japply(cfg, params, ids, **kw):
+    """JAX's ``model_apply`` logits as one jitted forward: a few seconds
+    of compile, where the eager forward compiles the interpret-mode
+    kernels op by op (~4x longer on these models)."""
+    fwd = jax.jit(lambda p, i: JM.model_apply(cfg, p, i, **kw)[0])
+    return fwd(params, jnp.asarray(ids))
 
 
 @pytest.fixture(scope="module")
@@ -67,8 +87,7 @@ def test_port_model_is_fused_like_jax(models):
 def _logits_close(jcfg, jparams, ids, S, logits):
     """The JAX side's per-step logits from one causal forward over the
     generated ids (a decode step's logits are its prefix's last ones)."""
-    jl, _ = JM.model_apply(jcfg, jparams, jnp.asarray(ids[:, :-1]),
-                           dtype=jnp.float32)
+    jl = _japply(jcfg, jparams, ids[:, :-1], dtype=jnp.float32)
     jl = np.asarray(jl)[0, S - 1:]
     tl = torch.stack(logits, dim=1)[0].numpy()
     assert tl.shape == jl.shape and np.all(np.isfinite(tl))
@@ -156,8 +175,8 @@ def test_load_quantized_mixtral_matches_jax(saved_mixtral):
     assert len(moe["experts"]) == 4
     assert type(moe["experts"][2]["w3"]).__name__ == "QuantLinear"
     ids = synthetic_tokens(2, 12, jcfg.vocab_size, 3)
-    want, _ = JM.model_apply(jcfg, jparams, jnp.asarray(ids),
-                             linear_kw={"compute_dtype": jnp.float32})
+    want = _japply(jcfg, jparams, ids,
+                   linear_kw={"compute_dtype": jnp.float32})
     got, _ = TM.model_apply(tcfg, model, torch.from_numpy(np.asarray(ids)),
                             linear_kw={"compute_dtype": torch.float32})
     want = np.asarray(want)
@@ -189,9 +208,8 @@ def test_loaded_mixtral_generates_like_jax(saved_mixtral, S):
                            dtype=torch.float32, device="cpu",
                            return_logits=True,
                            linear_kw={"compute_dtype": torch.float32})
-    jl, _ = JM.model_apply(jcfg, jparams, jnp.asarray(ids.numpy()[:, :-1]),
-                           dtype=jnp.float32,
-                           linear_kw={"compute_dtype": jnp.float32})
+    jl = _japply(jcfg, jparams, ids.numpy()[:, :-1], dtype=jnp.float32,
+                 linear_kw={"compute_dtype": jnp.float32})
     jl = np.asarray(jl)[0, S - 1:]
     tl = torch.stack(logits, dim=1)[0].numpy()
     err = np.abs(tl - jl).max(axis=-1)

@@ -154,8 +154,11 @@ def test_safetensors_reader_widens_bf16_exactly(tmp_path):
 
 
 def test_unported_checkpoints_raise(tmp_path):
-    """Every codebook loads now (tests/test_torch_codebooks.py); a
-    tensor-parallel checkpoint still raises, naming its roadmap item."""
+    """Every codebook loads now (tests/test_torch_codebooks.py), and so
+    does a tensor-parallel checkpoint: the golden D4 fixture with
+    ``tp_shards`` 2 written into its config loads by the JAX loader's role
+    rule (shards_left 2 on o/down, shards_right 2 on q/k/v/gate/up/head)
+    and gives the JAX loader's logits (within 1e-5 of max plus one ulp)."""
     import json
     import shutil
     d = tmp_path / "d4_tp"
@@ -174,5 +177,25 @@ def test_unported_checkpoints_raise(tmp_path):
     else:
         with open(d / "quantization_config.json", "w") as f:
             json.dump(qcfg, f)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        load_quantized(str(d), device="cpu")
+    from quip_for_all_tpu.models import llama as JM
+    from quip_for_all_tpu.utils.checkpoint import load_quantized as jload
+    from quip_for_all_tpu_torch.models import llama as TM
+    from torch_family_cases import assert_close
+    jcfg, jp, _ = jload(str(d))
+    tcfg, port, tq = load_quantized(str(d), device="cpu")
+    assert tq["tp_shards"] == 2
+    blk = port.layers[0]
+    assert blk["self_attn"]["q_proj"].shards_right == 2
+    assert blk["self_attn"]["q_proj"].shards_left == 1
+    assert blk["mlp"]["down_proj"].shards_left == 2
+    assert blk["mlp"]["down_proj"].shards_right == 1
+    for name in ("q_proj", "o_proj"):
+        j, t = jp["layers"][0]["self_attn"][name], blk["self_attn"][name]
+        assert (t.shards_left, t.shards_right) == (j.shards_left,
+                                                    j.shards_right)
+    ids = np.arange(12).reshape(2, 6) % tcfg.vocab_size
+    want, _ = JM.model_apply(jcfg, jp, jnp.asarray(ids), dtype=jnp.float32,
+                             linear_kw={"compute_dtype": jnp.float32})
+    got, _ = TM.model_apply(tcfg, port, torch.as_tensor(ids),
+                            linear_kw={"compute_dtype": torch.float32})
+    assert_close(got.numpy(), np.asarray(want))

@@ -254,7 +254,9 @@ def test_hf_import_is_local_only(tmp_path):
 def test_cli_quantize_writes_the_jax_files(tmp_path):
     """The same files, names, dtypes and shapes; every tensor's bytes
     equal except Wscale, which the two packages reduce in other orders
-    (within 1e-6 relative, the rule of ``quantize_layer``'s test)."""
+    (within 1e-6 relative, the rule of ``quantize_layer``'s test); with
+    ``--tp-shards 2`` too (block-diagonal transforms, ``tp_shards`` in
+    the config). ``--ft-pp`` above 1 is not ported and raises."""
     from quip_for_all_tpu.cli import quantize as jcli
     from quip_for_all_tpu_torch.cli import quantize as tcli
     args = ["--model-path", "random:tiny", "--nsamples", "8", "--seqlen",
@@ -265,9 +267,14 @@ def test_cli_quantize_writes_the_jax_files(tmp_path):
                       "cpu"])
     _same_dirs(str(tmp_path / "jax"), str(tmp_path / "port"),
                close=("Wscale",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tcli.main(args + ["--save-dir", str(tmp_path / "x"), "--device",
-                          "cpu", "--tp-shards", "2"])
+    tp = ["--tp-shards", "2"]
+    jcli.main(args + tp + ["--save-dir", str(tmp_path / "jax2")])
+    tcli.main(args + tp + ["--save-dir", str(tmp_path / "port2"),
+                           "--device", "cpu"])
+    _same_dirs(str(tmp_path / "jax2"), str(tmp_path / "port2"),
+               close=("Wscale",))
+    assert tckpt.load_quant_config(str(tmp_path / "port2"))[
+        "tp_shards"] == 2
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tcli.main(args + ["--save-dir", str(tmp_path / "x"), "--device",
                           "cpu", "--ft-pp", "2"])

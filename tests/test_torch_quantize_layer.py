@@ -69,9 +69,21 @@ def test_numpy_generator_factor_is_bitwise_jax(n):
 
 
 def test_sharded_transforms_raise_naming_the_queue():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tinc.get_hadK(256, use_rand=True, rng=np.random.default_rng(0),
-                      shards=2)
+    """Block-diagonal transforms are ported (ROADMAP.md queue 1 item 8a):
+    ``get_hadK(shards=2)`` draws the JAX package's sub-factor, bitwise,
+    random and table, and a width that does not split raises in both
+    packages."""
+    for use_rand in (True, False):
+        ja, ta = np.random.default_rng(3), np.random.default_rng(3)
+        js = jinc.get_hadK(688, use_rand=use_rand, rng=ja, shards=2)
+        ts = tinc.get_hadK(688, use_rand=use_rand, rng=ta, shards=2)
+        assert (js.K, js.padN, js.shards) == (ts.K, ts.padN, ts.shards)
+        assert np.array_equal(np.asarray(js.hadK), ts.hadK)
+        assert ja.standard_normal() == ta.standard_normal()
+        with pytest.raises(AssertionError):
+            jinc.get_hadK(90, use_rand=use_rand, rng=ja, shards=4)
+        with pytest.raises(ValueError, match="shards"):
+            tinc.get_hadK(90, use_rand=use_rand, rng=ta, shards=4)
 
 
 @pytest.mark.parametrize("name", CODEBOOKS)

@@ -164,8 +164,9 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        QuipQuantizer(codebook="E8P12", tp_shards=2)
+    # tp_shards is ported (tests/test_torch_tp_quant.py); ft_pp is not
+    assert QuipQuantizer(codebook="E8P12", tp_shards=2).to_dict()[
+        "tp_shards"] == 2
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         QuipQuantizer(codebook="E8P12", ft_pp=2)
     with pytest.raises(ValueError, match="sigma_reg"):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from quip_for_all_tpu.codebooks import get_codebook as jget_codebook
@@ -43,6 +44,17 @@ from quip_for_all_tpu_torch.utils.convert import (from_jax_params,
                                                   qlinear_from_jax)
 
 pytestmark = pytest.mark.fast
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small tensor ops: one torch thread a test worker, set before
+    the module's fixtures build their models, so that a parallel test run
+    does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 DIMS = dict(vocab_size=256, hidden_size=128, intermediate_size=384,
@@ -114,6 +126,14 @@ def test_fuse_qlinears_matches_jax(case):
         assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
 
 
+def _japply(cfg, params, ids, **kw):
+    """JAX's ``model_apply`` logits as one jitted forward: a few seconds
+    of compile, where the eager forward compiles the interpret-mode
+    kernels op by op (~4x longer on these models)."""
+    fwd = jax.jit(lambda p, i: JM.model_apply(cfg, p, i, **kw)[0])
+    return fwd(params, jnp.asarray(ids))
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def models(request):
     cb, layout, env = CASES[request.param]
@@ -140,8 +160,7 @@ def test_generate_matches_jax(models, S):
                               cache_len=64, dtype=torch.float32,
                               device="cpu", return_logits=True)
     assert np.array_equal(got.numpy(), want)
-    jl, _ = JM.model_apply(jcfg, jparams, jnp.asarray(want[:, :-1]),
-                           dtype=jnp.float32)
+    jl = _japply(jcfg, jparams, want[:, :-1], dtype=jnp.float32)
     jl = np.asarray(jl)[0, S - 1:]
     tl = torch.stack(logits, dim=1)[0].numpy()
     assert tl.shape == jl.shape == (new, 256) and np.all(np.isfinite(tl))
@@ -200,8 +219,8 @@ def test_rowpair_experts_do_not_stack():
     st = fused["layers"][0]["block_sparse_moe"]["experts_stacked"]
     assert sorted(st["w13"].planes) == ["w0", "w1", "w2"]    # u3, unconverted
     ids = jnp.asarray(np.random.default_rng(0).integers(0, 256, (1, 4)))
-    ref = np.asarray(JM.model_apply(jcfg, params, ids, dtype=jnp.float32)[0])
-    bad = np.asarray(JM.model_apply(jcfg, fused, ids, dtype=jnp.float32)[0])
+    ref = np.asarray(_japply(jcfg, params, ids, dtype=jnp.float32))
+    bad = np.asarray(_japply(jcfg, fused, ids, dtype=jnp.float32))
     assert np.abs(bad - ref).max() > 0.5 * np.abs(ref).max()
 
     tcfg = qt.ModelConfig(arch="mixtral", **cfg)

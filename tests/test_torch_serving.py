@@ -168,7 +168,8 @@ def test_prompt_too_long_and_mesh_raise(models):
     eng.add_request(np.arange(40) % 256, 4)
     with pytest.raises(ValueError, match="exceeds cache"):
         eng.run()
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # mesh= is ported (tests/test_torch_tp_serving.py): it takes a Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         ServingEngine(tcfg, port, mesh=object(), device="cpu")
 
 

@@ -22,6 +22,17 @@ from quip_for_all_tpu_torch.ops.dequant import nibble_planes
 
 pytestmark = pytest.mark.fast
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small tensor ops: one torch thread a test worker, set before
+    the module's fixtures build their models, so that a parallel test run
+    does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 RS = 1 / 3.45
 AFFINE = {1: ((0.5, -2.75),), 2: ((0.5, -2.75), (0.5 * RS, -2.75 * RS))}
 SLAB = 128                      # reduction values a slab (both kernels)
