@@ -3,6 +3,7 @@
 card: the quickest proof that the port still starts on the GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 21 [--profile-ft]   # one phase alone
 
 Phases (each prints its lines; any failure exits non-zero with no result
 line):
@@ -61,8 +62,8 @@ line):
      1, 8) and per prefill (m = 32, 64);
   8. the golden fixtures in the byte-cut layouts: e8p12 as u3, e8p12rvq4b
      as nibble and as pb;
-  9. the byte-cut paths at full width, 16 layers (PATH9_LAYERS, since
-     phase 20 came), random codes from seed 0: (a) Llama-2-7B E8P12 in u3 and (b) E8P12RVQ4B in pb through
+  9. the byte-cut paths at full width, 8 layers (PATH9_LAYERS: 16 since
+     phase 20 came, 8 since phase 21's sp and pp), random codes from seed 0: (a) Llama-2-7B E8P12 in u3 and (b) E8P12RVQ4B in pb through
      the row-pair kernels, (c) E8P12RVQ4B in nibble through
      fused_decode_matmul with 2 plane sets; each a 32-token prompt and 32
      greedy tokens twice, exact launch counts, one graphed step, the
@@ -79,9 +80,9 @@ line):
      64), and the I2F count of every built library's SASS (phase 1);
  11. the golden fixtures in the new layouts: e8p12 as bfp, sw2 and sw4,
      e8p12rvq4b as paired and bfp;
- 12. the new paths at full width, 16 layers (PATH12_LAYERS, since phase
-     21 came), right after phase 5 on its model cut to its first 16
-     blocks: (f) split-K = 4 on the main path's planes, (e) those planes
+ 12. the new paths at full width, 8 layers (PATH12_LAYERS: 16 since
+     phase 21 came, 8 since its sp and pp), right after phase 5 on its
+     model cut to its first PATH12_LAYERS blocks: (f) split-K = 4 on the main path's planes, (e) those planes
      re-laid as sw4 and (d) as bfp, each first held to the cut model's
      f32 logits through K1, then (g) E8P12RVQ4B paired from seed 0; each
      as in phase
@@ -159,7 +160,7 @@ line):
      each linear's seconds and proxy loss printed; ``save_quantized``,
      ``load_quantized`` on the card, ``fuse_for_inference``; the f32 logits'
      relative error against the float model's on a calibration window;
-     the widths rule (9 K1 a forward), graphed ``generate`` of 32 tokens
+     the widths rule (4 QUANT_LAYERS + 1 K1 a forward), graphed ``generate`` of 32 tokens
      bitwise the eager loop's with exact K1 launches, and f32 logits of 8
      steps against the plain route; (ii) a 512 x 1024 layer on the card
      against the CPU (proxy loss within 2%, codes' agreement, TF32 off in
@@ -171,10 +172,11 @@ line):
      CUDA-graph replays, beside its bound) and 64 steps by the host clock
      and by kernel (``torch.profiler``).
  20. LoRA on the families at full width, as phase 14 does it: (i)
-     Mixtral-8x7B E8P12 (all 32 layers, experts stacked, attention
-     unfused, quantized head; rank-8 adapters on q/k/v/o) at batch 1 x 512
-     (511 rows: K2 forward, K3 backward, the dense expert loop over the
-     stacked experts' views), (ii) GPT-NeoX-20B E8P12 (all 44 layers,
+     Mixtral-8x7B E8P12 (16 of its 32 layers since phase 21 grew,
+     LORA_MIX_LAYERS; experts stacked, attention unfused, quantized head;
+     rank-8 adapters on q/k/v/o) at batch 1 x 512 (511 rows: K2 forward,
+     K3 backward, the dense expert loop over the stacked experts' views),
+     (ii) GPT-NeoX-20B E8P12 (22 of its 44 layers, LORA_NEOX_LAYERS;
      adapters on every block linear) at 2 x 512: each with every adapter
      gradient against the plain route in f32 and bf16 (Mixtral's on its
      first 4 layers), exact K2/K3 launches per step, the step timed with
@@ -203,8 +205,23 @@ line):
      (prompts 16-200, 16 new, prefill chunk 128: K2), each request's ids
      equal to the one-rank engine's; exact K1/K2 launches a forward (129)
      and the collectives a token; an eager step with and without its
-     collectives. Two ranks on one card measure correctness and
-     launches, not tensor-parallel speed.
+     collectives. Then, on each rank's whole model (the references in
+     this process first, with K2 and K3 timed at the new rows on block
+     0's and the head's planes): sequence parallelism, two 2048-token
+     windows (1024 rows a rank: K2) through ``perplexity(sp_mesh=)`` in
+     f32, window 0's logits through ``sequence_parallel_logits`` against
+     the one-rank forward (2048 rows: the dense route), the perplexities
+     equal; the pipeline, ``pipeline_logits`` of 2 x 512 ids in 2
+     microbatches over 2 stages of 16 layers (512 rows: K2); one
+     pipelined end-to-end finetune step as ``QuipQuantizer(ft_pp=2)``
+     runs it (the training forward: no kernel) and the same step through
+     the eval linears (K2 forward, K3 backward), loss and every gradient
+     against the one-rank step's; exact launches, the collectives and
+     their host seconds, host times, peak memory, the free device memory
+     before and the allocator's retries of each (``--phase 21
+     --profile-ft``: the quantizer's step under ``torch.profiler`` too).
+     Two ranks on one card measure correctness, launches and
+     collectives, not parallel speed.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
 a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19, 21;
 each logs its start and its seconds. The last
@@ -308,13 +325,14 @@ K1_2SETS_M = (1, 32)
 K1_AFFINE = ((0.5, -2.75), (0.5 / 3.45, -2.75 / 3.45))
 LAYERS = 32
 # phase 9's byte-cut paths run Llama-2-7B at this depth (the only cut):
-# the script's time grew by phase 20, and their kernels are held at full
-# width per call in phases 7 and 10
-PATH9_LAYERS = 16
-# since phase 21 came, phase 12's paths and phase 6's Mixtral-8x7B run at
-# this depth too (the only cut; their kernels are held at full width in
-# phases 3 and 10)
-PATH12_LAYERS = 16
+# the script's time grew by phase 20 (16 layers) and phase 21 (8), and
+# their kernels are held at full width per call in phases 7 and 10
+PATH9_LAYERS = 8
+# since phase 21 came, phase 12's paths (8 layers since its sp and pp
+# paths came, 16 before) and phase 6's Mixtral-8x7B (16) run cut too
+# (depth the only cut; their kernels are held at full width in phases 3
+# and 10)
+PATH12_LAYERS = 8
 MIXTRAL_LAYERS = 16
 # the kernel each runtime layout's linears launch
 LAYOUT_KERNEL = {"u3": "rowpair_u3_decode_matmul",
@@ -350,17 +368,23 @@ K2_CALLS = {"qkvo": 4 * LAYERS, "gateup": 2 * LAYERS, "down": LAYERS,
             "head": 1}
 K2_M = (64, 1022)
 DENSE_M = (1022, 2044)
-# phase 20: LoRA on the families at full width. (i) Mixtral-8x7B, all 32
-# layers, experts stacked, attention unfused, quantized head, adapters on
+# phase 20: LoRA on the families at full width. (i) Mixtral-8x7B,
+# LORA_MIX_LAYERS layers, experts stacked, attention unfused, quantized
+# head, adapters on
 # q/k/v/o (the default targets), batch LORA_MIX_B x LORA_MIX_S (511 rows:
 # K2 forward, K3 backward; the MoE block takes the dense expert loop over
 # the stacked experts' views); its gradient check against the plain route
 # runs on the first LORA_MIX_GRAD_LAYERS layers (depth the only cut: the
 # plain route's activations of 32 layers in f32 do not fit beside the
-# codes). (ii) GPT-NeoX-20B, all 44 layers, adapters on every block linear
-# (NEOX_TARGETS), batch LORA_NEOX_B x LORA_NEOX_S (1022 rows). (iii) the
-# finetune CLI on a GPT-NeoX checkpoint at 20B widths and LORA_CLI_LAYERS
-# layers that the phase saves itself.
+# codes). (ii) GPT-NeoX-20B, LORA_NEOX_LAYERS layers, adapters on every
+# block linear (NEOX_TARGETS), batch LORA_NEOX_B x LORA_NEOX_S (1022
+# rows). (iii) the finetune CLI on a GPT-NeoX checkpoint at 20B widths and
+# LORA_CLI_LAYERS layers that the phase saves itself. Since phase 21 grew
+# (sequence parallelism and the pipeline; the script took 994.8 s with
+# phase 20 at full depth on an H100 80GB HBM3 at 700 W), (i) runs 16 of
+# Mixtral's 32 layers and (ii) 22 of GPT-NeoX-20B's 44: depth the only
+# cut, the widths the published ones.
+LORA_MIX_LAYERS, LORA_NEOX_LAYERS = 16, 22
 LORA_MIX_B, LORA_MIX_S, LORA_MIX_GRAD_LAYERS = 1, 512, 4
 LORA_NEOX_B, LORA_NEOX_S = 2, 512
 LORA_CLI_LAYERS = 2
@@ -380,16 +404,17 @@ LORA_SHAPES = [("mix_q_o", 4096, 4096, 511), ("mix_k_v", 1024, 4096, 511),
 # step (K3: less the linears whose input needs no gradient, those that
 # read layer 0's norm of the embedding: Mixtral's q/k/v, and GPT-NeoX's
 # qkv and h_to_4h under its parallel residual)
+_ML, _NL = LORA_MIX_LAYERS, LORA_NEOX_LAYERS
 LORA_K2_CALLS = {
-    "mixtral": {"mix_q_o": 2 * LAYERS, "mix_k_v": 2 * LAYERS,
-                "mix_w1_w3": 2 * 8 * LAYERS, "mix_w2": 8 * LAYERS,
-                "mix_head": 1},
-    "neox": {"neox_qkv": 44, "neox_dense": 44, "neox_h_to_4h": 44,
-             "neox_4h_to_h": 44, "neox_head": 1}}
+    "mixtral": {"mix_q_o": 2 * _ML, "mix_k_v": 2 * _ML,
+                "mix_w1_w3": 2 * 8 * _ML, "mix_w2": 8 * _ML, "mix_head": 1},
+    "neox": {"neox_qkv": _NL, "neox_dense": _NL, "neox_h_to_4h": _NL,
+             "neox_4h_to_h": _NL, "neox_head": 1}}
 LORA_K3_CALLS = {
-    "mixtral": dict(LORA_K2_CALLS["mixtral"], mix_q_o=2 * LAYERS - 1,
-                    mix_k_v=2 * (LAYERS - 1)),
-    "neox": dict(LORA_K2_CALLS["neox"], neox_qkv=43, neox_h_to_4h=43)}
+    "mixtral": dict(LORA_K2_CALLS["mixtral"], mix_q_o=2 * _ML - 1,
+                    mix_k_v=2 * (_ML - 1)),
+    "neox": dict(LORA_K2_CALLS["neox"], neox_qkv=_NL - 1,
+                 neox_h_to_4h=_NL - 1)}
 # (a): the int8 KV cache's logits against the bf16 cache's, a share of
 # max|logit| (int8 codes round at 1/254 of a row's max, bf16 at 2^-9 of
 # each value; both then go through 32 random layers, hence the bf16
@@ -459,10 +484,12 @@ FAMILY_HF = {
         "rms_norm_eps": 1e-06, "tie_word_embeddings": False},
 }
 FAMILY_LAYERS = 2
-# phase 19: Llama-2-7B widths quantized on the card (depth the only cut)
+# phase 19: Llama-2-7B widths quantized on the card (depth the only cut:
+# 1 layer since phase 21 grew, 2 before; ~60 s a layer on an NVIDIA H100
+# 80GB HBM3 at 700 W)
 # from QUANT_ROWS x QUANT_SEQ synthetic calibration tokens (16384 Hessian
 # rows, more than the widest input, 11008)
-QUANT_LAYERS = 2
+QUANT_LAYERS = 1
 QUANT_ROWS, QUANT_SEQ = 32, 512
 
 
@@ -1869,7 +1896,7 @@ def phase_rowpair_kernels():
                     q_out * 4 if with_scale else 0)
                 ops = 2 * m * q_out * 8 * Gp
                 peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                    tm.F32_OPS_PER_S
+                    tm.F32_SPLIT_OPS_PER_S
                 b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
                 b_ops = ops / peak * 1e3
                 row = {"kernel": kname, "layout": layout, "layer": name,
@@ -2119,7 +2146,7 @@ def phase_layout_kernels():
                     q_out * 4 if with_scale else 0)
                 ops = 2 * m * q_out * 8 * qt.group_cols
                 peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                    tm.F32_OPS_PER_S
+                    tm.F32_SPLIT_OPS_PER_S
                 b_bytes = (nb + io) / tm.HBM_BYTES_PER_S * 1e3
                 b_ops = ops / peak * 1e3
                 ref = {1: "nibble", 2: "nibble2"}[codes]
@@ -2540,7 +2567,7 @@ def phase_k3_kernels():
                         g, Wc[i % len(Wc)][0]), 4 * len(Wc))
                     nbytes = nb + m * q_out * esz + m * 8 * Gp * esz
                     peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                        tm.F32_OPS_PER_S
+                        tm.F32_SPLIT_OPS_PER_S
                     b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
                     b_ops = 2 * m * q_out * q_in / peak * 1e3
                     row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
@@ -2634,7 +2661,7 @@ def phase_k2_kernels():
                         x_nat, Wc[i % len(Wc)][0].T), 4 * len(Wc))
                     nbytes = nb + m * 8 * Gp * esz + m * q_out * esz
                     peak = tm.BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-                        tm.F32_OPS_PER_S
+                        tm.F32_SPLIT_OPS_PER_S
                     b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
                     b_ops = 2 * m * q_out * q_in / peak * 1e3
                     row = {"layer": name, "q_out": q_out, "Gp": Gp, "m": m,
@@ -3108,7 +3135,8 @@ def phase_lora_families():
 
     # (i) Mixtral-8x7B: 4 attention linears and 3 of each of the 8 experts
     # per layer, and the head (the router stays dense)
-    cfg = mixtral_8x7b_config()
+    cfg = dataclasses.replace(mixtral_8x7b_config(),
+                              num_hidden_layers=LORA_MIX_LAYERS)
     L, E = cfg.num_hidden_layers, cfg.num_local_experts
     per_layer = 4 + 3 * E
     model, flat = lora_family_model(
@@ -3143,7 +3171,8 @@ def phase_lora_families():
     torch.cuda.empty_cache()
 
     # (ii) GPT-NeoX-20B: 4 linears per layer and the head
-    cfg = ModelConfig.from_hf_config(NEOX_20B_HF)
+    cfg = dataclasses.replace(ModelConfig.from_hf_config(NEOX_20B_HF),
+                              num_hidden_layers=LORA_NEOX_LAYERS)
     L = cfg.num_hidden_layers
     model, flat = lora_family_model(
         "lora (ii)", cfg, NEOX_TARGETS,
@@ -4254,6 +4283,17 @@ TP_SHAPES = [("qkv", ("self_attn", "qkv_proj"), 6144, 4096),
              ("head", None, 16000, 4096)]
 TP_K1_M = (1, 8)
 TP_K2 = ("down", 64)
+# the same group's sequence-parallel and pipelined paths on the whole
+# model: SP_WINDOWS windows of SP_S tokens, one row each (SP_S / TP = 1024
+# rows a rank: K2 on every linear, where one rank's 2048 take the dense
+# route); the pipeline's PP_B x PP_S ids in PP_M microbatches (512 rows a
+# microbatch: K2), and one pipelined finetune step on the same shapes
+SP_S, SP_WINDOWS = 2048, 2
+PP_B, PP_S, PP_M = 2, 512, 2
+# forward launches a rank: every block linear of its layers per row
+# block, and the head once over the whole batch
+SP_K2 = LAYERS * 4 + 1
+PP_K2 = PP_M * (LAYERS // TP) * 4 + 1
 
 
 def tp_block_diagonal(model, tp):
@@ -4285,11 +4325,13 @@ def tp_block_diagonal(model, tp):
 def tp_model(cfg):
     """Llama-2-7B E8P12 nibble, random codes from seed 0, the main path's
     options (quantized head, fused qkv and gate/up), with the tp_shards
-    transforms of ``tp_block_diagonal``."""
+    transforms of ``tp_block_diagonal``: (the model unfused, as the
+    quantizer's finetune takes it, and fused; they share every module but
+    the fused groups)."""
     import quip_for_all_tpu_torch as qt
-    model = qt.random_quantized_model(cfg, seed=0, quantize_head=True,
-                                      device="cuda")
-    return qt.fuse_for_inference(cfg, tp_block_diagonal(model, TP))
+    model = tp_block_diagonal(qt.random_quantized_model(
+        cfg, seed=0, quantize_head=True, device="cuda"), TP)
+    return model, qt.fuse_for_inference(cfg, model)
 
 
 def tp_inputs(cfg):
@@ -4453,7 +4495,566 @@ def tp_kernel_checks(cfg, model):
     return errs
 
 
-def tp_rank(rank, world, init_file, out_dir):
+def sp_pp_inputs(cfg):
+    """The windows of the sequence-parallel path (SP_WINDOWS, SP_S), the
+    pipeline's ids (PP_B, PP_S) and the finetune step's soft targets
+    (PP_B, PP_S, V) on the card, from seed 18 (the same in every
+    process)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(18)
+    windows = rng.integers(0, cfg.vocab_size, (SP_WINDOWS, SP_S))
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PP_B, PP_S)),
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    tgt = torch.softmax(torch.randn((PP_B, PP_S, cfg.vocab_size),
+                                    generator=gen, device="cuda"), dim=-1)
+    return windows, ids, tgt
+
+
+def ft_leaves(model):
+    """The finetune's trainables of ``model``'s blocks
+    (``quantize/finetune.py`` ``collect_trainable``), in f32 (the random
+    model's are bf16: signs and ones, exact in f32), installed in it."""
+    from quip_for_all_tpu_torch.models.registry import model_layers
+    from quip_for_all_tpu_torch.quantize import finetune as FT
+    layers = model_layers(model)
+    flat = {k: v.detach().float().requires_grad_(True)
+            for k, v in FT.collect_trainable(layers).items()}
+    FT.apply_trainable(layers, flat)
+    return flat
+
+
+def ft_step(cfg, model, ids, tgt, mesh=None, kernels=False):
+    """One end-to-end finetune step's loss and gradients: the student's
+    forward as ``QuipQuantizer`` runs it (``finetune.student_logits``, the
+    training forward of the linears, the dense W of ``calc_weight`` held
+    for the step by ``finetune.dense_weights``), or
+    with ``kernels`` the same loss through the eval forward
+    (``pipeline_logits`` / ``model_apply`` in f32 compute: K2 forward, K3
+    backward, the route of a LoRA step); the whole model, or pipelined
+    over ``mesh`` in PP_M microbatches. Returns (loss, {key: grad} of the
+    leaves that got one, ms)."""
+    import torch
+    from quip_for_all_tpu_torch.models.registry import get_arch
+    from quip_for_all_tpu_torch.parallel.pipeline import pipeline_logits
+    from quip_for_all_tpu_torch.quantize import finetune as FT
+    flat = ft_leaves(model)
+    kw = {"compute_dtype": torch.float32}
+    with (contextlib.nullcontext() if kernels else
+          FT.dense_weights(FT.student_modules(cfg, model, mesh))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if not kernels:
+            logits = FT.student_logits(cfg, model, ids, mesh, PP_M)
+        elif mesh is None:
+            logits = get_arch(cfg).model_apply(cfg, model, ids,
+                                               linear_kw=kw)[0]
+        else:
+            logits = pipeline_logits(cfg, model, ids, mesh, PP_M,
+                                     linear_kw=kw)
+        loss = FT.ce_loss(logits, tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    grads = {k: v.grad.cpu() for k, v in flat.items() if v.grad is not None}
+    for v in flat.values():
+        v.grad = None
+    return float(loss.detach()), grads, ms
+
+
+def f32_kw():
+    import torch
+    return {"compute_dtype": torch.float32}
+
+
+# the fused model's linears (module path in a block; None: the head)
+SP_PP_LINEARS = [("qkv", ("self_attn", "qkv_proj")),
+                 ("o", ("self_attn", "o_proj")),
+                 ("gateup", ("mlp", "gateup_proj")),
+                 ("down", ("mlp", "down_proj")), ("head", None)]
+
+
+def sp_pp_kernel_times(model):
+    """K2 (f32 x, at the rows of a sp forward, SP_S / TP, and of a
+    microbatch, PP_S) and K3 (f32 g, a microbatch's rows) on the planes of
+    block 0's and the head's linears of ``model``: each held to its plain
+    twin, timed as phase 16 times K2 (CUDA-graph replays, L2-cold; the
+    twin by events), beside the library product (x @ W.T, g @ W with W
+    decoded in f32) and the bound (planes, input and output once, 2 m
+    q_out q_in operations three times at the bf16 tensor-core rate: the
+    kernels split f32 x or g into three bf16 terms). Returns the rows and their
+    sums per forward (the block linears x LAYERS, the head once)."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = []
+    for name, path in SP_PP_LINEARS:
+        qt = (model.lm_head if path is None
+              else model.layers[0][path[0]][path[1]]).qweight
+        planes, affine, Gp = qt.plane_list(), qt.decode_affine, qt.group_cols
+        q_out, G = qt.q_out, qt.q_in // 8
+        cp = tm.cold_copies(planes)
+        W = decode_weights(qt, dtype=torch.float32)
+        Wc = tm.cold_copies([W])
+        nb = sum(w.numel() * 4 for w in planes)
+        for kernel, m in (("K2", SP_S // TP), ("K2", PP_S), ("K3", PP_S)):
+            if kernel == "K2":
+                x = torch.zeros((m, 8, Gp), device="cuda")
+                x[:, :, :G] = torch.randn((m, 8, G), generator=gen,
+                                          device="cuda")
+                x = x.reshape(m, 8 * Gp)
+                x_nat = x.reshape(m, 8, Gp)[:, :, :G].transpose(
+                    1, 2).reshape(m, G * 8).contiguous()
+                got = fm.fused_decode_matmul_tc(x, planes, affine)
+                want = fm.fused_decode_matmul_ref(x, planes, affine)
+
+                def run(i):
+                    return fm.fused_decode_matmul_tc(x, cp[i % len(cp)],
+                                                     affine)
+
+                def plain(i):
+                    return fm.fused_decode_matmul_ref(x, cp[i % len(cp)],
+                                                      affine)
+
+                def lib(i):
+                    return torch.matmul(x_nat, Wc[i % len(Wc)][0].T)
+            else:
+                x = torch.randn((m, q_out), generator=gen, device="cuda")
+                got = fm.fused_decode_matmul_bwd(x, planes, affine, None, G,
+                                                 Gp)
+                want = fm.fused_decode_matmul_bwd_ref(x, planes, affine,
+                                                      None, G, Gp)
+
+                def run(i):
+                    return fm.fused_decode_matmul_bwd(
+                        x, cp[i % len(cp)], affine, None, G, Gp)
+
+                def plain(i):
+                    return fm.fused_decode_matmul_bwd_ref(
+                        x, cp[i % len(cp)], affine, None, G, Gp)
+
+                def lib(i):
+                    return torch.matmul(x, Wc[i % len(Wc)][0])
+            torch.cuda.synchronize()
+            ok, err = tm.compare(got, want, bf16_step=True)[:2]
+            if not ok:
+                raise AssertionError(f"{kernel} {name} m={m} f32: kernel vs "
+                                     f"plain twin beyond tolerance (max "
+                                     f"|diff| {err})")
+            nbytes = nb + m * 8 * Gp * 4 + m * q_out * 4
+            b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
+            b_ops = 2 * m * q_out * G * 8 / tm.F32_SPLIT_OPS_PER_S * 1e3
+            row = {"kernel": kernel, "layer": name, "q_out": q_out,
+                   "Gp": Gp, "m": m, "max_abs_err": err,
+                   "ms": 1e-3 * tm.graph_us(run, 4 * len(cp)),
+                   "plain_ms": 1e-3 * tm.event_us(plain, 2),
+                   "library_ms": 1e-3 * tm.graph_us(lib, 4 * len(Wc)),
+                   "bound_ms": max(b_bytes, b_ops),
+                   "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+            rows.append(row)
+            log(f"kernel sp/pp {kernel} {name:6s} {q_out}x{Gp} m={m:4d} f32: "
+                f"max|k-plain| {err:.3g} | kernel {row['ms'] * 1e3:.1f} us | "
+                f"plain {row['plain_ms'] * 1e3:.1f} us | bound "
+                f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
+                f"library {row['library_ms'] * 1e3:.1f} us")
+            del x, got, want
+        del cp, W, Wc
+        torch.cuda.empty_cache()
+    sums = {}
+    for kernel, m in (("K2", SP_S // TP), ("K2", PP_S), ("K3", PP_S)):
+        sums[f"{kernel}_m{m}"] = {key: sum(
+            r[key] * (1 if r["layer"] == "head" else LAYERS) for r in rows
+            if r["kernel"] == kernel and r["m"] == m)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"kernel sp/pp {kernel} at m={m} (f32) per forward's "
+            f"{SP_K2} calls: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sums[f"{kernel}_m{m}"].items()))
+    return {"rows": rows, "per_forward": sums}
+
+
+def sp_pp_refs(cfg, unfused, fused, profile=False):
+    """The one-rank references of the sequence-parallel and pipelined
+    paths, on the whole model in this process: window 0's f32 logits and
+    both windows' perplexity (2048 rows: the dense route), the pipeline
+    ids' f32 logits (1024 rows: K2), and the finetune step both ways
+    (with ``profile``, the quantizer's step once more under the
+    profiler: ``profiled``)."""
+    import torch
+    from quip_for_all_tpu_torch.models.registry import get_arch
+    from quip_for_all_tpu_torch.runtime.generate import perplexity
+    windows, ids, tgt = sp_pp_inputs(cfg)
+    apply = get_arch(cfg).model_apply
+    ref = {}
+    with torch.no_grad():
+        reset_launches()
+        w0 = torch.as_tensor(windows[:1]).cuda()
+        ref["sp_logits"] = apply(cfg, fused, w0, linear_kw=f32_kw())[0][0]
+        ref["sp_logits"] = ref["sp_logits"].cpu().numpy()
+        ref["sp_launches"] = {k: v for k, v in read_launches().items() if v}
+        t = time.perf_counter()
+        ref["sp_ppl"] = perplexity(cfg, fused, windows, linear_kw=f32_kw(),
+                                   device="cuda")
+        ref["sp_window_s"] = (time.perf_counter() - t) / SP_WINDOWS
+        reset_launches()
+        ref["pp_logits"] = apply(cfg, fused, ids, linear_kw=f32_kw())[0]
+        ref["pp_logits"] = ref["pp_logits"].cpu().numpy()
+        ref["pp_launches"] = {k: v for k, v in read_launches().items() if v}
+    for kind, model in (("ft", unfused), ("ft_kernels", fused)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        free = torch.cuda.mem_get_info()[0] / 2**30
+        retries = alloc_retries()
+        loss, grads, ms = ft_step(cfg, model, ids, tgt,
+                                  kernels=kind == "ft_kernels")
+        ref[kind] = {"loss": loss, "grads": grads, "ms": ms,
+                     "launches": {k: v for k, v in read_launches().items()
+                                  if v},
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "free_gib_before": free,
+                     "alloc_retries": alloc_retries() - retries}
+        torch.cuda.empty_cache()
+    if profile:
+        ref["ft_profile"] = profiled(lambda: ft_step(cfg, unfused, ids,
+                                                     tgt))[1]
+        torch.cuda.empty_cache()
+    return ref
+
+
+def sp_pp_rank(cfg, unfused, fused, out_dir, rank, profile=False):
+    """On each rank of phase 21's group, the whole model: window 0's
+    logits through ``sequence_parallel_logits`` and both windows through
+    ``perplexity(sp_mesh=)`` in f32; ``pipeline_logits`` of the pipeline
+    ids; the pipelined finetune step both ways. Every launch and
+    collective count set to 0 before each run and read after, with its
+    host time, the rank's peak memory, the free device memory before it
+    and the allocator's retries in it; with ``profile``, the quantizer's
+    pipelined step's first call under a host stack sampler
+    (``host_samples``) and its second under the profiler (``profiled``).
+    The logits go to files in ``out_dir``; returns the rest."""
+    import numpy as np
+    import torch
+    from quip_for_all_tpu_torch.parallel import comm
+    from quip_for_all_tpu_torch.parallel.pipeline import (make_pp_mesh,
+                                                          pipeline_logits)
+    from quip_for_all_tpu_torch.parallel.sequence import (
+        make_sp_mesh, sequence_parallel_logits)
+    from quip_for_all_tpu_torch.runtime.generate import perplexity
+    windows, ids, tgt = sp_pp_inputs(cfg)
+    sp, pp = make_sp_mesh(TP), make_pp_mesh(TP)
+    res = {}
+
+    def run(name, fn):
+        reset_launches()
+        comm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info()[0] / 2**30
+        retries = alloc_retries()
+        t = time.perf_counter()
+        with collective_seconds() as coll_s:
+            out = fn()
+        torch.cuda.synchronize()
+        res[name] = {"s": time.perf_counter() - t,
+                     "launches": {k: v for k, v in read_launches().items()
+                                  if v},
+                     "collectives": comm.counts(),
+                     "collective_s": coll_s,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "free_gib_before": free,
+                     "alloc_retries": alloc_retries() - retries}
+        return out
+
+    with torch.no_grad():
+        w0 = torch.as_tensor(windows[:1]).cuda()
+        out = run("sp_logits", lambda: sequence_parallel_logits(
+            cfg, fused, w0, sp, linear_kw=f32_kw()))
+        np.save(os.path.join(out_dir, f"sp{rank}.npy"), out[0].cpu().numpy())
+        res["sp_ppl"] = run("sp_perplexity", lambda: perplexity(
+            cfg, fused, windows, sp_mesh=sp, device="cuda",
+            linear_kw=f32_kw()))
+        out = run("pp_logits", lambda: pipeline_logits(
+            cfg, fused, ids, pp, PP_M, linear_kw=f32_kw()))
+        np.save(os.path.join(out_dir, f"pp{rank}.npy"), out.cpu().numpy())
+    del out
+    for kind, model in (("ft", unfused), ("ft_kernels", fused)):
+        def step():
+            return ft_step(cfg, model, ids, tgt, pp,
+                           kernels=kind == "ft_kernels")
+        if profile and kind == "ft":
+            (loss, grads, ms), res["ft_samples"] = run(
+                kind, lambda: host_samples(step))
+        else:
+            loss, grads, ms = run(kind, step)
+        res[kind].update(loss=loss, grads=grads, ms=ms)
+        torch.cuda.empty_cache()
+    if profile:
+        res["ft_profile"] = run("ft_again", lambda: profiled(
+            lambda: ft_step(cfg, unfused, ids, tgt, pp)))[1]
+        torch.cuda.empty_cache()
+    return res
+
+
+def host_samples(step, every_s=0.005, top=15):
+    """``step()`` while a thread samples every thread's Python stack each
+    ``every_s`` seconds (``chip_smoke.py --phase 21 --profile-ft``: the
+    first call of the quantizer's pipelined step, where the profiler would
+    change what it measures). Returns its result and a summary: the
+    samples taken; the ``top`` innermost frames (file:line function, with
+    its caller, the importing line where the frame is the import
+    system's, and the innermost frame in the repository, which names the
+    line of the port that led there) by samples, by thread; and the
+    ``top`` repository frames by samples, split by whether an import was
+    running."""
+    import collections
+    import threading
+    stop = threading.Event()
+    names = {}
+    hits, by_own = collections.Counter(), collections.Counter()
+    taken = [0]
+
+    def where(f):
+        path = f.f_code.co_filename.split(os.sep)[-2:]
+        return f"{'/'.join(path)}:{f.f_lineno} {f.f_code.co_name}"
+
+    def outer(f, keep):
+        while f is not None and not keep(f.f_code.co_filename):
+            f = f.f_back
+        return where(f) if f is not None else ""
+
+    def sample():
+        while not stop.wait(every_s):
+            taken[0] += 1
+            for ident, f in sys._current_frames().items():
+                if ident == sampler.ident:
+                    continue
+                name = names.setdefault(ident, next(
+                    (t.name for t in threading.enumerate()
+                     if t.ident == ident), str(ident)))
+                # the caller; in an import, the importing line
+                caller = outer(f.f_back,
+                               lambda n: not n.startswith("<frozen"))
+                own = outer(f, lambda n: n.startswith(REPO))
+                hits[(name, where(f), caller, own)] += 1
+                importing = any(
+                    g.f_code.co_filename.startswith("<frozen importlib")
+                    for g in _stack(f))
+                by_own[(name, own, importing)] += 1
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        result = step()
+    finally:
+        stop.set()
+        sampler.join()
+    return result, {"samples": taken[0], "every_s": every_s, "top": [
+        {"thread": k[0], "frame": k[1], "caller": k[2], "repo_frame": k[3],
+         "samples": n} for k, n in hits.most_common(top)], "by_repo_frame": [
+        {"thread": k[0], "repo_frame": k[1], "importing": k[2],
+         "samples": n}
+        for k, n in by_own.most_common(top)]}
+
+
+def _stack(f):
+    while f is not None:
+        yield f
+        f = f.f_back
+
+
+@contextlib.contextmanager
+def collective_seconds():
+    """Inside the ``with``, every ``torch.distributed`` call of
+    ``parallel/comm.py`` adds its host seconds to the dict it yields, by
+    the call's name (a ring shift is an all_gather; a gloo collective on
+    CUDA tensors waits for its data, so the device work before it and the
+    other ranks' arrival are in its seconds)."""
+    from quip_for_all_tpu_torch.parallel import comm
+    acc = {}
+    real = comm.dist
+
+    class Timed:
+        def __getattr__(self, name):
+            f = getattr(real, name)
+            if not callable(f) or name.startswith("get_"):
+                return f
+
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return f(*a, **kw)
+                finally:
+                    acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
+            return call
+    comm.dist = Timed()
+    try:
+        yield acc
+    finally:
+        comm.dist = real
+
+
+def warm_grad_imports() -> bool:
+    """Import what torch imports at the first backward given an explicit
+    gradient (``torch.autograd.grad(..., grad_outputs)``: the pipeline's
+    backward), ``torch.fx.experimental.symbolic_shapes`` and with it
+    sympy, ~1.5 s a rank (``--profile-ft``'s samples on an NVIDIA H100
+    80GB HBM3 machine, 700 W): the one-rank step (``loss.backward()`` of
+    a scalar) never takes that path, and a rank that pays it inside its
+    first pipelined step stalls the other in the step's shifts. Returns
+    whether sympy was loaded before."""
+    loaded = "sympy" in sys.modules
+    import torch.fx.experimental.symbolic_shapes  # noqa: F401
+    return loaded
+
+
+def alloc_retries() -> int:
+    """The caching allocator's retries so far in this process: a
+    cudaMalloc that failed, every cached block freed (cudaFree, which
+    synchronizes the device) and the allocation tried again."""
+    import torch
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+
+def profiled(step):
+    """``step()`` (an ``ft_step``) under ``torch.profiler``
+    (``chip_smoke.py --phase 21 --profile-ft``). Returns its result and a
+    summary: its host ms, the allocator's retries and the free device
+    memory before it, the calls of the matmul, allocator and sync ops, the
+    device time in all and the ops that take the most device and host
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    retries = alloc_retries()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = step()
+    loss, ms = result[0], result[2]
+    ka = prof.key_averages()
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    def top(key, n=12):
+        return [{"op": e.key, "calls": e.count,
+                 "self_device_ms": dev_ms(e),
+                 "self_host_ms": e.self_cpu_time_total / 1e3}
+                for e in sorted(ka, key=key, reverse=True)[:n]]
+    calls = {e.key: e.count for e in ka}
+    out = {"ms": ms, "loss": loss, "free_gib_before": free,
+           "alloc_retries": alloc_retries() - retries,
+           "device_ms": sum(dev_ms(e) for e in ka),
+           "calls": {k: calls.get(k, 0) for k in (
+               "aten::mm", "aten::addmm", "aten::bmm", "aten::matmul",
+               "aten::linear", "cudaMalloc", "cudaFree",
+               "cudaDeviceSynchronize", "cudaStreamSynchronize",
+               "cudaMemcpyAsync")},
+           "top_device": top(dev_ms),
+           "top_host": top(lambda e: e.self_cpu_time_total)}
+    return result, out
+
+
+def check_sp_pp(ref, rs, out_dir):
+    """Phase 21's sequence-parallel and pipelined paths on the ranks
+    against the one-rank references (``sp_pp_refs``): logits within 1e-4
+    of max|logit| plus one ulp, the perplexities equal on the ranks and
+    within 1e-4 of the one-rank value (relative), the finetune losses
+    within 1e-4 (relative) and every leaf's gradient within 1e-4 of its
+    max|grad|, each stage's leaves on its own rank; exact launch counts.
+    Returns the summary."""
+    import numpy as np
+
+    def tol(a):
+        return 1e-4 * np.abs(a).max() + np.spacing(np.abs(a).astype(
+            np.float32))
+    per = SP_S // TP
+    ppl = [r["sp_ppl"] for r in rs]
+    if len(set(ppl)) != 1 or abs(ppl[0] - ref["sp_ppl"]) > 1e-4 * ref[
+            "sp_ppl"]:
+        raise AssertionError(f"sp: the ranks' perplexities {ppl}, the one-"
+                             f"rank model's {ref['sp_ppl']}")
+    out = {"sp_ppl": ppl[0], "one_rank_sp_ppl": ref["sp_ppl"],
+           "one_rank_sp_launches": ref["sp_launches"],
+           "one_rank_sp_window_s": ref["sp_window_s"],
+           "one_rank_pp_launches": ref["pp_launches"]}
+    want = {"sp_logits": {"fused_decode_matmul_tc": SP_K2},
+            "sp_perplexity": {"fused_decode_matmul_tc": SP_K2 * SP_WINDOWS},
+            "pp_logits": {"fused_decode_matmul_tc": PP_K2},
+            "ft": {},
+            "ft_kernels": {"fused_decode_matmul_tc": PP_K2,
+                           "fused_decode_matmul_bwd": PP_K2}}
+    # the one-rank runs: 2048 rows take the dense route, 1024 run K2 (and
+    # K3 backward through the kernels); the training forward runs none
+    one_rank = {"sp_launches": {},
+                "pp_launches": {"fused_decode_matmul_tc": SP_K2},
+                "ft": {},
+                "ft_kernels": {"fused_decode_matmul_tc": SP_K2,
+                               "fused_decode_matmul_bwd": SP_K2}}
+    for k, w in one_rank.items():
+        got = ref[k]["launches"] if k.startswith("ft") else ref[k]
+        if got != w:
+            raise AssertionError(f"one-rank {k}: launches {got}, want {w}")
+    for r, res in enumerate(rs):
+        sp = np.load(os.path.join(out_dir, f"sp{r}.npy"))
+        want_sp = ref["sp_logits"][r * per:(r + 1) * per]
+        pp = np.load(os.path.join(out_dir, f"pp{r}.npy"))
+        errs = {"sp": (sp, want_sp), "pp": (pp, ref["pp_logits"])}
+        for name, (got, w) in errs.items():
+            err = np.abs(got - w)
+            if got.shape != w.shape or not np.all(err <= tol(w)):
+                raise AssertionError(f"{name} rank {r}: f32 logits off the "
+                                     f"one-rank model's by {err.max():.3g} "
+                                     f"(max|logit| {np.abs(w).max():.3g})")
+            out[f"rank{r}_{name}_max_err"] = float(err.max())
+            out[f"rank{r}_{name}_max_logit"] = float(np.abs(w).max())
+        for run, launches in want.items():
+            if res[run]["launches"] != launches:
+                raise AssertionError(f"rank {r} {run}: launches "
+                                     f"{res[run]['launches']}, want "
+                                     f"{launches}")
+        for kind in ("ft", "ft_kernels"):
+            a, b = res[kind]["loss"], ref[kind]["loss"]
+            if not abs(a - b) <= 1e-4 * abs(b):
+                raise AssertionError(f"{kind} rank {r}: loss {a}, the one-"
+                                     f"rank step's {b}")
+            got = res[kind]["grads"]
+            stage = range(r * LAYERS // TP, (r + 1) * LAYERS // TP)
+            mine = sorted(k for k in ref[kind]["grads"]
+                          if int(k.split(".", 2)[1]) in stage)
+            if sorted(got) != mine:
+                raise AssertionError(f"{kind} rank {r}: gradients of "
+                                     f"{len(got)} leaves, want {len(mine)}")
+            worst = max((float((got[k] - ref[kind]["grads"][k]).abs().max()
+                               / ref[kind]["grads"][k].abs().max()), k)
+                        for k in mine)
+            if not worst[0] <= 1e-4:
+                raise AssertionError(f"{kind} rank {r}: gradient {worst[1]} "
+                                     f"off the one-rank step's by "
+                                     f"{worst[0]:.3g} of its max")
+            out[f"rank{r}_{kind}"] = {
+                "loss": a, "one_rank_loss": b, "leaves": len(mine),
+                "worst_grad_err": worst[0], "worst_leaf": worst[1],
+                "step_ms": res[kind]["ms"], "one_rank_step_ms":
+                ref[kind]["ms"]}
+        out[f"rank{r}_runs"] = {
+            k: {f: v[f] for f in ("s", "launches", "collectives",
+                                  "collective_s", "peak_gib",
+                                  "free_gib_before", "alloc_retries")}
+            for k, v in res.items() if isinstance(v, dict) and "s" in v}
+        for key in ("ft_profile", "ft_samples"):
+            if key in res:
+                out[f"rank{r}_{key}"] = res[key]
+    out["one_rank_ft"] = {k: {f: ref[k][f] for f in (
+        "loss", "ms", "launches", "peak_gib", "free_gib_before",
+        "alloc_retries")} for k in ("ft", "ft_kernels")}
+    if "ft_profile" in ref:
+        out["one_rank_ft_profile"] = ref["ft_profile"]
+    return out
+
+
+def tp_rank(rank, world, init_file, out_dir, profile=False):
     """One rank of phase 21 (spawned): its model of Llama-2-7B from
     ``shard_params``, the kernel checks at its shapes, then, with every
     launch count and collective count set to 0 before each and read after,
@@ -4478,9 +5079,8 @@ def tp_rank(rank, world, init_file, out_dir):
         mesh = make_mesh(dp=1, tp=world)
         cfg = llama2_7b_config()
         t = time.time()
-        whole = tp_model(cfg)
+        unfused, whole = tp_model(cfg)
         model = shard_params(cfg, whole, mesh)
-        del whole
         gc.collect()
         torch.cuda.empty_cache()
         res = {"build_s": time.time() - t, "plane_bytes": sum(
@@ -4504,14 +5104,22 @@ def tp_rank(rank, world, init_file, out_dir):
             res[f"{run}_collectives"] = comm.counts()
         res["step_ms"] = tp_step_ms(cfg, model)
         res["step_ms_stub"] = tp_step_ms(cfg, model, stub=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["sympy_loaded"] = warm_grad_imports()
+        res.update(sp_pp_rank(cfg, unfused, whole, out_dir, rank, profile))
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def phase_tp():
+def phase_tp(profile=False):
     """21: Llama-2-7B E8P12 nibble at full width and depth as two tensor-
-    parallel ranks on the one card (module docstring)."""
+    parallel ranks on the one card (module docstring); with ``profile``,
+    the quantizer's finetune step under the profiler (one rank's second
+    call; each pipelined rank's second, its first under a host stack
+    sampler: ``sp_pp_rank``)."""
     import gc
     import tempfile
     import numpy as np
@@ -4521,17 +5129,25 @@ def phase_tp():
     cfg = llama2_7b_config()
     ids, reqs = tp_inputs(cfg)
     # the one-rank references, on the whole model
-    model = tp_model(cfg)
+    unfused, model = tp_model(cfg)
     ref_f32 = tp_f32_logits(cfg, model, ids)
     ref_greedy, ref_ms = tp_greedy(cfg, model, ids)
     ref_serve = tp_serve(cfg, model, reqs)
     whole_bytes = sum(b.numel() * b.element_size()
                       for n, b in model.named_buffers() if "planes_" in n)
+    sp_ref_sympy = "sympy" in sys.modules
+    t = time.time()
+    sp_ref = sp_pp_refs(cfg, unfused, model, profile)
+    sp_ref_s = time.time() - t
+    sp_kernels = sp_pp_kernel_times(model)
+    del unfused
+    gc.collect()
+    torch.cuda.empty_cache()
     out = tempfile.mkdtemp(prefix="tp_")
     t = time.time()
     # a rank that fails makes spawn raise, and the phase with it
-    mp.spawn(tp_rank, args=(TP, os.path.join(out, "pg"), out), nprocs=TP,
-             join=True)
+    mp.spawn(tp_rank, args=(TP, os.path.join(out, "pg"), out, profile),
+             nprocs=TP, join=True)
     ranks_s = time.time() - t
     rs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
           for r in range(TP)]
@@ -4609,6 +5225,13 @@ def phase_tp():
             f"requests equal the one-rank engine's, {chunks} prefill chunks "
             f"({want['fused_decode_matmul_tc']} K2), {steps} decode steps "
             f"({want['fused_decode_matmul']} K1)")
+    summary["sp_pp"] = sp_pp = check_sp_pp(sp_ref, rs, out)
+    summary["sp_pp"]["one_rank_refs_s"] = sp_ref_s
+    summary["sp_pp"]["sympy_loaded_before"] = {
+        "one_rank": sp_ref_sympy,
+        **{f"rank{r}": res["sympy_loaded"] for r, res in enumerate(rs)}}
+    summary["sp_pp"]["kernels"] = sp_kernels
+    log_sp_pp(sp_pp)
     if fork is not None:
         log(f"tp: the ranks' greedy bf16 tokens leave the one-rank run's "
             f"at token {fork['position']}, where the one-rank model's top "
@@ -4618,6 +5241,51 @@ def phase_tp():
         f"sharded path's correctness and launches, not tensor-parallel "
         f"speed; card {smi_line()}; ranks' wall {ranks_s:.1f} s")
     return summary
+
+
+def log_sp_pp(sp):
+    """Phase 21's sequence-parallel and pipelined lines (``check_sp_pp``'s
+    summary)."""
+    for r in range(TP):
+        runs = sp[f"rank{r}_runs"]
+        for name, v in runs.items():
+            log(f"sp/pp rank {r} {name}: {v['s']:.2f} s, launches "
+                f"{v['launches']}, collectives "
+                f"{ {k: c for k, c in v['collectives'].items() if c} } "
+                f"taking {sum(v['collective_s'].values()):.2f} s, "
+                f"peak {v['peak_gib']:.2f} GiB, "
+                f"{v['free_gib_before']:.2f} GiB free on the card before "
+                f"it, {v['alloc_retries']} allocator retries")
+        log(f"sp rank {r}: window 0's f32 logits ({SP_S // TP} rows a rank) "
+            f"within "
+            f"{sp[f'rank{r}_sp_max_err']:.3g} of the one-rank model's "
+            f"(max|logit| {sp[f'rank{r}_sp_max_logit']:.3g}, tol 1e-4 of it "
+            f"+ 1 ulp); {runs['sp_perplexity']['s'] / SP_WINDOWS:.2f} s a "
+            f"{SP_S}-token window through perplexity(sp_mesh=)")
+        log(f"pp rank {r}: f32 logits of {PP_B} x {PP_S} ids in {PP_M} "
+            f"microbatches within {sp[f'rank{r}_pp_max_err']:.3g} of the "
+            f"one-rank model's (max|logit| "
+            f"{sp[f'rank{r}_pp_max_logit']:.3g})")
+        for kind in ("ft", "ft_kernels"):
+            f = sp[f"rank{r}_{kind}"]
+            log(f"{kind} rank {r}: pipelined step loss {f['loss']:.7g} (one "
+                f"rank {f['one_rank_loss']:.7g}); {f['leaves']} leaves of "
+                f"its stage, worst gradient {f['worst_grad_err']:.3g} of "
+                f"its max|grad| ({f['worst_leaf']}; tol 1e-4); forward + "
+                f"backward {f['step_ms']:.1f} ms (one rank "
+                f"{f['one_rank_step_ms']:.1f})")
+    log(f"sp: perplexity {sp['sp_ppl']!r} on both ranks, one rank "
+        f"{sp['one_rank_sp_ppl']!r} (dense route at {SP_S} rows: "
+        f"launches {sp['one_rank_sp_launches']}, "
+        f"{sp['one_rank_sp_window_s']:.2f} s a window); pp one-rank "
+        f"launches {sp['one_rank_pp_launches']}; one-rank finetune steps "
+        + json.dumps(sp["one_rank_ft"]) + f"; sympy (torch's first "
+        f"explicit-gradient backward imports it) loaded before the runs: "
+        f"{sp['sympy_loaded_before']}; card {smi_line()}")
+    for key in [f"rank{r}_ft_{k}" for r in range(TP)
+                for k in ("samples", "profile")] + ["one_rank_ft_profile"]:
+        if key in sp:
+            log(f"ft profile {key}: " + json.dumps(sp[key]))
 
 
 def tp_path_launches(entries, tp):
@@ -4630,9 +5298,26 @@ def tp_path_launches(entries, tp):
         tp2_one_card_rank0_greedy_a_token=r0["k1_a_token"],
         tp2_one_card_rank0_serving=r0["serving_launches"][
             "fused_decode_matmul"])
+    runs = tp["sp_pp"]["rank0_runs"]
     by["fused_decode_matmul_tc"].setdefault("launches_by_path", {}).update(
         tp2_one_card_rank0_serving_prefill=r0["serving_launches"][
-            "fused_decode_matmul_tc"])
+            "fused_decode_matmul_tc"],
+        sp2_one_card_rank0_forward=runs["sp_logits"]["launches"][
+            "fused_decode_matmul_tc"],
+        pp2_one_card_rank0_forward=runs["pp_logits"]["launches"][
+            "fused_decode_matmul_tc"],
+        pp2_one_card_rank0_step_through_kernels=runs["ft_kernels"][
+            "launches"]["fused_decode_matmul_tc"])
+    by["fused_decode_matmul_bwd"].setdefault("launches_by_path", {}).update(
+        pp2_one_card_rank0_step_through_kernels=runs["ft_kernels"][
+            "launches"]["fused_decode_matmul_bwd"])
+    # K2's and K3's sums per forward at the new paths' rows and shapes
+    per = tp["sp_pp"]["kernels"]["per_forward"]
+    by["fused_decode_matmul_tc"]["per_forward_ms_at"] = {
+        f"sp2_f32_m{SP_S // TP}": per[f"K2_m{SP_S // TP}"],
+        f"pp2_f32_m{PP_S}": per[f"K2_m{PP_S}"]}
+    by["fused_decode_matmul_bwd"]["per_step_ms_at"] = {
+        f"pp2_f32_m{PP_S}": per[f"K3_m{PP_S}"]}
 
 
 def at(phase, fn, *args):
@@ -4645,7 +5330,23 @@ def at(phase, fn, *args):
     return out
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke run of the "
+                                 "PyTorch port on one CUDA card.")
+    ap.add_argument("--phase", action="append", choices=("20", "21"),
+                    help="run the kernels' build and this phase alone "
+                    "(repeatable), print its summary and no result line")
+    ap.add_argument("--profile-ft", action="store_true",
+                    help="with --phase 21: the quantizer's finetune step "
+                    "under torch.profiler, on one rank and on each "
+                    "pipelined rank (its first call there under a host "
+                    "stack sampler)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -4668,6 +5369,12 @@ def main() -> int:
         log(f"card: {smi} | torch {torch.__version__} cuda "
             f"{torch.version.cuda}")
         phase_build()
+        if args.phase:
+            for ph in args.phase:
+                out = (at(ph, phase_tp, args.profile_ft) if ph == "21"
+                       else at(ph, phase_lora_families))
+                log(f"phase {ph}: " + json.dumps(out, default=str))
+            return 0
         log("kernels: " + ", ".join(
             f"{k['name']} ({k['route']}, {k['source']}, replaces "
             f"{k['replaces']})" for k in KERNELS))

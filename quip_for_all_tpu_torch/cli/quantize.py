@@ -9,8 +9,11 @@ plus ``--device`` (the card unless ``--device cpu``):
 tiny, llama2_7b, llama2_70b, mixtral_8x7b). Datasets: ``synthetic`` or
 ``file:<path>`` (a tokenizer from ``transformers`` for the latter); the
 HF dataset names need a download and raise. ``--tp-shards`` draws the
-block-diagonal transforms of tensor parallelism; ``--ft-pp`` above 1
-raises NotImplementedError (ROADMAP.md queue 1 item 8b).
+block-diagonal transforms of tensor parallelism. ``--ft-pp N`` above 1
+with ``--ft-epochs`` pipelines the end-to-end finetune over N ranks: the
+CLI then runs on each of N processes (for example under ``torchrun
+--nproc-per-node N``; two ranks may share one card, the group runs
+gloo), each quantizes the whole model, and rank 0 saves it.
 """
 from __future__ import annotations
 
@@ -63,12 +66,21 @@ def main(argv=None):
                     help="block-diagonal transforms for this many "
                     "tensor-parallel shards")
     ap.add_argument("--ft-pp", type=int, default=1,
-                    help="not ported yet: above 1 it raises")
+                    help="pipeline the end-to-end finetune over this many "
+                    "ranks (run the CLI on each, e.g. under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.ft_pp > 1 and args.ft_epochs > 0:
+        from . import rank_group
+        with rank_group(args.ft_pp, "--ft-pp", args.device) as rank:
+            _run(args, rank)
+    else:
+        _run(args, 0)
 
+
+def _run(args, rank: int):
     from ..data.calibration import get_calibration_tokens
     from ..models.config import (llama2_7b_config, llama2_70b_config,
                                  mixtral_8x7b_config, tiny_config)
@@ -108,6 +120,8 @@ def main(argv=None):
                                    split=args.split,
                                    vocab_size=cfg.vocab_size)
     model = q.quantize_model(cfg, model, calib)
+    if rank:
+        return
     save_quantized(cfg, model, q.to_dict(), args.save_dir)
     print(f"saved quantized model to {args.save_dir}", file=sys.stderr)
 

@@ -6,7 +6,7 @@ residual, LayerNorm with a bias and the untied ``embed_out`` head.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -44,7 +44,9 @@ def _apply_partial_rope(q, k, cos, sin, rot: int):
 
 def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
               cache_position, attn_mask, linear_kw, attn_window=None,
-              captures=None):
+              captures=None, attend: Optional[Callable] = None):
+    """(out, new_cache); ``attend`` as ``models/llama.py`` ``attention``
+    takes it."""
     B, S, D = x.shape
     H, hd = cfg.num_attention_heads, cfg.head_dim
     if captures is not None:
@@ -53,6 +55,9 @@ def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
     qkv = qkv.reshape(B, S, H, 3, hd)          # HF interleaved layout
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     q, k = _apply_partial_rope(q, k, cos, sin, rotary_dims(cfg))
+    if attend is not None:
+        return linear_apply(attn_p["dense"], attend(q, k, v),
+                            **linear_kw), None
     k, v, new_cache = update_kv_cache(kv_cache, k, v, cache_position)
     ctx = sdpa_cache_layout(q, k, v, attn_mask, x.dtype,
                             attn_window=attn_window)
@@ -64,15 +69,16 @@ def attention(cfg: ModelConfig, attn_p, x, cos, sin, kv_cache,
 def block_apply(cfg: ModelConfig, blk, x, cos=None, sin=None,
                 kv_cache=None, cache_position=None, attn_mask=None,
                 linear_kw: Optional[dict] = None, attn_window=None,
-                capture: bool = False):
+                capture: bool = False, attend: Optional[Callable] = None):
     """(x, new_cache), or with ``capture`` (x, new_cache, captures): the
-    inputs of the qkv, o, fc1 and fc2 groups."""
+    inputs of the qkv, o, fc1 and fc2 groups; ``attend`` as ``attention``
+    takes it."""
     linear_kw = linear_kw or {}
     caps = {} if capture else None
     h = layer_norm(blk["input_layernorm"], x, cfg.rms_norm_eps)
     a, new_cache = attention(cfg, blk["attention"], h, cos, sin, kv_cache,
                              cache_position, attn_mask, linear_kw,
-                             attn_window, caps)
+                             attn_window, caps, attend)
 
     def mlp(h):
         m = gelu(linear_apply(blk["mlp"]["dense_h_to_4h"], h, **linear_kw))

@@ -22,7 +22,7 @@ the dense float model from the JAX package's numpy draws.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -189,7 +189,13 @@ def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
               cos, sin, kv_cache: Optional[tuple],
               cache_position, attn_mask: torch.Tensor,
               linear_kw: dict, attn_window: Optional[int] = None,
-              captures: Optional[dict] = None):
+              captures: Optional[dict] = None,
+              attend: Optional[Callable] = None):
+    """The attention sub-layer: (out, new_cache). ``attend(q, k, v)``,
+    given, takes the place of the causal attention over the window
+    (sequence parallelism's ring, ``parallel/sequence.py``): q (B, S, H,
+    hd) and k, v (B, S, KV, hd) after the rotary tables, the context (B,
+    S, H * hd) back; no cache then."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if captures is not None:
@@ -207,6 +213,9 @@ def attention(cfg: ModelConfig, attn_p: nn.ModuleDict, x: torch.Tensor,
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     q, k = apply_rope(q, k, cos, sin)
+    if attend is not None:
+        ctx = attend(q, k, v)
+        return linear_apply(attn_p["o_proj"], ctx, **linear_kw), None
     if kv_cache is not None:
         # either cache kind (bf16 or QuantKVCache), any position kind
         ck, cv = kv_cache
@@ -291,14 +300,17 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
 def block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
                 cos, sin, kv_cache=None, cache_position=None, attn_mask=None,
                 linear_kw: Optional[dict] = None,
-                attn_window: Optional[int] = None, capture: bool = False):
-    """(x, new_cache), or with ``capture`` (x, new_cache, captures)."""
+                attn_window: Optional[int] = None, capture: bool = False,
+                attend: Optional[Callable] = None):
+    """(x, new_cache), or with ``capture`` (x, new_cache, captures);
+    ``attend`` as ``attention`` takes it."""
     linear_kw = linear_kw or {}
     captures: Optional[dict] = {} if capture else None
     h = rms_norm(blk["input_layernorm"].weight, x, cfg.rms_norm_eps)
     attn_out, new_cache = attention(cfg, blk["self_attn"], h, cos, sin,
                                     kv_cache, cache_position, attn_mask,
-                                    linear_kw, attn_window, captures)
+                                    linear_kw, attn_window, captures,
+                                    attend)
     x = x + attn_out
     h = rms_norm(blk["post_attention_layernorm"].weight, x, cfg.rms_norm_eps)
     if cfg.arch == "mixtral":

@@ -76,6 +76,11 @@ def _child(params, key: str):
     return getattr(params, key, None)
 
 
+def model_layers(model):
+    """The block list of a ``LlamaModel`` or a ``FamilyModel``."""
+    return _child(model, "layers")
+
+
 def _table(params, key: str) -> torch.Tensor:
     return _child(params, key).weight
 

@@ -1,6 +1,7 @@
-"""The collectives of tensor parallelism, in one module so that every one
-is counted: each function adds one to its ``.calls`` where it runs its
-collective, as a kernel wrapper counts its launches.
+"""The collectives of the parallel paths (tensor and sequence parallelism,
+the pipeline), in one module so that every one is counted: each function
+adds one to its ``.calls`` where it runs its collective, as a kernel
+wrapper counts its launches.
 
 Two ranks may share one card (``chip_smoke.py`` phase 21 runs two
 processes on one H100). NCCL refuses two ranks on one device, so such a
@@ -8,6 +9,12 @@ group runs gloo, which takes CUDA tensors for ``all_reduce``,
 ``all_gather`` and ``broadcast`` (checked on an H100, torch 2.11: it
 stages them through the host itself). Nothing here moves a tensor to the
 CPU, and a collective that fails raises.
+
+gloo has no ``send``/``recv`` for CUDA tensors, so the ring shift (the
+JAX package's ``lax.ppermute`` over ``[(i, (i + 1) % P)]``) is an
+``all_gather`` from which each rank keeps its source's tensor: every rank
+receives the other P - 1 tensors where a shift needs one, and holds all P
+for the call. At P = 2 that is the shift's own traffic.
 
 A collective cannot sit inside a CUDA graph on gloo, so a sharded model's
 decode steps run eagerly (``runtime/graphs.py``, ``sharded``).
@@ -43,16 +50,30 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     return t
 
 
-all_reduce.calls = 0
-all_gather.calls = 0
-broadcast.calls = 0
+def ring_shift(t: torch.Tensor, group, world: int, index: int,
+               step: int = 1) -> torch.Tensor:
+    """The ``t`` of the rank ``step`` places before this one in the group
+    (``index`` is this rank's place): rank i's ``t`` goes to rank
+    (i + step) % world, so step 1 is ``lax.ppermute`` over
+    ``[(i, (i + 1) % P)]`` and step -1 its inverse. One ``all_gather``
+    (module docstring); a new tensor."""
+    ring_shift.calls += 1
+    t = t.contiguous()
+    outs = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(outs, t, group=group)
+    return outs[(index - step) % world]
+
+
+_ALL = (all_reduce, all_gather, broadcast, ring_shift)
+for _f in _ALL:
+    _f.calls = 0
 
 
 def counts() -> dict:
     """Collectives run so far in this process, by name."""
-    return {f.__name__: f.calls for f in (all_reduce, all_gather, broadcast)}
+    return {f.__name__: f.calls for f in _ALL}
 
 
 def reset_counts() -> None:
-    for f in (all_reduce, all_gather, broadcast):
+    for f in _ALL:
         f.calls = 0

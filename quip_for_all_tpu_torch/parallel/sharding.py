@@ -112,13 +112,42 @@ def make_mesh(dp: Optional[int] = None, tp: Optional[int] = None,
         dp = world // tp
     if dp * tp != world:
         raise ValueError(f"dp {dp} x tp {tp} != world size {world}")
-    groups = [tuple(range(d * tp, (d + 1) * tp)) for d in range(dp)]
+    axis = axis_mesh("tp", tp)
+    return Mesh(dp, tp, rank, axis.group, axis.ranks)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisMesh:
+    """One named axis over a group of ranks — the port's form of the JAX
+    package's one-axis meshes ``("sp",)`` and ``("pp",)``, and the "tp"
+    axis of a ``Mesh`` (``make_mesh`` builds its group here). ``group``
+    holds the global ranks ``ranks``; this rank sits at ``index`` on the
+    axis of ``size``."""
+    axis: str
+    size: int
+    index: int
+    group: object
+    ranks: tuple
+
+
+def axis_mesh(axis: str, n: int) -> AxisMesh:
+    """The ``axis`` mesh of ``n`` ranks over the initialised default
+    process group (every rank calls this, in the same order): consecutive
+    global ranks form a group of ``n``, so a world of k * n holds k
+    replicas of the axis."""
+    if not dist.is_initialized():
+        raise RuntimeError(f"the {axis} mesh needs an initialised process "
+                           "group (torch.distributed.init_process_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n < 1 or world % n:
+        raise ValueError(f"{axis}={n} must divide the world size {world}")
     mine = None
-    for ranks in groups:       # every rank creates every group, in order
-        g = dist.new_group(list(ranks)) if tp < world else dist.group.WORLD
+    for lo in range(0, world, n):  # every rank creates every group, in order
+        ranks = tuple(range(lo, lo + n))
+        g = dist.new_group(list(ranks)) if n < world else dist.group.WORLD
         if rank in ranks:
             mine = (g, ranks)
-    return Mesh(dp, tp, rank, mine[0], mine[1])
+    return AxisMesh(axis, n, rank - mine[1][0], mine[0], mine[1])
 
 
 def _divides(n: int, k: int) -> bool:

@@ -13,6 +13,7 @@ block finetune), as in the JAX package: no decode kernel runs here.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Any, Callable, Dict, List, Optional
 
@@ -102,6 +103,24 @@ def _set_cache(blk, on: bool) -> None:
                            if on else None)
 
 
+@contextlib.contextmanager
+def dense_weights(modules):
+    """Inside the ``with``, every ``QuantLinear`` of ``modules`` keeps
+    ``calc_weight``'s f32 W as its ``W_cache``, which the f32 training
+    forward multiplies by: the value it would compute at every call,
+    computed once (the codes do not train). A step's graph then holds one
+    W a linear, not one per call (a pipeline stage calls each linear once
+    a microbatch)."""
+    with torch.no_grad():
+        for m in modules:
+            _set_cache(m, True)
+    try:
+        yield
+    finally:
+        for m in modules:
+            _set_cache(m, False)
+
+
 def _mean_loss(losses: List[float]) -> float:
     return float(np.mean(np.asarray(losses, np.float32)))
 
@@ -179,21 +198,44 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -(oh * logp).sum(-1).mean()
 
 
-def make_train_step(cfg, optimizer: torch.optim.Optimizer, model,
-                    flat: FlatParams) -> Callable:
-    """End-to-end CE training step over the leaves ``flat`` (installed
-    into ``model`` here). Returns step(ids (B, S), targets (B, S, V)
-    softmax or (B, S) ids) -> loss, one Adam update each call."""
-    from ..models.registry import get_arch
-    ARCH = get_arch(cfg)
-    apply_trainable(model.layers if hasattr(model, "layers") else
-                    model["layers"], flat)
+def student_logits(cfg, model, ids: torch.Tensor, pp_mesh=None,
+                   n_microbatches: int = 1) -> torch.Tensor:
+    """The end-to-end finetune's student forward: (B, S) ids -> (B, S, V)
+    logits through the training forward of the linears, the whole model
+    on this rank or, with ``pp_mesh``, pipelined over its ranks in
+    ``n_microbatches`` microbatches (``parallel/pipeline.py``; the same
+    logits on every rank)."""
+    kw = {"training": True}
+    if pp_mesh is None:
+        from ..models.registry import get_arch
+        return get_arch(cfg).model_apply(cfg, model, ids, linear_kw=kw)[0]
+    from ..parallel.pipeline import pipeline_logits
+    return pipeline_logits(cfg, model, ids, pp_mesh, n_microbatches,
+                           linear_kw=kw)
 
+
+def student_modules(cfg, model, pp_mesh=None) -> list:
+    """The modules whose linears ``student_logits`` runs on this rank:
+    its stage's blocks (every block without ``pp_mesh``) and the untied
+    head, for ``dense_weights``."""
+    from ..models import registry as R
+    if pp_mesh is None:
+        blocks = list(R.model_layers(model))
+    else:
+        from ..parallel.pipeline import stage_blocks
+        blocks = stage_blocks(model, pp_mesh)
+    key = R.untied_head_key(cfg, model)
+    return blocks + ([dict(model.named_children())[key]] if key else [])
+
+
+def make_train_step(optimizer: torch.optim.Optimizer,
+                    logits_fn: Callable) -> Callable:
+    """End-to-end CE training step. Returns step(ids (B, S), targets (B,
+    S, V) softmax or (B, S) ids) -> loss: ``logits_fn(ids)``, the loss's
+    gradients, one ``optimizer`` update."""
     def step(ids, targets):
         optimizer.zero_grad(set_to_none=True)
-        logits, _ = ARCH.model_apply(cfg, model, ids,
-                                     linear_kw={"training": True})
-        loss = ce_loss(logits, targets)
+        loss = ce_loss(logits_fn(ids), targets)
         loss.backward()
         optimizer.step()
         return loss.detach()

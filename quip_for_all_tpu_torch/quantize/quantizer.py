@@ -27,8 +27,11 @@ equals an uninterrupted one bit for bit). ``tp_shards`` > 1 draws
 block-diagonal transforms on the dimension tensor parallelism shards (a
 column-parallel linear's output, a row-parallel one's input:
 ``parallel/sharding.py`` ``role_of``), in the JAX package's order of
-draws. The pipelined end-to-end finetune (``ft_pp``) is ROADMAP.md queue
-1 item 8b.
+draws. ``ft_pp`` > 1 pipelines the end-to-end finetune over that many
+ranks (``parallel/pipeline.py``): ``quantize_model`` then runs on every
+rank of a group of ``ft_pp``, each quantizes the whole model as one rank
+would, and each trains its stage's leaves; every rank ends with the whole
+finetuned model.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 from ..codebooks import get_codebook
 from ..models.config import ModelConfig
 from ..models.llama import DenseLinear, LlamaModel, causal_mask
+from ..models.registry import model_layers
 from ..models.tree import get_path, set_path
 from ..utils.device import resolve_device
 from . import hessian
@@ -54,8 +58,6 @@ from ..parallel.sharding import role_of
 from ..transforms.incoherence import get_hadK
 
 logger = logging.getLogger(__name__)
-
-ITEM8 = "ROADMAP.md queue 1 item 8b, slice 18"
 
 
 def sublayer_groups(cfg: ModelConfig) -> List[Dict[str, Any]]:
@@ -153,11 +155,6 @@ def sublayer_groups(cfg: ModelConfig) -> List[Dict[str, Any]]:
     ]
 
 
-def model_layers(model) -> Any:
-    """The block list of a ``LlamaModel`` or a ``FamilyModel``."""
-    return model.layers if isinstance(model, LlamaModel) else model["layers"]
-
-
 def _set_top(model, key: str, value) -> None:
     if isinstance(model, LlamaModel):
         setattr(model, key, value)
@@ -208,10 +205,6 @@ class QuipQuantizer:
             self.opt_resid_scale if self.opt_resid_scale > 0 else None)
         if not (0 < self.sigma_reg < 1):
             raise ValueError("sigma_reg must be in (0, 1)")
-        if self.ft_pp > 1:
-            raise NotImplementedError(
-                f"ft_pp={self.ft_pp}: the pipelined end-to-end finetune is "
-                f"not ported yet ({ITEM8})")
 
     # ------------------------------------------------------------ config IO
 
@@ -344,6 +337,8 @@ class QuipQuantizer:
         from ..models import registry as R
         if self.ft_epochs > 0 and self.merge_suv:
             raise ValueError("finetune mode is incompatible with merge_suv")
+        pp_mesh = (self._pp_mesh(cfg) if self.ft_pp > 1 and self.ft_epochs > 0
+                   else None)
         merge_spec = self._merge_spec(cfg) if self.merge_suv else None
         rng = np.random.default_rng(self.seed)
         calib_tokens = np.asarray(calib_tokens)
@@ -556,7 +551,7 @@ class QuipQuantizer:
         if self.ft_epochs > 0:
             with torch.enable_grad():
                 self._finetune_end2end(cfg, model, batches, layer_inputs,
-                                       n_hess, n_valid, float_head)
+                                       n_hess, n_valid, float_head, pp_mesh)
         return model
 
     def _stat(self, name, t1, W, W_hat, H):
@@ -564,11 +559,32 @@ class QuipQuantizer:
             "linear": name, "seconds": time.time() - t1,
             "proxy_loss": proxy_loss(W, W_hat, H)})
 
+    def _pp_mesh(self, cfg):
+        """The pipelined finetune's ("pp",) mesh: ``ft_pp`` must divide
+        the layers (the JAX package's check) and be the world size."""
+        import torch.distributed as dist
+        from ..parallel.pipeline import make_pp_mesh
+        if cfg.num_hidden_layers % self.ft_pp:
+            raise ValueError(
+                f"ft_pp={self.ft_pp} must divide num_hidden_layers="
+                f"{cfg.num_hidden_layers}")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != self.ft_pp:
+            raise ValueError(
+                f"ft_pp={self.ft_pp} runs quantize_model on each of "
+                f"{self.ft_pp} ranks of an initialised process group; the "
+                f"world size is {world}")
+        return make_pp_mesh(self.ft_pp)
+
     def _finetune_end2end(self, cfg, model, batches, last_outputs, n_hess,
-                          n_valid, float_head=None):
+                          n_valid, float_head=None, pp_mesh=None):
         """End-to-end CE finetune of every block's leaves against the
         float model's output distributions. With the head quantized,
-        ``float_head`` (its float original) is the teacher's head."""
+        ``float_head`` (its float original) is the teacher's head. With
+        ``pp_mesh`` the student runs pipelined and a rank's Adam steps
+        only its stage's leaves (Adam is elementwise, so together the
+        ranks take the one-rank step); every rank sees the same losses,
+        and at the end each stage's leaves go to every rank."""
         from ..models import registry as R
         from ..models.llama import linear_apply
         from . import finetune as FT
@@ -588,33 +604,56 @@ class QuipQuantizer:
         targets = [head_probs(o) for o in last_outputs[n_hess:]]
         layers = model_layers(model)
         flat = FT.collect_trainable(layers)
-        opt = FT.make_susv_optimizer(self.ft_susv_lr, self.ft_lr, flat)
-        step = FT.make_train_step(cfg, opt, model, flat)
-        ARCH = R.get_arch(cfg)
+        FT.apply_trainable(layers, flat)
+        n_micro = self.ft_microbatches or self.ft_batch_size
+        own = flat
+        if pp_mesh is not None:
+            from ..parallel.pipeline import stage_range
+            logger.info("end2end ft pipelined over %d stages, %d "
+                        "microbatches", self.ft_pp, n_micro)
+            stage = stage_range(len(layers), pp_mesh)
+            own = {k: v for k, v in flat.items() if _layer_of(k) in stage}
+
+        def logits_of(ids):
+            return FT.student_logits(cfg, model, ids, pp_mesh, n_micro)
+        opt = FT.make_susv_optimizer(self.ft_susv_lr, self.ft_lr, own)
+        step = FT.make_train_step(opt, logits_of)
 
         def vloss():
             with torch.no_grad():
-                return FT._mean_loss([float(FT.ce_loss(
-                    ARCH.model_apply(cfg, model, a,
-                                     linear_kw={"training": True})[0],
-                    b.to(dev))) for a, b in zip(va_ids, va_tg)])
+                return FT._mean_loss([float(FT.ce_loss(logits_of(a),
+                                                       b.to(dev)))
+                                      for a, b in zip(va_ids, va_tg)])
 
         tr_ids, tr_tg = ft_ids[:-n_valid], targets[:-n_valid]
         va_ids, va_tg = ft_ids[-n_valid:], targets[-n_valid:]
-        initial = vloss()
-        best, best_flat, worse = initial, FT.freeze(flat), 0
-        logger.info("end2end initial loss %.5f", best)
-        for ep in range(self.ft_epochs):
-            for a, b in zip(tr_ids, tr_tg):
-                step(a, b.to(dev))
-            cur = vloss()
-            if cur < best:
-                logger.info("end2end epoch %d loss %.5f BETTER", ep, cur)
-                best, best_flat, worse = cur, FT.freeze(flat), 0
-            else:
-                worse += 1
-                if worse >= self.ft_early_stop:
-                    break
+        with FT.dense_weights(FT.student_modules(cfg, model, pp_mesh)):
+            initial = vloss()
+            best, best_flat, worse = initial, FT.freeze(flat), 0
+            logger.info("end2end initial loss %.5f", best)
+            for ep in range(self.ft_epochs):
+                for a, b in zip(tr_ids, tr_tg):
+                    step(a, b.to(dev))
+                cur = vloss()
+                if cur < best:
+                    logger.info("end2end epoch %d loss %.5f BETTER", ep, cur)
+                    best, best_flat, worse = cur, FT.freeze(flat), 0
+                else:
+                    worse += 1
+                    if worse >= self.ft_early_stop:
+                        break
         self.e2e_ft_stats_ = {"initial": initial, "best": best}
+        if pp_mesh is not None:
+            from ..parallel import comm
+            per = len(layers) // pp_mesh.size
+            for k, v in best_flat.items():    # each leaf from its stage
+                comm.broadcast(v, pp_mesh.ranks[_layer_of(k) // per],
+                               pp_mesh.group)
         FT.apply_trainable(layers, best_flat)
         return model
+
+
+def _layer_of(key: str) -> int:
+    """The layer index of a ``collect_trainable`` key of the block list
+    (".{i}.<path>")."""
+    return int(key.split(".", 2)[1])

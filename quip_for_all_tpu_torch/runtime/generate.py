@@ -342,11 +342,13 @@ def perplexity(cfg: ModelConfig, params,
     of each batch's mean next-token negative log-likelihood, as the JAX
     package computes it (a short last batch is dropped). Above
     ``FUSED_MAX_M`` rows a linear takes the dense route (``decode_weights``
-    and one ``torch.matmul``), as the JAX package does."""
-    if sp_mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel perplexity (sp_mesh=) is not ported yet "
-            "(ROADMAP.md queue 1 item 8b)")
+    and one ``torch.matmul``), as the JAX package does.
+
+    ``sp_mesh`` (``parallel/sequence.py`` ``make_sp_mesh``; every rank of
+    it calls this with the same windows) runs each forward with the
+    sequence split over its ranks (ring attention): a rank computes its
+    chunk's log-likelihoods, one ``all_gather`` puts a batch's together,
+    and every rank returns the same perplexity."""
     dev = resolve_device(device)
     if model_device(params).type != dev.type:
         raise ValueError(f"model lives on {model_device(params)}, "
@@ -359,9 +361,23 @@ def perplexity(cfg: ModelConfig, params,
         if b.shape[0] < batch_size:
             break
         batch = torch.as_tensor(b, dtype=torch.int64, device=dev)
-        logits, _ = model_apply(cfg, params, batch, dtype=dtype,
-                                linear_kw=linear_kw)
-        logp = torch.log_softmax(logits[:, :-1, :].to(torch.float32), dim=-1)
-        ll = torch.gather(logp, -1, batch[:, 1:, None])[..., 0]
+        if sp_mesh is None:
+            logits, _ = model_apply(cfg, params, batch, dtype=dtype,
+                                    linear_kw=linear_kw)
+            logits, tgt = logits[:, :-1, :], batch[:, 1:]
+        else:
+            from ..parallel import comm
+            from ..parallel.sequence import (local_chunk,
+                                             sequence_parallel_logits)
+            logits = sequence_parallel_logits(cfg, params, batch, sp_mesh,
+                                              linear_kw=linear_kw,
+                                              dtype=dtype)
+            # the chunk's targets are the next ids; the window's last
+            # position has none (a wrapped id, dropped after the gather)
+            tgt = local_chunk(torch.roll(batch, -1, dims=1), sp_mesh)[0]
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
+        if sp_mesh is not None:
+            ll = comm.all_gather(ll, sp_mesh.group, sp_mesh.size)[:, :-1]
         losses.append(float(-ll.mean()))
     return float(np.exp(np.mean(losses)))

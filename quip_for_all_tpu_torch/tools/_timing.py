@@ -29,6 +29,9 @@ from ..utils.device import resolve_device  # noqa: F401  (the tools' entry)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
+# f32 operands on the tensor cores: the decode kernels split f32 x (or g)
+# into three exact bf16 terms, each its own bf16 MMA
+F32_SPLIT_OPS_PER_S = BF16_OPS_PER_S / 3
 L2_BYTES = 50 * 2 ** 20
 
 

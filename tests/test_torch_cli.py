@@ -68,10 +68,13 @@ def test_eval_ppl_cli_matches_jax(capsys, batch_size):
     assert abs(got["ppl"] - want["ppl"]) <= 1e-2 * want["ppl"]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--sp", "2", "--dataset", "synthetic"], "queue 1 item 8"),
-    (["--dataset", "wikitext2-test"], "not ported")])
-def test_eval_ppl_cli_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--sp", "2", "--dataset", "synthetic"], RuntimeError, "torchrun"),
+    (["--dataset", "wikitext2-test"], NotImplementedError, "not ported")])
+def test_eval_ppl_cli_refuses_what_is_not_ported(argv, exc, match):
+    """The HF datasets need a download; ``--sp 2`` runs on two ranks
+    (``tests/test_torch_ft_pp.py`` holds it to the JAX CLI there) and, in
+    a process of no group and no torchrun environment, says so."""
+    with pytest.raises(exc, match=match):
         eval_ppl.main(["--model-path", GOLDEN, "--device", "cpu",
                        "--nsamples", "2", "--seqlen", "16"] + argv)

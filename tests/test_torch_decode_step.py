@@ -97,7 +97,16 @@ def test_perplexity_matches_jax(models, batch_size, n):
 
 
 def test_perplexity_refuses_sp_mesh(models):
-    _, _, tcfg, port = models
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        G.perplexity(tcfg, port, np.zeros((1, 8), np.int64), sp_mesh=object(),
-                     device="cpu")
+    """``perplexity(sp_mesh=)`` runs (``tests/test_torch_sp.py`` holds it
+    to JAX's on ranks); it refuses, as JAX's does, windows whose length
+    the sp ranks do not divide, before any collective (so a mesh object
+    of no group serves)."""
+    jcfg, jparams, tcfg, port = models
+    from quip_for_all_tpu.parallel.sequence import make_sp_mesh
+    from quip_for_all_tpu_torch.parallel.sharding import AxisMesh
+    windows = np.zeros((1, 8), np.int64)
+    with pytest.raises(ValueError, match="must divide by sp=3"):
+        G.perplexity(tcfg, port, windows, device="cpu",
+                     sp_mesh=AxisMesh("sp", 3, 0, None, (0, 1, 2)))
+    with pytest.raises(AssertionError):
+        JG.perplexity(jcfg, jparams, windows, sp_mesh=make_sp_mesh(3))

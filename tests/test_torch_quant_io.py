@@ -256,7 +256,9 @@ def test_cli_quantize_writes_the_jax_files(tmp_path):
     equal except Wscale, which the two packages reduce in other orders
     (within 1e-6 relative, the rule of ``quantize_layer``'s test); with
     ``--tp-shards 2`` too (block-diagonal transforms, ``tp_shards`` in
-    the config). ``--ft-pp`` above 1 is not ported and raises."""
+    the config). ``--ft-pp 2`` with a finetune runs on two ranks
+    (``tests/test_torch_ft_pp.py``); in a process of no group and no
+    torchrun environment it says so."""
     from quip_for_all_tpu.cli import quantize as jcli
     from quip_for_all_tpu_torch.cli import quantize as tcli
     args = ["--model-path", "random:tiny", "--nsamples", "8", "--seqlen",
@@ -275,6 +277,6 @@ def test_cli_quantize_writes_the_jax_files(tmp_path):
                close=("Wscale",))
     assert tckpt.load_quant_config(str(tmp_path / "port2"))[
         "tp_shards"] == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         tcli.main(args + ["--save-dir", str(tmp_path / "x"), "--device",
-                          "cpu", "--ft-pp", "2"])
+                          "cpu", "--ft-pp", "2", "--ft-epochs", "1"])

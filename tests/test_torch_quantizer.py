@@ -164,11 +164,16 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
 
 
 def test_refusals():
-    # tp_shards is ported (tests/test_torch_tp_quant.py); ft_pp is not
+    # tp_shards and ft_pp are ported (tests/test_torch_tp_quant.py,
+    # tests/test_torch_ft_pp.py); ft_pp's pipelined finetune needs a
+    # group of ft_pp ranks
     assert QuipQuantizer(codebook="E8P12", tp_shards=2).to_dict()[
         "tp_shards"] == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        QuipQuantizer(codebook="E8P12", ft_pp=2)
+    two = tiny_config()
+    with pytest.raises(ValueError, match="world size is 1"):
+        QuipQuantizer(codebook="E8P12", ft_pp=2, ft_epochs=1).quantize_model(
+            two, TR.get_arch(two).init_llama_params(two, device="cpu"),
+            synthetic_tokens(8, 16, two.vocab_size, seed=1))
     with pytest.raises(ValueError, match="sigma_reg"):
         QuipQuantizer(codebook="E8P12", sigma_reg=1.5)
     with pytest.raises(ValueError, match="Invalid codebook"):

@@ -5,6 +5,7 @@ cases' rank-side functions.
 ``Ranks(world)`` starts ``world`` processes (``torch.multiprocessing``,
 spawn) that join one gloo process group through a file and wait for
 tasks; ``Ranks.run(name, *args)`` runs this module's function ``name``
+(or, named "module:function", that module's, e.g. ``torch_sp_cases``)
 on every rank as ``name(meshes, *args)`` and returns the ranks' results
 in rank order, raising with the rank's traceback if any rank failed. A
 case's model crosses to the ranks as a ``torch.save`` file. The ranks
@@ -42,10 +43,20 @@ def _rank_loop(rank, world, init_file, tasks, results):
             break
         name, args = task
         try:
-            results.put((rank, True, globals()[name](meshes, *args)))
+            results.put((rank, True, _task(name)(meshes, *args)))
         except Exception:
             results.put((rank, False, traceback.format_exc()))
     dist.destroy_process_group()
+
+
+def _task(name: str):
+    """This module's function ``name``, or "module:function" from another
+    module on the tests' path."""
+    if ":" not in name:
+        return globals()[name]
+    import importlib
+    module, fn = name.split(":")
+    return getattr(importlib.import_module(module), fn)
 
 
 class Ranks:
