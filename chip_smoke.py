@@ -4,6 +4,7 @@ card: the quickest proof that the port still starts on the GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 21 [--profile-ft]   # one phase alone
+    python3 chip_smoke.py --phase 22
 
 Phases (each prints its lines; any failure exits non-zero with no result
 line):
@@ -43,8 +44,8 @@ line):
      slots (bucket 1024): device time by kernel and by model part;
      (d) the CLIs ``cli.generate`` and ``cli.eval_ppl`` on the golden
      checkpoint; each with exact launch counts;
-  6. the Mixtral path: Mixtral-8x7B E8P12 at full width, 16 layers
-     (MIXTRAL_LAYERS, since phase 21 came; random codes,
+  6. the Mixtral path: Mixtral-8x7B E8P12 at full width, 8 layers
+     (MIXTRAL_LAYERS: 16 since phase 21 came, 8 since phase 22; random codes,
      seed 0, experts stacked, fused qkv, quantized head), the same
      prompt/greedy runs with 64 new tokens, exact launch counts of both
      kernels, a 16-token prompt through the sparse prefill, and the
@@ -172,8 +173,8 @@ line):
      CUDA-graph replays, beside its bound) and 64 steps by the host clock
      and by kernel (``torch.profiler``).
  20. LoRA on the families at full width, as phase 14 does it: (i)
-     Mixtral-8x7B E8P12 (16 of its 32 layers since phase 21 grew,
-     LORA_MIX_LAYERS; experts stacked, attention unfused, quantized head;
+     Mixtral-8x7B E8P12 (16 of its 32 layers since phase 21 grew, 8
+     since phase 22, LORA_MIX_LAYERS; experts stacked, attention unfused, quantized head;
      rank-8 adapters on q/k/v/o) at batch 1 x 512 (511 rows: K2 forward,
      K3 backward, the dense expert loop over the stacked experts' views),
      (ii) GPT-NeoX-20B E8P12 (22 of its 44 layers, LORA_NEOX_LAYERS;
@@ -200,8 +201,9 @@ line):
      m = 1 and 8 and K2 at m = 64 against their twin on each rank-local
      shape; f32 logits of a 32-token prefill and 8 cached steps against
      the one-rank model's (1e-4 of max|logit| plus one ulp); 32 greedy
-     bf16 tokens (their agreement and the first fork's logit gap
-     printed); ``ServingEngine(mesh=)`` on 4 requests at 4 slots in f32
+     bf16 tokens, equal on both ranks, that leave the one-rank run's
+     only at a near-tie (the one-rank model's top logit at most one bf16
+     step above the ranks' token there); ``ServingEngine(mesh=)`` on 4 requests at 4 slots in f32
      (prompts 16-200, 16 new, prefill chunk 128: K2), each request's ids
      equal to the one-rank engine's; exact K1/K2 launches a forward (129)
      and the collectives a token; an eager step with and without its
@@ -222,14 +224,37 @@ line):
      --profile-ft``: the quantizer's step under ``torch.profiler`` too).
      Two ranks on one card measure correctness, launches and
      collectives, not parallel speed.
+ 22. expert parallelism on the one card: Mixtral-8x7B E8P12 nibble at
+     full width, 8 layers (MIXTRAL_EP_LAYERS; random codes from seed 0,
+     experts stacked, fused qkv, quantized head, whole transforms), first
+     whole in this process (the one-rank references: an f32 prefill of
+     32 tokens and 8 cached steps, 16 greedy bf16 tokens through graphed
+     ``generate``, ``ServingEngine`` on phase 21's 4 requests in f32),
+     with K4 at a rank's dense-stacked shapes (4 experts, R = 4 m, m = 1,
+     32, 1024) held to its twin and timed beside its bound, its twin and
+     ``torch.bmm`` on the decoded weights; then four gloo ranks spawned on
+     ``cuda:0``, each joining through ``parallel/multihost.py``
+     ``initialize`` from torchrun's variables, laid out by
+     ``make_hybrid_mesh(dcn_dp=1, ici_tp=2, ici_ep=2)``, each holding 4
+     experts whole and half of the heads (``shard_params``): K4 against
+     its twin at m = 1 and 32 on the rank's experts, then the same three
+     runs with every launch and collective count set to 0 before each:
+     f32 logits against the one-rank model's (1e-4 of max|logit| plus one
+     ulp), served ids equal, greedy ids equal on the four ranks and
+     leaving the one-rank run's only at a near-tie (as in phase 21),
+     exact K1/K2/K4 launches (every MoE block on the
+     dense-stacked route) and the collectives a token. Four ranks on one
+     card measure correctness, launches and collectives, not speed.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
-a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19, 21;
+a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19, 21,
+22;
 each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
 with their numbers; the line before that the card's name and power limit.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -329,11 +354,11 @@ LAYERS = 32
 # their kernels are held at full width per call in phases 7 and 10
 PATH9_LAYERS = 8
 # since phase 21 came, phase 12's paths (8 layers since its sp and pp
-# paths came, 16 before) and phase 6's Mixtral-8x7B (16) run cut too
-# (depth the only cut; their kernels are held at full width in phases 3
-# and 10)
+# paths came, 16 before) and phase 6's Mixtral-8x7B (16, 8 since phase
+# 22) run cut too (depth the only cut; their kernels are held at full
+# width in phases 3 and 10)
 PATH12_LAYERS = 8
-MIXTRAL_LAYERS = 16
+MIXTRAL_LAYERS = 8
 # the kernel each runtime layout's linears launch
 LAYOUT_KERNEL = {"u3": "rowpair_u3_decode_matmul",
                  "pb": "rowpair_pb_decode_matmul",
@@ -382,9 +407,9 @@ DENSE_M = (1022, 2044)
 # LORA_CLI_LAYERS layers that the phase saves itself. Since phase 21 grew
 # (sequence parallelism and the pipeline; the script took 994.8 s with
 # phase 20 at full depth on an H100 80GB HBM3 at 700 W), (i) runs 16 of
-# Mixtral's 32 layers and (ii) 22 of GPT-NeoX-20B's 44: depth the only
-# cut, the widths the published ones.
-LORA_MIX_LAYERS, LORA_NEOX_LAYERS = 16, 22
+# Mixtral's 32 layers (8 since phase 22 came) and (ii) 22 of
+# GPT-NeoX-20B's 44: depth the only cut, the widths the published ones.
+LORA_MIX_LAYERS, LORA_NEOX_LAYERS = 8, 22
 LORA_MIX_B, LORA_MIX_S, LORA_MIX_GRAD_LAYERS = 1, 512, 4
 LORA_NEOX_B, LORA_NEOX_S = 2, 512
 LORA_CLI_LAYERS = 2
@@ -4369,8 +4394,8 @@ def tp_f32_logits(cfg, model, ids):
     return torch.cat(outs).cpu().numpy()
 
 
-def tp_greedy(cfg, model, ids):
-    """TP_GREEDY greedy bf16 tokens after the prompt, by ``generate`` (a
+def tp_greedy(cfg, model, ids, n=TP_GREEDY):
+    """``n`` greedy bf16 tokens after the prompt, by ``generate`` (a
     card's graphs for a whole model, the eager loop for a rank's), with
     the host time a token after the prefill."""
     import torch
@@ -4378,10 +4403,10 @@ def tp_greedy(cfg, model, ids):
     prompt = torch.as_tensor(ids[:, :TP_PROMPT]).cuda()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = qt.generate(cfg, model, prompt, TP_GREEDY, cache_len=TP_CACHE)
+    out = qt.generate(cfg, model, prompt, n, cache_len=TP_CACHE)
     torch.cuda.synchronize()
     return out[0, TP_PROMPT:].cpu().numpy(), \
-        (time.perf_counter() - t0) * 1e3 / TP_GREEDY
+        (time.perf_counter() - t0) * 1e3 / n
 
 
 def tp_serve(cfg, model, reqs, mesh=None):
@@ -4452,6 +4477,18 @@ def tp_fork(cfg, model, ids, ref, toks):
     top, mine = float(row.max()), float(row[toks[f]])
     step = 2.0 ** (np.floor(np.log2(max(abs(top), 1e-30))) - 7)
     return {"position": f, "gap": top - mine, "bf16_step": float(step)}
+
+
+def hold_fork(tag, fork):
+    """A greedy bf16 fork from the one-rank run passes only at a near-tie:
+    the one-rank model's top logit at most one bf16 step above the
+    rank's token's there (sum order alone moves a bf16 logit that far)."""
+    if fork is not None and fork["gap"] > fork["bf16_step"]:
+        raise AssertionError(
+            f"{tag}: greedy bf16 tokens leave the one-rank run's at token "
+            f"{fork['position']}, where the one-rank model's top logit is "
+            f"{fork['gap']:.4g} above the rank's token's (more than one "
+            f"bf16 step, {fork['bf16_step']:.4g})")
 
 
 def tp_kernel_checks(cfg, model):
@@ -5152,6 +5189,9 @@ def phase_tp(profile=False):
     rs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
           for r in range(TP)]
     fork = tp_fork(cfg, model, ids, ref_greedy, rs[0]["greedy"][0])
+    hold_fork("tp", fork)
+    if not np.array_equal(rs[1]["greedy"][0], rs[0]["greedy"][0]):
+        raise AssertionError("tp: the ranks' greedy bf16 tokens differ")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5320,6 +5360,395 @@ def tp_path_launches(entries, tp):
         f"pp2_f32_m{PP_S}": per[f"K3_m{PP_S}"]}
 
 
+# ------------------------------------------------------------ phase 22
+
+# expert parallelism: Mixtral-8x7B E8P12 nibble at full width and
+# MIXTRAL_EP_LAYERS layers (depth the only cut) as EP_WORLD gloo ranks on
+# the one card, laid out by the hybrid mesh dcn_dp = 1 x ici_ep = EP_EP x
+# ici_tp = EP_TP (the JAX dry run's ep x tp = 2 layout): each rank holds
+# E / EP_EP = 4 experts whole and half of the heads. The f32 prefill and
+# steps and the serving requests are phase 21's (tp_inputs); EP_GREEDY
+# greedy bf16 tokens.
+MIXTRAL_EP_LAYERS = 8
+EP_WORLD, EP_EP, EP_TP = 4, 2, 2
+EP_GREEDY = 16
+# K4 at a rank's dense-stacked shapes, R = E_local * m rows, m an expert:
+# held to its twin on every rank at EP_CHECK_M, timed (and held) in this
+# process at EP_TIME_M on layer 0's first E_local experts (a rank's)
+EP_CHECK_M = (1, 32)
+EP_TIME_M = (1, 32, 1024)
+
+
+def ep_model(cfg):
+    """Mixtral-8x7B E8P12 nibble, random codes from seed 0, experts
+    stacked, fused qkv, quantized head (phase 6's options)."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    return qt.fuse_for_inference(cfg, qt.random_quantized_model(
+        cfg, seed=0, dtype=torch.bfloat16, quantize_head=True,
+        device="cuda"))
+
+
+def ep_k4_case(E, Gp, G, m, gen):
+    """K4's inputs at a rank's dense-stacked shape: x (R = E m, 8 Gp) bf16
+    with zero pad lanes, and the expert ids arange(E).repeat_interleave(m)
+    (int32), as ``moe_dense_stacked_apply`` makes them."""
+    import torch
+    R = E * m
+    x = torch.zeros((R, 8, Gp), device="cuda")
+    x[:, :, :G] = torch.randn((R, 8, G), generator=gen, device="cuda")
+    eids = torch.arange(E, dtype=torch.int32,
+                        device="cuda").repeat_interleave(m)
+    return x.reshape(R, 8 * Gp).to(torch.bfloat16), eids
+
+
+def ep_check(tag, x, eids, planes, affine, m):
+    """K4 against its plain twin (1 bf16 ulp + 1e-5 of the max); returns
+    the max error, raising beyond the tolerance."""
+    import torch
+    from quip_for_all_tpu_torch.ops import moe_matmul as mm
+    got = mm.moe_fused_matmul(x, eids, planes, affine, m)
+    want = mm.moe_fused_matmul_ref(x, eids, planes, affine)
+    torch.cuda.synchronize()
+    ok, err = tm.compare(got, want, bf16_step=True)[:2]
+    if not ok:
+        raise AssertionError(f"ep {tag}: kernel vs plain twin beyond "
+                             f"tolerance (max |diff| {err})")
+    return err
+
+
+def ep_kernel_checks(model):
+    """On a rank's model: K4 against its plain twin on layer 0's stacked
+    w13 and w2 (the rank's E_local experts) at R = E_local * m, m in
+    EP_CHECK_M. Returns {case: max error}."""
+    import torch
+    from quip_for_all_tpu_torch.ops.qtensor import decode_affine
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    errs = {}
+    st = model.layers[0]["block_sparse_moe"]["experts_stacked"]
+    for name in ("w13", "w2"):
+        sq = st[name]
+        planes = sq.plane_list()
+        affine = decode_affine(sq.codebook_id, sq.opt_resid_scale)
+        Gp = planes[0].shape[-1]
+        for m in EP_CHECK_M:
+            x, eids = ep_k4_case(sq.E, Gp, sq.q_in // 8, m, gen)
+            key = f"K4 {name} {sq.q_out_total}x{Gp} E={sq.E} m={m}"
+            errs[key] = ep_check(key, x, eids, planes, affine, m)
+    return errs
+
+
+def ep_k4_times(model):
+    """K4 at a rank's dense-stacked shapes, timed: layer 0's experts [0,
+    E_local) of the whole model (ep index 0's), R = E_local * m for m in
+    EP_TIME_M, held to its twin, then timed by CUDA-graph replays (the
+    experts' planes, 117-235 MB, pass through the 50 MB L2 on every call)
+    beside its twin, its bound and one library call of the same function
+    (``torch.bmm`` on the experts' weights decoded beforehand in bf16).
+    Returns one row a (linear, m)."""
+    import torch
+    from quip_for_all_tpu_torch.ops import moe_matmul as mm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    from quip_for_all_tpu_torch.ops.qtensor import (QuantizedTensor,
+                                                    decode_affine)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    st = model.layers[0]["block_sparse_moe"]["experts_stacked"]
+    E = st["w13"].E // EP_EP
+    rows = []
+    for name in ("w13", "w2"):
+        sq = st[name]
+        planes = [p[:E].contiguous() for p in sq.plane_list()]
+        affine = decode_affine(sq.codebook_id, sq.opt_resid_scale)
+        q_out, q_in, Gp = sq.q_out_total, sq.q_in, planes[0].shape[-1]
+        G = q_in // 8
+        W = torch.stack([decode_weights(QuantizedTensor(
+            {f"w{i}": p[e] for i, p in enumerate(planes)}, sq.codebook_id,
+            q_out, q_in, sq.opt_resid_scale), dtype=torch.bfloat16)
+            for e in range(E)]).transpose(1, 2)       # (E, q_in, q_out)
+        for m in EP_TIME_M:
+            x, eids = ep_k4_case(E, Gp, G, m, gen)
+            R = E * m
+            err = ep_check(f"K4 {name} m={m} (timed)", x, eids, planes,
+                           affine, m)
+            n = 2 if m >= 256 else 8
+            k_ms = 1e-3 * tm.graph_us(lambda i: mm.moe_fused_matmul(
+                x, eids, planes, affine, m), n)
+            p_ms = 1e-3 * tm.event_us(lambda i: mm.moe_fused_matmul_ref(
+                x, eids, planes, affine), 2)
+            xn = x.reshape(R, 8, Gp)[:, :, :G].transpose(1, 2).reshape(
+                E, m, q_in).contiguous()
+            lib_ms = 1e-3 * tm.graph_us(lambda i: torch.bmm(xn, W), n)
+            nbytes = (E * q_out * Gp * 4 * len(planes) + R * 8 * Gp * 2
+                      + R * q_out * 2 + R * 4)
+            b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
+            b_ops = 2 * R * q_out * q_in / tm.BF16_OPS_PER_S * 1e3
+            row = {"layer": name, "q_out": q_out, "Gp": Gp, "experts": E,
+                   "m": m, "R": R, "max_abs_err": err, "ms": k_ms,
+                   "plain_ms": p_ms, "library_ms": lib_ms,
+                   "bound_ms": max(b_bytes, b_ops),
+                   "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                   "bytes": nbytes}
+            rows.append(row)
+            log(f"kernel moe (ep) {name:3s} {q_out}x{Gp} E={E} m={m:4d} "
+                f"R={R:4d}: max|k-plain| {err:.3g} (tol 1 bf16 ulp + 1e-5 "
+                f"max) | kernel {k_ms * 1e3:.1f} us | plain "
+                f"{p_ms * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.1f} us "
+                f"({row['bound_by']}) | {row['bound_ms'] / k_ms:.0%} of "
+                f"bound | library {lib_ms * 1e3:.1f} us (torch.bmm on the "
+                f"{E} experts' bf16 weights)")
+        del W
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ep_runs(cfg, model, ids, reqs, mesh=None):
+    """The phase's three runs on a model, with the launch and collective
+    counts set to 0 before each and read after: the f32 prefill and
+    steps, the greedy bf16 tokens and the f32 serving run."""
+    import torch
+    from quip_for_all_tpu_torch.parallel import comm
+    res = {}
+    for run, fn in (("f32", lambda: tp_f32_logits(cfg, model, ids)),
+                    ("greedy", lambda: tp_greedy(cfg, model, ids,
+                                                 EP_GREEDY)),
+                    ("serving", lambda: tp_serve(cfg, model, reqs, mesh))):
+        reset_launches()
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        res[run] = fn()
+        torch.cuda.synchronize()
+        res[f"{run}_s"] = time.time() - t
+        res[f"{run}_launches"] = {k: v for k, v in read_launches().items()
+                                  if v}
+        res[f"{run}_collectives"] = {k: v for k, v in comm.counts().items()
+                                     if v}
+    return res
+
+
+def ep_rank(rank, out_dir):
+    """One rank of phase 22 (spawned; the parent set MASTER_ADDR,
+    MASTER_PORT and WORLD_SIZE, and the rank sets RANK, as torchrun sets
+    them): ``multihost.initialize``, the hybrid mesh, its model of
+    Mixtral-8x7B from ``shard_params``, K4's checks at its shapes, then
+    the three runs; its results into ``out_dir``."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    global tm
+    from quip_for_all_tpu_torch.tools import _timing as tm
+    from quip_for_all_tpu_torch.models.config import mixtral_8x7b_config
+    from quip_for_all_tpu_torch.parallel import multihost
+    from quip_for_all_tpu_torch.parallel.sharding import shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
+    if multihost.initialize() != rank:
+        raise AssertionError(f"ep rank {rank}: initialize joined as another "
+                             "rank")
+    try:
+        mesh = multihost.make_hybrid_mesh(dcn_dp=1, ici_tp=EP_TP,
+                                          ici_ep=EP_EP)
+        cfg = dataclasses.replace(mixtral_8x7b_config(),
+                                  num_hidden_layers=MIXTRAL_EP_LAYERS)
+        t = time.time()
+        whole = ep_model(cfg)
+        model = shard_params(cfg, whole, mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = model.layers[0]["block_sparse_moe"]
+        res = {"build_s": time.time() - t, "coords": mesh.coords,
+               "topology": multihost.mesh_topology(mesh),
+               "moe": type(moe).__name__,
+               "experts": (getattr(moe, "offset", 0),
+                           moe["experts_stacked"]["w13"].E),
+               "plane_bytes": sum(b.numel() * b.element_size() for n, b in
+                                  model.named_buffers() if "planes_" in n)}
+        res["kernel_errs"] = ep_kernel_checks(model)
+        ids, reqs = tp_inputs(cfg)
+        res.update(ep_runs(cfg, model, ids, reqs, mesh))
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ep():
+    """22: Mixtral-8x7B at full width as four expert- and tensor-parallel
+    ranks on the one card (module docstring): the one-rank references and
+    K4's times at the ranks' shapes here, then the ranks, each held to
+    the references."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from quip_for_all_tpu_torch.models.config import mixtral_8x7b_config
+    from quip_for_all_tpu_torch.parallel.multihost import free_port
+    cfg = dataclasses.replace(mixtral_8x7b_config(),
+                              num_hidden_layers=MIXTRAL_EP_LAYERS)
+    L = cfg.num_hidden_layers
+    ids, reqs = tp_inputs(cfg)
+    t = time.time()
+    model = ep_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    whole_bytes = sum(b.numel() * b.element_size()
+                      for n, b in model.named_buffers() if "planes_" in n)
+    # the one-rank references: the same runs on the whole model (its
+    # 32-token prefill takes the dense expert loop, its steps the sparse
+    # route; its greedy generate CUDA graphs)
+    ref = ep_runs(cfg, model, ids, reqs)
+    k4 = ep_k4_times(model)
+    out = tempfile.mkdtemp(prefix="ep_")
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE=str(EP_WORLD))
+    t = time.time()
+    try:
+        # a rank that fails makes spawn raise, and the phase with it
+        mp.spawn(ep_rank, args=(out,), nprocs=EP_WORLD, join=True)
+    finally:
+        for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE"):
+            os.environ.pop(k, None)
+    ranks_s = time.time() - t
+    rs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+          for r in range(EP_WORLD)]
+    ref_greedy = ref["greedy"][0]
+    forks = [tp_fork(cfg, model, ids, ref_greedy, res["greedy"][0])
+             for res in rs]
+    for r, (res, fork) in enumerate(zip(rs, forks)):
+        hold_fork(f"ep rank {r}", fork)
+        if not np.array_equal(res["greedy"][0], rs[0]["greedy"][0]):
+            raise AssertionError(f"ep rank {r}: greedy bf16 tokens differ "
+                                 "from rank 0's")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_f32 = ref["f32"]
+    tol = 1e-4 * np.abs(ref_f32).max() + np.spacing(
+        np.abs(ref_f32).astype(np.float32))
+    k1, k4n = 2 * L + 1, 2 * L       # a forward: qkv, o, head; w13, w2
+    summary = {"ranks": EP_WORLD, "layers": L, "ranks_wall_s": ranks_s,
+               "one_rank_build_s": build_s,
+               "whole_plane_bytes": whole_bytes,
+               "one_rank": {k: v for k, v in ref.items()
+                            if k not in ("f32", "greedy", "serving")},
+               "one_rank_graphed_ms_token": ref["greedy"][1],
+               "k4_times": k4}
+    E = cfg.num_local_experts // EP_EP
+    for r, res in enumerate(rs):
+        d, e, tpi = res["coords"]
+        if (res["moe"], res["experts"]) != ("ExpertParallelMoE",
+                                             (e * E, E)):
+            raise AssertionError(f"ep rank {r}: MoE {res['moe']} with "
+                                 f"experts {res['experts']}, want "
+                                 f"ExpertParallelMoE with {(e * E, E)}")
+        err = np.abs(res["f32"] - ref_f32)
+        if not np.all(err <= tol):
+            raise AssertionError(f"ep rank {r}: f32 logits off the one-rank "
+                                 f"model's by {err.max():.3g} (max|logit| "
+                                 f"{np.abs(ref_f32).max():.3g})")
+        outs, chunks, steps = res["serving"]
+        same = sum(int(np.array_equal(a, b))
+                   for a, b in zip(outs, ref["serving"][0]))
+        if same != len(reqs):
+            raise AssertionError(f"ep rank {r}: {same}/{len(reqs)} f32 "
+                                 "served requests equal the one-rank "
+                                 "engine's")
+        want = {"f32": {"fused_decode_matmul": k1 * (1 + TP_STEPS),
+                        "moe_decode_matmul": k4n * (1 + TP_STEPS)},
+                "greedy": {"fused_decode_matmul": k1 * EP_GREEDY,
+                           "moe_decode_matmul": k4n * EP_GREEDY},
+                "serving": {"fused_decode_matmul": k1 * steps,
+                            "fused_decode_matmul_tc": k1 * chunks,
+                            "moe_decode_matmul": k4n * (steps + chunks)}}
+        for run, w in want.items():
+            if res[f"{run}_launches"] != w:
+                raise AssertionError(f"ep rank {r} {run}: launches "
+                                     f"{res[f'{run}_launches']}, want {w}")
+        # a forward: qkv's gather, o's gather and sum, the ep sum (a
+        # block), the head's gather
+        col = res["greedy_collectives"]
+        if (col.get("all_gather"), col.get("all_reduce")) != (
+                (2 * L + 1) * EP_GREEDY, 2 * L * EP_GREEDY):
+            raise AssertionError(f"ep rank {r}: collectives {col} in "
+                                 f"{EP_GREEDY} tokens, want "
+                                 f"{2 * L + 1} all_gather and {2 * L} "
+                                 "all_reduce a token")
+        toks = res["greedy"][0]
+        agree = int(np.sum(toks == ref_greedy))
+        summary[f"rank{r}"] = {
+            "coords": res["coords"], "topology": res["topology"],
+            "experts": res["experts"], "plane_bytes": res["plane_bytes"],
+            "build_s": res["build_s"],
+            "kernel_errs": res["kernel_errs"],
+            "f32_max_err": float(err.max()),
+            "f32_max_logit": float(np.abs(ref_f32).max()),
+            "greedy_bf16_agree": agree, "greedy_fork": forks[r],
+            "eager_ms_token": res["greedy"][1],
+            "launches": {k: res[f"{k}_launches"] for k in want},
+            "collectives": {k: res[f"{k}_collectives"] for k in want},
+            "collectives_a_token": {k: v / EP_GREEDY
+                                    for k, v in col.items()},
+            "serving_prefill_chunks": chunks, "serving_decode_steps": steps,
+            "seconds": {k: res[f"{k}_s"] for k in want}}
+        for key, kerr in res["kernel_errs"].items():
+            log(f"ep rank {r}: kernel {key}: max|k-plain| {kerr:.3g} (tol 1 "
+                "bf16 ulp + 1e-5 max)")
+        log(f"ep rank {r} at {res['coords']} of {res['topology']}: experts "
+            f"[{res['experts'][0]}, {sum(res['experts'])}), "
+            f"{res['plane_bytes'] / 2**30:.3f} GiB of planes (the whole "
+            f"model {whole_bytes / 2**30:.3f}); f32 logits of a "
+            f"{TP_PROMPT}-token prefill and {TP_STEPS} cached steps within "
+            f"{err.max():.3g} of the one-rank model's (max|logit| "
+            f"{np.abs(ref_f32).max():.3g}, tol 1e-4 of it + 1 ulp); "
+            f"{agree}/{EP_GREEDY} greedy bf16 tokens as the one-rank run's; "
+            f"eager {res['greedy'][1]:.1f} ms a token (the one-rank graphed "
+            f"generate {ref['greedy'][1]:.1f}); a token: {k1} K1, {k4n} K4, "
+            + ", ".join(f"{v / EP_GREEDY:.1f} {k}" for k, v in col.items())
+            + f"; f32 serving: {same}/{len(reqs)} requests equal the "
+            f"one-rank engine's, {chunks} prefill chunks ({k1 * chunks} K2, "
+            f"{k4n * chunks} K4 at {4 * 128} rows an expert), {steps} "
+            f"decode steps; runs {res['f32_s']:.1f} / {res['greedy_s']:.1f}"
+            f" / {res['serving_s']:.1f} s")
+        if forks[r] is not None:
+            f = forks[r]
+            log(f"ep rank {r}: its greedy bf16 tokens leave the one-rank "
+                f"run's at token {f['position']}, where the one-rank "
+                f"model's top logit is {f['gap']:.4g} above the rank's "
+                f"token's (one bf16 step there: {f['bf16_step']:.4g})")
+    log(f"ep: {EP_WORLD} ranks on one card (gloo, all on cuda:0) measure "
+        f"the expert-parallel path's correctness, launches and "
+        f"collectives, not its speed; card {smi_line()}; ranks' wall "
+        f"{ranks_s:.1f} s")
+    return summary
+
+
+def ep_path_launches(entries, ep):
+    """Phase 22's launches beside K1's, K2's and K4's entries (rank 0's;
+    four ranks on one card), and K4's times at a rank's dense-stacked
+    shapes."""
+    by = {e["name"]: e for e in entries}
+    r0 = ep["rank0"]["launches"]
+    by["fused_decode_matmul"].setdefault("launches_by_path", {}).update(
+        ep2_tp2_one_card_rank0_greedy=r0["greedy"]["fused_decode_matmul"],
+        ep2_tp2_one_card_rank0_serving=r0["serving"]["fused_decode_matmul"])
+    by["fused_decode_matmul_tc"].setdefault("launches_by_path", {}).update(
+        ep2_tp2_one_card_rank0_serving_prefill=r0["serving"][
+            "fused_decode_matmul_tc"])
+    k4 = by["moe_decode_matmul"]
+    k4.setdefault("launches_by_path", {}).update(
+        ep2_tp2_one_card_rank0_greedy=r0["greedy"]["moe_decode_matmul"],
+        ep2_tp2_one_card_rank0_f32=r0["f32"]["moe_decode_matmul"],
+        ep2_tp2_one_card_rank0_serving=r0["serving"]["moe_decode_matmul"])
+    k4["dense_stacked_at_4_experts"] = {
+        f"{row['layer']}_m{row['m']}": {k: row[k] for k in (
+            "R", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")} for row in ep["k4_times"]}
+
+
 def at(phase, fn, *args):
     """Run one phase, logging when it starts and how long it took, so the
     script's time against its limit can be read phase by phase."""
@@ -5334,7 +5763,7 @@ def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke run of the "
                                  "PyTorch port on one CUDA card.")
-    ap.add_argument("--phase", action="append", choices=("20", "21"),
+    ap.add_argument("--phase", action="append", choices=("20", "21", "22"),
                     help="run the kernels' build and this phase alone "
                     "(repeatable), print its summary and no result line")
     ap.add_argument("--profile-ft", action="store_true",
@@ -5372,6 +5801,7 @@ def main(argv=None) -> int:
         if args.phase:
             for ph in args.phase:
                 out = (at(ph, phase_tp, args.profile_ft) if ph == "21"
+                       else at(ph, phase_ep) if ph == "22"
                        else at(ph, phase_lora_families))
                 log(f"phase {ph}: " + json.dumps(out, default=str))
             return 0
@@ -5408,6 +5838,7 @@ def main(argv=None) -> int:
         lora = at("20", phase_lora_families)
         quant = at("19", phase_quantize)
         tp = at("21", phase_tp)
+        ep = at("22", phase_ep)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
@@ -5421,6 +5852,7 @@ def main(argv=None) -> int:
         family_path_launches(entries, neox, fams)
         quant_path_launches(entries, quant)
         tp_path_launches(entries, tp)
+        ep_path_launches(entries, ep)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
             "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
@@ -5429,6 +5861,7 @@ def main(argv=None) -> int:
         log("quantization: " + json.dumps(quant))
         log("lora on the families: " + json.dumps(lora))
         log("tensor parallelism: " + json.dumps(tp))
+        log("expert parallelism: " + json.dumps(ep, default=str))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

@@ -6,7 +6,8 @@ caller passes device="cpu".
 from .codebooks import codebook_id, get_codebook
 from .models.config import ModelConfig, llama2_7b_config, tiny_config
 from .models.llama import (init_llama_params, set_combine_planes,
-                           set_ksplit, set_right_in_kernel)
+                           set_ksplit, set_moe_dense_stacked,
+                           set_right_in_kernel)
 from .models.registry import fuse_for_inference, get_arch
 from .runtime.generate import generate, generate_stream, perplexity
 from .runtime.serving import ServingEngine
@@ -24,6 +25,7 @@ __all__ = ["ModelConfig", "QuipQuantizer", "codebook_id", "get_codebook",
            "save_quantized", "load_quantized_model",
            "llama2_7b_config", "tiny_config",
            "fuse_for_inference", "get_arch", "set_ksplit",
-           "set_right_in_kernel", "set_combine_planes", "generate",
+           "set_right_in_kernel", "set_combine_planes",
+           "set_moe_dense_stacked", "generate",
            "generate_stream", "perplexity", "ServingEngine",
            "load_quantized", "from_jax_params", "random_quantized_model"]

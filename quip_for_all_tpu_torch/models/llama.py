@@ -32,9 +32,9 @@ from torch import nn
 from ..nn.lora import LoraLinear, lora_apply
 from ..nn.qlinear import (FusedQuantLinear, QuantLinear, fuse_qlinears,
                          same_tensor)
-from ..nn.qmoe import (StackedQuantLinear, moe_sparse_apply, stack_experts,
-                       unstack_qlinear)
-from ..parallel.layers import ColParallel, RowParallel
+from ..nn.qmoe import (StackedQuantLinear, moe_dense_stacked_apply,
+                       moe_sparse_apply, stack_experts, unstack_qlinear)
+from ..parallel.layers import ColParallel, ExpertParallelMoE, RowParallel
 from .common import attn_bucket, kv_len, sdpa_cache_layout, write_kv
 from .config import ModelConfig
 from .registry import rank_config
@@ -250,7 +250,11 @@ def mlp_apply(mlp_p: nn.ModuleDict, x: torch.Tensor, linear_kw: dict,
 def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
               linear_kw: dict, captures: Optional[dict] = None
               ) -> torch.Tensor:
-    """Mixtral top-k MoE. Two formulations (``nn/qmoe.py``):
+    """Mixtral top-k MoE. Three formulations (``nn/qmoe.py``):
+      - dense stacked (``set_moe_dense_stacked`` on, and always on a rank
+        whose experts are cut over "ep", ``ExpertParallelMoE``): the
+        stack's experts on every token, one expert-indexed kernel launch
+        per stacked linear, a rank's f32 result summed over "ep";
       - stacked sparse (decode, B*S < 32 tokens outside the training
         forward): the expert-indexed kernel reads only the selected
         experts' planes;
@@ -264,11 +268,16 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
         raise ValueError("capture runs on unstacked experts")
     if "experts_stacked" in moe_p:
         st = moe_p["experts_stacked"]
-        if B * S < 32 and not linear_kw.get("training"):
-            return moe_sparse_apply(
+        kw = dict(compute_dtype=linear_kw.get("compute_dtype",
+                                              torch.bfloat16),
+                  matmul_impl=linear_kw.get("matmul_impl", "auto"))
+        if isinstance(moe_p, ExpertParallelMoE) or st["w13"].dense_stacked:
+            return moe_dense_stacked_apply(
                 cfg, moe_p, x, router_logits,
-                compute_dtype=linear_kw.get("compute_dtype", torch.bfloat16),
-                matmul_impl=linear_kw.get("matmul_impl", "auto"))
+                offset=getattr(moe_p, "offset", 0),
+                reduce=getattr(moe_p, "combine", None), **kw)
+        if B * S < 32 and not linear_kw.get("training"):
+            return moe_sparse_apply(cfg, moe_p, x, router_logits, **kw)
         experts = []
         for e in range(cfg.num_local_experts):
             w1, w3 = unstack_qlinear(st["w13"], e)
@@ -445,6 +454,20 @@ def set_ksplit(model: LlamaModel, ksplit: int) -> LlamaModel:
         if isinstance(mod, (QuantLinear, FusedQuantLinear,
                             StackedQuantLinear)):
             mod.ksplit = int(ksplit)
+    return model
+
+
+def set_moe_dense_stacked(model: LlamaModel, on: bool) -> LlamaModel:
+    """Run Mixtral's stacked experts through the dense all-experts
+    formulation (on) or the sparse / dense-loop routes (off, the default):
+    the port's switch for the JAX package's QFA_MOE_DENSE_STACKED, on every
+    ``StackedQuantLinear`` (``nn/qmoe.py`` ``moe_dense_stacked_apply``; a
+    rank whose experts are cut over "ep" takes it whatever the switch
+    says). A CUDA graph captured before the change is captured again.
+    Returns ``model``, changed in place."""
+    for mod in model.modules():
+        if isinstance(mod, StackedQuantLinear):
+            mod.dense_stacked = bool(on)
     return model
 
 

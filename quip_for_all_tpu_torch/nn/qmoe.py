@@ -9,13 +9,16 @@ Every expert weight array is stacked along a leading E axis, which gives:
      expert-indexed kernel (``ops/moe_matmul.py``), which reads only the
      selected experts' planes, once per distinct expert;
   2. per-expert unstacked views (``unstack_qlinear``) for the dense masked
-     prefill loop in ``models/llama.py``.
+     prefill loop in ``models/llama.py``;
+  3. the dense all-experts formulation (``moe_dense_stacked_apply``):
+     every expert of the stack on every token, one expert-indexed kernel
+     launch per stacked linear, the routing contraction in f32 — what an
+     expert-parallel rank runs on its own experts before the sum over
+     "ep" (``parallel/layers.py`` ``ExpertParallelMoE``).
 
-The dense all-experts formulation for expert-parallel meshes
-(``moe_dense_stacked_apply``) waits for the parallelism slice. The MoE
-kernel decodes nibble planes: stacking re-lays paired, bfp and sw experts
-to nibble as the JAX package does, and refuses u3/pb experts, which the
-JAX package stacks unconverted (ROADMAP.md queue 3).
+The MoE kernel decodes nibble planes: stacking re-lays paired, bfp and
+sw experts to nibble as the JAX package does, and refuses u3/pb experts,
+which the JAX package stacks unconverted (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from ..ops.moe_matmul import moe_fused_matmul, moe_fused_matmul_ref
 from ..ops.qtensor import (ROWPAIR_LAYOUTS, QuantizedTensor,
                            decode_affine, to_nibble)
 from ..transforms.incoherence import hadamard_transform
-from .qlinear import QuantLinear, same_tensor
+from .qlinear import _SWITCHES, QuantLinear, same_tensor
 
 
 class StackedQuantLinear(nn.Module):
@@ -64,6 +67,20 @@ class StackedQuantLinear(nn.Module):
         self.opt_resid_scale = opt_resid_scale
         # split-K chunks for the per-expert views of the dense prefill loop
         self.ksplit = 0
+        self._dense_stacked = False
+
+    @property
+    def dense_stacked(self) -> bool:
+        """The MoE block takes ``moe_dense_stacked_apply`` (``models/
+        llama.py`` ``set_moe_dense_stacked``); a change recaptures graphs
+        captured before it (``nn/qlinear.py`` ``switch_epoch``)."""
+        return self._dense_stacked
+
+    @dense_stacked.setter
+    def dense_stacked(self, on: bool):
+        if bool(on) != self._dense_stacked:
+            self._dense_stacked = bool(on)
+            _SWITCHES["epoch"] += 1
 
     @property
     def q_out_total(self) -> int:
@@ -278,6 +295,50 @@ def moe_sparse_apply(cfg, moe_p, x: torch.Tensor,
     y = stacked_rows_apply(st["w2"], act, eids, **kw)     # (m*K, D')
     y = y.reshape(m, Kt, -1) * topw[..., None].to(y.dtype)
     return y.sum(dim=1).reshape(B, S, -1).to(x.dtype)
+
+
+def moe_dense_stacked_apply(cfg, moe_p, x: torch.Tensor,
+                            router_logits: torch.Tensor, *,
+                            compute_dtype=torch.bfloat16,
+                            matmul_impl: str = "auto", offset: int = 0,
+                            reduce=None) -> torch.Tensor:
+    """Dense all-experts MoE over the stacked experts: x (B, S, D).
+
+    The top-K routing runs over all ``cfg.num_local_experts`` experts in
+    f32, as a one-hot (m, E) weight matrix. The stack holds experts
+    [offset, offset + E_s) of them (all E unsharded): its E_s experts run
+    on all m tokens as one ``stacked_rows_apply`` per stacked linear (R =
+    E_s * m rows, expert-major, ``rows_per_expert = m``: one launch where
+    the JAX package vmaps one call per expert), and the stack's columns of
+    the routing contract their outputs in f32 (``einsum("me,emd->md")``).
+    ``reduce``, given, sums that f32 partial over the ranks holding the
+    other experts before the cast to x's dtype."""
+    st = moe_p["experts_stacked"]
+    w13, w2 = st["w13"], st["w2"]
+    B, S, D = x.shape
+    m = B * S
+    E, Kt = cfg.num_local_experts, cfg.num_experts_per_tok
+    topv, topi = torch.topk(
+        router_logits.reshape(m, E).to(torch.float32), Kt, dim=-1)
+    topw = torch.softmax(topv, dim=-1)
+    routing = torch.sum(F.one_hot(topi, E).to(torch.float32)
+                        * topw[..., None], dim=1)               # (m, E)
+    Es = w13.E
+    routing = routing[:, offset:offset + Es]
+    # arange(Es).repeat_interleave(m), made without a host sync
+    eids = torch.div(torch.arange(Es * m, dtype=torch.int32,
+                                  device=x.device), m, rounding_mode="floor")
+    xs = x.reshape(m, D).repeat(Es, 1)                          # (Es*m, D)
+    kw = dict(compute_dtype=compute_dtype, matmul_impl=matmul_impl,
+              rows_per_expert=m)
+    h = stacked_rows_apply(w13, xs, eids, **kw)
+    g, u = h.chunk(2, dim=-1)
+    act = F.silu(g.to(torch.float32)).to(h.dtype) * u
+    y = stacked_rows_apply(w2, act, eids, **kw).reshape(Es, m, -1)
+    out = torch.einsum("me,emd->md", routing, y.to(torch.float32))
+    if reduce is not None:
+        out = reduce(out)
+    return out.reshape(B, S, -1).to(x.dtype)
 
 
 def stack_experts(moe_p) -> Optional[Dict[str, StackedQuantLinear]]:

@@ -64,7 +64,17 @@ def ring_shift(t: torch.Tensor, group, world: int, index: int,
     return outs[(index - step) % world]
 
 
-_ALL = (all_reduce, all_gather, broadcast, ring_shift)
+def gather_objects(obj) -> list:
+    """Every rank's picklable ``obj`` of the default group, in rank order
+    (a mesh's set-up: ``parallel/multihost.py`` gathers the ranks'
+    hosts)."""
+    gather_objects.calls += 1
+    outs = [None] * dist.get_world_size()
+    dist.all_gather_object(outs, obj)
+    return outs
+
+
+_ALL = (all_reduce, all_gather, broadcast, ring_shift, gather_objects)
 for _f in _ALL:
     _f.calls = 0
 

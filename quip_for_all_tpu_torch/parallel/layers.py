@@ -24,6 +24,10 @@ they are explicit, and compute the same function:
   per-channel scale and the right transform, which every rank applies
   whole.
 
+A rank's Mixtral block with its experts cut over "ep"
+(``ExpertParallelMoE``) runs its own experts on every token and sums the
+f32 result over its ep group (one ``all_reduce``) before the cast.
+
 A layer's ``view`` says what the model reads from a column-parallel
 output: ``"chunk"`` (the rank's contiguous rows: its heads, or its slice
 of an MLP's hidden width), ``"full"`` (the whole output: attention whose
@@ -223,3 +227,24 @@ class RowParallel(_Parallel):
         if lin.per_channel:
             out = out * lin.Wscale.to(x_dtype)
         return right_side(lin, out, False, batch)
+
+
+class ExpertParallelMoE(nn.ModuleDict):
+    """A rank's Mixtral MoE block over the "ep" axis: the router ``gate``
+    (replicated) and ``experts_stacked`` (``w13``, ``w2``) holding experts
+    [offset, offset + E/ep) of the model's E, whole (the tp ranks of one
+    ep index hold the same experts). ``models/llama.py`` ``moe_apply``
+    runs it through ``nn/qmoe.py`` ``moe_dense_stacked_apply``, routing
+    over all E experts, with ``combine`` as its ``reduce``."""
+
+    def __init__(self, gate: nn.Module, w13: nn.Module, w2: nn.Module, *,
+                 offset: int, mesh):
+        super().__init__({"gate": gate, "experts_stacked": nn.ModuleDict(
+            {"w13": w13, "w2": w2})})
+        self.offset = offset
+        self.mesh = mesh
+
+    def combine(self, partial: torch.Tensor) -> torch.Tensor:
+        """The f32 partial output of this rank's experts summed over its
+        ep group, the other experts' ranks."""
+        return comm.all_reduce(partial.contiguous(), self.mesh.ep_group)

@@ -1,5 +1,5 @@
-"""Tensor parallelism over ``torch.distributed`` — counterpart of
-``quip_for_all_tpu/parallel/sharding.py``.
+"""Tensor and expert parallelism over ``torch.distributed`` — counterpart
+of ``quip_for_all_tpu/parallel/sharding.py``.
 
 The reference documents tensor parallelism as impossible ("Hadamard
 transform cannot be done for sharded input"). The JAX package shards any
@@ -11,7 +11,9 @@ linears run megatron's collectives explicitly (``parallel/layers.py``),
 computing the function the unsharded model computes.
 
 ``make_mesh`` lays the ranks of an initialised process group out as
-("dp", "tp"); a rank's ``tp`` group runs the collectives. Which linears
+("dp", "tp"), or ("dp", "ep", "tp") with an expert axis; a rank's ``tp``
+group runs the linears' collectives, its ``ep`` group sums Mixtral's
+experts, which ep cuts (``_shard_moe``). Which linears
 shard follows the JAX package's role tables (``role_of``) and its
 ``_divides`` rule; a rank keeps its heads where the heads split over the
 ranks (tp divides both the query and the kv heads) and its slice of the
@@ -59,10 +61,6 @@ _ROW_PARALLEL = ("o_proj", "down_proj", "w2",
 # the port's fused groups (``fuse_for_inference``): their segments' role
 _FUSED = {"qkv_proj": "col", "gateup_proj": "col", "w12_proj": "col"}
 
-SLICE19 = ("expert parallelism and Mixtral under a mesh are not ported yet "
-           "(ROADMAP.md queue 1 item 8c, slice 19)")
-
-
 def role_of(name: str) -> str:
     """Megatron role of a linear layer by name: "col" (output-sharded),
     "row" (input-sharded), or "rep" (replicated)."""
@@ -75,52 +73,119 @@ def role_of(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Ranks laid out as (dp, tp), row-major: global rank g sits at
-    (g // tp, g % tp). ``tp_group`` is this rank's tensor-parallel group
-    (global ranks ``tp_ranks``)."""
+    """Ranks laid out as ("dp", "tp"), or ("dp", "ep", "tp") when ep > 1
+    (the JAX package's axes): this rank sits at ``coords`` = (dp, ep, tp)
+    index. ``tp_group`` (global ranks ``tp_ranks``) runs the linears'
+    collectives; ``ep_group`` (``ep_ranks``: the same dp and tp index) sums
+    the experts' outputs; ``replica_group`` (``replica_ranks``: every rank
+    of one model copy, the same dp index) keeps the sampled tokens equal.
+    At ep = 1 the replica group is the tp group and there is no ep group.
+    A tp group's ranks sit on its axis in ascending global order, the
+    order in which its all_gather concatenates."""
     dp: int
     tp: int
     rank: int
     tp_group: object
     tp_ranks: tuple
+    ep: int = 1
+    coords: tuple = (0, 0, 0)
+    ep_group: object = None
+    ep_ranks: tuple = ()
+    replica_group: object = None
+    replica_ranks: tuple = ()
 
     @property
     def tp_rank(self) -> int:
-        return self.rank % self.tp
+        return self.coords[2]
 
     @property
-    def tp_root(self) -> int:
-        """Global rank of the tp group's rank 0 (the sampler's source)."""
-        return self.tp_ranks[0]
+    def ep_rank(self) -> int:
+        return self.coords[1]
+
+    @property
+    def dp_rank(self) -> int:
+        return self.coords[0]
+
+    @property
+    def replica_root(self) -> int:
+        """Global rank of the replica's first rank (the sampler's
+        source)."""
+        return self.replica_ranks[0]
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("dp", "ep", "tp") if self.ep > 1 else ("dp", "tp")
+
+    @property
+    def shape(self) -> dict:
+        """Axis sizes by name, as the JAX package's ``Mesh.shape``."""
+        sizes = {"dp": self.dp, "ep": self.ep, "tp": self.tp}
+        return {a: sizes[a] for a in self.axis_names}
+
+
+def _groups(members, rank: int, world: int):
+    """One process group for each rank tuple of ``members`` (every rank
+    creates every group, in the same order); returns this rank's group
+    and its ranks."""
+    mine = None
+    for ranks in members:
+        g = (dist.group.WORLD if len(ranks) == world
+             else dist.new_group(sorted(ranks)))
+        if rank in ranks:
+            mine = (g, tuple(ranks))
+    return mine
 
 
 def make_mesh(dp: Optional[int] = None, tp: Optional[int] = None,
-              ep: int = 1) -> Mesh:
-    """The ("dp", "tp") mesh over the initialised default process group
-    (``torch.distributed.init_process_group``; every rank calls this, in
-    the same order). Missing sizes fill the world: tp = world // dp, or
-    dp = world // tp, or tp = world."""
-    if ep > 1:
-        raise NotImplementedError(f"ep={ep}: {SLICE19}")
+              ep: int = 1, order=None) -> Mesh:
+    """The ("dp", ["ep",] "tp") mesh over the initialised default process
+    group (``torch.distributed.init_process_group``; every rank calls
+    this, in the same order). Missing sizes fill the world: tp = world //
+    (dp * ep), or dp = world // (ep * tp). ``order`` lists the global
+    ranks in mesh order, row-major (default: 0, 1, ...; the hybrid mesh
+    of ``parallel/multihost.py`` puts hosts on the outer axis with it), so
+    global rank ``order[g]`` sits at (g // (ep tp), (g // tp) % ep, g % tp),
+    as the JAX package's ``reshape(dp, ep, tp)`` lays devices out; a tp
+    group's ranks are then taken in ascending order."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(torch.distributed.init_process_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if ep < 1:
+        raise ValueError(f"ep={ep} (want >= 1)")
     if tp is None:
-        tp = world // (dp or 1)
+        tp = world // ((dp or 1) * ep)
     if dp is None:
-        dp = world // tp
-    if dp * tp != world:
-        raise ValueError(f"dp {dp} x tp {tp} != world size {world}")
-    axis = axis_mesh("tp", tp)
-    return Mesh(dp, tp, rank, axis.group, axis.ranks)
+        dp = world // (tp * ep)
+    if dp * ep * tp != world:
+        raise ValueError(f"dp {dp} x ep {ep} x tp {tp} != world size "
+                         f"{world}")
+    order = np.arange(world) if order is None else np.asarray(order)
+    if sorted(order.tolist()) != list(range(world)):
+        raise ValueError(f"order {order.tolist()} is not a permutation of "
+                         f"the {world} ranks")
+    grid = np.sort(order.reshape(dp, ep, tp), axis=-1)
+    coords = tuple(int(c) for c in np.argwhere(grid == rank)[0])
+    tp_group, tp_ranks = _groups(
+        [tuple(int(r) for r in grid[d, e]) for d in range(dp)
+         for e in range(ep)], rank, world)
+    if ep == 1:
+        return Mesh(dp, tp, rank, tp_group, tp_ranks, 1, coords,
+                    None, (rank,), tp_group, tp_ranks)
+    ep_group, ep_ranks = _groups(
+        [tuple(int(r) for r in grid[d, :, t]) for d in range(dp)
+         for t in range(tp)], rank, world)
+    rep_group, rep_ranks = _groups(
+        [tuple(int(r) for r in grid[d].ravel()) for d in range(dp)],
+        rank, world)
+    return Mesh(dp, tp, rank, tp_group, tp_ranks, ep, coords, ep_group,
+                ep_ranks, rep_group, rep_ranks)
 
 
 @dataclasses.dataclass(frozen=True)
 class AxisMesh:
     """One named axis over a group of ranks — the port's form of the JAX
-    package's one-axis meshes ``("sp",)`` and ``("pp",)``, and the "tp"
-    axis of a ``Mesh`` (``make_mesh`` builds its group here). ``group``
+    package's one-axis meshes ``("sp",)`` and ``("pp",)``. ``group``
     holds the global ranks ``ranks``; this rank sits at ``index`` on the
     axis of ``size``."""
     axis: str
@@ -141,13 +206,9 @@ def axis_mesh(axis: str, n: int) -> AxisMesh:
     world, rank = dist.get_world_size(), dist.get_rank()
     if n < 1 or world % n:
         raise ValueError(f"{axis}={n} must divide the world size {world}")
-    mine = None
-    for lo in range(0, world, n):  # every rank creates every group, in order
-        ranks = tuple(range(lo, lo + n))
-        g = dist.new_group(list(ranks)) if n < world else dist.group.WORLD
-        if rank in ranks:
-            mine = (g, ranks)
-    return AxisMesh(axis, n, rank - mine[1][0], mine[0], mine[1])
+    group, ranks = _groups([tuple(range(lo, lo + n))
+                            for lo in range(0, world, n)], rank, world)
+    return AxisMesh(axis, n, rank - ranks[0], group, ranks)
 
 
 def _divides(n: int, k: int) -> bool:
@@ -318,7 +379,7 @@ def _col_view(cfg: ModelConfig, name: str, attn: bool, mlp: bool):
     leaf = name.rsplit(".", 1)[-1]
     if leaf == "lm_head":
         return "full"
-    if ".mlp." in f".{name}" or name.startswith("mlp."):
+    if _in_mlp(name):
         return "chunk" if mlp else "full"
     if not attn:
         return "full"
@@ -332,10 +393,14 @@ def _col_view(cfg: ModelConfig, name: str, attn: bool, mlp: bool):
     return "chunk"
 
 
+def _in_mlp(name: str) -> bool:
+    """An MLP's linear, or a Mixtral expert's (its hidden width splits
+    as the MLP's does)."""
+    return ".mlp." in f".{name}" or ".experts." in f".{name}"
+
+
 def _row_in_local(name: str, attn: bool, mlp: bool) -> bool:
-    if ".mlp." in f".{name}" or name.startswith("mlp."):
-        return mlp
-    return attn
+    return mlp if _in_mlp(name) else attn
 
 
 def _shard_linear(cfg: ModelConfig, lin: nn.Module, name: str, mesh: Mesh,
@@ -345,7 +410,7 @@ def _shard_linear(cfg: ModelConfig, lin: nn.Module, name: str, mesh: Mesh,
     from ..nn.qmoe import StackedQuantLinear
     from .layers import ColParallel, RowParallel
     if isinstance(lin, StackedQuantLinear):
-        raise NotImplementedError(f"stacked experts: {SLICE19}")
+        return lin          # experts not cut over "ep": whole on every rank
     if isinstance(lin, LoraLinear):
         raise NotImplementedError("LoRA adapters under a mesh (train and "
                                   "merge them unsharded)")
@@ -421,25 +486,71 @@ def _linear_like(mod: nn.Module) -> bool:
                             LoraLinear, StackedQuantLinear))
 
 
+def _cut_stacked(sq, lo: int, hi: int):
+    """Experts [lo, hi) of a ``StackedQuantLinear``, in memory of their
+    own (so the whole model can be freed)."""
+    from ..nn.qmoe import StackedQuantLinear
+    out = StackedQuantLinear(
+        {k: _own(v, lo, hi) for k, v in sq.planes.items()},
+        SU=_own(sq.SU, lo, hi), had_left=_own(sq.had_left, lo, hi),
+        pre_vec=_own(sq.pre_vec, lo, hi),
+        had_right=_own(sq.had_right, lo, hi),
+        SV_all=_own(sq.SV_all, lo, hi), bias_all=_own(sq.bias_all, lo, hi),
+        E=hi - lo, nseg=sq.nseg, in_features=sq.in_features, q_in=sq.q_in,
+        seg_out=sq.seg_out, K_left=sq.K_left, K_right=sq.K_right,
+        codebook_id=sq.codebook_id, opt_resid_scale=sq.opt_resid_scale)
+    out.ksplit = sq.ksplit
+    out.dense_stacked = sq.dense_stacked
+    return out
+
+
+def _shard_moe(moe: nn.ModuleDict, mesh: Mesh) -> nn.Module:
+    """A Mixtral MoE block with stacked experts on this rank: where ep
+    divides the E experts, an ``ExpertParallelMoE`` keeping experts
+    [i E/ep, (i+1) E/ep) of ep index i and the replicated router; else
+    the block as it is, every expert on every rank (the JAX package's
+    ``stacked_spec`` leaves E unsharded then)."""
+    from .layers import ExpertParallelMoE
+    st = moe["experts_stacked"]
+    E = st["w13"].E
+    if mesh.ep == 1 or not _divides(E, mesh.ep):
+        return moe
+    n = E // mesh.ep
+    lo = mesh.ep_rank * n
+    return ExpertParallelMoE(moe["gate"], _cut_stacked(st["w13"], lo, lo + n),
+                             _cut_stacked(st["w2"], lo, lo + n), offset=lo,
+                             mesh=mesh)
+
+
 def shard_params(cfg: ModelConfig, model: nn.Module, mesh: Mesh
                  ) -> nn.Module:
     """This rank's model of a whole ``model`` (any family's, fused or
     not): every linear replaced by its column- or row-parallel layer
     (``parallel/layers.py``) holding the rank's planes, scales and
     vectors; norms, embeddings and replicated linears shared with
-    ``model``. The result carries ``tp_mesh`` and ``tp_cfg``; drop the
+    ``model``. Mixtral's stacked experts are cut over "ep"
+    (``_shard_moe``; inside an expert the tp ranks keep it whole: the
+    function GSPMD computes from the JAX package's cut, which it gathers
+    whole for the stack's Hadamard transforms, since stacked experts have
+    no block-diagonal ones); experts that do not stack shard one by one
+    by the role tables (w1/w3 column-, w2 row-parallel); the router is
+    replicated. The result carries ``tp_mesh`` and ``tp_cfg``; drop the
     whole model afterwards to free what the rank does not keep."""
     from ..models.llama import LlamaModel
     from ..models.tree import FamilyModel
-    if cfg.arch == "mixtral":
-        raise NotImplementedError(SLICE19)
     if getattr(model, "tp_mesh", None) is not None:
         raise ValueError("the model is sharded already")
     attn, mlp = splits(cfg, mesh.tp)
 
     def walk(mod, name):
+        if isinstance(mod, nn.ModuleDict) and "experts_stacked" in mod:
+            cut = _shard_moe(mod, mesh)
+            if cut is not mod:
+                return cut
         if _linear_like(mod):
-            return _shard_linear(cfg, mod, name, mesh, attn, mlp)
+            # a tp axis of 1 (an expert axis alone) cuts no linear
+            return (mod if mesh.tp == 1
+                    else _shard_linear(cfg, mod, name, mesh, attn, mlp))
         if isinstance(mod, nn.ModuleDict) and not isinstance(mod,
                                                              FamilyModel):
             return nn.ModuleDict({k: walk(v, f"{name}.{k}" if name else k)

@@ -21,10 +21,10 @@ nothing themselves (the JAX package's jax.random draws cannot be
 reproduced here). Greedy decoding draws nothing.
 
 A tensor-parallel rank's model (``parallel/sharding.py`` ``shard_params``)
-runs the same loop on every rank of its group: its KV caches hold the
+runs the same loop on every rank of its replica: its KV caches hold the
 rank's kv heads, its steps run eagerly (``runtime/graphs.py``
-``graphs_for``) and each sampled token is broadcast from the group's
-rank 0, so the ranks never diverge.
+``graphs_for``) and each sampled token is broadcast from the replica's
+first rank, so the ranks never diverge.
 """
 from __future__ import annotations
 
@@ -64,13 +64,14 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def sync_tokens(params, tok: torch.Tensor) -> torch.Tensor:
-    """A sharded model's sampled tokens, broadcast from its tensor-
-    parallel group's rank 0 in place (``parallel/comm.py``); any other
+    """A sharded model's sampled tokens, broadcast in place from the first
+    rank of its replica (every rank of one model copy: its tp group, or
+    with an expert axis ep x tp ranks; ``parallel/comm.py``); any other
     model's as they are."""
     mesh = getattr(params, "tp_mesh", None)
     if mesh is not None:
         from ..parallel import comm
-        comm.broadcast(tok, mesh.tp_root, mesh.tp_group)
+        comm.broadcast(tok, mesh.replica_root, mesh.replica_group)
     return tok
 
 

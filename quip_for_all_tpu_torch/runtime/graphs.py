@@ -23,7 +23,7 @@ counting wrapper in ``ops/``; on a card, ``chip_smoke.py`` and
 ``tests/test_torch_serving_cuda.py`` hold the counts to the kernels a
 profiler trace sees.
 
-A tensor-parallel rank's model (``parallel/sharding.py``) runs its steps
+A sharded rank's model (``parallel/sharding.py``) runs its steps
 eagerly: its collectives run over gloo, which a CUDA graph cannot capture
 (``graphs_for``). A capture or a replay that fails raises; nothing falls
 back to the eager loop on a card. A graph replays the kernels its capture

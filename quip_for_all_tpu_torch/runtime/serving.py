@@ -32,13 +32,14 @@ first token of a request is drawn on the host from its prefill logits (as
 the JAX engine draws it), the decode steps' Gumbel noise on the device,
 one eager draw per chunk before its replays.
 
-Tensor-sharded serving (``mesh=``, ``parallel/sharding.py``): every rank of
-the tensor-parallel group builds the engine on the same requests; the
-model is sharded (``shard_params``) unless it is already this rank's, the
-KV caches hold the rank's kv heads, every sampled token (the first on the
-host, each decode step's on the device) is broadcast from the group's
-rank 0, so the ranks never diverge, and the step bodies run eagerly,
-since gloo's collectives cannot sit inside a CUDA graph.
+Sharded serving (``mesh=``, ``parallel/sharding.py``; tensor parallel,
+and for Mixtral expert parallel too): every rank of the replica builds
+the engine on the same requests; the model is sharded (``shard_params``)
+unless it is already this rank's, the KV caches hold the rank's kv heads,
+every sampled token (the first on the host, each decode step's on the
+device) is broadcast from the replica's first rank, so the ranks never
+diverge, and the step bodies run eagerly, since gloo's collectives cannot
+sit inside a CUDA graph.
 """
 from __future__ import annotations
 

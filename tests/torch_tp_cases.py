@@ -3,8 +3,9 @@ spawned once per test file, that runs every case of the file, and the
 cases' rank-side functions.
 
 ``Ranks(world)`` starts ``world`` processes (``torch.multiprocessing``,
-spawn) that join one gloo process group through a file and wait for
-tasks; ``Ranks.run(name, *args)`` runs this module's function ``name``
+spawn) that join one gloo process group through a file (or, with
+``join="env"``, through ``parallel/multihost.py`` ``initialize`` from
+torchrun's environment variables) and wait for tasks; ``Ranks.run(name, *args)`` runs this module's function ``name``
 (or, named "module:function", that module's, e.g. ``torch_sp_cases``)
 on every rank as ``name(meshes, *args)`` and returns the ranks' results
 in rank order, raising with the rank's traceback if any rank failed. A
@@ -22,21 +23,30 @@ import torch
 import torch.multiprocessing as mp
 
 
-def get_mesh(meshes: dict, dp: int, tp: int):
-    """The (dp, tp) mesh, made once per group (every rank makes it in the
-    same order, as ``make_mesh`` needs)."""
+def get_mesh(meshes: dict, dp: int, tp: int, ep: int = 1):
+    """The (dp, tp) mesh, or (dp, ep, tp) with ep > 1, made once per group
+    (every rank makes it in the same order, as ``make_mesh`` needs)."""
     from quip_for_all_tpu_torch.parallel.sharding import make_mesh
-    if (dp, tp) not in meshes:
-        meshes[(dp, tp)] = make_mesh(dp=dp, tp=tp)
-    return meshes[(dp, tp)]
+    key = (dp, tp) if ep == 1 else (dp, ep, tp)
+    if key not in meshes:
+        meshes[key] = make_mesh(dp=dp, tp=tp, ep=ep)
+    return meshes[key]
 
 
-def _rank_loop(rank, world, init_file, tasks, results):
+def _rank_loop(rank, world, init, tasks, results):
+    """``init``: the group's file, or ("env", port) to join through
+    ``multihost.initialize`` (its return kept as meshes["initialize"])."""
     torch.set_num_threads(1)
     import torch.distributed as dist
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
     meshes: dict = {}
+    if isinstance(init, tuple):
+        from quip_for_all_tpu_torch.parallel.multihost import initialize
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(init[1]),
+                          WORLD_SIZE=str(world), RANK=str(rank))
+        meshes["initialize"] = initialize()
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{init}",
+                                rank=rank, world_size=world)
     while True:
         task = tasks.get()
         if task is None:
@@ -62,11 +72,14 @@ def _task(name: str):
 class Ranks:
     """``world`` gloo ranks waiting for tasks (module docstring)."""
 
-    def __init__(self, world: int):
+    def __init__(self, world: int, join: str = "file"):
         ctx = mp.get_context("spawn")
         self.world = world
         self.dir = tempfile.mkdtemp(prefix="tp_ranks_")
         init = os.path.join(self.dir, "pg")
+        if join == "env":
+            from quip_for_all_tpu_torch.parallel.multihost import free_port
+            init = ("env", free_port())
         self.tasks = [ctx.Queue() for _ in range(world)]
         self.results = ctx.Queue()
         self.procs = [ctx.Process(target=_rank_loop,
@@ -112,7 +125,7 @@ def _load(path):
 # ------------------------------------------------------------ rank cases
 
 def forward(meshes, cfg, path, ids, dp=1, tp=2, dtype=torch.float32,
-            cached_steps=0, linear_kw=None):
+            cached_steps=0, linear_kw=None, ep=1):
     """The sharded model's f32 logits of ``ids`` (B, S): a causal forward,
     or with ``cached_steps`` > 0 a prefill of ids[:, :-cached_steps] into
     a cache and that many one-token steps, their logits concatenated.
@@ -121,7 +134,7 @@ def forward(meshes, cfg, path, ids, dp=1, tp=2, dtype=torch.float32,
     from quip_for_all_tpu_torch.parallel import comm
     from quip_for_all_tpu_torch.parallel.sharding import shard_params
     from quip_for_all_tpu_torch.runtime.generate import init_kv_caches
-    mesh = get_mesh(meshes, dp, tp)
+    mesh = get_mesh(meshes, dp, tp, ep)
     model = shard_params(cfg, _load(path), mesh)
     apply = get_arch(cfg).model_apply
     ids = torch.as_tensor(ids)
@@ -153,13 +166,13 @@ def forward(meshes, cfg, path, ids, dp=1, tp=2, dtype=torch.float32,
     return logits.to(torch.float32).numpy(), comm.counts(), planes
 
 
-def serve(meshes, cfg, path, requests, kw, dp=1, tp=2):
+def serve(meshes, cfg, path, requests, kw, dp=1, tp=2, ep=1):
     """``ServingEngine(mesh=)`` on the whole model of ``path``: each
     request (prompt, max_new_tokens) in order; returns ({rid: ids},
     collectives run, the engine's kv heads a cache)."""
     from quip_for_all_tpu_torch.parallel import comm
     from quip_for_all_tpu_torch.runtime.serving import ServingEngine
-    mesh = get_mesh(meshes, dp, tp)
+    mesh = get_mesh(meshes, dp, tp, ep)
     comm.reset_counts()
     eng = ServingEngine(cfg, _load(path), mesh=mesh, device="cpu", **kw)
     for prompt, n in requests:
@@ -168,12 +181,12 @@ def serve(meshes, cfg, path, requests, kw, dp=1, tp=2):
     return out, comm.counts(), eng.caches[0][0].shape[2]
 
 
-def generate(meshes, cfg, path, ids, n, kw, dp=1, tp=2):
+def generate(meshes, cfg, path, ids, n, kw, dp=1, tp=2, ep=1):
     """``generate`` on the rank's model of ``path`` (sharded here);
     returns (ids, f32 logits of every step)."""
     from quip_for_all_tpu_torch.parallel.sharding import shard_params
     from quip_for_all_tpu_torch.runtime.generate import generate as gen
-    model = shard_params(cfg, _load(path), get_mesh(meshes, dp, tp))
+    model = shard_params(cfg, _load(path), get_mesh(meshes, dp, tp, ep))
     out, logits = gen(cfg, model, torch.as_tensor(ids), n, device="cpu",
                       return_logits=True, **kw)
     return out.numpy(), torch.stack(logits).numpy()
