@@ -5,6 +5,7 @@ card: the quickest proof that the port still starts on the GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 21 [--profile-ft]   # one phase alone
     python3 chip_smoke.py --phase 22
+    python3 chip_smoke.py --phase 23
 
 Phases (each prints its lines; any failure exits non-zero with no result
 line):
@@ -140,9 +141,10 @@ line):
      tokens, held to its plain twin; (v) within 4, the golden d4, hi and
      e8p12rvq3b fixtures, also with the epilogue on.
  18. the other model families through ``models/registry.py``: (i)
-     GPT-NeoX-20B (the published EleutherAI/gpt-neox-20b widths, all 44
-     layers; E8P12 nibble, random codes from seed 0, quantized head: 177
-     K1 a forward, no dense-route linear): K1 launches and dense-route
+     GPT-NeoX-20B (the published EleutherAI/gpt-neox-20b widths, 22 of
+     its 44 layers since phase 23 came, NEOX_LAYERS; E8P12 nibble, random
+     codes from seed 0, quantized head: 89 K1 a forward, no dense-route
+     linear): K1 launches and dense-route
      linears per forward against the widths rule, a 32-token prompt and
      32 greedy tokens through graphed ``generate`` bitwise equal to the
      eager step loop, the kernel-vs-plain check in bf16 and f32, one
@@ -245,9 +247,30 @@ line):
      exact K1/K2/K4 launches (every MoE block on the
      dense-stacked route) and the collectives a token. Four ranks on one
      card measure correctness, launches and collectives, not speed.
+ 23. training under a ("dp", "tp") mesh on the one card: Llama-2-7B
+     E8P12 nibble at full width, 8 layers (PHASE23_LAYERS; random codes
+     from seed 0, q/k/v/o/gate/up/down unfused, quantized head, phase
+     21's tp_shards = 2 transforms), first whole in this process (the
+     one-rank references in f32): (a) one end-to-end finetune step
+     (``finetune.make_train_step``: the training forward, calc_weight's
+     dense W, no kernel; SU/SV, dense weights and norms, two-LR Adam) on
+     4 x 512 ids, (b) one LoRA step (rank 8, the default targets, B off
+     zero, AdamW at 1e-4) on 2 x 512 ids, 1022 rows: K2 forward, K3
+     backward; then four gloo ranks spawned on ``cuda:0`` at
+     ``make_mesh(dp=2, tp=2)`` with ``shard_params``: (a) with each dp
+     rank its half (``make_train_step(mesh=)``), (b) with the adapters
+     added after ``shard_params`` (the bases cut, A and B whole), each
+     rank's loss equal to the others' and to the one-rank step's, every
+     gradient gathered into the JAX package's names within 1e-4 of its
+     max|grad|, the leaves after the step too where |grad| exceeds that;
+     K2 and K3 against their twins at each rank-local shape of (b)
+     (timed on rank 0, the others waiting); exact launches a step (none
+     in (a); 57 K2 + 54 K3 in (b)), the collectives a step by kind with
+     their host seconds, the peak memory a rank. Four ranks on one card
+     measure correctness, launches and collectives, not parallel speed.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
 a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19, 21,
-22;
+22, 23;
 each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
@@ -448,9 +471,11 @@ INT8_TOL = 0.1
 # (b): requests to the serving engine, drawn from seed 0: how many, prompt
 # lengths and max_new_tokens (uniform in each range)
 SERVE_N, SERVE_PROMPT, SERVE_NEW = 16, (16, 512), (32, 128)
-# phase 18 (i): GPT-NeoX-20B at full width and all 44 layers: the fields of
-# the published EleutherAI/gpt-neox-20b config.json that
+# phase 18 (i): GPT-NeoX-20B at full width, NEOX_LAYERS of its 44 layers
+# (44 until phase 23 came; depth the only cut): the fields of the
+# published EleutherAI/gpt-neox-20b config.json that
 # ModelConfig.from_hf_config reads, written here (nothing is downloaded)
+NEOX_LAYERS = 22
 NEOX_20B_HF = {"model_type": "gpt_neox", "vocab_size": 50432,
                "hidden_size": 6144, "intermediate_size": 24576,
                "num_hidden_layers": 44, "num_attention_heads": 64,
@@ -464,7 +489,7 @@ NEOX_SHAPES = [("neox_qkv", 18432, 6144, False, (1, 32)),
                ("neox_h_to_4h", 24576, 6144, False, (1, 32)),
                ("neox_4h_to_h", 6144, 24576, False, (1, 32)),
                ("neox_head", 50432, 6144, False, (1, 32))]
-NEOX_CALLS = {name: 44 for name, *_ in NEOX_SHAPES[:4]}
+NEOX_CALLS = {name: NEOX_LAYERS for name, *_ in NEOX_SHAPES[:4]}
 NEOX_CALLS["neox_head"] = 1
 # (ii): the published config.json fields of the other seven families, by
 # model id; only the depth is cut, to FAMILY_LAYERS
@@ -1709,14 +1734,15 @@ def graphed_vs_eager(tag, cfg, model, prompt, new, cache_len, k1):
 
 
 def phase_neox20b():
-    """(i) GPT-NeoX-20B E8P12 nibble at full width and all 44 layers
-    (random codes, seed 0, quantized head; phase 18)."""
+    """(i) GPT-NeoX-20B E8P12 nibble at full width and NEOX_LAYERS of its
+    44 layers (random codes, seed 0, quantized head; phase 18)."""
     import gc
     import numpy as np
     import torch
     import quip_for_all_tpu_torch as qt
     from quip_for_all_tpu_torch.models.config import ModelConfig
-    cfg = ModelConfig.from_hf_config(NEOX_20B_HF)
+    cfg = dataclasses.replace(ModelConfig.from_hf_config(NEOX_20B_HF),
+                              num_hidden_layers=NEOX_LAYERS)
     L = cfg.num_hidden_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -5749,6 +5775,501 @@ def ep_path_launches(entries, ep):
             "max_abs_err")} for row in ep["k4_times"]}
 
 
+# ------------------------------------------------------------ phase 23
+
+# training under a ("dp", "tp") mesh: Llama-2-7B E8P12 nibble at full
+# width and PHASE23_LAYERS layers (depth the only cut, for the script's
+# time), random codes from seed 0, q/k/v/o/gate/up/down unfused, the head
+# quantized, with phase 21's tp_shards = 2 transforms; TRAIN_WORLD gloo
+# ranks on cuda:0 at make_mesh(dp=TRAIN_DP, tp=TRAIN_TP). (a) one
+# end-to-end finetune step on TRAIN_FT_B x TRAIN_S ids, each dp rank its
+# half (the training forward: calc_weight's dense W, no kernel); (b) one
+# LoRA step on TRAIN_LORA_B x TRAIN_S ids, the whole batch on every rank
+# (rank 8, the default targets, AdamW at TRAIN_LORA_LR; 1022 rows: K2
+# forward, K3 backward at the rank-local shapes), adapters added after
+# shard_params. Both in f32, held to the one-rank step within TRAIN_TOL.
+PHASE23_LAYERS = 8
+TRAIN_WORLD, TRAIN_DP, TRAIN_TP = 4, 2, 2
+TRAIN_S, TRAIN_FT_B, TRAIN_LORA_B = 512, 4, 2
+TRAIN_LRS = (5e-4, 5e-5)            # SU/SV, the rest
+TRAIN_LORA_LR = 1e-4
+TRAIN_TOL = 1e-4
+# a LoRA step's launches: K2 on every quantized linear (7 a block, the
+# head); K3 less layer 0's q, k and v (their input needs no gradient)
+TRAIN_K2 = 7 * PHASE23_LAYERS + 1
+TRAIN_K3 = TRAIN_K2 - 3
+# a rank's linears at tp 2: (name, module path in a block, or None for
+# the head; q_out, q_in of its planes)
+TRAIN_SHAPES = [("q", ("self_attn", "q_proj"), 2048, 4096),
+                ("k", ("self_attn", "k_proj"), 2048, 4096),
+                ("v", ("self_attn", "v_proj"), 2048, 4096),
+                ("o", ("self_attn", "o_proj"), 4096, 2048),
+                ("gate", ("mlp", "gate_proj"), 5504, 4096),
+                ("up", ("mlp", "up_proj"), 5504, 4096),
+                ("down", ("mlp", "down_proj"), 4096, 5504),
+                ("head", None, 16000, 4096)]
+
+
+def train_cfg():
+    import dataclasses as dc
+    from quip_for_all_tpu_torch.models.config import llama2_7b_config
+    return dc.replace(llama2_7b_config(), num_hidden_layers=PHASE23_LAYERS)
+
+
+def train_model(cfg):
+    """Phase 23's model (above), its trainable leaves in f32."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    return tp_block_diagonal(qt.random_quantized_model(
+        cfg, seed=0, dtype=torch.float32, quantize_head=True,
+        device="cuda"), TRAIN_TP)
+
+
+def train_inputs(cfg):
+    """(a)'s ids and next-token targets, (b)'s tokens (seed 23)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(23)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (TRAIN_FT_B, TRAIN_S)), device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (TRAIN_LORA_B, TRAIN_S)),
+                           device="cuda")
+    return ids, torch.roll(ids, -1, dims=1), toks
+
+
+def train_run(res, name, fn):
+    """``fn()`` with every launch and collective count set to 0 before
+    and read after; its host s, the collectives' host s by call, the
+    peak memory into ``res[name]``."""
+    import torch
+    from quip_for_all_tpu_torch.parallel import comm
+    reset_launches()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with collective_seconds() as coll_s:
+        out = fn()
+        torch.cuda.synchronize()
+    res[name] = {"s": time.perf_counter() - t,
+                 "launches": {k: v for k, v in read_launches().items() if v},
+                 "collectives": {k: v for k, v in comm.counts().items()
+                                 if v},
+                 "collective_s": coll_s,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out
+
+
+def train_steps(cfg, model, mesh=None):
+    """(a) and (b) on the whole model or a rank's (with its ``mesh``):
+    the losses, gradients (gathered into the JAX package's names) and
+    leaves after each step, with ``train_run``'s numbers. (a)'s leaves go
+    back to their values before (b)."""
+    import torch
+    from quip_for_all_tpu_torch.nn.lora import add_lora
+    from quip_for_all_tpu_torch.quantize import finetune as FT
+    from quip_for_all_tpu_torch.quantize.lora_train import causal_lm_loss
+    ids, tgt, toks = train_inputs(cfg)
+    res = {}
+    flat = FT.collect_trainable(model)
+    before = FT.freeze(flat)
+    FT.apply_trainable(model, flat)
+    opt = FT.make_susv_optimizer(*TRAIN_LRS, flat)
+    step = FT.make_train_step(
+        opt, lambda i: FT.student_logits(cfg, model, i), mesh=mesh)
+    res["ft_loss"] = train_run(res, "ft", lambda: float(step(ids, tgt)))
+    res["ft_leaves"] = len(flat)
+    res["ft_grads"] = FT.gather_trainable(model, flat, grads=True)
+    res["ft_new"] = FT.gather_trainable(model, flat)
+    FT.apply_trainable(model, before)
+    del flat, opt, step
+    torch.cuda.empty_cache()
+    add_lora(model, rank=8, alpha=16.0, seed=0)
+    lflat = offset_lora_b(model, seed=23)
+    # train_lora's optimizer (optax.adamw's defaults, no decay)
+    lopt = torch.optim.AdamW(list(lflat.values()), lr=TRAIN_LORA_LR,
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+    def lstep():
+        lopt.zero_grad(set_to_none=True)
+        loss = causal_lm_loss(cfg, model, toks, f32_kw())
+        loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in lflat.items()}
+        lopt.step()
+        return loss.item(), grads
+    res["lora_loss"], res["lora_grads"] = train_run(res, "lora", lstep)
+    res["lora_new"] = {k: p.detach().clone() for k, p in lflat.items()}
+    return res
+
+
+def train_hold(tag, got, ref, kind):
+    """``kind``'s gradients (each within TRAIN_TOL of its max|grad| plus
+    one ulp of the one-rank step's) and leaves after the step (within
+    TRAIN_TOL of their max plus one ulp where |grad| exceeds the gradient
+    tolerance: Adam's first step is +-lr sign(g), so a near-zero
+    gradient's may flip); raises beyond. Returns the worst of each, as a
+    fraction of the leaf's max, with its leaf."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    want_g, want_n = ref[f"{kind}_grads"], ref[f"{kind}_new"]
+    if sorted(got[f"{kind}_grads"]) != sorted(want_g):
+        raise AssertionError(f"{tag} {kind}: leaves {len(got[f'{kind}_grads'])}"
+                             f", the one-rank step's {len(want_g)}")
+    worst = {"grad": (0.0, None), "new": (0.0, None)}
+    for k, wg in want_g.items():
+        wg = wg.cuda().float()
+        g = got[f"{kind}_grads"][k].float()
+        wn = want_n[k].cuda().float()
+        n = got[f"{kind}_new"][k].float()
+        if g.shape != wg.shape or n.shape != wn.shape:
+            raise AssertionError(f"{tag} {kind} {k}: shape {tuple(g.shape)}"
+                                 f", the one-rank step's {tuple(wg.shape)}")
+        scale = float(wg.abs().max())
+        over = ((g - wg).abs() - eps * wg.abs()).clamp_min(0)
+        e = float(over.max()) / scale if scale else float(over.max())
+        big = wg.abs() > TRAIN_TOL * scale + eps * wg.abs()
+        nscale = float(wn.abs().max())
+        nover = ((n - wn).abs() - eps * wn.abs()).clamp_min(0)[big]
+        en = (float(nover.max()) / nscale if nover.numel() else 0.0)
+        if not (e <= TRAIN_TOL and en <= TRAIN_TOL):
+            raise AssertionError(
+                f"{tag} {kind} {k}: gradient off the one-rank step's by "
+                f"{e:.3g} of its max ({scale:.3g}), the leaf after the step "
+                f"by {en:.3g} of its max (tol {TRAIN_TOL})")
+        worst["grad"] = max(worst["grad"], (e, k), key=lambda w: w[0])
+        worst["new"] = max(worst["new"], (en, k), key=lambda w: w[0])
+    return worst
+
+
+def train_linear(model, path):
+    """A rank's quantized linear of block 0 (``path``) or the head: its
+    cut ``QuantLinear`` (under its adapter, once (b) has added one)."""
+    lin = model.lm_head if path is None else model.layers[0][path[0]][
+        path[1]]
+    return getattr(lin, "lora_base", lin).local
+
+
+def train_kernels(model, timed=False):
+    """K2 (f32 x) and K3 (f32 g) at each rank-local shape of (b),
+    m = TRAIN_LORA_B x (TRAIN_S - 1) rows: one call each against its
+    plain twin (1e-5 of max plus one bf16 ulp), and with ``timed`` (one
+    rank, the others waiting) timed as phase 21 times them: CUDA-graph
+    replays, L2-cold; the twin by events; beside the library product
+    (x @ W.T, g @ W with W decoded in f32) and the bound (planes, input
+    and output once; 2 m q_out q_in operations three times at the bf16
+    tensor-core rate: f32 x or g as three bf16 terms). Returns one row a
+    (kernel, linear)."""
+    import torch
+    from quip_for_all_tpu_torch.ops import fused_matmul as fm
+    from quip_for_all_tpu_torch.ops.dequant import decode_weights
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    m = TRAIN_LORA_B * (TRAIN_S - 1)
+    rows = []
+    for name, path, q_out, q_in in TRAIN_SHAPES:
+        qt = train_linear(model, path).qweight
+        if (qt.q_out, qt.q_in) != (q_out, q_in):
+            raise AssertionError(f"train {name}: rank-local planes "
+                                 f"{qt.q_out}x{qt.q_in}, want {q_out}x{q_in}")
+        planes, affine, Gp = qt.plane_list(), qt.decode_affine, qt.group_cols
+        G = q_in // 8
+        cp = tm.cold_copies(planes) if timed else [planes]
+        W = decode_weights(qt, dtype=torch.float32) if timed else None
+        Wc = tm.cold_copies([W]) if timed else None
+        nb = sum(w.numel() * 4 for w in planes)
+        for kernel in ("K2", "K3"):
+            if kernel == "K2":
+                x = torch.zeros((m, 8, Gp), device="cuda")
+                x[:, :, :G] = torch.randn((m, 8, G), generator=gen,
+                                          device="cuda")
+                x = x.reshape(m, 8 * Gp)
+                x_nat = x.reshape(m, 8, Gp)[:, :, :G].transpose(
+                    1, 2).reshape(m, q_in).contiguous()
+                got = fm.fused_decode_matmul_tc(x, planes, affine)
+                want = fm.fused_decode_matmul_ref(x, planes, affine)
+
+                def run(i):
+                    return fm.fused_decode_matmul_tc(x, cp[i % len(cp)],
+                                                     affine)
+
+                def plain(i):
+                    return fm.fused_decode_matmul_ref(x, cp[i % len(cp)],
+                                                      affine)
+
+                def lib(i):
+                    return torch.matmul(x_nat, Wc[i % len(Wc)][0].T)
+            else:
+                x = torch.randn((m, q_out), generator=gen, device="cuda")
+                got = fm.fused_decode_matmul_bwd(x, planes, affine, None, G,
+                                                 Gp)
+                want = fm.fused_decode_matmul_bwd_ref(x, planes, affine,
+                                                      None, G, Gp)
+
+                def run(i):
+                    return fm.fused_decode_matmul_bwd(
+                        x, cp[i % len(cp)], affine, None, G, Gp)
+
+                def plain(i):
+                    return fm.fused_decode_matmul_bwd_ref(
+                        x, cp[i % len(cp)], affine, None, G, Gp)
+
+                def lib(i):
+                    return torch.matmul(x, Wc[i % len(Wc)][0])
+            torch.cuda.synchronize()
+            ok, err = tm.compare(got, want, bf16_step=True)[:2]
+            if not ok:
+                raise AssertionError(f"train {kernel} {name} m={m} f32: "
+                                     f"kernel vs plain twin beyond tolerance "
+                                     f"(max |diff| {err})")
+            row = {"kernel": kernel, "layer": name, "q_out": q_out,
+                   "q_in": q_in, "Gp": Gp, "m": m, "max_abs_err": err}
+            if timed:
+                nbytes = nb + m * 8 * Gp * 4 + m * q_out * 4
+                b_bytes = nbytes / tm.HBM_BYTES_PER_S * 1e3
+                b_ops = 2 * m * q_out * q_in / tm.F32_SPLIT_OPS_PER_S * 1e3
+                row.update(ms=1e-3 * tm.graph_us(run, 4 * len(cp)),
+                           plain_ms=1e-3 * tm.event_us(plain, 2),
+                           library_ms=1e-3 * tm.graph_us(lib, 4 * len(Wc)),
+                           bound_ms=max(b_bytes, b_ops),
+                           bound_by="bytes" if b_bytes >= b_ops
+                           else "operations")
+                log(f"kernel train {kernel} {name:4s} {q_out}x{Gp} m={m} "
+                    f"f32 (a rank's): max|k-plain| {err:.3g} | kernel "
+                    f"{row['ms'] * 1e3:.1f} us | plain "
+                    f"{row['plain_ms'] * 1e3:.1f} us | bound "
+                    f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
+                    f"library {row['library_ms'] * 1e3:.1f} us")
+            rows.append(row)
+            del x, got, want
+        del cp, W, Wc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_sums(rows):
+    """K2's ms a LoRA forward and K3's a step, summed over the calls of a
+    rank (every block linear PHASE23_LAYERS times, the head once; K3 less
+    layer 0's q, k, v)."""
+    L = PHASE23_LAYERS
+    sums = {}
+    for kernel in ("K2", "K3"):
+        def calls(name):
+            if name == "head":
+                return 1
+            return L - 1 if kernel == "K3" and name in ("q", "k", "v") else L
+        sums[kernel] = {key: sum(r[key] * calls(r["layer"]) for r in rows
+                                 if r["kernel"] == kernel)
+                        for key in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")}
+    return sums
+
+
+def train_rank(rank, ref_path, out_dir):
+    """One rank of phase 23 (spawned; the parent set MASTER_ADDR,
+    MASTER_PORT and WORLD_SIZE, the rank sets RANK, as torchrun sets
+    them): ``multihost.initialize``, ``make_mesh(dp, tp)``, its model of
+    the phase from ``shard_params``, (a) and (b) held to the one-rank
+    references of ``ref_path``, K2/K3 against their twins at its shapes
+    (rank 0 then times them, the others waiting); its results into
+    ``out_dir``."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    global tm
+    from quip_for_all_tpu_torch.tools import _timing as tm
+    from quip_for_all_tpu_torch.parallel import multihost
+    from quip_for_all_tpu_torch.parallel.sharding import (make_mesh,
+                                                          shard_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
+    if multihost.initialize() != rank:
+        raise AssertionError(f"train rank {rank}: initialize joined as "
+                             "another rank")
+    try:
+        mesh = make_mesh(dp=TRAIN_DP, tp=TRAIN_TP)
+        cfg = train_cfg()
+        t = time.time()
+        whole = train_model(cfg)
+        model = shard_params(cfg, whole, mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = {"build_s": time.time() - t, "coords": mesh.coords,
+               "free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+        log(f"train rank {rank}: built in {res['build_s']:.1f} s, "
+            f"{res['free_gib']:.1f} GiB free on the card")
+        # the twins' checks first (before the steps' memory), as phases
+        # 21 and 22 run theirs; (b)'s adapters are added later
+        res["kernels"] = train_kernels(model)
+        log(f"train rank {rank}: K2/K3 held to their twins")
+        got = train_steps(cfg, model, mesh)
+        log(f"train rank {rank}: steps run, losses {got['ft_loss']!r} / "
+            f"{got['lora_loss']!r}")
+        ref = torch.load(ref_path, map_location="cpu", weights_only=False)
+        res["worst"] = {kind: train_hold(f"train rank {rank}", got, ref, kind)
+                        for kind in ("ft", "lora")}
+        del ref
+        for k in ("ft_loss", "lora_loss", "ft_leaves", "ft", "lora"):
+            res[k] = got[k]
+        res["lora_shapes"] = {k: tuple(v.shape)
+                              for k, v in got["lora_new"].items()}
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            res["kernels_timed"] = train_kernels(model, timed=True)
+        dist.barrier()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_mesh():
+    """23: training under a dp x tp mesh (above; module docstring): the
+    one-rank references here, then four ranks, each held to them."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from quip_for_all_tpu_torch.parallel.multihost import free_port
+    cfg = train_cfg()
+    L = cfg.num_hidden_layers
+    t = time.time()
+    model = train_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    ref = train_steps(cfg, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = {k: ref[k] for k in ("ft_loss", "lora_loss", "ft_leaves", "ft",
+                               "lora")}
+    log(f"train one rank: built in {build_s:.1f} s; " + json.dumps(one)
+        + f"; PYTORCH_CUDA_ALLOC_CONF="
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r}")
+    want = {"ft": {}, "lora": {"fused_decode_matmul_tc": TRAIN_K2,
+                               "fused_decode_matmul_bwd": TRAIN_K3}}
+    for kind, w in want.items():
+        if one[kind]["launches"] != w:
+            raise AssertionError(f"train one rank {kind}: launches "
+                                 f"{one[kind]['launches']}, want {w}")
+    out = tempfile.mkdtemp(prefix="train_")
+    ref_path = os.path.join(out, "ref.pt")
+    t = time.time()
+    torch.save({k: {n: v.cpu() for n, v in ref[k].items()}
+                for k in ("ft_grads", "ft_new", "lora_grads", "lora_new")},
+               ref_path)
+    save_s = time.time() - t
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE=str(TRAIN_WORLD))
+    t = time.time()
+    try:
+        # a rank that fails (or a check in it) makes spawn raise, and the
+        # phase with it
+        mp.spawn(train_rank, args=(ref_path, out), nprocs=TRAIN_WORLD,
+                 join=True)
+    finally:
+        for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE"):
+            os.environ.pop(k, None)
+    ranks_s = time.time() - t
+    rs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+          for r in range(TRAIN_WORLD)]
+    os.remove(ref_path)
+    # collectives a rank's step: (a) the row sums (2 a block) and the
+    # head's gather forward, a column shard's input gradient summed (5 a
+    # block, the head) backward, the dp mean of the loss and every leaf;
+    # (b) the row sums and the row adapters' (m, r) sums forward, the
+    # column shards' input sums (less layer 0's q, k, v), the column
+    # adapters' h and B and the row adapters' A backward
+    coll = {"ft": {"all_reduce": 7 * L + 2 + one["ft_leaves"],
+                   "all_gather": 1},
+            "lora": {"all_reduce": 21 * L - 2, "all_gather": 1}}
+    summary = {"ranks": TRAIN_WORLD, "mesh": {"dp": TRAIN_DP,
+                                              "tp": TRAIN_TP},
+               "layers": L, "one_rank_build_s": build_s,
+               "ref_save_s": save_s, "ranks_wall_s": ranks_s,
+               "one_rank": one, "collectives_counted": coll}
+    for kind in ("ft", "lora"):
+        losses = [res[f"{kind}_loss"] for res in rs]
+        b = one[f"{kind}_loss"]
+        if len(set(losses)) != 1 or not abs(losses[0] - b) <= (
+                TRAIN_TOL * abs(b)):
+            raise AssertionError(f"train {kind}: the ranks' losses {losses}, "
+                                 f"the one-rank step's {b}")
+    for r, res in enumerate(rs):
+        for kind, w in want.items():
+            if res[kind]["launches"] != w:
+                raise AssertionError(f"train rank {r} {kind}: launches "
+                                     f"{res[kind]['launches']}, want {w}")
+        summary[f"rank{r}"] = {
+            k: res[k] for k in ("coords", "build_s", "free_gib", "worst",
+                                "ft_leaves", "ft", "lora", "ft_loss",
+                                "lora_loss")}
+        summary[f"rank{r}"]["kernel_max_err"] = max(
+            row["max_abs_err"] for row in res["kernels"])
+        for kind in ("ft", "lora"):
+            v = res[kind]
+            (ge, gk), (ne, nk) = (res["worst"][kind]["grad"],
+                                  res["worst"][kind]["new"])
+            log(f"train rank {r} at {res['coords']} {kind}: loss "
+                f"{res[f'{kind}_loss']!r} (one rank "
+                f"{one[f'{kind}_loss']!r}); worst gradient {ge:.3g} of its "
+                f"max|grad| ({gk}), worst leaf after the step {ne:.3g} of "
+                f"its max ({nk}; tol {TRAIN_TOL}); launches {v['launches']}"
+                f"; collectives {v['collectives']} (counted "
+                f"{coll[kind]}) taking "
+                + ", ".join(f"{n} {s:.3f} s" for n, s in
+                            v["collective_s"].items())
+                + f"; step {v['s']:.2f} s (one rank {one[kind]['s']:.2f} s)"
+                f"; peak {v['peak_gib']:.2f} GiB (one rank "
+                f"{one[kind]['peak_gib']:.2f})")
+        log(f"train rank {r}: {res['ft_leaves']} finetune leaves (the JAX "
+            f"package's {one['ft_leaves']}); adapters whole: "
+            f"{len(res['lora_shapes'])} A/B; K2/K3 at its {len(TRAIN_SHAPES)}"
+            f" shapes, m = {TRAIN_LORA_B * (TRAIN_S - 1)}, max|k-plain| "
+            f"{summary[f'rank{r}']['kernel_max_err']:.3g}; built in "
+            f"{res['build_s']:.1f} s, {res['free_gib']:.1f} GiB free after")
+    rows = rs[0]["kernels_timed"]
+    summary["kernel_rows"] = rows
+    summary["kernel_sums"] = sums = train_sums(rows)
+    for kernel, s in sums.items():
+        what = "LoRA forward" if kernel == "K2" else "LoRA step"
+        n = TRAIN_K2 if kernel == "K2" else TRAIN_K3
+        log(f"kernel train {kernel} a rank's {what} ({n} calls at "
+            f"m = {TRAIN_LORA_B * (TRAIN_S - 1)}, f32): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in s.items()))
+    log(f"train: {TRAIN_WORLD} ranks on one card (gloo, all on cuda:0) "
+        f"measure training's correctness, launches and collectives under "
+        f"a dp x tp mesh, not its parallel speed; card {smi_line()}; "
+        f"ranks' wall {ranks_s:.1f} s")
+    return summary
+
+
+def train_path_launches(entries, train):
+    """Phase 23's launches and per-call times beside K2's and K3's
+    entries (rank 0's; four ranks on one card)."""
+    by = {e["name"]: e for e in entries}
+    lora = train["rank0"]["lora"]["launches"]
+    for name, kernel in (("fused_decode_matmul_tc", "K2"),
+                         ("fused_decode_matmul_bwd", "K3")):
+        e = by[name]
+        e.setdefault("launches_by_path", {})[
+            "dp2_tp2_one_card_rank0_lora_step"] = lora[name]
+        e["rank_local_f32_m1022"] = {
+            row["layer"]: {k: row[k] for k in (
+                "q_out", "Gp", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
+            for row in train["kernel_rows"] if row["kernel"] == kernel}
+        e["rank_local_f32_m1022_sum"] = train["kernel_sums"][kernel]
+
+
 def at(phase, fn, *args):
     """Run one phase, logging when it starts and how long it took, so the
     script's time against its limit can be read phase by phase."""
@@ -5763,7 +6284,8 @@ def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke run of the "
                                  "PyTorch port on one CUDA card.")
-    ap.add_argument("--phase", action="append", choices=("20", "21", "22"),
+    ap.add_argument("--phase", action="append",
+                    choices=("20", "21", "22", "23"),
                     help="run the kernels' build and this phase alone "
                     "(repeatable), print its summary and no result line")
     ap.add_argument("--profile-ft", action="store_true",
@@ -5802,6 +6324,7 @@ def main(argv=None) -> int:
             for ph in args.phase:
                 out = (at(ph, phase_tp, args.profile_ft) if ph == "21"
                        else at(ph, phase_ep) if ph == "22"
+                       else at(ph, phase_train_mesh) if ph == "23"
                        else at(ph, phase_lora_families))
                 log(f"phase {ph}: " + json.dumps(out, default=str))
             return 0
@@ -5839,6 +6362,7 @@ def main(argv=None) -> int:
         quant = at("19", phase_quantize)
         tp = at("21", phase_tp)
         ep = at("22", phase_ep)
+        train_mesh = at("23", phase_train_mesh)
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
@@ -5853,6 +6377,7 @@ def main(argv=None) -> int:
         quant_path_launches(entries, quant)
         tp_path_launches(entries, tp)
         ep_path_launches(entries, ep)
+        train_path_launches(entries, train_mesh)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
             "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
@@ -5862,6 +6387,7 @@ def main(argv=None) -> int:
         log("lora on the families: " + json.dumps(lora))
         log("tensor parallelism: " + json.dumps(tp))
         log("expert parallelism: " + json.dumps(ep, default=str))
+        log("training under a mesh: " + json.dumps(train_mesh, default=str))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

@@ -9,13 +9,21 @@ only: ``add_lora`` freezes everything else, and the base's eval forward
 passes them on to x (on the fused route through K3, the backward kernel of
 ``ops/fused_matmul.py``).
 
+Under a mesh (``parallel/sharding.py``) both orders work, as in the JAX
+package: ``add_lora`` then ``shard_params`` keeps each ``LoraLinear``
+whole on every rank (the JAX role table replicates "*.lora_base"), inside
+a parallel layer that gives the rank its view of the output;
+``shard_params`` then ``add_lora`` wraps the rank's ``ColParallel`` or
+``RowParallel`` with whole A and B, and the layer's ``lora`` computes the
+rank's view of the adapted output (``parallel/layers.py``).
+
 Trainable tensors are keyed by the JAX package's names
 (``layers.3.self_attn.q_proj.lora_A``), so adapter files and
 ``np.random.default_rng(seed)`` draws of A agree between the packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,21 +48,46 @@ class LoraLinear(nn.Module):
             lora_scale, dtype=torch.float32, device=lora_A.device))
 
 
+def _parallel(node):
+    """A tensor-parallel rank's layer (``ColParallel``/``RowParallel``),
+    or None."""
+    from ..parallel.layers import _Parallel
+    return node if isinstance(node, _Parallel) else None
+
+
+def _lora_of(node) -> Optional["LoraLinear"]:
+    """The ``LoraLinear`` at a place of the tree: the node, or the whole
+    one a parallel layer keeps (``add_lora`` before ``shard_params``)."""
+    par = _parallel(node)
+    if par is not None:
+        node = par.local
+    return node if isinstance(node, LoraLinear) else None
+
+
 def is_lora(node) -> bool:
-    return isinstance(node, LoraLinear)
+    return _lora_of(node) is not None
 
 
 def _is_linear(node) -> bool:
-    """QuantLinear, or a dense linear (an (out, in) ``weight``)."""
+    """QuantLinear, a dense linear (an (out, in) ``weight``), or a rank's
+    parallel layer of one (not of a fused group)."""
+    par = _parallel(node)
+    if par is not None:
+        from .qlinear import FusedQuantLinear
+        return not isinstance(par.local, FusedQuantLinear)
     w = getattr(node, "weight", None)
     return isinstance(node, QuantLinear) or (
         isinstance(w, torch.Tensor) and w.dim() == 2)
 
 
 def _dims(lin) -> tuple:
-    if isinstance(lin, QuantLinear):
+    if isinstance(lin, QuantLinear) or _parallel(lin) is not None:
         return lin.in_features, lin.out_features
     return lin.weight.shape[1], lin.weight.shape[0]
+
+
+def _device(lin) -> torch.device:
+    return next(iter(lin.buffers())).device
 
 
 def _children(node):
@@ -94,8 +127,7 @@ def add_lora(model: nn.Module, rank: int = 8, alpha: float = 16.0,
                 in_f, out_f = _dims(node)
                 A = (rng.standard_normal((rank, in_f)) / np.sqrt(rank)
                      ).astype(np.float32)
-                dev = (node.qweight.planes["w0"].device
-                       if isinstance(node, QuantLinear) else node.weight.device)
+                dev = _device(node)
                 parent[key] = LoraLinear(
                     node, torch.from_numpy(A).to(device=dev, dtype=dtype),
                     torch.zeros((out_f, rank), dtype=dtype, device=dev),
@@ -110,7 +142,11 @@ def add_lora(model: nn.Module, rank: int = 8, alpha: float = 16.0,
 
 
 def lora_apply(d: LoraLinear, x: torch.Tensor, **kw) -> torch.Tensor:
-    """base(x) + scale * (x A^T) B^T, A and B cast to x's dtype."""
+    """base(x) + scale * (x A^T) B^T, A and B cast to x's dtype (a
+    rank's parallel base: its view of that, ``lora`` of
+    ``parallel/layers.py``)."""
+    if _parallel(d.lora_base) is not None:
+        return d.lora_base.lora(d, x, **kw)
     from ..models.llama import linear_apply
     base = linear_apply(d.lora_base, x, **kw)
     h = x @ d.lora_A.to(x.dtype).T
@@ -126,9 +162,10 @@ def collect_lora_trainable(tree: nn.Module, prefix: str = ""
     out: Dict[str, nn.Parameter] = {}
 
     def walk(node, name):
-        if is_lora(node):
-            out[f"{name}.lora_A"] = node.lora_A
-            out[f"{name}.lora_B"] = node.lora_B
+        lora = _lora_of(node)
+        if lora is not None:
+            out[f"{name}.lora_A"] = lora.lora_A
+            out[f"{name}.lora_B"] = lora.lora_B
             return
         for key, child in _children(node):
             walk(child, f"{name}.{key}" if name else key)

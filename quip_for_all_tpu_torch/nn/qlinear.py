@@ -207,9 +207,23 @@ def apply(p: QuantLinear, x: torch.Tensor, *, training: bool = False,
     package's training forward does; otherwise the eval forward."""
     batch_shape = x.shape[:-1]
     x = x.reshape(-1, x.shape[-1])
-    x_dtype = x.dtype
     if p.SU is not None:
-        x = x * p.SU.to(x_dtype)
+        x = x * p.SU.to(x.dtype)
+    return apply_after_su(p, x, batch_shape, training=training,
+                          compute_dtype=compute_dtype,
+                          matmul_impl=matmul_impl, max_m=max_m,
+                          dense_weight=dense_weight)
+
+
+def apply_after_su(p: QuantLinear, x: torch.Tensor, batch_shape, *,
+                   training: bool = False, compute_dtype=torch.bfloat16,
+                   matmul_impl: str = "auto", max_m: int = FUSED_MAX_M,
+                   dense_weight: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """``apply`` on x (m, in_features) already multiplied by SU (a
+    tensor-parallel rank's column shard puts its collective between the
+    two, ``parallel/layers.py``)."""
+    x_dtype = x.dtype
     if training or dense_weight is not None:
         W = dense_weight if dense_weight is not None else p.W_cache
         if W is None:

@@ -78,10 +78,12 @@ class Mesh:
     index. ``tp_group`` (global ranks ``tp_ranks``) runs the linears'
     collectives; ``ep_group`` (``ep_ranks``: the same dp and tp index) sums
     the experts' outputs; ``replica_group`` (``replica_ranks``: every rank
-    of one model copy, the same dp index) keeps the sampled tokens equal.
-    At ep = 1 the replica group is the tp group and there is no ep group.
-    A tp group's ranks sit on its axis in ascending global order, the
-    order in which its all_gather concatenates."""
+    of one model copy, the same dp index) keeps the sampled tokens equal;
+    ``dp_group`` (``dp_ranks``: the same ep and tp index, the ranks that
+    hold the same shards) averages a training step's gradients. At ep = 1
+    the replica group is the tp group and there is no ep group; at dp = 1
+    there is no dp group. A tp group's ranks sit on its axis in ascending
+    global order, the order in which its all_gather concatenates."""
     dp: int
     tp: int
     rank: int
@@ -93,6 +95,8 @@ class Mesh:
     ep_ranks: tuple = ()
     replica_group: object = None
     replica_ranks: tuple = ()
+    dp_group: object = None
+    dp_ranks: tuple = ()
 
     @property
     def tp_rank(self) -> int:
@@ -170,16 +174,22 @@ def make_mesh(dp: Optional[int] = None, tp: Optional[int] = None,
         [tuple(int(r) for r in grid[d, e]) for d in range(dp)
          for e in range(ep)], rank, world)
     if ep == 1:
-        return Mesh(dp, tp, rank, tp_group, tp_ranks, 1, coords,
-                    None, (rank,), tp_group, tp_ranks)
-    ep_group, ep_ranks = _groups(
-        [tuple(int(r) for r in grid[d, :, t]) for d in range(dp)
-         for t in range(tp)], rank, world)
-    rep_group, rep_ranks = _groups(
-        [tuple(int(r) for r in grid[d].ravel()) for d in range(dp)],
-        rank, world)
+        ep_group, ep_ranks = None, (rank,)
+        rep_group, rep_ranks = tp_group, tp_ranks
+    else:
+        ep_group, ep_ranks = _groups(
+            [tuple(int(r) for r in grid[d, :, t]) for d in range(dp)
+             for t in range(tp)], rank, world)
+        rep_group, rep_ranks = _groups(
+            [tuple(int(r) for r in grid[d].ravel()) for d in range(dp)],
+            rank, world)
+    dp_group, dp_ranks = None, (rank,)
+    if dp > 1:
+        dp_group, dp_ranks = _groups(
+            [tuple(sorted(int(r) for r in grid[:, e, t])) for e in range(ep)
+             for t in range(tp)], rank, world)
     return Mesh(dp, tp, rank, tp_group, tp_ranks, ep, coords, ep_group,
-                ep_ranks, rep_group, rep_ranks)
+                ep_ranks, rep_group, rep_ranks, dp_group, dp_ranks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,73 +418,79 @@ def _shard_linear(cfg: ModelConfig, lin: nn.Module, name: str, mesh: Mesh,
     from ..models.llama import DenseLinear
     from ..nn.lora import LoraLinear
     from ..nn.qmoe import StackedQuantLinear
-    from .layers import ColParallel, RowParallel
+    from .layers import ColParallel, RowParallel, _dims
     if isinstance(lin, StackedQuantLinear):
         return lin          # experts not cut over "ep": whole on every rank
-    if isinstance(lin, LoraLinear):
-        raise NotImplementedError("LoRA adapters under a mesh (train and "
-                                  "merge them unsharded)")
     tp, r = mesh.tp, mesh.tp_rank
     leaf = name.rsplit(".", 1)[-1]
     role = _FUSED.get(leaf) if isinstance(lin, FusedQuantLinear) \
         else role_of(name)
+    dims = _dims(lin)
     if role == "col":
         view = _col_view(cfg, name, attn, mlp)
+
+        def whole():
+            return ColParallel(lin, mesh, cut=False, right_local=False,
+                               view=view, dims=dims, seg_out=seg_out)
+        seg_out = ([p.q_out for p in lin.segments]
+                   if isinstance(lin, FusedQuantLinear) else [])
+        if isinstance(lin, LoraLinear):
+            # the JAX role table calls the base "*.lora_base": replicated,
+            # with its adapters; the rank reads its view of the output
+            return whole()
         if isinstance(lin, FusedQuantLinear):
             ok = all(p.out_features == p.q_out
                      and _col_ok(lin.qweight, p.q_out, tp)
                      for p in lin.segments)
-            seg_out = [p.q_out for p in lin.segments]
             if not ok:
-                return ColParallel(lin, mesh, cut=False, right_local=False,
-                                   view=view, seg_out=seg_out)
+                return whole()
             local, right = _cut_fused(lin, tp, r)
             return ColParallel(local, mesh, cut=True, right_local=right,
-                               view=view, seg_out=seg_out,
+                               view=view, dims=dims, seg_out=seg_out,
                                full=None if right else _planeless_fused(lin))
         if isinstance(lin, QuantLinear):
             if not (lin.out_features == lin.q_out
                     and _col_ok(lin.qweight, lin.q_out, tp)):
-                return ColParallel(lin, mesh, cut=False, right_local=False,
-                                   view=view)
+                return whole()
             local, right = _cut_col_qlinear(lin, tp, r)
             return ColParallel(local, mesh, cut=True, right_local=right,
-                               view=view,
+                               view=view, dims=dims,
                                full=None if right else _qlinear(lin, None))
         out_f = lin.weight.shape[0]
         if not _divides(out_f, tp):
-            return ColParallel(lin, mesh, cut=False, right_local=False,
-                               view=view)
+            return whole()
         n = out_f // tp
         return ColParallel(
             DenseLinear(_own(lin.weight, r * n, (r + 1) * n),
                         _own(lin.bias, r * n, (r + 1) * n)),
-            mesh, cut=True, right_local=True, view=view)
+            mesh, cut=True, right_local=True, view=view, dims=dims)
     if role == "row":
         in_local = _row_in_local(name, attn, mlp)
+        in_f = dims[0]
+
+        def whole():
+            return RowParallel(lin, mesh, cut=False, left_local=False,
+                               in_local=in_local, dims=dims)
         if isinstance(lin, FusedQuantLinear):
             raise ValueError(f"{name}: a fused group is column-parallel")
+        if isinstance(lin, LoraLinear):
+            return whole()                  # replicated, as for a column
         if isinstance(lin, QuantLinear):
-            in_f = lin.in_features
             ok = (lin.in_features == lin.q_in and _divides(lin.q_in, tp)
                   and (lin.q_in // tp) % 8 == 0
                   and lin.qweight.layout != "paired")
             if not ok:
-                return RowParallel(lin, mesh, cut=False, left_local=False,
-                                   in_local=in_local, in_features=in_f)
+                return whole()
             local, left = _cut_row_qlinear(lin, tp, r)
             return RowParallel(local, mesh, cut=True, left_local=left,
-                               in_local=in_local, in_features=in_f,
+                               in_local=in_local, dims=dims,
                                full=None if left else _qlinear(lin, None))
-        in_f = lin.weight.shape[1]
         if not _divides(in_f, tp):
-            return RowParallel(lin, mesh, cut=False, left_local=False,
-                               in_local=in_local, in_features=in_f)
+            return whole()
         n = in_f // tp
         w = lin.weight[:, r * n:(r + 1) * n].contiguous().clone()
         return RowParallel(DenseLinear(w, lin.bias), mesh, cut=True,
-                           left_local=True, in_local=in_local,
-                           in_features=in_f)
+                           left_local=True, in_local=in_local, dims=dims)
     return lin                                   # replicated
 
 
@@ -534,8 +550,12 @@ def shard_params(cfg: ModelConfig, model: nn.Module, mesh: Mesh
     whole for the stack's Hadamard transforms, since stacked experts have
     no block-diagonal ones); experts that do not stack shard one by one
     by the role tables (w1/w3 column-, w2 row-parallel); the router is
-    replicated. The result carries ``tp_mesh`` and ``tp_cfg``; drop the
-    whole model afterwards to free what the rank does not keep."""
+    replicated. A LoRA-adapted linear (``nn/lora.py`` ``add_lora``
+    before this) stays whole with its adapters on every rank, as the JAX
+    role table replicates "*.lora_base", inside a parallel layer that
+    gives the rank its view. The result carries ``tp_mesh`` and
+    ``tp_cfg``; drop the whole model afterwards to free what the rank
+    does not keep."""
     from ..models.llama import LlamaModel
     from ..models.tree import FamilyModel
     if getattr(model, "tp_mesh", None) is not None:

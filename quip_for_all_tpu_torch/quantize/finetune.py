@@ -10,6 +10,16 @@ groups (SU/SV at ``ft_susv_lr``, the rest at ``ft_lr``) takes the place of
 optax's ``multi_transform``. The training forward multiplies by each
 quantized layer's dense ``calc_weight`` (cached as ``W_cache`` in the
 block finetune), as in the JAX package: no decode kernel runs here.
+
+Under a ("dp", "tp") mesh (``parallel/sharding.py`` ``shard_params``) the
+same functions take a rank's model: each leaf of the JAX package's
+``collect_trainable`` maps to one tensor a rank, whole or its tp shard
+(the parallel layers' ``slots``), whose gradients the sharded forward
+gives as the whole model's (``parallel/layers.py``);
+``make_train_step(..., mesh=)`` trains each rank on its dp part of the
+batch and averages the loss and the gradients over "dp", so that every
+rank takes the one-rank step; ``gather_trainable`` puts a rank's leaves
+(or their gradients) back into the JAX package's names and shapes.
 """
 from __future__ import annotations
 
@@ -31,52 +41,91 @@ logger = logging.getLogger(__name__)
 FlatParams = Dict[str, torch.Tensor]
 
 
-def _walk(tree: Any, prefix: str, visit: Callable) -> None:
+def _slots(tree: Any, prefix: str, train_dense: bool) -> list:
+    """(key, module, field, tp-cut axis or None, the parallel layer's
+    mesh or None) of every trainable leaf:
+    SU/SV/bias of a ``QuantLinear``, weight/bias of the dense linears,
+    norms and tables (with ``train_dense``), under the JAX package's key;
+    a rank's parallel layer names where its leaves live (``slots``).
+    Fused groups and stacked experts have none, as in the JAX package."""
+    from ..nn.qlinear import FusedQuantLinear
+    from ..nn.qmoe import StackedQuantLinear
+    from ..parallel.layers import _Parallel
+    out = []
+
     def walk(node, name):
-        if isinstance(node, (QuantLinear, DenseLinear, Weight, Norm)):
-            visit(node, name)
+        if isinstance(node, _Parallel):
+            slots = node.slots(train_dense)
+            if slots is None:               # not cut: the whole layer
+                return walk(node.local, name)
+            out.extend((f"{name}.{f}", m, f, d, node.mesh)
+                       for f, (m, d) in slots.items())
             return
-        if isinstance(node, (nn.ModuleDict, dict)):
-            for k, v in node.items():
-                walk(v, f"{name}.{k}" if name else k)
+        if isinstance(node, QuantLinear):
+            fields = ("SU", "SV", "bias")
+        elif isinstance(node, (DenseLinear, Weight, Norm)):
+            fields = ("weight", "bias") if train_dense else ()
+        elif isinstance(node, (FusedQuantLinear, StackedQuantLinear)):
+            return
         elif isinstance(node, (nn.ModuleList, list, tuple)):
             for i, v in enumerate(node):
                 walk(v, f"{name}.{i}")
+            return
+        else:
+            kids = node.items() if isinstance(node, dict) \
+                else node.named_children()
+            for k, v in kids:
+                walk(v, f"{name}.{k}" if name else k)
+            return
+        out.extend((f"{name}.{f}", node, f, None, None) for f in fields
+                   if getattr(node, f, None) is not None)
     walk(tree, prefix)
-
-
-def _fields(node, train_dense: bool):
-    if isinstance(node, QuantLinear):
-        return ("SU", "SV", "bias")
-    return ("weight", "bias") if train_dense else ()
+    return out
 
 
 def collect_trainable(tree: Any, prefix: str = "",
                       train_dense: bool = True) -> FlatParams:
     """Trainable leaves as fresh leaf tensors that require grad (copies:
     a vector shared by several layers becomes one leaf each, as each
-    reference QuantLinear owns its SU/SV)."""
-    out: FlatParams = {}
-
-    def visit(node, name):
-        for f in _fields(node, train_dense):
-            v = getattr(node, f, None)
-            if v is not None:
-                out[f"{name}.{f}"] = v.detach().clone().requires_grad_(True)
-    _walk(tree, prefix, visit)
-    return out
+    reference QuantLinear owns its SU/SV). On a rank's model a leaf cut
+    over tp is the rank's shard (``gather_trainable`` joins them)."""
+    return {k: getattr(m, f).detach().clone().requires_grad_(True)
+            for k, m, f, _, _ in _slots(tree, prefix, train_dense)}
 
 
 def apply_trainable(tree: Any, flat: FlatParams, prefix: str = "") -> Any:
     """Install flat[path] as the buffers at those paths (in place);
     returns ``tree``."""
-    def visit(node, name):
-        for f in ("SU", "SV", "bias", "weight"):
-            key = f"{name}.{f}"
-            if key in flat:
-                setattr(node, f, flat[key])
-    _walk(tree, prefix, visit)
+    for k, m, f, _, _ in _slots(tree, prefix, True):
+        if k in flat:
+            setattr(m, f, flat[k])
     return tree
+
+
+def gather_trainable(tree: Any, flat: FlatParams, prefix: str = "",
+                     grads: bool = False) -> FlatParams:
+    """The JAX package's flat leaves (names and whole shapes) from a
+    rank's ``collect_trainable`` (its values, or with ``grads`` their
+    ``.grad``, None where a leaf got none): a leaf cut over tp is gathered
+    from the ranks of the tree's tp group (every rank calls this; one
+    ``all_gather`` a cut leaf), a whole one copied. On a model of one
+    rank it copies every leaf."""
+    from ..parallel import comm
+    out = {}
+    for k, _, _, dim, mesh in _slots(tree, prefix, True):
+        if k not in flat:
+            continue
+        v = flat[k].grad if grads else flat[k]
+        if v is None:
+            out[k] = None
+            continue
+        v = v.detach()
+        if dim is not None:
+            whole = comm.all_gather(v.movedim(dim, -1), mesh.tp_group,
+                                    mesh.tp)
+            v = whole.movedim(-1, dim)
+        out[k] = v.clone()
+    return out
 
 
 def freeze(flat: FlatParams) -> FlatParams:
@@ -228,15 +277,50 @@ def student_modules(cfg, model, pp_mesh=None) -> list:
     return blocks + ([dict(model.named_children())[key]] if key else [])
 
 
+def dp_part(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's part of a global batch (B, ...) along B, by its dp
+    index (B divisible by dp)."""
+    if t.shape[0] % mesh.dp:
+        raise ValueError(f"batch {t.shape[0]} does not split over dp="
+                         f"{mesh.dp}")
+    n = t.shape[0] // mesh.dp
+    return t[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
+
+
 def make_train_step(optimizer: torch.optim.Optimizer,
-                    logits_fn: Callable) -> Callable:
+                    logits_fn: Callable, mesh=None) -> Callable:
     """End-to-end CE training step. Returns step(ids (B, S), targets (B,
     S, V) softmax or (B, S) ids) -> loss: ``logits_fn(ids)``, the loss's
-    gradients, one ``optimizer`` update."""
+    gradients, one ``optimizer`` update. With a ("dp", "tp") ``mesh``
+    (the one ``logits_fn``'s sharded model runs on; every rank calls the
+    step with the whole batch) each rank takes its dp part of ids and
+    targets, and the loss (the mean over the whole batch) and every
+    gradient are averaged over the dp group before the update, so every
+    rank takes the same step."""
+    if mesh is not None and mesh.ep > 1:
+        raise NotImplementedError("a training step over the expert axis "
+                                  "(ROADMAP.md queue 1 item 8d)")
+
     def step(ids, targets):
+        if mesh is not None:
+            ids, targets = dp_part(ids, mesh), dp_part(targets, mesh)
         optimizer.zero_grad(set_to_none=True)
         loss = ce_loss(logits_fn(ids), targets)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None and mesh.dp > 1:
+            _dp_mean([loss] + [p.grad for g in optimizer.param_groups
+                               for p in g["params"] if p.grad is not None],
+                     mesh)
         optimizer.step()
-        return loss.detach()
+        return loss
     return step
+
+
+def _dp_mean(ts: List[torch.Tensor], mesh) -> None:
+    """Each tensor averaged over the dp group, in place (one all_reduce
+    a tensor, counted in ``parallel/comm.py``)."""
+    from ..parallel import comm
+    for t in ts:
+        comm.all_reduce(t, mesh.dp_group)
+        t.div_(mesh.dp)

@@ -1,10 +1,15 @@
 """The port's multi-rank dry run: the counterpart of the JAX package's
-``__graft_entry__.py`` ``dryrun_multichip`` (its phases 2-5) on n gloo
+``__graft_entry__.py`` ``dryrun_multichip`` (its phases 1-5) on n gloo
 ranks, spawned here, each joining through ``parallel/multihost.py``
 ``initialize`` from torchrun's environment variables:
 
-  phase 1, a finetune step under a dp x tp mesh, waits for ROADMAP.md
-    queue 1 item 8d (training under a mesh): printed, not run;
+  phase 1 (every n): the tiny f32 llama over a ``make_mesh(dp=2 if n is
+    even else 1, tp=n // dp)`` mesh (``shard_params``), one end-to-end
+    finetune step (``quantize/finetune.py`` ``make_train_step``: the
+    training forward, two-LR Adam at 5e-4 / 5e-5) on 4 x 16 ids, each dp
+    rank its half; the loss equal on every rank and within the tolerance
+    of one rank's step on the whole model and batch, printed in the JAX
+    dry run's line;
   phase 2 (n even, n >= 4): a hybrid dcn_dp=2 x ici_tp=n/2 mesh, one f32
     decode step of a tiny GQA Llama (kv heads n/2, sharded over tp), the
     batch split over dp, against one rank's step on the whole model;
@@ -34,10 +39,8 @@ import traceback
 import numpy as np
 import torch
 
-PHASE1 = ("dryrun_multichip phase 1 (a finetune step under a dp x tp "
-          "mesh): waits for ROADMAP.md queue 1 item 8d (training under a "
-          "mesh); not run")
-# logits within 1e-4 of max|logit| plus one f32 ulp (f32 compute)
+# logits (and the finetune step's loss) within 1e-4 of max|logit| plus
+# one f32 ulp (f32 compute)
 TOL = 1e-4
 
 
@@ -81,6 +84,48 @@ def _decode(cfg, model, tok, pos, dev):
                             torch.float32, dev)
     step = decode_step_fn(cfg, dtype=torch.float32, linear_kw=F32)
     return step(model, caches, tok, pos)[0]
+
+
+def _ft_step(cfg, model, ids, tgt, mesh=None):
+    """One end-to-end finetune step of ``model`` (whole, or a rank's with
+    its ``mesh``): (loss, the rank's trainable leaves after it)."""
+    from ..quantize import finetune as FT
+    flat = FT.collect_trainable(model)
+    FT.apply_trainable(model, flat)
+    opt = FT.make_susv_optimizer(5e-4, 5e-5, flat)
+    step = FT.make_train_step(
+        opt, lambda i: FT.student_logits(cfg, model, i), mesh=mesh)
+    return float(step(ids, tgt)), flat
+
+
+def phase1(n, dev):
+    import quip_for_all_tpu_torch as qt
+    from ..parallel.sharding import make_mesh, shard_params
+    cfg = _tiny()
+
+    def whole():
+        # unfused, as the JAX dry run's model
+        return qt.random_quantized_model(cfg, codebook="E8P12", seed=0,
+                                         dtype=torch.float32, device=dev)
+    B, S = 4, 16
+    ids = torch.as_tensor(np.arange(B * S).reshape(B, S) % cfg.vocab_size,
+                          device=dev)
+    tgt = torch.roll(ids, -1, dims=1)
+    with torch.enable_grad():
+        ref, _ = _ft_step(cfg, whole(), ids, tgt)
+        dp = 2 if n % 2 == 0 else 1
+        mesh = make_mesh(dp=dp, tp=n // dp)
+        model = shard_params(cfg, whole(), mesh)
+        loss, flat = _ft_step(cfg, model, ids, tgt, mesh)
+    import torch.distributed as dist
+    losses = [None] * n
+    dist.all_gather_object(losses, loss)
+    err = abs(loss - ref) / abs(ref)
+    if not (np.isfinite(loss) and len(set(losses)) == 1 and err <= TOL):
+        raise AssertionError(f"finetune step: the ranks' losses {losses}, "
+                             f"one rank's {ref}")
+    return (f"dryrun_multichip({n}): mesh={mesh.shape} loss={loss:.4f} "
+            f"trainable_leaves={len(flat)}")
 
 
 def phase2(n, dev):
@@ -181,7 +226,8 @@ def phase5(n, dev):
 
 
 # (phase, the JAX dry run's condition on n, body)
-PHASES = [(2, lambda n: n % 2 == 0 and n >= 4, phase2),
+PHASES = [(1, lambda n: n >= 1, phase1),
+          (2, lambda n: n % 2 == 0 and n >= 4, phase2),
           (3, lambda n: n >= 4, phase3),
           (4, lambda n: n >= 8, phase4),
           (5, lambda n: n >= 2, phase5)]
@@ -233,7 +279,7 @@ def _rank(rank, n, port, device, results):
 def dryrun_multichip(n: int = 8, device: str = "cuda",
                      timeout: float = 600.0) -> list:
     """Run the dry run on ``n`` spawned ranks, on the card unless
-    ``device="cpu"``; returns its lines, phase 1 first. Raises
+    ``device="cpu"``; returns its lines, one a phase. Raises
     ``AssertionError`` with every failing rank's traceback when a phase
     fails, and ``RuntimeError`` on ``"cuda"`` without a card."""
     import torch.multiprocessing as mp
@@ -266,7 +312,7 @@ def dryrun_multichip(n: int = 8, device: str = "cuda",
             for ph in want if ph not in out and not bad]
     if bad or len(got) != n:
         raise AssertionError("dryrun_multichip failed:\n" + "\n".join(bad))
-    lines = [PHASE1]
+    lines = []
     for ph in want:
         line = got[0][ph][1]
         lines.append(line if line is not None else f"phase {ph}: idle")
@@ -281,7 +327,6 @@ def main(argv=None) -> int:
     try:
         lines = dryrun_multichip(args.n, args.device)
     except AssertionError as e:
-        print(PHASE1)
         print(e, file=sys.stderr)
         return 1
     for line in lines:
