@@ -6,6 +6,7 @@ card: the quickest proof that the port still starts on the GPU.
     python3 chip_smoke.py --phase 21 [--profile-ft]   # one phase alone
     python3 chip_smoke.py --phase 22
     python3 chip_smoke.py --phase 23
+    python3 chip_smoke.py --phase 24
 
 Phases (each prints its lines; any failure exits non-zero with no result
 line):
@@ -263,14 +264,40 @@ line):
      rank's loss equal to the others' and to the one-rank step's, every
      gradient gathered into the JAX package's names within 1e-4 of its
      max|grad|, the leaves after the step too where |grad| exceeds that;
-     K2 and K3 against their twins at each rank-local shape of (b)
-     (timed on rank 0, the others waiting); exact launches a step (none
+     K2 and K3 against their twins at each rank-local shape of (b),
+     after the steps on every rank and on the even ranks before them too
+     (the odd ranks' first comparison comes after gloo's steps, as every
+     rank's did when the phase's first run failed there in
+     ``torch.exp2``, which the comparison no longer calls; the odd ranks
+     log a ``torch.exp2`` probe there, which does not fail the phase;
+     timed on rank 0, the others waiting); exact launches a step (none
      in (a); 57 K2 + 54 K3 in (b)), the collectives a step by kind with
      their host seconds, the peak memory a rank. Four ranks on one card
      measure correctness, launches and collectives, not parallel speed.
+ 24. the tools (``utils/sanitize.py``, ``tools/sanitize.py``,
+     ``tools/quality_matrix.py``): (i) the sanitizer on the main path's
+     model (phase 5's, reused): determinism over 3 runs of the eager
+     bf16 decode step (bf16 caches) and of the graphed step, purity of
+     the parameters, ids and positions, finite logits, and variant parity
+     at m = 1 and 8 on
+     layer 0's qkv, o, gate/up and down and on the head, each through K1
+     against ksplit = 2 (K6) and the dense decode, with the function each
+     run reached and its max |diff|, and exact K1 launches; (ii) the
+     sanitize CLI, ``--model mixtral_8x7b --layers 1`` (in this process,
+     its launches counted): Mixtral-8x7B at full width, one layer (seed
+     0, experts stacked), its bf16 decode step's checks and its sweep,
+     the stacked w13 through K4 against each expert's dense decode;
+     (iii) ``python -m
+     quip_for_all_tpu_torch.tools.sanitize --model tiny`` as a subprocess
+     (exit 0); (iv) ``quality_matrix --fast`` into a temporary directory:
+     the E8P12 cell's held-out and train-window ppl within 3% of the
+     port's own fp32 model's, that model's held-out ppl within 10% of the
+     JAX run's (``docs/QUALITY.json``), and eval_ppl once more in this
+     process on the cell's checkpoint (the same ppl, K2 launches counted).
+     ``--phase 24`` alone builds the main path's model first.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
-a, b, e, d), 17 (iii), 12, 6 (with c), 18, 9 (with 17 iv), 14, 20, 19, 21,
-22, 23;
+a, b, e, d), 17 (iii), 24 (while phase 5's model is whole), 12, 6 (with
+c), 18, 9 (with 17 iv), 14, 20, 19, 21, 22, 23;
 each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
@@ -935,15 +962,22 @@ def check_runs(tag, cfg, ids1, ids2, logits1, new):
         f"{tuple(lg.shape)}")
 
 
-def phase_main():
-    """The Llama-2-7B path; returns its kernel launches."""
+def main_model():
+    """The main path's model: Llama-2-7B E8P12 (random codes, seed 0),
+    fused, quantized head, on the card."""
     import torch
     import quip_for_all_tpu_torch as qt
     cfg = qt.llama2_7b_config()
-    t = time.time()
     model = qt.random_quantized_model(cfg, seed=0, dtype=torch.bfloat16,
                                       quantize_head=True, device="cuda")
-    model = qt.fuse_for_inference(cfg, model)
+    return cfg, qt.fuse_for_inference(cfg, model)
+
+
+def phase_main():
+    """The Llama-2-7B path; returns its kernel launches."""
+    import torch
+    t = time.time()
+    cfg, model = main_model()
     torch.cuda.synchronize()
     log(f"main: built Llama-2-7B E8P12 (random codes, seed 0, fused, "
         f"quantized head) in {time.time() - t:.1f} s; "
@@ -3354,8 +3388,7 @@ def _right_check(tag, got, plain_k, want, plain_t, hb):
     g, w = got.float(), want.float()
     tol = 1e-5 * w.abs().max() + carry
     if got.dtype == torch.bfloat16:
-        a = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
-        tol = tol + torch.exp2(torch.floor(torch.log2(a)) - 7)
+        tol = tol + tm._bf16_ulp(torch.maximum(g.abs(), w.abs()))
     diff = (g - w).abs()
     if not bool((diff <= tol).all()):
         raise AssertionError(f"{tag}: right epilogue vs plain twin beyond "
@@ -6101,10 +6134,14 @@ def train_rank(rank, ref_path, out_dir):
                "free_gib": torch.cuda.mem_get_info()[0] / 2**30}
         log(f"train rank {rank}: built in {res['build_s']:.1f} s, "
             f"{res['free_gib']:.1f} GiB free on the card")
-        # the twins' checks first (before the steps' memory), as phases
-        # 21 and 22 run theirs; (b)'s adapters are added later
-        res["kernels"] = train_kernels(model)
-        log(f"train rank {rank}: K2/K3 held to their twins")
+        # the twins' checks before the steps on the even ranks, as phases
+        # 21 and 22 run theirs ((b)'s adapters are added later); the odd
+        # ranks make their first comparison after the steps, as every rank
+        # did when the first chip run of this phase failed there with a
+        # CUDA driver error in its torch.exp2 (ROADMAP.md queue 3)
+        if rank % 2 == 0:
+            res["kernels"] = train_kernels(model)
+            log(f"train rank {rank}: K2/K3 held to their twins")
         got = train_steps(cfg, model, mesh)
         log(f"train rank {rank}: steps run, losses {got['ft_loss']!r} / "
             f"{got['lora_loss']!r}")
@@ -6117,8 +6154,18 @@ def train_rank(rank, ref_path, out_dir):
         res["lora_shapes"] = {k: tuple(v.shape)
                               for k, v in got["lora_new"].items()}
         del got
-        gc.collect()
-        torch.cuda.empty_cache()
+        if rank % 2 == 0:
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            res["exp2_probe"] = exp2_probe()
+            log(f"train rank {rank}: torch.exp2 after the steps (a probe "
+                f"of the open fault; no path of the port calls it): "
+                f"{res['exp2_probe']}")
+        # after the steps (their adapters on, gloo's staging done); the
+        # odd ranks straight after the holds, as that failed run did
+        res["kernels_after"] = train_kernels(model)
+        log(f"train rank {rank}: K2/K3 held to their twins after the steps")
         dist.barrier()
         if rank == 0:
             res["kernels_timed"] = train_kernels(model, timed=True)
@@ -6126,6 +6173,21 @@ def train_rank(rank, ref_path, out_dir):
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def exp2_probe():
+    """The process's first ``torch.exp2`` on the card ("ok", or the error
+    it raised): PyTorch compiles that op at run time (NVRTC, its
+    jiterator). The phase's first chip run failed in it after the steps
+    (ROADMAP.md queue 3); the probe records whether it recurs, and the
+    phase does not fail on it, since no path of the port calls it."""
+    import torch
+    try:
+        x = torch.rand(1022, 2048, device="cuda") + 0.5
+        torch.exp2(torch.floor(torch.log2(x)) - 7).sum().item()
+        return "ok"
+    except RuntimeError as e:
+        return f"failed: {e}"
 
 
 def phase_train_mesh():
@@ -6213,7 +6275,11 @@ def phase_train_mesh():
                                 "ft_leaves", "ft", "lora", "ft_loss",
                                 "lora_loss")}
         summary[f"rank{r}"]["kernel_max_err"] = max(
-            row["max_abs_err"] for row in res["kernels"])
+            (row["max_abs_err"] for row in res.get("kernels", [])),
+            default=None)
+        summary[f"rank{r}"]["kernel_max_err_after_steps"] = max(
+            row["max_abs_err"] for row in res["kernels_after"])
+        summary[f"rank{r}"]["exp2_probe"] = res.get("exp2_probe")
         for kind in ("ft", "lora"):
             v = res[kind]
             (ge, gk), (ne, nk) = (res["worst"][kind]["grad"],
@@ -6234,7 +6300,9 @@ def phase_train_mesh():
             f"package's {one['ft_leaves']}); adapters whole: "
             f"{len(res['lora_shapes'])} A/B; K2/K3 at its {len(TRAIN_SHAPES)}"
             f" shapes, m = {TRAIN_LORA_B * (TRAIN_S - 1)}, max|k-plain| "
-            f"{summary[f'rank{r}']['kernel_max_err']:.3g}; built in "
+            f"{summary[f'rank{r}']['kernel_max_err']} before the steps, "
+            f"{summary[f'rank{r}']['kernel_max_err_after_steps']} after;"
+            f" built in "
             f"{res['build_s']:.1f} s, {res['free_gib']:.1f} GiB free after")
     rows = rs[0]["kernels_timed"]
     summary["kernel_rows"] = rows
@@ -6270,6 +6338,233 @@ def train_path_launches(entries, train):
         e["rank_local_f32_m1022_sum"] = train["kernel_sums"][kernel]
 
 
+# Phase 24: the tools (ROADMAP queue 1 item 9) on the card
+TOOLS_LEAVES = [("qkv", ("self_attn", "qkv_proj")), ("o", ("self_attn",
+                                                          "o_proj")),
+                ("gateup", ("mlp", "gateup_proj")),
+                ("down", ("mlp", "down_proj")), ("head", None)]
+TOOLS_M = (1, 8)
+TOOLS_REPEATS = 3
+TOOLS_MIX_LAYERS = 1
+QUALITY_BAND = 0.03        # a cell's ppl against the port's own fp32 model
+QUALITY_RECIPE_BAND = 0.10  # the port's fp32 model against the JAX run's
+
+
+def tools_runs(tag, rep):
+    """Log each variant-parity run of ``rep``: leaf, rows, variant, the
+    function it reached, what it was held to and its max |diff|."""
+    for r in rep.runs:
+        log(f"{tag}: {r['leaf']} m={r['m']} {r['variant']}: {r['status']}; "
+            f"reached {r['reached']}, held to {r['against']}, max |diff| "
+            f"{r['max_abs_diff']:.4g} (scale {r['scale']:.4g}, tol "
+            f"{0.05 * r['scale'] + 1e-3:.4g})")
+
+
+def tools_sanitize_main(main):
+    """(i) The sanitizer on the main path's model (phase 5's, full width,
+    32 layers): determinism over TOOLS_REPEATS runs of the eager decode
+    step and of the graphed step, both in bf16 from bf16 caches as the
+    main path decodes, purity, finite logits; variant parity
+    at m = 1 and 8 on layer 0's qkv, o, gate/up and down and on the head,
+    each through K1 against ksplit = 2 (K6) and the dense decode."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    from quip_for_all_tpu_torch.utils import sanitize as S
+    cfg, model = main["cfg"], main["model"]
+    qt.set_ksplit(model, 0)
+    reset_launches()
+    t = time.time()
+    rep = S.sanitize_decode_step(cfg, model, repeats=TOOLS_REPEATS,
+                                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    step_s = time.time() - t
+    step_launches = {k: v for k, v in read_launches().items() if v}
+    # eager: the repeats, the purity call and the finite call; graphed:
+    # one warm-up (eager) and a replay a repeat (the capture takes back
+    # what it counted)
+    calls = TOOLS_REPEATS + 2 + 1 + TOOLS_REPEATS
+    check_launches("24 (i) decode step", read_launches(),
+                   {"fused_decode_matmul": (4 * LAYERS + 1) * calls})
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    reset_launches()
+    t = time.time()
+    for name, path in TOOLS_LEAVES:
+        leaf = model.lm_head if path is None else model.layers[0][
+            path[0]][path[1]]
+        for m in TOOLS_M:
+            x = torch.randn((m, leaf.q_in), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            rep.merge(S.check_variant_parity(leaf.qweight, x, leaf=name))
+    torch.cuda.synchronize()
+    leaves_s = time.time() - t
+    leaf_launches = {k: v for k, v in read_launches().items() if v}
+    tools_runs("24 (i) variant parity", rep)
+    for f in rep.skipped:
+        log(f"24 (i) skipped: {f.leaf}: {f.detail}")
+    log("24 (i) " + rep.summary().splitlines()[0])
+    if not rep.ok:
+        raise AssertionError("24 (i): sanitizer findings:\n" + rep.summary())
+    bases = [r for r in rep.runs if r["variant"] == "base"]
+    if not all(r["reached"].startswith("K1 ") for r in bases):
+        raise AssertionError("24 (i): a base run did not reach K1: "
+                             + json.dumps(bases))
+    if not leaf_launches.get("ksplit_decode_matmul"):
+        raise AssertionError("24 (i): no variant reached K6")
+    log(f"24 (i) Llama-2-7B, {cfg.num_hidden_layers} layers: decode step "
+        f"checks {step_s:.1f} s (launches {step_launches}); variant "
+        f"parity on {len(TOOLS_LEAVES)} leaves at m = {TOOLS_M}: "
+        f"{leaves_s:.1f} s, launches {leaf_launches}")
+    return {"findings": len(rep.findings), "skipped": len(rep.skipped),
+            "checks": sorted(set(rep.checks_run)), "runs": rep.runs,
+            "step_launches": step_launches, "leaf_launches": leaf_launches,
+            "step_s": step_s, "leaves_s": leaves_s}
+
+
+def tools_stacked():
+    """(ii) The sanitize CLI, ``--model mixtral_8x7b --layers
+    TOOLS_MIX_LAYERS``, run as its ``main`` runs it (in this process, so
+    that its launches count): Mixtral-8x7B at full width, experts
+    stacked, seed 0; its bf16 decode step's checks and its sweep, one
+    leaf per (codebook, layout, class), the stacked one (w13) through K4
+    against each expert's dense decode."""
+    import torch
+    from quip_for_all_tpu_torch.tools import sanitize as T
+    from quip_for_all_tpu_torch.utils.chiplock import chip_lock
+    args = T.parse_args(["--model", "mixtral_8x7b", "--layers",
+                         str(TOOLS_MIX_LAYERS)])
+    reset_launches()
+    t = time.time()
+    with chip_lock(device=args.device):
+        rep = T.run(args)
+    torch.cuda.synchronize()
+    run_s = time.time() - t
+    launches = {k: v for k, v in read_launches().items() if v}
+    tools_runs("24 (ii) Mixtral sweep", rep)
+    log("24 (ii) " + rep.summary().splitlines()[0])
+    kinds = {r["leaf"] for r in rep.runs}
+    stacked = [r for r in rep.runs if "experts_stacked" in r["leaf"]]
+    if not rep.ok or not stacked or not all(
+            r["reached"].startswith("K4 ") for r in stacked):
+        raise AssertionError("24 (ii): " + rep.summary() + "\n"
+                             + json.dumps(rep.runs))
+    if set(rep.checks_run) != {"determinism", "purity", "finite",
+                               "variant_parity"}:
+        raise AssertionError(f"24 (ii): checks run {rep.checks_run}")
+    log(f"24 (ii) the sanitize CLI on Mixtral-8x7B, {TOOLS_MIX_LAYERS} "
+        f"layer: {run_s:.1f} s with the build, the sweep over "
+        f"{sorted(kinds)}; launches {launches}")
+    torch.cuda.empty_cache()
+    return {"runs": rep.runs, "launches": launches, "s": run_s,
+            "skipped": len(rep.skipped)}
+
+
+def tools_cli():
+    """(iii) ``python -m quip_for_all_tpu_torch.tools.sanitize --model
+    tiny`` as a subprocess on the card: exit code 0."""
+    t = time.time()
+    r = subprocess.run([sys.executable, "-m",
+                        "quip_for_all_tpu_torch.tools.sanitize", "--model",
+                        "tiny"], capture_output=True, text=True, cwd=REPO,
+                       timeout=300)
+    s = time.time() - t
+    for line in (r.stderr.strip().splitlines()[-12:]
+                 + r.stdout.strip().splitlines()):
+        log(f"24 (iii) | {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"24 (iii): the sanitize CLI exited "
+                             f"{r.returncode}")
+    log(f"24 (iii) sanitize CLI --model tiny on the card: exit 0 in "
+        f"{s:.1f} s")
+    return {"rc": r.returncode, "s": s,
+            "summary": r.stdout.strip().splitlines()[0]}
+
+
+def tools_quality():
+    """(iv) ``quality_matrix --fast`` on the card into a temporary
+    directory: the E8P12 cell's two ppls within QUALITY_BAND of the port's
+    own fp32 model's, the fp32 held-out ppl within QUALITY_RECIPE_BAND of
+    the JAX run's (``docs/QUALITY.json`` main_fp32); then eval_ppl once
+    more in this process on the cell's checkpoint, its ppl equal to the
+    subprocess's and its K2 launches counted (every linear the widths rule
+    sends to the kernels, once a batch of 8 x 32 rows)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from quip_for_all_tpu_torch.cli import eval_ppl
+    from quip_for_all_tpu_torch.ops.fused_matmul import supports
+    from quip_for_all_tpu_torch.nn.qlinear import QuantLinear
+    from quip_for_all_tpu_torch.tools import quality_matrix as Q
+    from quip_for_all_tpu_torch.utils.checkpoint import load_quantized
+    work = tempfile.mkdtemp(prefix="quality_")
+    t = time.time()
+    out = Q.main(["--fast", "--device", "cuda", "--workdir", work,
+                  "--out", os.path.join(work, "QUALITY_TORCH.md")])
+    s = time.time() - t
+    with open(os.path.join(REPO, "docs", "QUALITY.json")) as f:
+        jax_q = json.load(f)
+    fp_h, fp_t = out["main_fp32"]
+    _, _, q_h, q_t = out["main"][0]
+    jfp_h, jfp_t = jax_q["main_fp32"]
+    jq = {(c, v): (h, tt) for c, v, h, tt in jax_q["main"]}[("E8P12",
+                                                               "base")]
+    log(f"24 (iv) quality_matrix --fast on the card ({s:.1f} s): fp32 "
+        f"held-out {fp_h} / train-window {fp_t} (JAX's CPU run {jfp_h} / "
+        f"{jfp_t}); E8P12 held-out {q_h} / train-window {q_t} (JAX's "
+        f"{jq[0]} / {jq[1]}); x fp32 {q_h / fp_h:.4f} / {q_t / fp_t:.4f}")
+    if not (abs(q_h / fp_h - 1) <= QUALITY_BAND
+            and abs(q_t / fp_t - 1) <= QUALITY_BAND):
+        raise AssertionError(f"24 (iv): E8P12 ppl {q_h} / {q_t} more than "
+                             f"{QUALITY_BAND:.0%} from fp32 {fp_h} / {fp_t}")
+    if abs(fp_h / jfp_h - 1) > QUALITY_RECIPE_BAND:
+        raise AssertionError(f"24 (iv): fp32 held-out ppl {fp_h}, more than "
+                             f"{QUALITY_RECIPE_BAND:.0%} from JAX's {jfp_h}")
+    ckpt = os.path.join(work, "main_E8P12_base")
+    _, model, _ = load_quantized(ckpt, device="cuda")
+    linears = sum(1 for m in model.modules()
+                  if isinstance(m, QuantLinear) and supports(m.qweight))
+    del model
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        eval_ppl.main(["--model-path", ckpt] + Q.eval_args(Q.EVAL_SEED)
+                      + ["--device", "cuda"])
+    launches = {k: v for k, v in read_launches().items() if v}
+    ppl = json.loads(buf.getvalue().strip().splitlines()[-1])["ppl"]
+    check_launches("24 (iv) eval_ppl in this process", read_launches(),
+                   {"fused_decode_matmul_tc": 2 * linears})
+    if round(ppl, 3) != q_h:
+        raise AssertionError(f"24 (iv): eval_ppl here gave {ppl}, the "
+                             f"subprocess {q_h}")
+    shutil.rmtree(work)
+    return {"s": s, "fp32": [fp_h, fp_t], "e8p12": [q_h, q_t],
+            "jax_fp32": [jfp_h, jfp_t], "jax_e8p12": list(jq),
+            "eval_launches": launches, "device": out["device"]}
+
+
+def phase_tools(main):
+    """24: the tools on the card (module docstring)."""
+    res = {"sanitize_main": at("24 (i)", tools_sanitize_main, main),
+           "stacked": at("24 (ii)", tools_stacked),
+           "cli": at("24 (iii)", tools_cli),
+           "quality": at("24 (iv)", tools_quality)}
+    log(f"tools: card {smi_line()}")
+    return res
+
+
+def tools_path_launches(entries, tools):
+    """Phase 24's launches beside K1's, K6's, K4's and K2's entries: (i),
+    (ii) and (iv)'s eval_ppl in this process."""
+    by = {e["name"]: e for e in entries}
+    runs = (tools["sanitize_main"]["step_launches"],
+            tools["sanitize_main"]["leaf_launches"],
+            tools["stacked"]["launches"], tools["quality"]["eval_launches"])
+    for name in ("fused_decode_matmul", "ksplit_decode_matmul",
+                 "moe_decode_matmul", "fused_decode_matmul_tc"):
+        by[name].setdefault("launches_by_path", {})["phase24_tools"] = sum(
+            r.get(name, 0) for r in runs)
+
+
 def at(phase, fn, *args):
     """Run one phase, logging when it starts and how long it took, so the
     script's time against its limit can be read phase by phase."""
@@ -6285,7 +6580,7 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description="Chip smoke run of the "
                                  "PyTorch port on one CUDA card.")
     ap.add_argument("--phase", action="append",
-                    choices=("20", "21", "22", "23"),
+                    choices=("20", "21", "22", "23", "24"),
                     help="run the kernels' build and this phase alone "
                     "(repeatable), print its summary and no result line")
     ap.add_argument("--profile-ft", action="store_true",
@@ -6325,6 +6620,9 @@ def main(argv=None) -> int:
                 out = (at(ph, phase_tp, args.profile_ft) if ph == "21"
                        else at(ph, phase_ep) if ph == "22"
                        else at(ph, phase_train_mesh) if ph == "23"
+                       else at(ph, phase_tools, dict(zip(
+                           ("cfg", "model"), main_model())))
+                       if ph == "24"
                        else at(ph, phase_lora_families))
                 log(f"phase {ph}: " + json.dumps(out, default=str))
             return 0
@@ -6352,6 +6650,9 @@ def main(argv=None) -> int:
         profile = at("5e", phase_profile, main)
         at("5d", phase_cli)
         right_main = at("17 (iii)", phase_right_main, main)
+        # before phase 12, which cuts the main path's model to its first
+        # PATH12_LAYERS blocks
+        tools = at("24", phase_tools, main)
         new_paths = at("12", phase_layout_paths, main)
         mix = at("6", phase_mixtral)
         neox = at("18 (i)", phase_neox20b)
@@ -6378,6 +6679,7 @@ def main(argv=None) -> int:
         tp_path_launches(entries, tp)
         ep_path_launches(entries, ep)
         train_path_launches(entries, train_mesh)
+        tools_path_launches(entries, tools)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
             "rvq4b_nibble_both": paths["c_rvq4b_nibble"]["right_combine"]}))
@@ -6388,6 +6690,7 @@ def main(argv=None) -> int:
         log("tensor parallelism: " + json.dumps(tp))
         log("expert parallelism: " + json.dumps(ep, default=str))
         log("training under a mesh: " + json.dumps(train_mesh, default=str))
+        log("tools: " + json.dumps(tools, default=str))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,
             "serving": serving, "mixtral_serving": mix["serving"],

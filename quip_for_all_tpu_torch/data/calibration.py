@@ -88,7 +88,7 @@ def get_calibration_tokens(dataset: str, tokenizer: Any, nsamples: int,
                            vocab_size: Optional[int] = None) -> np.ndarray:
     """(nsamples, seqlen) int32 token windows from ``synthetic`` (needs
     ``vocab_size``) or a ``file:`` corpus (needs a tokenizer); ``split``
-    only names the HF datasets' splits, which are not ported yet."""
+    only names the HF datasets' splits, which are not ported."""
     if dataset in ("", "synthetic"):
         if vocab_size is None:
             raise ValueError("synthetic data needs vocab_size")
@@ -98,4 +98,5 @@ def get_calibration_tokens(dataset: str, tokenizer: Any, nsamples: int,
                                    seqlen, seed)
     raise NotImplementedError(
         f"dataset {dataset!r} ({split}): the HF-dataset sources are not "
-        "ported yet (ROADMAP.md slice 6); use 'synthetic' or 'file:<path>'")
+        "ported, and none is queued, since each needs a download; use "
+        "'synthetic' or 'file:<path>'")

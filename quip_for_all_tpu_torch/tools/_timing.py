@@ -64,8 +64,14 @@ def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int,
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
-    a = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+    """One bf16 ulp at each |v|, in f32: 2^(e - 7) for the f32 exponent e
+    of |v| (floored at f32's smallest normal), masked out of its bits.
+    Exact at a binade's edge, where ``exp2(floor(log2(a)) - 7)`` rounds
+    log2 up; and no ``torch.exp2``, which PyTorch compiles at run time on
+    a card (NVRTC, its jiterator): that call failed in spawned gloo ranks
+    after their training steps (ROADMAP.md queue 3)."""
+    a = v.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return (a.view(torch.int32) & 0x7F800000).view(torch.float32) * 2.0**-7
 
 
 def compare(got: torch.Tensor, want: torch.Tensor,

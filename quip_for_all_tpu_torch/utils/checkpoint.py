@@ -22,10 +22,16 @@ had_left/had_right (only with use_rand) and a scalar ``weight`` shim; the
 quantization config sits in config.json or quantization_config.json.
 Files are read and written with the port's own safetensors code.
 A tensor-parallel checkpoint (``tp_shards`` > 1 in its quantization config)
-loads by the JAX package's role rule: ``shards_left = tp_shards`` on every
-row-parallel linear, ``shards_right = tp_shards`` on every column-parallel
-one (``parallel/sharding.py`` ``role_of``), the table factor recomputed
-for the shard when ``use_rand`` is false.
+loads each linear with the shards its quantizer drew
+(``quantize/quantizer.py``, in both packages): ``shards_left = tp_shards``
+on a block's row-parallel linear whose inputs tp divides,
+``shards_right = tp_shards`` on a block's column-parallel one whose
+outputs it divides (``parallel/sharding.py`` ``role_of``), every other
+linear whole, the head included; the table factor is recomputed for the
+shard when ``use_rand`` is false. The JAX loader gives every
+column-parallel name ``shards_right = tp_shards`` by its role alone, so
+it reloads a quantized head (and any linear whose dimension tp does not
+divide) as another linear, or raises (ROADMAP.md queue 3).
 
 ``save_quantized`` writes that schema from an unfused port model (the
 JAX package's ``save_quantized``: the same tensor names, values and
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -94,13 +101,27 @@ def _codebook(qcfg: dict):
     return get_codebook(qcfg["codebook"], ors if ors > 0 else None)
 
 
+# a block's linear: its name holds the block's index
+_IN_BLOCK = re.compile(r"\.\d+\.")
+
+
+def drawn_shards(name: str, tp: int, in_f: int, out_f: int
+                 ) -> Tuple[int, int]:
+    """(shards_left, shards_right) of the transforms the quantizer drew for
+    linear ``name`` at ``tp_shards = tp``: block-diagonal on the dimension
+    tp cuts (a block's row-parallel inputs, column-parallel outputs) where
+    tp divides it, whole on every other linear and on the head."""
+    from ..parallel.sharding import role_of
+    if tp == 1 or not _IN_BLOCK.search(name):
+        return 1, 1
+    role = role_of(name)
+    return (tp if role == "row" and in_f % tp == 0 else 1,
+            tp if role == "col" and out_f % tp == 0 else 1)
+
+
 def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
                    device, layout=None) -> QuantLinear:
-    from ..parallel.sharding import role_of
     tp = int(qcfg.get("tp_shards", 1))
-    role = role_of(name)
-    shards_left = tp if (tp > 1 and role == "row") else 1
-    shards_right = tp if (tp > 1 and role == "col") else 1
     cb = _codebook(qcfg)
     packed = tensors[name + ".Qidxs"]
     SU = tensors.get(name + ".SU")
@@ -114,6 +135,7 @@ def _build_qlinear(tensors: Dict[str, np.ndarray], name: str, qcfg: dict,
     q_in = int(packed.shape[1] * cb.codesz * cb.packsz)
     in_f = SU.shape[0] if SU is not None else q_in
     out_f = SV.shape[0] if SV is not None else q_out
+    shards_left, shards_right = drawn_shards(name, tp, in_f, out_f)
     qt = from_checkpoint_idxs(cb, packed, q_out, q_in, device=device,
                               layout=layout)
 

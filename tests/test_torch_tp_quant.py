@@ -18,8 +18,9 @@ A quantized head at tp_shards > 1 is a fault of the JAX package (ROADMAP.md
 queue 3): its quantizer transforms the head whole, and its loader gives the
 head ``shards_right = tp`` by role alone, so the reloaded head is another
 linear (an even vocabulary: other logits) or none (an odd one: the right
-transform's reshape raises). The port keeps JAX's result; the test below
-pins both packages to it.
+transform's reshape raises). The port's loader gives each linear the
+shards its quantizer drew, so its reload is the quantized model; JAX's
+wrong reload stays pinned below as a difference kept on purpose.
 """
 import json
 
@@ -172,37 +173,71 @@ def test_tp_quantize_quality_parity():
     assert ppls[2] < ppls[1] * 1.2, ppls
 
 
-@pytest.mark.parametrize("vocab", [256, 255])
-def test_quantized_head_at_tp_shards_reloads_as_jax_does(vocab, tmp_path):
-    """The JAX fault (module docstring; ROADMAP.md queue 3), pinned in
-    both packages: the head is quantized whole (shards_right 1) but loads
-    with shards_right 2. At vocab 256 both reloads give the same logits,
-    far from the quantized model's (more than max|logit| apart; 6.72
-    against 4.06 when measured); at vocab 255 both reloads raise
-    in the head's right transform."""
+@pytest.fixture(scope="module", params=[256, 255])
+def head_case(request, tmp_path_factory):
+    """A one-layer tiny llama at an even and an odd vocabulary, quantized
+    by both packages at tp_shards=2 with its head, JAX's saved: (JAX
+    config, JAX quantized params, the port's quantized model, its
+    quantization config, the checkpoint's directory)."""
+    vocab = request.param
+    tmp_path = tmp_path_factory.mktemp(f"head{vocab}")
     cfg = jtiny(num_hidden_layers=1, vocab_size=vocab)
     tcfg = tiny_config(num_hidden_layers=1, vocab_size=vocab)
     calib = synthetic_tokens(4, 24, vocab, seed=1)
     kw = dict(codebook="E8P12", nsamples=4, batch_size=4, quip_tune_iters=0,
               ft_epochs=0, tp_shards=2, quantize_lm_head=True)
-    jq = JQ(**kw)
+    jq, tq = JQ(**kw), TQ(**kw)
     jp = jq.quantize_model(cfg, JM.init_llama_params(cfg, seed=0), calib)
-    tm = TQ(**kw).quantize_model(
+    tm = tq.quantize_model(
         tcfg, TM.init_llama_params(tcfg, seed=0, device="cpu"), calib)
     assert jp["lm_head"].shards_right == tm.lm_head.shards_right == 1
-    jckpt.save_quantized(cfg, jp, jq.to_dict(), str(tmp_path))
-    jc, jl, _ = jckpt.load_quantized(str(tmp_path))
-    tc, tl, _ = tckpt.load_quantized(str(tmp_path), device="cpu")
-    assert jl["lm_head"].shards_right == tl.lm_head.shards_right == 2
+    jckpt.save_quantized(cfg, jp, jq.to_dict(), str(tmp_path / "jax"))
+    return cfg, jp, tm, tq.to_dict(), str(tmp_path / "jax")
+
+
+def test_quantized_head_at_tp_shards_reloads_as_quantized(head_case,
+                                                          tmp_path):
+    """The port's reload of a JAX-written tp_shards=2 checkpoint with a
+    quantized head: the head whole (the shards its quantizer drew), every
+    block linear with the role rule's shards, and the JAX quantized
+    model's f32 logits within 1e-4 of max|logit| at an even and an odd
+    vocabulary; the port's own checkpoint reloads as its quantized model
+    too."""
+    cfg, jp, tm, tq, d = head_case
+    tc, tl, _ = tckpt.load_quantized(d, device="cpu")
+    assert tl.lm_head.shards_right == tl.lm_head.shards_left == 1
+    for name, m in tl.named_modules():
+        if isinstance(m, QuantLinear) and name != "lm_head":
+            j = tm.get_submodule(name)
+            assert (m.shards_left, m.shards_right) == (j.shards_left,
+                                                       j.shards_right), name
     ids = _ids(cfg)
+    assert_close(_tlogits(tc, tl, ids), _jlogits(cfg, jp, ids),
+                 rel=MODEL_TOL)
+    own = tmp_path / "port"
+    tckpt.save_quantized(tc, tm, tq, str(own))
+    oc, ol, _ = tckpt.load_quantized(str(own), device="cpu")
+    assert_close(_tlogits(oc, ol, ids), _tlogits(tc, tm, ids),
+                 rel=MODEL_TOL)
+
+
+def test_quantized_head_at_tp_shards_reloads_as_jax_does(head_case):
+    """JAX's fault (module docstring; ROADMAP.md queue 3), a difference
+    kept on purpose: JAX's loader gives the head, quantized whole,
+    shards_right 2. At vocab 256 its reload's logits are far from the
+    quantized model's (more than max|logit| apart; 6.72 against 4.06
+    when measured); at vocab 255 the reload raises in the head's right
+    transform."""
+    cfg, jp, _, _, d = head_case
+    jc, jl, _ = jckpt.load_quantized(d)
+    assert jl["lm_head"].shards_right == 2
+    ids = _ids(cfg)
+    vocab = cfg.vocab_size
     if vocab % 2:
         with pytest.raises(TypeError, match="reshape"):
             _jlogits(jc, jl, ids)
-        with pytest.raises(RuntimeError, match="shape"):
-            _tlogits(tc, tl, ids)
         return
     want = _jlogits(jc, jl, ids)
-    assert_close(_tlogits(tc, tl, ids), want, rel=MODEL_TOL)
     quantized = _jlogits(cfg, jp, ids)
     assert np.abs(want - quantized).max() > np.abs(quantized).max()
     print(json.dumps({"vocab": vocab, "reload_vs_quantized": float(
