@@ -7,6 +7,7 @@ card: the quickest proof that the port still starts on the GPU.
     python3 chip_smoke.py --phase 22
     python3 chip_smoke.py --phase 23
     python3 chip_smoke.py --phase 24
+    python3 chip_smoke.py --phase 25
 
 Phases (each prints its lines; any failure exits non-zero with no result
 line):
@@ -180,7 +181,8 @@ line):
      since phase 22, LORA_MIX_LAYERS; experts stacked, attention unfused, quantized head;
      rank-8 adapters on q/k/v/o) at batch 1 x 512 (511 rows: K2 forward,
      K3 backward, the dense expert loop over the stacked experts' views),
-     (ii) GPT-NeoX-20B E8P12 (22 of its 44 layers, LORA_NEOX_LAYERS;
+     (ii) GPT-NeoX-20B E8P12 (22 of its 44 layers, 11 since phase 25,
+     LORA_NEOX_LAYERS;
      adapters on every block linear) at 2 x 512: each with every adapter
      gradient against the plain route in f32 and bf16 (Mixtral's on its
      first 4 layers), exact K2/K3 launches per step, the step timed with
@@ -295,9 +297,32 @@ line):
      JAX run's (``docs/QUALITY.json``), and eval_ppl once more in this
      process on the cell's checkpoint (the same ppl, K2 launches counted).
      ``--phase 24`` alone builds the main path's model first.
+ 25. training over the expert axis on the one card, phase 23's harness
+     with phase 22's layout: Mixtral-8x7B E8P12 nibble at full width, 4
+     layers (MIXTRAL_TRAIN_LAYERS; random codes from seed 0, experts
+     stacked, attention unfused, whole transforms, quantized head), first
+     whole in this process (the one-rank references in f32): (a) one
+     end-to-end finetune step on 2 x 512 ids and the first 2 blocks
+     (MIXTRAL_FT_LAYERS: four ranks' dense f32 expert W at 4 layers did
+     not fit on the card; the training forward: the dense expert loop on
+     calc_weight's W, no kernel), (b) one LoRA step
+     (rank 8 on q/k/v/o, B off zero, AdamW at 1e-4) on 1 x 512 ids, 511
+     rows: K2 forward and K3 backward on every quantized linear, the
+     expert loop over all 8 experts; then four gloo ranks spawned on
+     ``cuda:0`` at ``make_mesh(ep=2, tp=2)`` with ``shard_params`` (4
+     experts whole a rank, half of the heads; a forward that autograd
+     differentiates takes the dense loop over the rank's own experts,
+     ``parallel/layers.py`` ``ExpertParallelMoE``), held as in phase 23:
+     losses equal on the ranks and to the one-rank step's, every gradient
+     and updated leaf; K2 and K3 against their twins at each rank-local
+     shape (q, k, v, o cut, w1/w3 4096 -> 14336, w2 14336 -> 4096, the
+     head), timed on rank 0 beside bound, twin and library; exact
+     launches (none in (a); one rank 113 K2 + 110 K3 in (b), a rank 65 +
+     62), the collectives by kind with their host seconds, the peak
+     memory a rank.
 Phases run in the order 1-4, 7, 10, 13, 16, 15, 17 (i, ii), 11, 5 (with
 a, b, e, d), 17 (iii), 24 (while phase 5's model is whole), 12, 6 (with
-c), 18, 9 (with 17 iv), 14, 20, 19, 21, 22, 23;
+c), 18, 9 (with 17 iv), 14, 20, 19, 21, 22, 23, 25;
 each logs its start and its seconds. The last
 stdout line
 is {"ok": true, "device": {...}}; the line before it lists the kernels
@@ -312,6 +337,7 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import Callable
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.time()
@@ -458,8 +484,10 @@ DENSE_M = (1022, 2044)
 # (sequence parallelism and the pipeline; the script took 994.8 s with
 # phase 20 at full depth on an H100 80GB HBM3 at 700 W), (i) runs 16 of
 # Mixtral's 32 layers (8 since phase 22 came) and (ii) 22 of
-# GPT-NeoX-20B's 44: depth the only cut, the widths the published ones.
-LORA_MIX_LAYERS, LORA_NEOX_LAYERS = 8, 22
+# GPT-NeoX-20B's 44 (11 since phase 25 came: the whole script reached
+# phase 25 at 987.6 s on an H100 80GB HBM3 at 700 W): depth the only cut,
+# the widths the published ones.
+LORA_MIX_LAYERS, LORA_NEOX_LAYERS = 8, 11
 LORA_MIX_B, LORA_MIX_S, LORA_MIX_GRAD_LAYERS = 1, 512, 4
 LORA_NEOX_B, LORA_NEOX_S = 2, 512
 LORA_CLI_LAYERS = 2
@@ -5808,39 +5836,67 @@ def ep_path_launches(entries, ep):
             "max_abs_err")} for row in ep["k4_times"]}
 
 
-# ------------------------------------------------------------ phase 23
+# ------------------------------------------------------------ phases 23, 25
 
-# training under a ("dp", "tp") mesh: Llama-2-7B E8P12 nibble at full
-# width and PHASE23_LAYERS layers (depth the only cut, for the script's
-# time), random codes from seed 0, q/k/v/o/gate/up/down unfused, the head
-# quantized, with phase 21's tp_shards = 2 transforms; TRAIN_WORLD gloo
-# ranks on cuda:0 at make_mesh(dp=TRAIN_DP, tp=TRAIN_TP). (a) one
-# end-to-end finetune step on TRAIN_FT_B x TRAIN_S ids, each dp rank its
-# half (the training forward: calc_weight's dense W, no kernel); (b) one
-# LoRA step on TRAIN_LORA_B x TRAIN_S ids, the whole batch on every rank
-# (rank 8, the default targets, AdamW at TRAIN_LORA_LR; 1022 rows: K2
+# training under a mesh, two phases of one harness (``TrainPhase``; all in
+# f32, each rank held to the one-rank step within TRAIN_TOL): (a) one
+# end-to-end finetune step (the training forward: calc_weight's dense W,
+# no kernel), each dp rank its part; (b) one LoRA step, the whole batch on
+# every rank (rank 8, the default targets, AdamW at TRAIN_LORA_LR; K2
 # forward, K3 backward at the rank-local shapes), adapters added after
-# shard_params. Both in f32, held to the one-rank step within TRAIN_TOL.
+# shard_params. TRAIN_WORLD gloo ranks on cuda:0.
+#
+# Phase 23, a ("dp", "tp") mesh: Llama-2-7B E8P12 nibble at full width and
+# PHASE23_LAYERS layers (depth the only cut, for the script's time),
+# random codes from seed 0, q/k/v/o/gate/up/down unfused, the head
+# quantized, with phase 21's tp_shards = 2 transforms, at make_mesh(dp=2,
+# tp=2); (a) on 4 x TRAIN_S ids, (b) on 2 x TRAIN_S (1022 rows).
+#
+# Phase 25, the expert axis: Mixtral-8x7B E8P12 nibble at full width and
+# MIXTRAL_TRAIN_LAYERS layers (depth the only cut), random codes from seed
+# 0, experts stacked, attention unfused, whole transforms, the head
+# quantized, at make_mesh(ep=2, tp=2) (phase 22's layout: each rank 4
+# experts whole, half of the heads); (a) on 2 x TRAIN_S ids and the first
+# MIXTRAL_FT_LAYERS blocks, (b) on 1 x TRAIN_S (511 rows). A rank's
+# forward that autograd differentiates takes the dense expert loop over
+# its own experts (``ExpertParallelMoE``), through K2 in (b). (a)'s
+# depth cut: its backward keeps each expert linear's dense f32 W (0.22
+# GiB), and four ranks at 4 layers (17.88 GiB each at their peak)
+# exhausted the card's 76.8 GiB free when the whole script ran (P22c).
 PHASE23_LAYERS = 8
-TRAIN_WORLD, TRAIN_DP, TRAIN_TP = 4, 2, 2
-TRAIN_S, TRAIN_FT_B, TRAIN_LORA_B = 512, 4, 2
+MIXTRAL_TRAIN_LAYERS = 4
+MIXTRAL_FT_LAYERS = 2
+TRAIN_WORLD = 4
+TRAIN_S = 512
 TRAIN_LRS = (5e-4, 5e-5)            # SU/SV, the rest
 TRAIN_LORA_LR = 1e-4
 TRAIN_TOL = 1e-4
-# a LoRA step's launches: K2 on every quantized linear (7 a block, the
-# head); K3 less layer 0's q, k and v (their input needs no gradient)
-TRAIN_K2 = 7 * PHASE23_LAYERS + 1
-TRAIN_K3 = TRAIN_K2 - 3
-# a rank's linears at tp 2: (name, module path in a block, or None for
-# the head; q_out, q_in of its planes)
-TRAIN_SHAPES = [("q", ("self_attn", "q_proj"), 2048, 4096),
-                ("k", ("self_attn", "k_proj"), 2048, 4096),
-                ("v", ("self_attn", "v_proj"), 2048, 4096),
-                ("o", ("self_attn", "o_proj"), 4096, 2048),
-                ("gate", ("mlp", "gate_proj"), 5504, 4096),
-                ("up", ("mlp", "up_proj"), 5504, 4096),
-                ("down", ("mlp", "down_proj"), 4096, 5504),
-                ("head", None, 16000, 4096)]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPhase:
+    """What phases 23 and 25 set. ``layers``: the model's depth, and
+    ``ft_layers`` the blocks (a) runs on (its first); ``shapes``: a
+    rank's K2/K3 checks, (name, its linear in block 0 (``train_linear``),
+    or None for the head; q_out, q_in of the rank's planes); ``experts``:
+    the experts a rank runs a block (0 without them); ``one_launches``:
+    (b)'s (K2, K3) on one rank (a rank's follow from ``shapes``,
+    ``train_calls``); ``collectives``: (leaves, (a)'s layers, layers) ->
+    the predicted count a rank's step by kind, logged beside the count;
+    ``rank_key``: the kernels line's key of its K2/K3 rows."""
+    label: str
+    cfg: Callable
+    model: Callable
+    layers: int
+    ft_layers: int
+    mesh: dict
+    ft_b: int
+    lora_b: int
+    shapes: tuple
+    experts: int
+    one_launches: tuple
+    collectives: Callable
+    rank_key: str
 
 
 def train_cfg():
@@ -5855,18 +5911,115 @@ def train_model(cfg):
     import quip_for_all_tpu_torch as qt
     return tp_block_diagonal(qt.random_quantized_model(
         cfg, seed=0, dtype=torch.float32, quantize_head=True,
-        device="cuda"), TRAIN_TP)
+        device="cuda"), 2)
 
 
-def train_inputs(cfg):
+def mix_train_cfg():
+    import dataclasses as dc
+    from quip_for_all_tpu_torch.models.config import mixtral_8x7b_config
+    return dc.replace(mixtral_8x7b_config(),
+                      num_hidden_layers=MIXTRAL_TRAIN_LAYERS)
+
+
+def mix_train_model(cfg):
+    """Phase 25's model (above), its trainable leaves in f32."""
+    import torch
+    import quip_for_all_tpu_torch as qt
+    return qt.random_quantized_model(cfg, seed=0, dtype=torch.float32,
+                                     quantize_head=True, device="cuda")
+
+
+def train_calls(ph, kernel, name):
+    """A linear's calls in a rank's (b) forward: once a block, an expert
+    linear once for each of the rank's experts, the head once; K3 less
+    layer 0's q, k and v, whose input needs no gradient."""
+    if name == "head":
+        return 1
+    if kernel == "K3" and name in ("q", "k", "v"):
+        return ph.layers - 1
+    return ph.layers * (ph.experts if name in ("w1", "w3", "w2") else 1)
+
+
+def rank_launches(ph):
+    """(b)'s (K2, K3) a rank: ``train_calls`` over the rank's linears."""
+    return tuple(sum(train_calls(ph, kernel, name) for name, *_ in
+                     ph.shapes) for kernel in ("K2", "K3"))
+
+
+def _llama_collectives(leaves, F, L):
+    """(a) the row sums (2 a block) and the head's gather forward, a
+    column shard's input gradient summed (5 a block, the head) backward,
+    the dp mean of the loss and every leaf; (b) the row sums and the row
+    adapters' (m, r) sums forward, the column shards' input sums (less
+    layer 0's q, k, v), the column adapters' h and B and the row
+    adapters' A backward."""
+    return {"ft": {"all_reduce": 7 * F + 2 + leaves, "all_gather": 1},
+            "lora": {"all_reduce": 21 * L - 2, "all_gather": 1}}
+
+
+def _mix_collectives(leaves, F, L):
+    """(a) a block gathers q's, k's, v's outputs and o's input (the whole
+    transforms' gather route) and sums o's partials and its experts'
+    partial forward, and sums the gradients at q's, k's, v's inputs and
+    outputs and at o's input (tp) and at the router's logits and the
+    MoE's input (ep) backward; the head gathers its logits and sums its
+    input's gradient; dp 1: no mean. (b) the same gathers, and o's
+    adapter's (m, r) partial summed forward; backward, no sum at layer
+    0's q/k/v input and outputs (nothing before them takes a gradient),
+    two a column adapter (its h and B) and one for o's A."""
+    return {"ft": {"all_reduce": 11 * F + 1, "all_gather": 4 * F + 1},
+            "lora": {"all_reduce": 19 * L - 5, "all_gather": 4 * L + 1}}
+
+
+TRAIN_PHASES = {
+    "23": TrainPhase(
+        label="train", cfg=train_cfg, model=train_model,
+        layers=PHASE23_LAYERS, ft_layers=PHASE23_LAYERS,
+        mesh={"dp": 2, "tp": 2}, ft_b=4, lora_b=2,
+        shapes=(("q", ("self_attn", "q_proj"), 2048, 4096),
+                ("k", ("self_attn", "k_proj"), 2048, 4096),
+                ("v", ("self_attn", "v_proj"), 2048, 4096),
+                ("o", ("self_attn", "o_proj"), 4096, 2048),
+                ("gate", ("mlp", "gate_proj"), 5504, 4096),
+                ("up", ("mlp", "up_proj"), 5504, 4096),
+                ("down", ("mlp", "down_proj"), 4096, 5504),
+                ("head", None, 16000, 4096)),
+        # K2 on every quantized linear (7 a block, the head), at whole
+        # widths on one rank and the rank-local ones on each rank
+        experts=0,
+        one_launches=(7 * PHASE23_LAYERS + 1, 7 * PHASE23_LAYERS - 2),
+        collectives=_llama_collectives, rank_key="rank_local_f32"),
+    "25": TrainPhase(
+        label="ep train", cfg=mix_train_cfg, model=mix_train_model,
+        layers=MIXTRAL_TRAIN_LAYERS, ft_layers=MIXTRAL_FT_LAYERS,
+        mesh={"dp": 1, "ep": 2, "tp": 2},
+        ft_b=2, lora_b=1,
+        shapes=(("q", ("self_attn", "q_proj"), 2048, 4096),
+                ("k", ("self_attn", "k_proj"), 512, 4096),
+                ("v", ("self_attn", "v_proj"), 512, 4096),
+                ("o", ("self_attn", "o_proj"), 4096, 2048),
+                ("w1", ("experts", "w1"), 14336, 4096),
+                ("w3", ("experts", "w3"), 14336, 4096),
+                ("w2", ("experts", "w2"), 4096, 14336),
+                ("head", None, 16000, 4096)),
+        # K2 on q/k/v/o and the experts' w1/w3/w2 (8 experts a block on
+        # one rank, a rank's 4) and the head
+        experts=4,
+        one_launches=(28 * MIXTRAL_TRAIN_LAYERS + 1,
+                      28 * MIXTRAL_TRAIN_LAYERS - 2),
+        collectives=_mix_collectives, rank_key="ep2_tp2_rank_local_f32"),
+}
+
+
+def train_inputs(cfg, ph):
     """(a)'s ids and next-token targets, (b)'s tokens (seed 23)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(23)
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                       (TRAIN_FT_B, TRAIN_S)), device="cuda")
+                                       (ph.ft_b, TRAIN_S)), device="cuda")
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (TRAIN_LORA_B, TRAIN_S)),
+                                        (ph.lora_b, TRAIN_S)),
                            device="cuda")
     return ids, torch.roll(ids, -1, dims=1), toks
 
@@ -5894,28 +6047,37 @@ def train_run(res, name, fn):
     return out
 
 
-def train_steps(cfg, model, mesh=None):
+def train_steps(ph, cfg, model, mesh=None):
     """(a) and (b) on the whole model or a rank's (with its ``mesh``):
     the losses, gradients (gathered into the JAX package's names) and
-    leaves after each step, with ``train_run``'s numbers. (a)'s leaves go
-    back to their values before (b)."""
+    leaves after each step, with ``train_run``'s numbers. (a) runs on the
+    model's first ``ph.ft_layers`` blocks, and its leaves go back to their
+    values before (b)."""
     import torch
+    from torch import nn
     from quip_for_all_tpu_torch.nn.lora import add_lora
     from quip_for_all_tpu_torch.quantize import finetune as FT
     from quip_for_all_tpu_torch.quantize.lora_train import causal_lm_loss
-    ids, tgt, toks = train_inputs(cfg)
+    ids, tgt, toks = train_inputs(cfg, ph)
     res = {}
-    flat = FT.collect_trainable(model)
-    before = FT.freeze(flat)
-    FT.apply_trainable(model, flat)
-    opt = FT.make_susv_optimizer(*TRAIN_LRS, flat)
-    step = FT.make_train_step(
-        opt, lambda i: FT.student_logits(cfg, model, i), mesh=mesh)
-    res["ft_loss"] = train_run(res, "ft", lambda: float(step(ids, tgt)))
-    res["ft_leaves"] = len(flat)
-    res["ft_grads"] = FT.gather_trainable(model, flat, grads=True)
-    res["ft_new"] = FT.gather_trainable(model, flat)
-    FT.apply_trainable(model, before)
+    fcfg = dataclasses.replace(cfg, num_hidden_layers=ph.ft_layers)
+    layers = model.layers
+    model.layers = nn.ModuleList(list(layers)[:ph.ft_layers])
+    try:
+        flat = FT.collect_trainable(model)
+        before = FT.freeze(flat)
+        FT.apply_trainable(model, flat)
+        opt = FT.make_susv_optimizer(*TRAIN_LRS, flat)
+        step = FT.make_train_step(
+            opt, lambda i: FT.student_logits(fcfg, model, i), mesh=mesh)
+        res["ft_loss"] = train_run(res, "ft",
+                                   lambda: float(step(ids, tgt)))
+        res["ft_leaves"] = len(flat)
+        res["ft_grads"] = FT.gather_trainable(model, flat, grads=True)
+        res["ft_new"] = FT.gather_trainable(model, flat)
+        FT.apply_trainable(model, before)
+    finally:
+        model.layers = layers
     del flat, opt, step
     torch.cuda.empty_cache()
     add_lora(model, rank=8, alpha=16.0, seed=0)
@@ -5977,15 +6139,23 @@ def train_hold(tag, got, ref, kind):
 
 def train_linear(model, path):
     """A rank's quantized linear of block 0 (``path``) or the head: its
-    cut ``QuantLinear`` (under its adapter, once (b) has added one)."""
+    cut ``QuantLinear`` (under its adapter, once (b) has added one), or
+    ("experts", name) the view of w1, w3 or w2 of the rank's first
+    expert."""
+    if path is not None and path[0] == "experts":
+        from quip_for_all_tpu_torch.nn.qmoe import unstack_qlinear
+        st = model.layers[0]["block_sparse_moe"]["experts_stacked"]
+        w1, w3 = unstack_qlinear(st["w13"], 0)
+        w2, = unstack_qlinear(st["w2"], 0)
+        return {"w1": w1, "w3": w3, "w2": w2}[path[1]]
     lin = model.lm_head if path is None else model.layers[0][path[0]][
         path[1]]
     return getattr(lin, "lora_base", lin).local
 
 
-def train_kernels(model, timed=False):
+def train_kernels(ph, model, timed=False):
     """K2 (f32 x) and K3 (f32 g) at each rank-local shape of (b),
-    m = TRAIN_LORA_B x (TRAIN_S - 1) rows: one call each against its
+    m = ph.lora_b x (TRAIN_S - 1) rows: one call each against its
     plain twin (1e-5 of max plus one bf16 ulp), and with ``timed`` (one
     rank, the others waiting) timed as phase 21 times them: CUDA-graph
     replays, L2-cold; the twin by events; beside the library product
@@ -5997,12 +6167,12 @@ def train_kernels(model, timed=False):
     from quip_for_all_tpu_torch.ops import fused_matmul as fm
     from quip_for_all_tpu_torch.ops.dequant import decode_weights
     gen = torch.Generator(device="cuda").manual_seed(23)
-    m = TRAIN_LORA_B * (TRAIN_S - 1)
+    m = ph.lora_b * (TRAIN_S - 1)
     rows = []
-    for name, path, q_out, q_in in TRAIN_SHAPES:
+    for name, path, q_out, q_in in ph.shapes:
         qt = train_linear(model, path).qweight
         if (qt.q_out, qt.q_in) != (q_out, q_in):
-            raise AssertionError(f"train {name}: rank-local planes "
+            raise AssertionError(f"{ph.label} {name}: rank-local planes "
                                  f"{qt.q_out}x{qt.q_in}, want {q_out}x{q_in}")
         planes, affine, Gp = qt.plane_list(), qt.decode_affine, qt.group_cols
         G = q_in // 8
@@ -6051,9 +6221,9 @@ def train_kernels(model, timed=False):
             torch.cuda.synchronize()
             ok, err = tm.compare(got, want, bf16_step=True)[:2]
             if not ok:
-                raise AssertionError(f"train {kernel} {name} m={m} f32: "
-                                     f"kernel vs plain twin beyond tolerance "
-                                     f"(max |diff| {err})")
+                raise AssertionError(f"{ph.label} {kernel} {name} m={m} f32:"
+                                     f" kernel vs plain twin beyond "
+                                     f"tolerance (max |diff| {err})")
             row = {"kernel": kernel, "layer": name, "q_out": q_out,
                    "q_in": q_in, "Gp": Gp, "m": m, "max_abs_err": err}
             if timed:
@@ -6066,8 +6236,8 @@ def train_kernels(model, timed=False):
                            bound_ms=max(b_bytes, b_ops),
                            bound_by="bytes" if b_bytes >= b_ops
                            else "operations")
-                log(f"kernel train {kernel} {name:4s} {q_out}x{Gp} m={m} "
-                    f"f32 (a rank's): max|k-plain| {err:.3g} | kernel "
+                log(f"kernel {ph.label} {kernel} {name:4s} {q_out}x{Gp} "
+                    f"m={m} f32 (a rank's): max|k-plain| {err:.3g} | kernel "
                     f"{row['ms'] * 1e3:.1f} us | plain "
                     f"{row['plain_ms'] * 1e3:.1f} us | bound "
                     f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
@@ -6079,32 +6249,23 @@ def train_kernels(model, timed=False):
     return rows
 
 
-def train_sums(rows):
-    """K2's ms a LoRA forward and K3's a step, summed over the calls of a
-    rank (every block linear PHASE23_LAYERS times, the head once; K3 less
-    layer 0's q, k, v)."""
-    L = PHASE23_LAYERS
-    sums = {}
-    for kernel in ("K2", "K3"):
-        def calls(name):
-            if name == "head":
-                return 1
-            return L - 1 if kernel == "K3" and name in ("q", "k", "v") else L
-        sums[kernel] = {key: sum(r[key] * calls(r["layer"]) for r in rows
-                                 if r["kernel"] == kernel)
-                        for key in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms")}
-    return sums
+def train_sums(ph, rows):
+    """K2's ms a rank's LoRA forward and K3's a step: each linear's row
+    times its calls (``train_calls``)."""
+    return {kernel: {key: sum(r[key] * train_calls(ph, kernel, r["layer"])
+                              for r in rows if r["kernel"] == kernel)
+                     for key in ("ms", "plain_ms", "library_ms",
+                                 "bound_ms")}
+            for kernel in ("K2", "K3")}
 
 
-def train_rank(rank, ref_path, out_dir):
-    """One rank of phase 23 (spawned; the parent set MASTER_ADDR,
+def train_rank(rank, tag, ref_path, out_dir):
+    """One rank of phase ``tag`` (spawned; the parent set MASTER_ADDR,
     MASTER_PORT and WORLD_SIZE, the rank sets RANK, as torchrun sets
-    them): ``multihost.initialize``, ``make_mesh(dp, tp)``, its model of
-    the phase from ``shard_params``, (a) and (b) held to the one-rank
-    references of ``ref_path``, K2/K3 against their twins at its shapes
-    (rank 0 then times them, the others waiting); its results into
-    ``out_dir``."""
+    them): ``multihost.initialize``, ``make_mesh`` of the phase, its model
+    from ``shard_params``, (a) and (b) held to the one-rank references of
+    ``ref_path``, K2/K3 against their twins at its shapes (rank 0 then
+    times them, the others waiting); its results into ``out_dir``."""
     import gc
     import torch
     import torch.distributed as dist
@@ -6114,39 +6275,41 @@ def train_rank(rank, ref_path, out_dir):
     from quip_for_all_tpu_torch.parallel import multihost
     from quip_for_all_tpu_torch.parallel.sharding import (make_mesh,
                                                           shard_params)
+    ph = TRAIN_PHASES[tag]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank))
     if multihost.initialize() != rank:
-        raise AssertionError(f"train rank {rank}: initialize joined as "
+        raise AssertionError(f"{ph.label} rank {rank}: initialize joined as "
                              "another rank")
     try:
-        mesh = make_mesh(dp=TRAIN_DP, tp=TRAIN_TP)
-        cfg = train_cfg()
+        mesh = make_mesh(**ph.mesh)
+        cfg = ph.cfg()
         t = time.time()
-        whole = train_model(cfg)
+        whole = ph.model(cfg)
         model = shard_params(cfg, whole, mesh)
         del whole
         gc.collect()
         torch.cuda.empty_cache()
         res = {"build_s": time.time() - t, "coords": mesh.coords,
                "free_gib": torch.cuda.mem_get_info()[0] / 2**30}
-        log(f"train rank {rank}: built in {res['build_s']:.1f} s, "
+        log(f"{ph.label} rank {rank}: built in {res['build_s']:.1f} s, "
             f"{res['free_gib']:.1f} GiB free on the card")
         # the twins' checks before the steps on the even ranks, as phases
         # 21 and 22 run theirs ((b)'s adapters are added later); the odd
         # ranks make their first comparison after the steps, as every rank
-        # did when the first chip run of this phase failed there with a
+        # did when the first chip run of phase 23 failed there with a
         # CUDA driver error in its torch.exp2 (ROADMAP.md queue 3)
         if rank % 2 == 0:
-            res["kernels"] = train_kernels(model)
-            log(f"train rank {rank}: K2/K3 held to their twins")
-        got = train_steps(cfg, model, mesh)
-        log(f"train rank {rank}: steps run, losses {got['ft_loss']!r} / "
-            f"{got['lora_loss']!r}")
+            res["kernels"] = train_kernels(ph, model)
+            log(f"{ph.label} rank {rank}: K2/K3 held to their twins")
+        got = train_steps(ph, cfg, model, mesh)
+        log(f"{ph.label} rank {rank}: steps run, losses {got['ft_loss']!r} "
+            f"/ {got['lora_loss']!r}")
         ref = torch.load(ref_path, map_location="cpu", weights_only=False)
-        res["worst"] = {kind: train_hold(f"train rank {rank}", got, ref, kind)
+        res["worst"] = {kind: train_hold(f"{ph.label} rank {rank}", got,
+                                         ref, kind)
                         for kind in ("ft", "lora")}
         del ref
         for k in ("ft_loss", "lora_loss", "ft_leaves", "ft", "lora"):
@@ -6159,16 +6322,17 @@ def train_rank(rank, ref_path, out_dir):
             torch.cuda.empty_cache()
         else:
             res["exp2_probe"] = exp2_probe()
-            log(f"train rank {rank}: torch.exp2 after the steps (a probe "
-                f"of the open fault; no path of the port calls it): "
+            log(f"{ph.label} rank {rank}: torch.exp2 after the steps (a "
+                f"probe of the open fault; no path of the port calls it): "
                 f"{res['exp2_probe']}")
         # after the steps (their adapters on, gloo's staging done); the
         # odd ranks straight after the holds, as that failed run did
-        res["kernels_after"] = train_kernels(model)
-        log(f"train rank {rank}: K2/K3 held to their twins after the steps")
+        res["kernels_after"] = train_kernels(ph, model)
+        log(f"{ph.label} rank {rank}: K2/K3 held to their twins after the "
+            "steps")
         dist.barrier()
         if rank == 0:
-            res["kernels_timed"] = train_kernels(model, timed=True)
+            res["kernels_timed"] = train_kernels(ph, model, timed=True)
         dist.barrier()
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -6178,7 +6342,7 @@ def train_rank(rank, ref_path, out_dir):
 def exp2_probe():
     """The process's first ``torch.exp2`` on the card ("ok", or the error
     it raised): PyTorch compiles that op at run time (NVRTC, its
-    jiterator). The phase's first chip run failed in it after the steps
+    jiterator). Phase 23's first chip run failed in it after the steps
     (ROADMAP.md queue 3); the probe records whether it recurs, and the
     phase does not fail on it, since no path of the port calls it."""
     import torch
@@ -6190,36 +6354,39 @@ def exp2_probe():
         return f"failed: {e}"
 
 
-def phase_train_mesh():
-    """23: training under a dp x tp mesh (above; module docstring): the
+def phase_train_mesh(tag):
+    """23 and 25: training under a mesh (above; module docstring): the
     one-rank references here, then four ranks, each held to them."""
     import gc
     import tempfile
     import torch
     import torch.multiprocessing as mp
     from quip_for_all_tpu_torch.parallel.multihost import free_port
-    cfg = train_cfg()
+    ph = TRAIN_PHASES[tag]
+    cfg = ph.cfg()
     L = cfg.num_hidden_layers
     t = time.time()
-    model = train_model(cfg)
+    model = ph.model(cfg)
     torch.cuda.synchronize()
     build_s = time.time() - t
-    ref = train_steps(cfg, model)
+    ref = train_steps(ph, cfg, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     one = {k: ref[k] for k in ("ft_loss", "lora_loss", "ft_leaves", "ft",
                                "lora")}
-    log(f"train one rank: built in {build_s:.1f} s; " + json.dumps(one)
+    log(f"{ph.label} one rank: built in {build_s:.1f} s; " + json.dumps(one)
         + f"; PYTORCH_CUDA_ALLOC_CONF="
         f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r}")
-    want = {"ft": {}, "lora": {"fused_decode_matmul_tc": TRAIN_K2,
-                               "fused_decode_matmul_bwd": TRAIN_K3}}
-    for kind, w in want.items():
+
+    def want(k2, k3):
+        return {"ft": {}, "lora": {"fused_decode_matmul_tc": k2,
+                                   "fused_decode_matmul_bwd": k3}}
+    for kind, w in want(*ph.one_launches).items():
         if one[kind]["launches"] != w:
-            raise AssertionError(f"train one rank {kind}: launches "
+            raise AssertionError(f"{ph.label} one rank {kind}: launches "
                                  f"{one[kind]['launches']}, want {w}")
-    out = tempfile.mkdtemp(prefix="train_")
+    out = tempfile.mkdtemp(prefix=f"train{tag}_")
     ref_path = os.path.join(out, "ref.pt")
     t = time.time()
     torch.save({k: {n: v.cpu() for n, v in ref[k].items()}
@@ -6229,13 +6396,17 @@ def phase_train_mesh():
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    held_gib = torch.cuda.memory_reserved() / 2**30
+    log(f"{ph.label}: {free_gib:.1f} GiB free on the card before the "
+        f"ranks start, {held_gib:.2f} GiB reserved by this process")
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                       WORLD_SIZE=str(TRAIN_WORLD))
     t = time.time()
     try:
         # a rank that fails (or a check in it) makes spawn raise, and the
         # phase with it
-        mp.spawn(train_rank, args=(ref_path, out), nprocs=TRAIN_WORLD,
+        mp.spawn(train_rank, args=(tag, ref_path, out), nprocs=TRAIN_WORLD,
                  join=True)
     finally:
         for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE"):
@@ -6244,31 +6415,24 @@ def phase_train_mesh():
     rs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
           for r in range(TRAIN_WORLD)]
     os.remove(ref_path)
-    # collectives a rank's step: (a) the row sums (2 a block) and the
-    # head's gather forward, a column shard's input gradient summed (5 a
-    # block, the head) backward, the dp mean of the loss and every leaf;
-    # (b) the row sums and the row adapters' (m, r) sums forward, the
-    # column shards' input sums (less layer 0's q, k, v), the column
-    # adapters' h and B and the row adapters' A backward
-    coll = {"ft": {"all_reduce": 7 * L + 2 + one["ft_leaves"],
-                   "all_gather": 1},
-            "lora": {"all_reduce": 21 * L - 2, "all_gather": 1}}
-    summary = {"ranks": TRAIN_WORLD, "mesh": {"dp": TRAIN_DP,
-                                              "tp": TRAIN_TP},
-               "layers": L, "one_rank_build_s": build_s,
-               "ref_save_s": save_s, "ranks_wall_s": ranks_s,
-               "one_rank": one, "collectives_counted": coll}
+    coll = ph.collectives(one["ft_leaves"], ph.ft_layers, L)
+    summary = {"ranks": TRAIN_WORLD, "mesh": ph.mesh, "layers": L,
+               "one_rank_build_s": build_s, "ref_save_s": save_s,
+               "free_gib_before_ranks": free_gib,
+               "parent_reserved_gib": held_gib,
+               "ranks_wall_s": ranks_s, "one_rank": one,
+               "collectives_counted": coll}
     for kind in ("ft", "lora"):
         losses = [res[f"{kind}_loss"] for res in rs]
         b = one[f"{kind}_loss"]
         if len(set(losses)) != 1 or not abs(losses[0] - b) <= (
                 TRAIN_TOL * abs(b)):
-            raise AssertionError(f"train {kind}: the ranks' losses {losses}, "
-                                 f"the one-rank step's {b}")
+            raise AssertionError(f"{ph.label} {kind}: the ranks' losses "
+                                 f"{losses}, the one-rank step's {b}")
     for r, res in enumerate(rs):
-        for kind, w in want.items():
+        for kind, w in want(*rank_launches(ph)).items():
             if res[kind]["launches"] != w:
-                raise AssertionError(f"train rank {r} {kind}: launches "
+                raise AssertionError(f"{ph.label} rank {r} {kind}: launches "
                                      f"{res[kind]['launches']}, want {w}")
         summary[f"rank{r}"] = {
             k: res[k] for k in ("coords", "build_s", "free_gib", "worst",
@@ -6284,7 +6448,7 @@ def phase_train_mesh():
             v = res[kind]
             (ge, gk), (ne, nk) = (res["worst"][kind]["grad"],
                                   res["worst"][kind]["new"])
-            log(f"train rank {r} at {res['coords']} {kind}: loss "
+            log(f"{ph.label} rank {r} at {res['coords']} {kind}: loss "
                 f"{res[f'{kind}_loss']!r} (one rank "
                 f"{one[f'{kind}_loss']!r}); worst gradient {ge:.3g} of its "
                 f"max|grad| ({gk}), worst leaf after the step {ne:.3g} of "
@@ -6296,46 +6460,51 @@ def phase_train_mesh():
                 + f"; step {v['s']:.2f} s (one rank {one[kind]['s']:.2f} s)"
                 f"; peak {v['peak_gib']:.2f} GiB (one rank "
                 f"{one[kind]['peak_gib']:.2f})")
-        log(f"train rank {r}: {res['ft_leaves']} finetune leaves (the JAX "
-            f"package's {one['ft_leaves']}); adapters whole: "
-            f"{len(res['lora_shapes'])} A/B; K2/K3 at its {len(TRAIN_SHAPES)}"
-            f" shapes, m = {TRAIN_LORA_B * (TRAIN_S - 1)}, max|k-plain| "
+        log(f"{ph.label} rank {r}: {res['ft_leaves']} finetune leaves (the "
+            f"JAX package's {one['ft_leaves']}); adapters whole: "
+            f"{len(res['lora_shapes'])} A/B; K2/K3 at its {len(ph.shapes)}"
+            f" shapes, m = {ph.lora_b * (TRAIN_S - 1)}, max|k-plain| "
             f"{summary[f'rank{r}']['kernel_max_err']} before the steps, "
             f"{summary[f'rank{r}']['kernel_max_err_after_steps']} after;"
             f" built in "
             f"{res['build_s']:.1f} s, {res['free_gib']:.1f} GiB free after")
     rows = rs[0]["kernels_timed"]
     summary["kernel_rows"] = rows
-    summary["kernel_sums"] = sums = train_sums(rows)
+    summary["kernel_sums"] = sums = train_sums(ph, rows)
     for kernel, s in sums.items():
         what = "LoRA forward" if kernel == "K2" else "LoRA step"
-        n = TRAIN_K2 if kernel == "K2" else TRAIN_K3
-        log(f"kernel train {kernel} a rank's {what} ({n} calls at "
-            f"m = {TRAIN_LORA_B * (TRAIN_S - 1)}, f32): " + ", ".join(
+        n = rank_launches(ph)[0 if kernel == "K2" else 1]
+        log(f"kernel {ph.label} {kernel} a rank's {what} ({n} calls at "
+            f"m = {ph.lora_b * (TRAIN_S - 1)}, f32): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in s.items()))
-    log(f"train: {TRAIN_WORLD} ranks on one card (gloo, all on cuda:0) "
-        f"measure training's correctness, launches and collectives under "
-        f"a dp x tp mesh, not its parallel speed; card {smi_line()}; "
-        f"ranks' wall {ranks_s:.1f} s")
+    log(f"{ph.label}: {TRAIN_WORLD} ranks on one card (gloo, all on cuda:0)"
+        f" measure training's correctness, launches and collectives under "
+        f"a {' x '.join(f'{a} {n}' for a, n in ph.mesh.items())} mesh, not "
+        f"its parallel speed; card {smi_line()}; ranks' wall "
+        f"{ranks_s:.1f} s")
     return summary
 
 
-def train_path_launches(entries, train):
-    """Phase 23's launches and per-call times beside K2's and K3's
+def train_path_launches(entries, train, tag):
+    """Phase ``tag``'s launches and per-call times beside K2's and K3's
     entries (rank 0's; four ranks on one card)."""
+    ph = TRAIN_PHASES[tag]
+    key = f"{ph.rank_key}_m{ph.lora_b * (TRAIN_S - 1)}"
+    mesh = "_".join(f"{a}{n}" for a, n in ph.mesh.items() if n > 1)
     by = {e["name"]: e for e in entries}
     lora = train["rank0"]["lora"]["launches"]
     for name, kernel in (("fused_decode_matmul_tc", "K2"),
                          ("fused_decode_matmul_bwd", "K3")):
         e = by[name]
         e.setdefault("launches_by_path", {})[
-            "dp2_tp2_one_card_rank0_lora_step"] = lora[name]
-        e["rank_local_f32_m1022"] = {
+            f"{mesh}_one_card_rank0_lora_step"] = lora[name]
+        e[key] = {
             row["layer"]: {k: row[k] for k in (
                 "q_out", "Gp", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}
             for row in train["kernel_rows"] if row["kernel"] == kernel}
-        e["rank_local_f32_m1022_sum"] = train["kernel_sums"][kernel]
+        e[f"{key}_sum"] = train[
+            "kernel_sums"][kernel]
 
 
 # Phase 24: the tools (ROADMAP queue 1 item 9) on the card
@@ -6580,7 +6749,7 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description="Chip smoke run of the "
                                  "PyTorch port on one CUDA card.")
     ap.add_argument("--phase", action="append",
-                    choices=("20", "21", "22", "23", "24"),
+                    choices=("20", "21", "22", "23", "24", "25"),
                     help="run the kernels' build and this phase alone "
                     "(repeatable), print its summary and no result line")
     ap.add_argument("--profile-ft", action="store_true",
@@ -6619,7 +6788,8 @@ def main(argv=None) -> int:
             for ph in args.phase:
                 out = (at(ph, phase_tp, args.profile_ft) if ph == "21"
                        else at(ph, phase_ep) if ph == "22"
-                       else at(ph, phase_train_mesh) if ph == "23"
+                       else at(ph, phase_train_mesh, ph)
+                       if ph in TRAIN_PHASES
                        else at(ph, phase_tools, dict(zip(
                            ("cfg", "model"), main_model())))
                        if ph == "24"
@@ -6663,7 +6833,8 @@ def main(argv=None) -> int:
         quant = at("19", phase_quantize)
         tp = at("21", phase_tp)
         ep = at("22", phase_ep)
-        train_mesh = at("23", phase_train_mesh)
+        train_mesh = at("23", phase_train_mesh, "23")
+        train_ep = at("25", phase_train_mesh, "25")
         entries = kernel_entries(rows, max_err, moe_rows, moe_err, launches,
                                  mix, rp_rows, rp_err, paths)
         entries += layout_entries(lay_rows, lay_err, new_paths)
@@ -6678,7 +6849,8 @@ def main(argv=None) -> int:
         quant_path_launches(entries, quant)
         tp_path_launches(entries, tp)
         ep_path_launches(entries, ep)
-        train_path_launches(entries, train_mesh)
+        train_path_launches(entries, train_mesh, "23")
+        train_path_launches(entries, train_ep, "25")
         tools_path_launches(entries, tools)
         log("right epilogue and combined decode: " + json.dumps({
             "main_path": right_main,
@@ -6690,6 +6862,8 @@ def main(argv=None) -> int:
         log("tensor parallelism: " + json.dumps(tp))
         log("expert parallelism: " + json.dumps(ep, default=str))
         log("training under a mesh: " + json.dumps(train_mesh, default=str))
+        log("training over the expert axis: " + json.dumps(train_ep,
+                                                           default=str))
         log("tools: " + json.dumps(tools, default=str))
         log("serving path: " + json.dumps({
             "graphed_generate": graphed, "decode_step_profile": profile,

@@ -251,19 +251,26 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
               linear_kw: dict, captures: Optional[dict] = None
               ) -> torch.Tensor:
     """Mixtral top-k MoE. Three formulations (``nn/qmoe.py``):
-      - dense stacked (``set_moe_dense_stacked`` on, and always on a rank
-        whose experts are cut over "ep", ``ExpertParallelMoE``): the
-        stack's experts on every token, one expert-indexed kernel launch
-        per stacked linear, a rank's f32 result summed over "ep";
+      - dense stacked (``set_moe_dense_stacked`` on, and a forward without
+        gradients on a rank whose experts are cut over "ep",
+        ``ExpertParallelMoE``): the stack's experts on every token, one
+        expert-indexed kernel launch per stacked linear, a rank's f32
+        result summed over "ep";
       - stacked sparse (decode, B*S < 32 tokens outside the training
         forward): the expert-indexed kernel reads only the selected
         experts' planes;
       - per-expert dense masked loop (prefill, the training forward
-        ``linear_kw["training"]``, or experts not stacked): every expert on
-        every token, each through the fused kernel.
+        ``linear_kw["training"]``, experts not stacked, or a forward that
+        autograd differentiates on an ``ExpertParallelMoE`` rank): every
+        expert on every token, each through the fused kernel (the
+        training forward: ``calc_weight``'s dense W). An ep rank loops
+        over its own experts and sums the partial over "ep"; its input
+        and router logits pass through ``ExpertParallelMoE.enter``, so
+        that its gradients are the whole model's.
     A capture (``captures``) takes the unstacked experts' loop."""
     B, S, D = x.shape
     router_logits = linear_apply(moe_p["gate"], x, **linear_kw)  # (B,S,E)
+    offset, reduce = 0, None
     if "experts_stacked" in moe_p and captures is not None:
         raise ValueError("capture runs on unstacked experts")
     if "experts_stacked" in moe_p:
@@ -271,15 +278,19 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
         kw = dict(compute_dtype=linear_kw.get("compute_dtype",
                                               torch.bfloat16),
                   matmul_impl=linear_kw.get("matmul_impl", "auto"))
-        if isinstance(moe_p, ExpertParallelMoE) or st["w13"].dense_stacked:
+        ep_rank = isinstance(moe_p, ExpertParallelMoE)
+        if ep_rank and moe_p.differentiated(x, linear_kw):
+            x, router_logits = moe_p.enter(x), moe_p.enter(router_logits)
+            offset, reduce = moe_p.offset, moe_p.combine
+        elif ep_rank or st["w13"].dense_stacked:
             return moe_dense_stacked_apply(
                 cfg, moe_p, x, router_logits,
                 offset=getattr(moe_p, "offset", 0),
                 reduce=getattr(moe_p, "combine", None), **kw)
-        if B * S < 32 and not linear_kw.get("training"):
+        elif B * S < 32 and not linear_kw.get("training"):
             return moe_sparse_apply(cfg, moe_p, x, router_logits, **kw)
         experts = []
-        for e in range(cfg.num_local_experts):
+        for e in range(st["w13"].E):
             w1, w3 = unstack_qlinear(st["w13"], e)
             w2, = unstack_qlinear(st["w2"], e)
             experts.append({"w1": w1, "w3": w3, "w2": w2})
@@ -294,8 +305,8 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
         captures["moe_routing"] = routing
         captures["moe_input"] = x
     out = torch.zeros_like(x)
-    for e in range(E):
-        ep = experts[e]
+    for i, ep in enumerate(experts):
+        e = offset + i
         w = routing[..., e][..., None].to(x.dtype)
         h = (F.silu(linear_apply(ep["w1"], x, **linear_kw))
              * linear_apply(ep["w3"], x, **linear_kw))
@@ -303,6 +314,8 @@ def moe_apply(cfg: ModelConfig, moe_p: nn.ModuleDict, x: torch.Tensor,
             captures[f"expert{e}_down"] = h * (routing[..., e][..., None]
                                                > 0)
         out = out + w * linear_apply(ep["w2"], h, **linear_kw)
+    if reduce is not None:
+        out = reduce(out.to(torch.float32)).to(x.dtype)
     return out
 
 

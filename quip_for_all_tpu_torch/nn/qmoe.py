@@ -9,12 +9,15 @@ Every expert weight array is stacked along a leading E axis, which gives:
      expert-indexed kernel (``ops/moe_matmul.py``), which reads only the
      selected experts' planes, once per distinct expert;
   2. per-expert unstacked views (``unstack_qlinear``) for the dense masked
-     prefill loop in ``models/llama.py``;
+     loop in ``models/llama.py`` (prefill, the training forward, and an
+     expert-parallel rank's forward that autograd differentiates, over
+     its own experts);
   3. the dense all-experts formulation (``moe_dense_stacked_apply``):
      every expert of the stack on every token, one expert-indexed kernel
      launch per stacked linear, the routing contraction in f32 — what an
      expert-parallel rank runs on its own experts before the sum over
-     "ep" (``parallel/layers.py`` ``ExpertParallelMoE``).
+     "ep" in a forward without gradients (``parallel/layers.py``
+     ``ExpertParallelMoE``; the MoE kernel has no backward).
 
 The MoE kernel decodes nibble planes: stacking re-lays paired, bfp and
 sw experts to nibble as the JAX package does, and refuses u3/pb experts,
@@ -183,7 +186,7 @@ def stack_qlinears(groups: List[List[QuantLinear]]
 
 
 def unstack_qlinear(sq: StackedQuantLinear, e: int) -> List[QuantLinear]:
-    """Per-expert segment views (no copy) — used by the dense prefill loop,
+    """Per-expert segment views (no copy) — used by the dense masked loop,
     so stacked params keep a single copy of the planes."""
     outs = []
     for s in range(sq.nseg):

@@ -26,7 +26,12 @@ they are explicit, and compute the same function:
 
 A rank's Mixtral block with its experts cut over "ep"
 (``ExpertParallelMoE``) runs its own experts on every token and sums the
-f32 result over its ep group (one ``all_reduce``) before the cast.
+f32 result over its ep group (one ``all_reduce``) before the cast: in one
+expert-indexed launch a stacked linear without gradients, or, in a
+forward that autograd differentiates, through the per-expert dense loop
+over its own experts, whose router logits and input pass through
+``comm.enter`` over the ep group so that every rank gets the whole
+gradient.
 
 A layer's ``view`` says what the model reads from a column-parallel
 output: ``"chunk"`` (the rank's contiguous rows: its heads, or its slice
@@ -385,8 +390,12 @@ class ExpertParallelMoE(nn.ModuleDict):
     (replicated) and ``experts_stacked`` (``w13``, ``w2``) holding experts
     [offset, offset + E/ep) of the model's E, whole (the tp ranks of one
     ep index hold the same experts). ``models/llama.py`` ``moe_apply``
-    runs it through ``nn/qmoe.py`` ``moe_dense_stacked_apply``, routing
-    over all E experts, with ``combine`` as its ``reduce``."""
+    routes over all E experts and takes, without gradients, ``nn/qmoe.py``
+    ``moe_dense_stacked_apply`` with ``combine`` as its ``reduce``; in a
+    forward that autograd differentiates (``differentiated``), the JAX
+    package's per-expert dense loop over the rank's own experts, reading
+    the block's input and the router's logits through ``enter``, its
+    partial summed by ``combine``."""
 
     def __init__(self, gate: nn.Module, w13: nn.Module, w2: nn.Module, *,
                  offset: int, mesh):
@@ -397,5 +406,21 @@ class ExpertParallelMoE(nn.ModuleDict):
 
     def combine(self, partial: torch.Tensor) -> torch.Tensor:
         """The f32 partial output of this rank's experts summed over its
-        ep group, the other experts' ranks."""
+        ep group, the other experts' ranks (its backward the identity)."""
         return comm.all_reduce(partial.contiguous(), self.mesh.ep_group)
+
+    @staticmethod
+    def differentiated(x: torch.Tensor, linear_kw: dict) -> bool:
+        """Whether autograd differentiates this forward: the training
+        forward (``linear_kw["training"]``), or gradients on and x
+        requiring them (a LoRA step)."""
+        return bool(linear_kw.get("training")) or (
+            torch.is_grad_enabled() and x.requires_grad)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (the block's input, the router's logits) as this rank's
+        experts read it: the rank's backward gives only its experts' share
+        of the gradient, which ``comm.enter`` sums over the ep group, so
+        that every rank holds the whole one (and the router's weight and
+        everything before the block with it)."""
+        return comm.enter(t, self.mesh.ep_group)

@@ -11,11 +11,13 @@ optax's ``multi_transform``. The training forward multiplies by each
 quantized layer's dense ``calc_weight`` (cached as ``W_cache`` in the
 block finetune), as in the JAX package: no decode kernel runs here.
 
-Under a ("dp", "tp") mesh (``parallel/sharding.py`` ``shard_params``) the
-same functions take a rank's model: each leaf of the JAX package's
-``collect_trainable`` maps to one tensor a rank, whole or its tp shard
-(the parallel layers' ``slots``), whose gradients the sharded forward
-gives as the whole model's (``parallel/layers.py``);
+Under a ("dp", ["ep",] "tp") mesh (``parallel/sharding.py``
+``shard_params``) the same functions take a rank's model: each leaf of the
+JAX package's ``collect_trainable`` maps to one tensor a rank, whole or its
+tp shard (the parallel layers' ``slots``; a rank's stacked experts have
+none, as stacked experts have none in the JAX package), whose gradients
+the sharded forward gives as the whole model's (``parallel/layers.py``:
+the tp cuts, and the expert axis's ``ExpertParallelMoE``);
 ``make_train_step(..., mesh=)`` trains each rank on its dp part of the
 batch and averages the loss and the gradients over "dp", so that every
 rank takes the one-rank step; ``gather_trainable`` puts a rank's leaves
@@ -291,15 +293,14 @@ def make_train_step(optimizer: torch.optim.Optimizer,
                     logits_fn: Callable, mesh=None) -> Callable:
     """End-to-end CE training step. Returns step(ids (B, S), targets (B,
     S, V) softmax or (B, S) ids) -> loss: ``logits_fn(ids)``, the loss's
-    gradients, one ``optimizer`` update. With a ("dp", "tp") ``mesh``
-    (the one ``logits_fn``'s sharded model runs on; every rank calls the
-    step with the whole batch) each rank takes its dp part of ids and
-    targets, and the loss (the mean over the whole batch) and every
-    gradient are averaged over the dp group before the update, so every
-    rank takes the same step."""
-    if mesh is not None and mesh.ep > 1:
-        raise NotImplementedError("a training step over the expert axis "
-                                  "(ROADMAP.md queue 1 item 8d)")
+    gradients, one ``optimizer`` update. With a ("dp", ["ep",] "tp")
+    ``mesh`` (the one ``logits_fn``'s sharded model runs on; every rank
+    calls the step with the whole batch) each rank takes its dp part of
+    ids and targets, and the loss (the mean over the whole batch) and
+    every gradient are averaged over the dp group before the update, so
+    every rank takes the same step. The tp and ep ranks of one dp index
+    need nothing more: the sharded forward gives each of them the whole
+    gradients."""
 
     def step(ids, targets):
         if mesh is not None:

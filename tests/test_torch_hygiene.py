@@ -71,7 +71,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "quantize/finetune.py", "utils/hf_import.py",
                 "cli/quantize.py",
                 # the expert axis and multihost
-                "parallel/multihost.py", "tools/dryrun_multichip.py"):
+                "parallel/multihost.py", "tools/dryrun_multichip.py",
+                # the crossover tool
+                "tools/microbench_prefill.py"):
         assert os.path.join("quip_for_all_tpu_torch", mod) in scanned, mod
     bad = []
     for path in _port_sources():
@@ -104,7 +106,7 @@ def test_port_keeps_its_own_assets():
                                    "cli_finetune_lora", "microbench_kernel",
                                    "microbench_decode", "microbench_split",
                                    "microbench_tn", "microbench_bfp",
-                                   "generate_stream", "perplexity",
+                                   "microbench_prefill", "generate_stream", "perplexity",
                                    "serving", "caches_int8", "cli_generate",
                                    "cli_eval_ppl", "random_family",
                                    "generate_family", "init_llama",

@@ -31,6 +31,7 @@ from quip_for_all_tpu.quantize import finetune as JFT
 
 import torch_tp_cases as C
 import torch_tp_models as TM
+from torch_train_cases import hold_step
 from torch_family_cases import assert_close
 
 pytestmark = pytest.mark.fast
@@ -122,31 +123,6 @@ def _run(ranks, key, dp):
     return _RUNS[key, dp]
 
 
-def _hold(outs, want):
-    """Every rank's loss, gathered gradients and updates against JAX's
-    (module docstring's tolerance); the ranks equal each other."""
-    wloss, wgrads, wnew = want
-    for loss, grads, new, _, _ in outs:
-        assert loss == outs[0][0]
-        assert abs(loss - wloss) <= TOL * abs(wloss) + np.spacing(
-            np.float32(abs(wloss)))
-        assert sorted(grads) == sorted(wgrads)
-        for k, g in wgrads.items():
-            assert grads[k] is not None, k
-            assert grads[k].shape == g.shape, k
-            try:
-                assert_close(grads[k], g, rel=TOL)
-            except AssertionError as e:
-                raise AssertionError(f"gradient of {k}: {e}") from None
-            tol = TOL * np.abs(g).max() + np.spacing(np.abs(g).astype(
-                np.float32))
-            big = np.abs(g) > tol
-            err = np.abs(new[k] - wnew[k])[big]
-            limit = (TOL * np.abs(wnew[k]).max() + np.spacing(
-                np.abs(wnew[k]).astype(np.float32)))[big]
-            assert np.all(err <= limit), (k, err.max())
-
-
 # (model, dp): the four ranks as dp 2 x tp 2, or dp 1 x tp 2 on each half
 CASES = [("llama_tp2", 2), ("llama_tp2", 1), ("llama_whole", 2),
          ("llama_whole", 1), ("gpt_neox_tp2", 2), ("llama_dense_mlp", 1)]
@@ -155,7 +131,7 @@ CASES = [("llama_tp2", 2), ("llama_tp2", 1), ("llama_whole", 2),
 @pytest.mark.parametrize("key,dp", CASES,
                          ids=[f"{k}-dp{dp}xtp2" for k, dp in CASES])
 def test_finetune_step_matches_jax(ranks, key, dp):
-    _hold(_run(ranks, key, dp), _jax_step(key))
+    hold_step(_run(ranks, key, dp), _jax_step(key), TOL)
 
 
 # one leaf of each kind of tensor parallelism's gradient rule: (model,

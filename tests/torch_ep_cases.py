@@ -1,5 +1,6 @@
 """Rank-side cases of ``tests/test_torch_ep.py`` and
-``tests/test_torch_multihost.py``, run on the gloo ranks of
+``tests/test_torch_multihost.py`` (and the routes of
+``tests/test_torch_ep_train.py``), run on the gloo ranks of
 ``tests/torch_tp_cases.py`` ``Ranks`` as ``Ranks.run("torch_ep_cases:<fn>",
 ...)``, and the spawned processes of the multihost join test. They import
 torch and the port only (no JAX).
@@ -135,3 +136,73 @@ def joined(meshes):
     dist.all_reduce(t)
     mesh = make_hybrid_mesh()
     return dist.get_rank(), meshes["initialize"], float(t), mesh.dp, mesh.tp
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The route of every ``models/llama.py`` ``moe_apply`` call from now
+    on, in a list: ("dense_stacked", 0), ("sparse", 0) or ("loop", n),
+    n the experts the dense masked loop ran (two unstacked views an
+    expert)."""
+    from quip_for_all_tpu_torch.models import llama as L
+    calls, seen = [], []
+    saved = (L.moe_apply, L.moe_dense_stacked_apply, L.moe_sparse_apply,
+             L.unstack_qlinear)
+
+    def tag(fn, name):
+        def run(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return run
+
+    def moe(*a, **k):
+        calls.clear()
+        out = saved[0](*a, **k)
+        if "dense_stacked" in calls or "sparse" in calls:
+            seen.append((calls[0], 0))
+        else:
+            seen.append(("loop", calls.count("unstack") // 2))
+        return out
+    L.moe_apply = moe
+    L.moe_dense_stacked_apply = tag(saved[1], "dense_stacked")
+    L.moe_sparse_apply = tag(saved[2], "sparse")
+    L.unstack_qlinear = tag(saved[3], "unstack")
+    try:
+        yield seen
+    finally:
+        (L.moe_apply, L.moe_dense_stacked_apply, L.moe_sparse_apply,
+         L.unstack_qlinear) = saved
+
+
+def moe_routes(meshes, cfg, path, layer, xs, g, dp, ep, tp):
+    """Block ``layer``'s MoE of the rank's model in f32 compute on each x
+    of ``xs`` {name: (B, S, D)}, as each name says: "eval" without
+    gradients, "eval_grad" with x requiring them (a LoRA step's forward),
+    "train" the training forward (``linear_kw["training"]``) with x
+    requiring them. Returns {name: (route, output, the gradients of
+    sum(output * g[name]) at x and at the router's weight, or None
+    without gradients, the collectives of the forward and backward)}."""
+    from quip_for_all_tpu_torch.models import llama as L
+    from quip_for_all_tpu_torch.parallel import comm
+    from quip_for_all_tpu_torch.parallel.sharding import shard_params
+    from quip_for_all_tpu_torch.quantize import finetune as FT
+    model = shard_params(cfg, C._load(path), C.get_mesh(meshes, dp, tp, ep))
+    moe = model.layers[layer]["block_sparse_moe"]
+    out = {}
+    for name, x in xs.items():
+        flat = FT.collect_trainable(moe, "moe")
+        FT.apply_trainable(moe, flat, "moe")
+        kw = {"compute_dtype": torch.float32}
+        if name == "train":
+            kw["training"] = True
+        x = torch.as_tensor(x).requires_grad_(name != "eval")
+        comm.reset_counts()
+        with recorded_routes() as seen, torch.set_grad_enabled(
+                name != "eval"):
+            y = L.moe_apply(cfg, moe, x, kw)
+            grads = None
+            if name != "eval":
+                (y * torch.as_tensor(g[name])).sum().backward()
+                grads = (x.grad.numpy(), flat["moe.gate.weight"].grad.numpy())
+        out[name] = (seen, y.detach().numpy(), grads, comm.counts())
+    return out

@@ -1,8 +1,9 @@
-"""Rank-side cases of ``tests/test_torch_tp_train.py`` and
-``tests/test_torch_tp_lora.py``, run on the gloo ranks of
-``tests/torch_tp_cases.py`` as ``Ranks.run("torch_train_cases:<fn>")``
-(four ranks: the (dp 2, tp 2) mesh, or dp 1 x tp 2 on each of its dp
-halves). The ranks import torch and the port only.
+"""Rank-side cases of ``tests/test_torch_tp_train.py``,
+``tests/test_torch_tp_lora.py`` and ``tests/test_torch_ep_train.py``, run
+on the gloo ranks of ``tests/torch_tp_cases.py`` as
+``Ranks.run("torch_train_cases:<fn>")`` (four ranks: the (dp 2, tp 2)
+mesh, dp 1 x tp 2 on each of its dp halves, or a (dp, ep, tp) mesh). The
+ranks import torch and the port only.
 """
 from __future__ import annotations
 
@@ -16,9 +17,12 @@ from torch_tp_cases import _load, get_mesh
 T32 = {"compute_dtype": torch.float32}
 
 
-def mesh_of(meshes, dp: int, tp: int):
+def mesh_of(meshes, dp: int, tp: int, ep: int = 1):
     """The (dp, tp) mesh on the four ranks: (2, 2) itself, or (1, 2): a
-    tp group of (2, 2) alone (each dp half runs the whole batch)."""
+    tp group of (2, 2) alone (each dp half runs the whole batch); with ep
+    > 1 the (dp, ep, tp) mesh of the four ranks."""
+    if ep > 1:
+        return get_mesh(meshes, dp, tp, ep)
     m = get_mesh(meshes, 2, tp)
     if dp == m.dp:
         return m
@@ -26,20 +30,51 @@ def mesh_of(meshes, dp: int, tp: int):
                                dp_group=None, dp_ranks=(m.rank,))
 
 
+def hold_step(outs, want, tol):
+    """Every rank's ``finetune_step`` against the reference (loss,
+    gradients, updated leaves by the JAX package's names): the loss
+    within ``tol`` of its size plus one ulp, every gradient within ``tol``
+    of its max|grad| plus one ulp, the updated leaves likewise where
+    |grad| exceeds that (Adam's first step is +-lr sign(g), so a
+    near-zero gradient's sign, and its update, may flip); the ranks'
+    losses equal."""
+    wloss, wgrads, wnew = want
+    for loss, grads, new, _, _ in outs:
+        assert loss == outs[0][0]
+        assert abs(loss - wloss) <= tol * abs(wloss) + np.spacing(
+            np.float32(abs(wloss)))
+        assert sorted(grads) == sorted(wgrads)
+        for k, g in wgrads.items():
+            assert grads[k] is not None, k
+            assert grads[k].shape == g.shape, k
+            assert np.all(np.isfinite(grads[k])), k
+            err = np.abs(grads[k] - g)
+            gtol = tol * np.abs(g).max() + np.spacing(np.abs(g).astype(
+                np.float32))
+            assert np.all(err <= gtol), (f"gradient of {k}", err.max(),
+                                         np.abs(g).max())
+            big = np.abs(g) > gtol
+            err = np.abs(new[k] - wnew[k])[big]
+            limit = (tol * np.abs(wnew[k]).max() + np.spacing(
+                np.abs(wnew[k]).astype(np.float32)))[big]
+            assert np.all(err <= limit), (k, err.max())
+
+
 def _numpy(flat):
     return {k: None if v is None else v.numpy() for k, v in flat.items()}
 
 
-def finetune_step(meshes, cfg, path, ids, tgt, dp, tp, lrs):
+def finetune_step(meshes, cfg, path, ids, tgt, dp, tp, lrs, ep=1):
     """One end-to-end finetune step (``quantize/finetune.py``
     ``make_train_step(mesh=)``, the training forward) of the sharded
-    model of ``path`` on the whole batch (each rank its dp part). Returns
-    (loss, gradients and updated leaves gathered into the JAX package's
-    names, the rank's leaves' shapes, the collectives of the step)."""
+    model of ``path`` on the whole batch (each rank its dp part), on the
+    (dp, tp) mesh or with ``ep`` the (dp, ep, tp) one. Returns (loss,
+    gradients and updated leaves gathered into the JAX package's names,
+    the rank's leaves' shapes, the collectives of the step)."""
     from quip_for_all_tpu_torch.parallel import comm
     from quip_for_all_tpu_torch.parallel.sharding import shard_params
     from quip_for_all_tpu_torch.quantize import finetune as FT
-    mesh = mesh_of(meshes, dp, tp)
+    mesh = mesh_of(meshes, dp, tp, ep)
     model = shard_params(cfg, _load(path), mesh)
     flat = FT.collect_trainable(model)
     FT.apply_trainable(model, flat)
@@ -55,8 +90,9 @@ def finetune_step(meshes, cfg, path, ids, tgt, dp, tp, lrs):
     return float(loss), grads, new, shapes, counts
 
 
-def lora_step(meshes, cfg, path, toks, order, dp, tp, kw, newB):
-    """LoRA on the sharded model of ``path``: ``add_lora`` then
+def lora_step(meshes, cfg, path, toks, order, dp, tp, kw, newB, ep=1):
+    """LoRA on the sharded model of ``path`` (the (dp, tp) mesh, or with
+    ``ep`` the (dp, ep, tp) one): ``add_lora`` then
     ``shard_params`` (``order`` "before") or the other way ("after"),
     B set to ``newB`` (whole, by key) so that A takes gradients, every
     adapter's gradient of ``causal_lm_loss`` on ``toks`` in f32
@@ -70,7 +106,7 @@ def lora_step(meshes, cfg, path, toks, order, dp, tp, kw, newB):
                                                 collect_lora_trainable)
     from quip_for_all_tpu_torch.parallel import comm
     from quip_for_all_tpu_torch.parallel.sharding import shard_params
-    mesh = mesh_of(meshes, dp, tp)
+    mesh = mesh_of(meshes, dp, tp, ep)
     model = _load(path)
     lkw = dict(rank=kw["rank"], alpha=kw["alpha"], targets=kw["targets"],
                seed=kw["seed"])
